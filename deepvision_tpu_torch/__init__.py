@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``deepvision_tpu`` for one NVIDIA H100.
+
+Each module sits at the same relative path as its JAX twin. The package
+imports torch, numpy and the standard library only: it never imports
+``jax``, ``flax`` or ``deepvision_tpu`` and keeps its own copies of the
+host-side pieces it needs. Every entry point takes ``device=`` and runs
+on ``"cuda"`` unless the caller asks for ``"cpu"``.
+
+The fused LRN, the JAX package's one Pallas kernel, is a hand-written
+CUDA kernel here (``csrc/lrn.cu``, bound in ``ops/lrn_cuda.py``).
+"""
+
+from deepvision_tpu_torch.device import resolve_device, strict_fp32
+
+__all__ = ["resolve_device", "strict_fp32"]

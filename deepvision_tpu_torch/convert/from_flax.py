@@ -1,0 +1,78 @@
+"""Carry the JAX package's weights into the port's modules.
+
+:func:`flax_to_torch` takes flax ``variables`` as nested dicts of numpy
+arrays (``{"params": {"conv1": {"kernel": ..., "bias": ...}, ...}}``)
+and returns the ``state_dict`` of the port's module of the same name:
+
+- a conv kernel ``(KH, KW, I, O)`` becomes ``(O, I, KH, KW)``;
+- a Dense kernel ``(in, out)`` is transposed;
+- biases are copied.
+
+The port's parameter names follow the flax module paths (``conv1.weight``
+is ``params/conv1/kernel``), so no name table is needed. A leaf the port
+expects and the tree lacks, a leaf the tree has and the port does not
+use, or a shape that does not match raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from deepvision_tpu_torch.models import get_model
+
+__all__ = ["flax_to_torch"]
+
+_LEAF = {"weight": "kernel", "bias": "bias"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict:
+    out = {}
+    for key, value in tree.items():
+        path = (*prefix, str(key))
+        if isinstance(value, Mapping):
+            out.update(_flatten(value, path))
+        else:
+            out[path] = value
+    return out
+
+
+def _to_torch_layout(a: np.ndarray) -> np.ndarray:
+    if a.ndim == 4:
+        return a.transpose(3, 2, 0, 1)  # (KH, KW, I, O) -> (O, I, KH, KW)
+    if a.ndim == 2:
+        return a.T                      # (in, out) -> (out, in)
+    return a
+
+
+def flax_to_torch(model_name: str, variables: Mapping[str, Any],
+                  **model_kw) -> dict[str, torch.Tensor]:
+    """The port module's ``state_dict`` (CPU float tensors) from flax
+    ``variables``. ``model_kw`` (``num_classes``, ``input_size``, ...)
+    builds the module whose shapes the leaves are checked against."""
+    with torch.device("meta"):
+        expected = get_model(model_name, **model_kw).state_dict()
+    leaves = _flatten(variables)
+    out: dict[str, torch.Tensor] = {}
+    for name, ref in expected.items():
+        *modules, leaf = name.split(".")
+        path = ("params", *modules, _LEAF.get(leaf, leaf))
+        if path not in leaves:
+            raise ValueError(
+                f"{model_name}: flax variables lack {'/'.join(path)} "
+                f"(for {name})")
+        a = _to_torch_layout(np.asarray(leaves.pop(path)))
+        if tuple(a.shape) != tuple(ref.shape):
+            raise ValueError(
+                f"{model_name}: {'/'.join(path)} has shape {a.shape} after "
+                f"the layout change, the port's {name} needs "
+                f"{tuple(ref.shape)}")
+        out[name] = torch.tensor(a, dtype=torch.float32)  # a copy
+    if leaves:
+        extra = sorted("/".join(p) for p in leaves)
+        raise ValueError(
+            f"{model_name}: flax variables carry leaves the port does not "
+            f"use: {extra}")
+    return out

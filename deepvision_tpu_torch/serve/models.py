@@ -1,0 +1,123 @@
+"""Served models: one load + post-process path for the engine and the CLI.
+
+The twin of ``deepvision_tpu/serve/models.py`` for the classify task,
+the only task of the models this slice serves. A
+:class:`ServedModel` holds the module on its device, the per-example
+input geometry, and a host-side ``postprocess`` that turns batch row
+``i`` into a JSON-able result. The task head (softmax and top-k) runs on
+the device inside :meth:`ServedModel.run`, which moves a batch to the
+device with one copy and brings every output back with one copy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from deepvision_tpu_torch.convert.from_flax import flax_to_torch
+from deepvision_tpu_torch.device import resolve_device
+from deepvision_tpu_torch.models import get_model
+from deepvision_tpu_torch.models.layers import init_weights
+from deepvision_tpu_torch.train.configs import get_config
+
+__all__ = ["ServedModel", "load_served"]
+
+
+@dataclasses.dataclass
+class ServedModel:
+    """One model the engine can serve. ``forward`` maps a device batch
+    to a dict of device tensors with the batch on axis 0;
+    ``postprocess`` turns row ``i`` of the fetched (numpy) outputs into
+    a JSON-able dict."""
+
+    name: str
+    task: str
+    module: nn.Module
+    input_shape: tuple[int, ...]
+    postprocess: Callable[[dict, int], dict]
+    device: torch.device
+    forward: Callable[[torch.Tensor], dict]
+    input_dtype: Any = np.float32
+
+    def run(self, batch: np.ndarray) -> dict[str, np.ndarray]:
+        """Host batch -> host outputs: one H2D copy, the forward, one
+        D2H copy of all outputs together."""
+        x = torch.from_numpy(np.ascontiguousarray(batch, self.input_dtype))
+        with torch.inference_mode():
+            return _to_host(self.forward(x.to(self.device)))
+
+
+def _to_host(out: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Fetch every output in one device-to-host copy: each output's
+    bytes per row are laid side by side, copied, and split again."""
+    rows = [t.contiguous().view(torch.uint8).reshape(t.shape[0], -1)
+            for t in out.values()]
+    host = torch.cat(rows, dim=1).cpu().numpy()
+    result, start = {}, 0
+    for (key, t), r in zip(out.items(), rows):
+        part = np.ascontiguousarray(host[:, start:start + r.shape[1]])
+        start += r.shape[1]
+        np_dtype = torch.empty((), dtype=t.dtype).numpy().dtype
+        result[key] = part.view(np_dtype).reshape(tuple(t.shape))
+    return result
+
+
+def _classify_forward(module: nn.Module, top_k: int):
+    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
+        logits = module(x)
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_probs, top_classes = torch.topk(probs, top_k, dim=-1)
+        return {"probs": top_probs, "classes": top_classes.to(torch.int32)}
+
+    return forward
+
+
+def _classify_post(host: dict, i: int) -> dict:
+    return {"classes": np.asarray(host["classes"][i]).tolist(),
+            "probs": np.asarray(host["probs"][i]).tolist()}
+
+
+def load_served(name: str, workdir: str | None = None, *,
+                variables: Mapping[str, Any] | None = None, seed: int = 0,
+                device: str | torch.device | None = None,
+                input_size: int | None = None,
+                num_classes: int | None = None,
+                top_k: int = 5) -> ServedModel:
+    """Registry model ``name`` as a :class:`ServedModel` on ``device``
+    (default ``"cuda"``, which raises without a card).
+
+    Weights: ``variables`` are the JAX package's flax variables as nested
+    numpy dicts, carried across by ``convert.from_flax.flax_to_torch``;
+    without them the weights are fresh, drawn from a ``torch.Generator``
+    seeded with ``seed``. Restoring a training checkpoint from
+    ``workdir`` comes with the checkpoint slice and raises here."""
+    dev = resolve_device(device)
+    if workdir is not None:
+        raise NotImplementedError(
+            f"restoring a checkpoint from {workdir!r} comes with the port's "
+            "checkpoint slice; pass variables= (carried flax weights) or "
+            "seed= (fresh weights)")
+    cfg = get_config(name)
+    size = input_size if input_size is not None else cfg["input_size"]
+    classes = num_classes if num_classes is not None else cfg["num_classes"]
+    model_kw = {"num_classes": classes, "input_size": size}
+    with torch.device("meta"):
+        module = get_model(name, **model_kw)
+    module = module.to_empty(device=dev)
+    if variables is not None:
+        module.load_state_dict(flax_to_torch(name, variables, **model_kw))
+    else:
+        init_weights(module, torch.Generator(device=dev).manual_seed(seed))
+    # channels_last conv weights: cuDNN then reads and writes the NHWC
+    # activations the model keeps between layers without a transpose
+    module = module.to(memory_format=torch.channels_last).eval()
+    module.requires_grad_(False)
+    return ServedModel(
+        name=name, task="classify", module=module,
+        input_shape=(size, size, cfg["channels"]),
+        postprocess=_classify_post, device=dev,
+        forward=_classify_forward(module, top_k))
