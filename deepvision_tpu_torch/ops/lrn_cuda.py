@@ -4,12 +4,17 @@ The twin of ``deepvision_tpu/ops/lrn_pallas.py``: the same function over
 the same ``(B·H·W, C)`` view of an NHWC activation, one read and one
 write of it. The kernel is built with ``nvcc`` at first use
 (``ops/_build.py``) and launched through ctypes on PyTorch's current
-stream. Forward only: the backward comes with the training path.
+stream, with the tile rows of :func:`_launch_plan`, which the CPU tests
+pin at every shape of the model zoo; the launcher derives the rest (the
+vector width, the shared memory, the persistent grid) on the card.
+Forward only: the backward comes with the training path.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -20,13 +25,37 @@ __all__ = ["local_response_norm_cuda", "KERNEL_NAMES"]
 KERNEL_NAMES = {torch.float32: "lrn_forward_f32",
                 torch.bfloat16: "lrn_forward_bf16"}
 
+# target bytes of one warp's staged tile: 96 16-byte vectors, three whole
+# runs of 32 lanes
+TILE_BYTES = 1536
+
+
+class LaunchPlan(NamedTuple):
+    tile_rows: int      # rows a tile; tile bytes a multiple of 16
+    tiles: int
+
+
+def _launch_plan(rows: int, c: int, itemsize: int) -> LaunchPlan:
+    """How ``csrc/lrn.cu`` tiles a ``(rows, c)`` activation of
+    ``itemsize``-byte elements.
+
+    A tile is ``tile_rows`` whole rows, one contiguous span that one bulk
+    copy stages into a warp's ring: about ``TILE_BYTES``, and a multiple
+    of 16 bytes, so that every tile starts 16-byte aligned for any
+    ``c``."""
+    if rows <= 0 or c <= 0:
+        raise ValueError(f"no LRN launch for rows={rows}, C={c}")
+    row_bytes = c * itemsize
+    step = 16 // math.gcd(row_bytes, 16)  # rows whose bytes make 16
+    tile_rows = max(step, TILE_BYTES // row_bytes // step * step)
+    return LaunchPlan(tile_rows=tile_rows, tiles=-(-rows // tile_rows))
+
 
 def _bind(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+        fn.argtypes = [p, p, ctypes.c_longlong, i, i, f, f, f, i, p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -59,6 +88,10 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
             "with the training path")
     if size < 1:
         raise ValueError(f"window size must be >= 1, got {size}")
+    if x.data_ptr() % 16:
+        raise ValueError(
+            "local_response_norm_cuda needs a 16-byte aligned tensor (the "
+            f"kernel stages it by bulk copies); got address {x.data_ptr():#x}")
     lib = load_library("lrn")
     c = x.shape[-1]
     if c > lib.lrn_max_channels():
@@ -69,15 +102,16 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
     rows = x.numel() // c if c else 0
     if rows == 0:
         return y
+    plan = _launch_plan(rows, c, x.element_size())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _bind(lib, name)(
             x.data_ptr(), y.data_ptr(), rows, c, size, alpha / size, beta,
-            k, stream)
+            k, plan.tile_rows, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} "
-            f"(rows={rows}, C={c}, size={size})")
+            f"(rows={rows}, C={c}, size={size}, {plan})")
     local_response_norm_cuda.launches += 1
     local_response_norm_cuda.launches_by_kernel[name] += 1
     return y

@@ -170,7 +170,7 @@ def test_load_served_refuses_checkpoint_restore():
 
 def _port_files():
     return sorted((REPO / "deepvision_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py", REPO / "lrn_ab.py"]
 
 
 def test_port_imports_no_jax():
