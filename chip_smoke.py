@@ -4,40 +4,61 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and in a
-directory that does not hold the port. Phases, each of which raises on
-failure (nothing is caught):
+directory that does not hold the port. It drives the port's two main
+paths, serving AlexNet V1 and training it, and holds every kernel on
+them against its plain version. Phases, each of which raises on failure
+(nothing is caught):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    and the float32 policy (TF32 off for cuDNN and cuBLAS);
-2. build: ``csrc/lrn.cu`` with ``nvcc`` for ``sm_90a``, from the sources
-   in this checkout;
-3. kernel vs plain version on the card, at every LRN shape of the model
-   zoo (AlexNet V1 and V2-TF with n=5, k=2; the Inception V1 stem with
-   n=64 and n=192, k=1), odd channel counts (C*4 not a multiple of 16),
-   row counts that leave a ragged last tile, and the widest C: f32 to atol
+2. build: ``csrc/lrn.cu`` (forward) and ``csrc/lrn_bwd.cu`` (backward)
+   with ``nvcc`` for ``sm_90a``, from the sources in this checkout, both
+   at once, with ptxas's report;
+3. kernels vs plain versions on the card, forward and backward, at every
+   LRN shape of the model zoo (AlexNet V1 at the training batch of 128
+   and the serving batch of 64, and V2-TF, with n=5, k=2; the Inception
+   V1 stem with n=64 and n=192, k=1), odd channel counts, row
+   counts that leave a ragged last tile, and the widest C: f32 to atol
    1e-5 and rtol 1e-5, bf16 to atol 1e-2 and one bf16 step (rtol 2^-7)
-   against the plain version run in bf16;
+   against the plain version run in bf16; the backward's incoming
+   gradient is N(0, 1) from a seed;
 4. times, with CUDA events (``deepvision_tpu_torch/timing.py``: median of
    100 runs after 10 of warm-up, the stream held busy while the host
-   queues them), of the kernel, the plain version,
-   ``F.local_response_norm`` and a copy of the same bytes at the two
-   AlexNet V1 shapes and the three Inception V1 stem LRNs (n=64 on
-   C=64, n=192 and n=5 on C=192) at batch 64, beside the least time the
-   card could take. "Cold" rotates over distinct input and output
-   buffers, at least 100 MB of inputs, so that each call misses the 50 MB
-   L2; "warm" calls on one buffer. The share of the bound is the cold one;
-5. serve: ``load_served("alexnet1")`` at 224x224x3 and 1000 classes with
-   seeded weights, an ``InferenceEngine`` on buckets (1, 4, 16, 64), 96
-   seeded requests; the answers are held against the same module run with
-   the plain LRN, and the LRN launch count must be 2 per batch; then
-   ``torch.profiler`` windows over one bucket-64 batch (device time by
-   kernel and the LRN's share with host and card traced; the device's
-   idle share from windows that trace the card alone);
-6. CLI: the same model through ``python -m deepvision_tpu_torch.serve``
-   on stdin-JSONL, answering like the engine.
+   queues them), of each kernel, its plain version and the library call
+   (``F.local_response_norm``, and for the backward only the autograd
+   backward of it) at AlexNet V1's two LRNs at the training batch of 128
+   and the three Inception V1 stem LRNs (n=64 on C=64, n=192 and n=5 on
+   C=192) at batch 64, beside the least time the card could take. "Cold"
+   rotates over distinct buffers, at least 100 MB of inputs, so that
+   each call misses the 50 MB L2; "warm" calls on one buffer;
+5. serve (main path 1): ``load_served("alexnet1")`` at 224x224x3 and
+   1000 classes with seeded weights, an ``InferenceEngine`` on buckets
+   (1, 4, 16, 64), 96 seeded requests held against the same module run
+   with the plain LRN, 2 LRN launches per batch; ``torch.profiler``
+   windows over one bucket-64 batch;
+6. the serving CLI, ``python -m deepvision_tpu_torch.serve``, answering
+   like the engine;
+7. a train step on the card, kernel vs plain: ``alexnet1`` at full width,
+   batch 128, seeded weights, float32 with TF32 off, dropout off, 3 steps
+   with the kernels and 3 with the plain forward, which autograd
+   differentiates (independent of the analytic backward): loss within
+   rtol 1e-4 and every parameter within atol 1e-5, with the gap measured
+   beside the gap between two plain runs (cuDNN's backward is not
+   deterministic); 2 forward and 2 backward LRN launches a step;
+8. train (main path 2): the port's ``Trainer`` at full width in its
+   config's bf16 policy, one epoch on the synthetic set, counting the
+   LRN launches;
+9. the training CLI at full width, ``python -m deepvision_tpu_torch.train
+   -m alexnet1 --synthetic-size 640 --epochs 2`` (4 steps an epoch at
+   batch 128, bf16), then ``--resume --epochs 3`` from its checkpoints,
+   then ``load_served`` from the newest one;
+10. training throughput at batch 128 in bf16 over 24 timed steps after
+   warm-up, through the device feed and on a device-resident batch, and
+   ``torch.profiler`` windows over one step.
 
-It then prints the ``{"kernels": [...]}`` line (with the per-shape times
-under ``shapes``), the card's name and power limit, and last
+It then prints the ``{"kernels": [...]}`` line (all four entry points;
+per-shape times under ``shapes``, launches by path under
+``launches_by_path``), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -47,6 +68,7 @@ import copy
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -64,22 +86,32 @@ F32_OPS_PER_S = 67e12
 
 LRN_SOURCE = "deepvision_tpu_torch/csrc/lrn.cu"
 LRN_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:79"
-# (name, shape, size, k): AlexNet V1's LRNs at batch 64, the shapes the
-# served model gives the kernel (their sums make the kernels line), then
-# Inception V1's stem LRNs at batch 64, whose window costs O(C) and not
-# O(C*n) only if n=192 takes about the time of n=5 on the same input
-ALEXNET_V1_LRNS = [("lrn1", (64, 55, 55, 96), 5, 2.0),
-                   ("lrn2", (64, 27, 27, 256), 5, 2.0)]
+LRN_BWD_SOURCE = "deepvision_tpu_torch/csrc/lrn_bwd.cu"
+LRN_BWD_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:125"
+TRAIN_BATCH = 128
+# (name, shape, size, k): AlexNet V1's LRNs at the training batch, the
+# shapes the train step gives the kernels (their sums make the kernels
+# line), then Inception V1's stem LRNs at batch 64, whose window costs
+# O(C) and not O(C*n) only if n=192 takes about the time of n=5
+ALEXNET_V1_LRNS = [("lrn1", (TRAIN_BATCH, 55, 55, 96), 5, 2.0),
+                   ("lrn2", (TRAIN_BATCH, 27, 27, 256), 5, 2.0)]
 TIMED_LRNS = ALEXNET_V1_LRNS + [
     ("inception1_lrn1", (64, 56, 56, 64), 64, 1.0),
     ("inception1_lrn2", (64, 56, 56, 192), 192, 1.0),
     ("inception1_c192_n5", (64, 56, 56, 192), 5, 1.0),
 ]
-# float operations an element whatever n is: square, two window adds,
-# scale, add k, log2, scale by -beta, exp2, multiply
+# float operations an element whatever n is. Forward: square, two window
+# adds, scale, add k, log2, scale by -beta, exp2, multiply. Backward:
+# that denominator (6), two exp2 and their scalings (4), g*d^-beta and
+# g*x*d^(-beta-1) (3), the second window's two adds (2), the final
+# scale, multiply and subtract (3), rounded up
 LRN_OPS_PER_ELEMENT = 9
-# (name, shape, size, k, input scale)
+LRN_BWD_OPS_PER_ELEMENT = 20
+# (name, shape, size, k, input scale): AlexNet V1's LRNs at the training
+# and the largest serving batch first
 PARITY_CASES = [
+    *((f"alexnet1_{name}_b{TRAIN_BATCH}", shape, size, k, 1.0)
+      for name, shape, size, k in ALEXNET_V1_LRNS),
     ("alexnet1_lrn1", (64, 55, 55, 96), 5, 2.0, 1.0),
     ("alexnet1_lrn2", (64, 27, 27, 256), 5, 2.0, 1.0),
     ("alexnet2_tf_lrn1", (8, 55, 55, 64), 5, 2.0, 1.0),
@@ -115,13 +147,15 @@ def _nvidia_smi() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def _lrn_bound_ms(shape, itemsize: int) -> tuple[float, str]:
-    """Least time for one LRN: one read and one write of the activation
-    over the HBM rate, against ``LRN_OPS_PER_ELEMENT`` f32 operations an
+def _lrn_bound_ms(shape, itemsize: int, tensors: int = 2,
+                  ops: int = LRN_OPS_PER_ELEMENT) -> tuple[float, str]:
+    """Least time for one LRN pass: each of ``tensors`` activation-sized
+    tensors read or written once (forward: x in, y out; backward: x and
+    g in, dx out) over the HBM rate, against ``ops`` f32 operations an
     element (what the algorithm needs, whatever n) over the f32 rate."""
     numel = int(np.prod(shape))
-    bytes_s = 2 * numel * itemsize / HBM_BYTES_PER_S
-    ops_s = numel * LRN_OPS_PER_ELEMENT / F32_OPS_PER_S
+    bytes_s = tensors * numel * itemsize / HBM_BYTES_PER_S
+    ops_s = numel * ops / F32_OPS_PER_S
     if bytes_s >= ops_s:
         return bytes_s * 1e3, "bytes"
     return ops_s * 1e3, "operations"
@@ -143,15 +177,23 @@ def phase_card() -> str:
 
 
 def phase_build() -> None:
+    """Both kernel sources at once, one ``nvcc`` each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from deepvision_tpu_torch.ops import _build
 
+    stems = {"lrn": LRN_SOURCE, "lrn_bwd": LRN_BWD_SOURCE}
     t0 = time.perf_counter()
-    lib = _build.load_library("lrn")
-    _say(f"[build] {LRN_SOURCE} -> {lib._name} in "
-         f"{time.perf_counter() - t0:.2f} s (flags: "
-         f"{' '.join(_build.NVCC_FLAGS)})")
-    for kernel, report in _ptxas_report(_build.build_logs.get("lrn", "")):
-        _say(f"[build] ptxas {kernel}: {report}")
+    with ThreadPoolExecutor(len(stems)) as pool:
+        libs = list(pool.map(_build.build, stems))
+    wall = time.perf_counter() - t0
+    for (stem, source), lib in zip(stems.items(), libs):
+        _build.load_library(stem)
+        _say(f"[build] {source} -> {lib.name} ({wall:.2f} s for both, "
+             f"flags: {' '.join(_build.NVCC_FLAGS)})")
+        for kernel, report in _ptxas_report(_build.build_logs.get(stem,
+                                                                  "")):
+            _say(f"[build] ptxas {kernel}: {report}")
 
 
 def _ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -163,9 +205,16 @@ def _ptxas_report(log: str) -> list[tuple[str, str]]:
         if m:
             t = re.search(r"kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
                           m[1])
-            name = (f"{'bf16' if t[1] != 'f' else 'f32'} vec={t[2]} "
-                    f"{'prefix sums' if t[3] == '1' else 'n=5 slide'}"
-                    ) if t else m[1]
+            b = re.search(r"lrn_backward_kernelI(13__nv_bfloat16|f)E",
+                          m[1])
+            if t:
+                name = (f"forward {'bf16' if t[1] != 'f' else 'f32'} "
+                        f"vec={t[2]} "
+                        f"{'prefix sums' if t[3] == '1' else 'n=5 slide'}")
+            elif b:
+                name = f"backward {'bf16' if b[1] != 'f' else 'f32'}"
+            else:
+                name = m[1]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -178,38 +227,50 @@ def _ptxas_report(log: str) -> list[tuple[str, str]]:
 
 
 def phase_parity() -> dict[str, float]:
-    """Kernel vs plain version at every zoo shape; max abs error by
-    kernel name."""
+    """Kernels vs plain versions at every zoo shape, forward and
+    backward; max abs error by kernel name."""
     import torch
 
-    from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
+    from deepvision_tpu_torch.ops.lrn import (
+        local_response_norm_backward_reference,
+        local_response_norm_reference,
+    )
     from deepvision_tpu_torch.ops.lrn_cuda import (
+        BACKWARD_KERNEL_NAMES,
         KERNEL_NAMES,
+        local_response_norm_backward_cuda,
         local_response_norm_cuda,
     )
 
-    errs = dict.fromkeys(KERNEL_NAMES.values(), 0.0)
+    errs = dict.fromkeys([*KERNEL_NAMES.values(),
+                          *BACKWARD_KERNEL_NAMES.values()], 0.0)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for name, shape, size, k, scale in PARITY_CASES:
         x32 = torch.randn(shape, device="cuda", generator=gen) * scale
+        g32 = torch.randn(shape, device="cuda", generator=gen)
+        lrn = (size, 1e-4, 0.75, k)
         # bf16: both sides compute in f32 and round once to bf16, so a
         # last-bit f32 difference can land on either side of a rounding
         # boundary; one bf16 step (2^-7 relative) on top of atol 1e-2
         for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)),
                            (torch.bfloat16, dict(atol=1e-2, rtol=2**-7))):
-            x = x32.to(dtype)
-            got = local_response_norm_cuda(x, size, 1e-4, 0.75, k)
-            want = local_response_norm_reference(x, size, 1e-4, 0.75, k)
-            torch.cuda.synchronize()
-            assert got.dtype == dtype and got.shape == x.shape
-            torch.testing.assert_close(got.float(), want.float(), **tol,
-                                       msg=lambda m: f"{name} {dtype}: {m}")
-            err = (got.float() - want.float()).abs().max().item()
-            kernel = KERNEL_NAMES[dtype]
-            errs[kernel] = max(errs[kernel], err)
-            _say(f"[parity] {name} {tuple(shape)} n={size} k={k} "
-                 f"{str(dtype).removeprefix('torch.')}: max abs err "
-                 f"{err:.3e}")
+            x, g = x32.to(dtype), g32.to(dtype)
+            for kernel, got, want in (
+                    (KERNEL_NAMES[dtype],
+                     local_response_norm_cuda(x, *lrn),
+                     local_response_norm_reference(x, *lrn)),
+                    (BACKWARD_KERNEL_NAMES[dtype],
+                     local_response_norm_backward_cuda(x, g, *lrn),
+                     local_response_norm_backward_reference(x, g, *lrn))):
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and got.shape == x.shape
+                torch.testing.assert_close(
+                    got.float(), want.float(), **tol,
+                    msg=lambda m: f"{kernel} {name}: {m}")
+                err = (got.float() - want.float()).abs().max().item()
+                errs[kernel] = max(errs[kernel], err)
+                _say(f"[parity] {kernel} {name} {tuple(shape)} n={size} "
+                     f"k={k}: max abs err {err:.3e}")
     # a base pointer off a 16-byte boundary is refused, never copied
     odd = torch.zeros(65, device="cuda")[1:].view(1, 1, 1, 64)
     before = local_response_norm_cuda.launches
@@ -224,79 +285,128 @@ def phase_parity() -> dict[str, float]:
     return errs
 
 
+def _lib_backward_inputs(xs, gs, size, k):
+    """For each cold buffer, the forward graph of ``F.local_response_norm``
+    on the NCHW view, so that the library's backward alone can be timed
+    (``retain_graph``)."""
+    import torch.nn.functional as F
+
+    out = []
+    for x, g in zip(xs, gs):
+        xg = x.detach().requires_grad_()
+        y = F.local_response_norm(xg.permute(0, 3, 1, 2), size, 1e-4, 0.75,
+                                  k)
+        out.append((y, xg, g.permute(0, 3, 1, 2)))
+    return out
+
+
 def phase_times() -> dict[str, dict]:
     """Kernel, plain and library times at every shape of ``TIMED_LRNS``,
-    cold and warm; per kernel, the cold sums over AlexNet V1's two LRNs
-    (one served batch) and the per-shape detail."""
+    forward and backward, cold and warm; per kernel, the cold sums over
+    AlexNet V1's two LRNs (what one train step launches each way) and
+    the per-shape detail."""
     import torch
     import torch.nn.functional as F
 
-    from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
+    from deepvision_tpu_torch.ops.lrn import (
+        local_response_norm_backward_reference,
+        local_response_norm_reference,
+    )
     from deepvision_tpu_torch.ops.lrn_cuda import (
+        BACKWARD_KERNEL_NAMES,
         KERNEL_NAMES,
+        local_response_norm_backward_cuda,
         local_response_norm_cuda,
     )
     from deepvision_tpu_torch.timing import cold_inputs, time_ms
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype, kernel in KERNEL_NAMES.items():
-        tot = {"ms": 0.0, "ms_warm": 0.0, "plain_ms": 0.0,
-               "library_ms": 0.0, "bound_ms": 0.0}
-        bound_by, shapes, xs = set(), [], []
+    for dtype in KERNEL_NAMES:
+        fwd, bwd = KERNEL_NAMES[dtype], BACKWARD_KERNEL_NAMES[dtype]
+        keys = ("ms", "ms_warm", "plain_ms", "library_ms", "bound_ms")
+        tot = {fwd: dict.fromkeys(keys, 0.0), bwd: dict.fromkeys(keys, 0.0)}
+        bound_by = {fwd: set(), bwd: set()}
+        shapes = {fwd: [], bwd: []}
+        xs = gs = None
         for lrn, shape, size, k in TIMED_LRNS:
-            if not xs or xs[0].shape != shape:  # same shape: same inputs
-                xs = None  # free the last shape's buffers first
+            if xs is None or xs[0].shape != shape:  # same shape: same inputs
+                xs = gs = None  # free the last shape's buffers first
+                torch.cuda.empty_cache()
                 xs = cold_inputs(shape, dtype, gen)
-            n_bufs = len(xs)
+                gs = cold_inputs(shape, dtype, gen)[:len(xs)]
+            xgs = list(zip(xs, gs))
+            p = (size, 1e-4, 0.75, k)
 
-            def kern(x, size=size, k=k):
-                return local_response_norm_cuda(x, size, 1e-4, 0.75, k)
+            def lib_bwd(item):
+                y, xg, g = item
+                return torch.autograd.grad(y, xg, g, retain_graph=True)[0]
 
-            def plain(x, size=size, k=k):
-                return local_response_norm_reference(x, size, 1e-4, 0.75, k)
-
-            def lib(x, size=size, k=k):  # on the channels_last NCHW view
-                return F.local_response_norm(x.permute(0, 3, 1, 2), size,
-                                             1e-4, 0.75, k)
-
-            row = {"lrn": lrn, "shape": list(shape), "size": size, "k": k,
-                   "cold_buffers": n_bufs,
-                   "ms": time_ms(kern, xs),
-                   "ms_warm": time_ms(kern, xs[:1]),
-                   "plain_ms": time_ms(plain, xs),
-                   "library_ms": time_ms(lib, xs),
-                   # one read and one write of the same bytes: what the
-                   # card reaches in practice, beside the bound
-                   "copy_ms": time_ms(torch.clone, xs)}
-            lib_err = (lib(xs[0]).permute(0, 2, 3, 1).float()
-                       - plain(xs[0]).float()).abs().max().item()
-            row["bound_ms"], row["bound_by"] = _lrn_bound_ms(
-                shape, xs[0].element_size())
-            row["bound_share"] = row["bound_ms"] / row["ms"]
-            bound_by.add(row["bound_by"])
-            shapes.append(row)
-            _say(f"[time] {kernel} {lrn} {tuple(shape)} n={size}: kernel "
-                 f"cold {row['ms']:.4f} ms warm {row['ms_warm']:.4f} ms "
-                 f"({n_bufs} buffers cold), plain {row['plain_ms']:.4f} ms, "
-                 f"F.local_response_norm {row['library_ms']:.4f} ms (max "
-                 f"abs diff to plain {lib_err:.2e}), bound "
-                 f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-                 f"({row['bound_share']:.1%} of the bound, cold; a copy "
-                 f"of the same bytes {row['copy_ms']:.4f} ms, "
-                 f"{row['bound_ms'] / row['copy_ms']:.1%})")
-            if (lrn, shape, size, k) in ALEXNET_V1_LRNS:
-                for key in tot:
-                    tot[key] += row[key]
-        by_name = {r["lrn"]: r for r in shapes}
-        ratio = (by_name["inception1_lrn2"]["ms"]
-                 / by_name["inception1_c192_n5"]["ms"])
-        _say(f"[time] {kernel} (64,56,56,192): n=192 takes {ratio:.3f}x "
-             "the time of n=5 on the same input (cold)")
-        tot["bound_by"] = "bytes" if bound_by == {"bytes"} else "operations"
-        tot["shapes"] = shapes
-        out[kernel] = tot
-        xs = None
+            lib_inputs = _lib_backward_inputs(xs, gs, size, k)
+            rows = {
+                fwd: {"ms": time_ms(lambda x: local_response_norm_cuda(
+                          x, *p), xs),
+                      "ms_warm": time_ms(lambda x: local_response_norm_cuda(
+                          x, *p), xs[:1]),
+                      "plain_ms": time_ms(
+                          lambda x: local_response_norm_reference(x, *p), xs),
+                      # on the channels_last NCHW view
+                      "library_ms": time_ms(lambda x: F.local_response_norm(
+                          x.permute(0, 3, 1, 2), *p), xs),
+                      # one read and one write of the same bytes: what the
+                      # card reaches in practice, beside the bound
+                      "copy_ms": time_ms(torch.clone, xs)},
+                bwd: {"ms": time_ms(
+                          lambda a: local_response_norm_backward_cuda(*a, *p),
+                          xgs),
+                      "ms_warm": time_ms(
+                          lambda a: local_response_norm_backward_cuda(*a, *p),
+                          xgs[:1]),
+                      "plain_ms": time_ms(
+                          lambda a: local_response_norm_backward_reference(
+                              *a, *p), xgs),
+                      "library_ms": time_ms(lib_bwd, lib_inputs)},
+            }
+            lib_inputs = None
+            # the gradient is taken with respect to the NHWC leaf
+            lib_err = (lib_bwd(_lib_backward_inputs(xs[:1], gs[:1], size,
+                                                    k)[0]).float()
+                       - local_response_norm_backward_reference(
+                           xs[0], gs[0], *p).float()).abs().max().item()
+            for kernel, tensors, ops in ((fwd, 2, LRN_OPS_PER_ELEMENT),
+                                         (bwd, 3, LRN_BWD_OPS_PER_ELEMENT)):
+                row = {"lrn": lrn, "shape": list(shape), "size": size,
+                       "k": k, "cold_buffers": len(xs), **rows[kernel]}
+                row["bound_ms"], row["bound_by"] = _lrn_bound_ms(
+                    shape, xs[0].element_size(), tensors, ops)
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                bound_by[kernel].add(row["bound_by"])
+                shapes[kernel].append(row)
+                copy = (f"; a copy of the same bytes {row['copy_ms']:.4f} "
+                        f"ms, {row['bound_ms'] / row['copy_ms']:.1%}"
+                        if "copy_ms" in row else
+                        f"; library max abs diff to plain {lib_err:.2e}")
+                _say(f"[time] {kernel} {lrn} {tuple(shape)} n={size}: "
+                     f"kernel cold {row['ms']:.4f} ms warm "
+                     f"{row['ms_warm']:.4f} ms ({len(xs)} buffers cold), "
+                     f"plain {row['plain_ms']:.4f} ms, library "
+                     f"{row['library_ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+                     f"({row['bound_share']:.1%} of the bound, cold{copy})")
+                if (lrn, shape, size, k) in ALEXNET_V1_LRNS:
+                    for key in keys:
+                        tot[kernel][key] += row[key]
+        for kernel in (fwd, bwd):
+            by_name = {r["lrn"]: r for r in shapes[kernel]}
+            ratio = (by_name["inception1_lrn2"]["ms"]
+                     / by_name["inception1_c192_n5"]["ms"])
+            _say(f"[time] {kernel} (64,56,56,192): n=192 takes {ratio:.3f}x "
+                 "the time of n=5 on the same input (cold)")
+            tot[kernel]["bound_by"] = ("bytes" if bound_by[kernel] == {"bytes"}
+                                       else "operations")
+            tot[kernel]["shapes"] = shapes[kernel]
+            out[kernel] = tot[kernel]
+        xs = gs = xgs = None
         torch.cuda.empty_cache()
     return out
 
@@ -324,7 +434,6 @@ def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
     import torch
 
     from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
-    from deepvision_tpu_torch.ops.lrn_cuda import local_response_norm_cuda
     from deepvision_tpu_torch.serve import InferenceEngine, load_served
 
     t0 = time.perf_counter()
@@ -338,20 +447,18 @@ def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
     xs = (np.random.default_rng(0)
           .normal(0, 1, (N_REQUESTS, *served.input_shape))
           .astype(np.float32))
-    local_response_norm_cuda.launches = 0
-    for key in local_response_norm_cuda.launches_by_kernel:
-        local_response_norm_cuda.launches_by_kernel[key] = 0
+    _zero_launch_counts()
     try:
         t0 = time.perf_counter()
         futures = [engine.submit(x) for x in xs]
         results = [f.result(timeout=300) for f in futures]
         wall = time.perf_counter() - t0
-        launches = local_response_norm_cuda.launches
-        by_kernel = dict(local_response_norm_cuda.launches_by_kernel)
+        by_kernel = _launch_counts()
         snap = engine.telemetry.snapshot()
     finally:
         engine.close()
     batches = snap["batches"]
+    launches = sum(by_kernel.values())
     assert snap["completed"] == N_REQUESTS and snap["failed"] == 0, snap
     assert launches == 2 * batches, (launches, batches)
     assert by_kernel["lrn_forward_f32"] == launches, by_kernel
@@ -375,28 +482,51 @@ def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
                    probs.cpu().numpy(), atol=1e-4)
     _say("[serve] every answer matches the plain-LRN run of the same "
          "module (probs within 1e-4)")
-    _profile_batch(served, xs[:BUCKETS[-1]])
+    batch = xs[:BUCKETS[-1]]
+    served.run(batch)  # warm: the engine already ran this bucket
+    _profile(lambda: served.run(batch), f"bucket-{len(batch)} batch")
     return by_kernel, results, xs
 
 
-def _profile_batch(served, batch: np.ndarray, top: int = 10,
-                   windows: int = 5) -> None:
-    """``torch.profiler`` windows over one served batch of the largest
-    bucket (``ServedModel.run``: H2D copy, forward, top-k, D2H copy). One
-    window traces the host and the card: the device time by kernel name
-    and the LRN's share of it. Then ``windows`` windows trace the card
-    alone, so that no tracing of host operations lengthens the host's
-    wall time: the device's idle share of it, 1 - busy / wall, and the
-    H2D copy's time in each."""
+def _zero_launch_counts() -> None:
+    from deepvision_tpu_torch.ops.lrn_cuda import (
+        local_response_norm_backward_cuda,
+        local_response_norm_cuda,
+    )
+
+    for wrapper in (local_response_norm_cuda,
+                    local_response_norm_backward_cuda):
+        wrapper.launches = 0
+        for key in wrapper.launches_by_kernel:
+            wrapper.launches_by_kernel[key] = 0
+
+
+def _launch_counts() -> dict[str, int]:
+    """Launches by entry point since the last ``_zero_launch_counts``."""
+    from deepvision_tpu_torch.ops.lrn_cuda import (
+        local_response_norm_backward_cuda,
+        local_response_norm_cuda,
+    )
+
+    return {**local_response_norm_cuda.launches_by_kernel,
+            **local_response_norm_backward_cuda.launches_by_kernel}
+
+
+def _profile(run, label: str, top: int = 10, windows: int = 5) -> None:
+    """``torch.profiler`` windows over ``run()``, which does its work and
+    waits for the card. One window traces the host and the card: the
+    device time by kernel name and the LRN kernels' share of it. Then
+    ``windows`` windows trace the card alone, so that no tracing of host
+    operations lengthens the host's wall time: the device's idle share of
+    it, 1 - busy / wall, and the H2D copies' time in each."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.autograd.DeviceType.CUDA
-    served.run(batch)  # warm: the engine already ran this bucket
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        served.run(batch)
+        run()
         torch.cuda.synchronize()
 
     def device_us(evt) -> float:
@@ -405,15 +535,18 @@ def _profile_batch(served, batch: np.ndarray, top: int = 10,
                 return float(getattr(evt, attr))
         return 0.0
 
+    # user annotations (``Optimizer.step#SGD.step``) are ranges on the
+    # device's timeline over kernels that are counted themselves
     on_device = [e for e in prof.key_averages()
-                 if e.device_type == cuda and device_us(e) > 0]
+                 if e.device_type == cuda and device_us(e) > 0
+                 and not getattr(e, "is_user_annotation", False)]
     total_us = sum(device_us(e) for e in on_device)
     if total_us == 0:
-        _say(f"[profile] bucket-{len(batch)} batch: device time by kernel "
-             "not measured (the profiler recorded no device time)")
+        _say(f"[profile] {label}: device time by kernel not measured (the "
+             "profiler recorded no device time)")
         return
     lrn_us = sum(device_us(e) for e in on_device if "lrn" in e.key.lower())
-    _say(f"[profile] bucket-{len(batch)} batch (host and card traced): "
+    _say(f"[profile] {label} (host and card traced): "
          f"device time {total_us / 1e3:.3f} ms in {len(on_device)} "
          f"kernels/copies; LRN {lrn_us / 1e3:.4f} ms = "
          f"{lrn_us / total_us:.2%} of device time")
@@ -425,10 +558,11 @@ def _profile_batch(served, batch: np.ndarray, top: int = 10,
     for w in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            served.run(batch)
+            run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.events() if e.device_type == cuda]
+        events = [e for e in prof.events() if e.device_type == cuda
+                  and not getattr(e, "is_user_annotation", False)]
         busy_us, end = 0.0, float("-inf")
         for a, b in sorted((e.time_range.start, e.time_range.end)
                            for e in events):  # union of device intervals
@@ -445,9 +579,9 @@ def _profile_batch(served, batch: np.ndarray, top: int = 10,
         _say(f"[profile] card-only window {w}: host wall "
              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
              f"(H2D copy {h2d_us / 1e3:.3f} ms), idle share {idle[-1]:.1%}")
-    _say(f"[profile] bucket-{len(batch)} batch: device idle share, median "
-         f"of {windows} card-only windows, {statistics.median(idle):.1%} "
-         f"(range {min(idle):.1%}-{max(idle):.1%})")
+    _say(f"[profile] {label}: device idle share, median of {windows} "
+         f"card-only windows, {statistics.median(idle):.1%} (range "
+         f"{min(idle):.1%}-{max(idle):.1%})")
 
 
 def phase_cli(results, xs, n: int = 4) -> None:
@@ -474,6 +608,231 @@ def phase_cli(results, xs, n: int = 4) -> None:
          f"{proc.stderr.strip().splitlines()[-1]}")
 
 
+def _train_batch(n: int, classes: int = 1000, seed: int = 0) -> dict:
+    """A seeded host batch of ``n`` 224x224x3 images and labels."""
+    rng = np.random.default_rng(seed)
+    return {"image": rng.normal(0, 1, (n, 224, 224, 3)).astype(np.float32),
+            "label": rng.integers(0, classes, n).astype(np.int32)}
+
+
+def phase_train_step(steps: int = 3) -> dict[str, int]:
+    """The train step on the card, kernels against plain versions, in
+    float32 with TF32 off and dropout off; returns the kernel run's LRN
+    launches."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    strict_fp32()
+    cfg = get_config("alexnet1")
+    base = create_model("alexnet1", device=torch.device("cuda"), seed=0)
+    base.dropout_rate = 0.0
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(TRAIN_BATCH).items()}
+
+    def run(lrn):
+        module = copy.deepcopy(base)
+        if lrn is not None:
+            module.lrn = lrn
+        optimizer, _ = make_optimizer(cfg, module.parameters())
+        state = TrainState(module, optimizer)
+        keys = KeySeq(1, 0, device="cuda")
+        losses = [classification_train_step(state, batch, next(keys),
+                                            "torch")["loss"]
+                  for _ in range(steps)]
+        torch.cuda.synchronize()
+        return (torch.stack(losses).tolist(),
+                {n: p.detach().clone() for n, p in module.named_parameters()})
+
+    def gap(a, b):
+        loss = max(abs(x - y) / abs(y) for x, y in zip(a[0], b[0]))
+        param = max((a[1][n] - b[1][n]).abs().max().item() for n in a[1])
+        return loss, param
+
+    t0 = time.perf_counter()
+    _zero_launch_counts()
+    kernel = run(None)
+    launches = _launch_counts()
+    # autograd of the plain forward: a reference that shares no code with
+    # the analytic backward the kernel implements
+    plain = local_response_norm_reference
+    ref, ref2 = run(plain), run(plain)
+    loss_gap, param_gap = gap(kernel, ref)
+    noise_loss, noise_param = gap(ref2, ref)
+    _say(f"[train-step] alexnet1 batch {TRAIN_BATCH} f32 (TF32 off, dropout "
+         f"off), {steps} steps in {time.perf_counter() - t0:.1f} s for three "
+         f"runs: losses kernel {kernel[0]} plain {ref[0]}; kernel vs plain: "
+         f"loss rel gap {loss_gap:.3e}, max param abs gap {param_gap:.3e}; "
+         f"plain vs plain: {noise_loss:.3e}, {noise_param:.3e}; LRN "
+         f"launches {launches}")
+    assert np.all(np.isfinite(kernel[0])), kernel[0]
+    assert loss_gap <= 1e-4 and param_gap <= 1e-5, (loss_gap, param_gap)
+    assert launches["lrn_forward_f32"] == 2 * steps, launches
+    assert launches["lrn_backward_f32"] == 2 * steps, launches
+    return launches
+
+
+def phase_trainer(workdir: Path) -> tuple[dict[str, int], object]:
+    """Main path 2: the port's Trainer at full width in the config's bf16
+    policy, one epoch of 2 steps; returns its LRN launches and the
+    trainer."""
+    import torch
+
+    from deepvision_tpu_torch.data.mnist import batches
+    from deepvision_tpu_torch.data.synthetic import synthetic_classification
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("alexnet1")
+    bs = cfg["batch_size"]
+    imgs, labels, split = synthetic_classification(384, 224, 3, 1000, bs)
+    module = create_model("alexnet1", device=torch.device("cuda"), seed=0,
+                          dtype=torch.bfloat16)
+    trainer = Trainer(
+        module, cfg,
+        lambda e: batches(imgs[split:], labels[split:], bs,
+                          rng=np.random.default_rng(e)),
+        lambda: batches(imgs[:split], labels[:split], bs,
+                        drop_remainder=False),
+        workdir=workdir, log_every=0)
+    _zero_launch_counts()
+    loggers = trainer.fit(1)
+    launches = _launch_counts()
+    steps = (len(imgs) - split) // bs
+    evals = 2 * -(-split // bs)  # before and after the epoch
+    _say(f"[trainer] alexnet1 bf16 batch {bs}: {steps} steps, loss "
+         f"{loggers.latest('train_loss'):.4f}, val_loss "
+         f"{loggers.latest('val_loss'):.4f}, "
+         f"{loggers.latest('examples_per_sec'):.1f} images/s (first epoch, "
+         f"warm-up included); LRN launches {launches}")
+    assert np.isfinite(loggers.latest("train_loss"))
+    assert launches["lrn_forward_bf16"] == 2 * (steps + evals), launches
+    assert launches["lrn_backward_bf16"] == 2 * steps, launches
+    assert trainer.ckpt.latest_epoch() == 0
+    return launches, trainer
+
+
+def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepvision_tpu_torch.train", *args],
+        capture_output=True, text=True, cwd=ROOT, timeout=600,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return proc
+
+
+def phase_train_cli(workdir: Path) -> None:
+    """The training CLI at full width: 2 epochs, a resume to 3, then the
+    served model from the newest checkpoint."""
+    import torch
+
+    from deepvision_tpu_torch.serve import load_served
+    from deepvision_tpu_torch.train import manifest
+    from deepvision_tpu_torch.train.checkpoint import CheckpointManager
+
+    common = ["-m", "alexnet1", "--synthetic-size", "640", "--workdir",
+              str(workdir)]
+    t0 = time.perf_counter()
+    first = _run_cli([*common, "--epochs", "2"])
+    epochs = [ln for ln in first.stdout.splitlines() if ln.startswith("[")]
+    ckpt = workdir / "alexnet1" / "ckpt"
+    for e in (0, 1):
+        ok, why = manifest.verify_manifest(ckpt, e)
+        assert ok and why == "ok", (e, why)
+    _say(f"[train-cli] 2 epochs in {time.perf_counter() - t0:.1f} s:")
+    for line in epochs:
+        _say(f"[train-cli]   {line[:300]}")
+    _say(f"[train-cli]   {first.stderr.strip().splitlines()[-1]}")
+    loss = [float(m) for m in re.findall(r"\] train_loss=(\S+)",
+                                         first.stdout)]
+    assert len(loss) == 2 and np.all(np.isfinite(loss)), loss
+    assert "'lrn_backward_bf16': 0" not in first.stderr, first.stderr
+
+    t0 = time.perf_counter()
+    second = _run_cli([*common, "--epochs", "3", "--resume"])
+    assert "resumed at epoch 2" in second.stdout, second.stdout[-2000:]
+    assert re.search(r"^\[epoch 2\] ", second.stdout, re.M), second.stdout
+    assert not re.search(r"^\[epoch [01]\] ", second.stdout, re.M)
+    assert manifest.verify_manifest(ckpt, 2) == (True, "ok")
+    _say(f"[train-cli] --resume --epochs 3 started at epoch 2 and saved it "
+         f"in {time.perf_counter() - t0:.1f} s; "
+         f"{second.stderr.strip().splitlines()[-1]}")
+
+    served = load_served("alexnet1", str(workdir / "alexnet1"))
+    want, _ = CheckpointManager(ckpt).restore_model(2, "cuda")
+    for name, tensor in served.module.state_dict().items():
+        assert torch.equal(tensor, want[name]), name
+    out = served.run(_train_batch(8, seed=3)["image"])
+    assert out["classes"].shape == (8, 5)
+    assert np.all(np.isfinite(out["probs"])), out
+    _say("[train-cli] load_served answers from the epoch-2 checkpoint "
+         f"(weights equal to it; top-1 of 8 images {out['classes'][:, 0]})")
+
+
+def phase_throughput(trainer, steps: int = 24, warmup: int = 3) -> None:
+    """Training images/s at batch 128 in bf16: through the device feed,
+    and on one device-resident batch; then profiler windows over one
+    step."""
+    import itertools
+
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    state = trainer.state
+    keys = KeySeq(1, 99, device="cuda")
+    host = [_train_batch(TRAIN_BATCH, seed=s) for s in range(4)]
+
+    def step(batch):
+        return classification_train_step(state, batch, next(keys), "torch")
+
+    feed = DevicePrefetcher(
+        itertools.islice(itertools.cycle(host), warmup + steps),
+        torch.device("cuda"), depth=2)
+    try:
+        for _ in range(warmup):
+            step(next(feed))["loss"].item()
+        t0 = time.perf_counter()
+        for batch in feed:
+            m = step(batch)
+        m["loss"].item()
+        fed = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+        tel = feed.telemetry.summary()
+    finally:
+        feed.close()
+
+    resident = {k: torch.from_numpy(v).cuda() for k, v in host[0].items()}
+    for _ in range(warmup):
+        step(resident)["loss"].item()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(resident)
+    m["loss"].item()
+    dev = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+    _say(f"[throughput] alexnet1 train bf16 batch {TRAIN_BATCH}, {steps} "
+         f"timed steps after {warmup}: {fed:.1f} images/s through the device "
+         f"feed (h2d_wait {tel['h2d_wait_ms']} ms, step {tel['step_ms']} ms "
+         f"a batch), {dev:.1f} images/s on a device-resident batch; loss "
+         f"{m['loss'].item():.4f}")
+    assert np.isfinite(m["loss"].item())
+
+    def one_step():
+        step(resident)
+        torch.cuda.synchronize()
+
+    _profile(one_step, f"train step bf16 batch {TRAIN_BATCH}")
+
+
 def main() -> int:
     import torch
 
@@ -483,28 +842,42 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     import deepvision_tpu_torch  # noqa: F401  (fails outside the checkout)
+    from deepvision_tpu_torch.ops.lrn_cuda import BACKWARD_KERNEL_NAMES
 
+    t_start = time.perf_counter()
+    workdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
     smi = phase_card()
     phase_build()
     errs = phase_parity()
     times = phase_times()
-    launches, results, xs = phase_serve(smi)
+    # each main path's LRN launches, counted from 0 just before it
+    paths = {}
+    paths["serve_f32"], results, xs = phase_serve(smi)
     phase_cli(results, xs)
+    paths["train_step_f32"] = phase_train_step()
+    paths["trainer_bf16"], trainer = phase_trainer(workdir / "inproc")
+    phase_train_cli(workdir / "cli")
+    phase_throughput(trainer)
+    shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
     for name, t in times.items():
+        backward = name in BACKWARD_KERNEL_NAMES.values()
+        by_path = {p: n[name] for p, n in paths.items() if n[name]}
+        assert by_path, f"{name} was launched on no main path"
         kernels.append({
-            "name": name, "route": "cuda", "source": LRN_SOURCE,
-            "replaces": LRN_REPLACES,
-            # the served model runs in float32, so the bf16 entry point
-            # is off the main path and counts 0 there
-            "launches": launches[name],
-            # times: cold, summed over AlexNet V1's two LRNs
+            "name": name, "route": "cuda",
+            "source": LRN_BWD_SOURCE if backward else LRN_SOURCE,
+            "replaces": LRN_BWD_REPLACES if backward else LRN_REPLACES,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            # times: cold, summed over AlexNet V1's two LRNs at batch 128
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_warm": t["ms_warm"], "shapes": t["shapes"],
         })
+    _say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

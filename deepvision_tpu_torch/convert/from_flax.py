@@ -12,6 +12,12 @@ The port's parameter names follow the flax module paths (``conv1.weight``
 is ``params/conv1/kernel``), so no name table is needed. A leaf the port
 expects and the tree lacks, a leaf the tree has and the port does not
 use, or a shape that does not match raises ``ValueError``.
+
+:func:`flax_train_state_to_torch` carries a JAX ``TrainState`` mid
+training (params, the SGD momentum ``trace``, the step, the plateau's
+``lr_scale`` and the loss scale, as numpy) and
+:func:`load_flax_train_state` writes it into the port's train state, so
+that a step can start from the same point on both sides.
 """
 
 from __future__ import annotations
@@ -23,7 +29,8 @@ import torch
 
 from deepvision_tpu_torch.models import get_model
 
-__all__ = ["flax_to_torch"]
+__all__ = ["flax_to_torch", "flax_train_state_to_torch",
+           "load_flax_train_state"]
 
 _LEAF = {"weight": "kernel", "bias": "bias"}
 
@@ -76,3 +83,50 @@ def flax_to_torch(model_name: str, variables: Mapping[str, Any],
             f"{model_name}: flax variables carry leaves the port does not "
             f"use: {extra}")
     return out
+
+
+def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
+                              trace: Mapping[str, Any], step: int,
+                              lr_scale: float = 1.0,
+                              loss_scale: Mapping[str, Any] | None = None,
+                              **model_kw) -> dict:
+    """A JAX train state, as numpy, in the port's terms:
+    ``{"model": state_dict, "momentum": {param name: buffer}, "step",
+    "lr_scale", "loss_scale"}``. ``params`` and ``trace`` are the flax
+    parameter tree and optax's momentum trace of the same structure;
+    ``loss_scale`` holds ``scale`` and ``good_steps`` (None without
+    scaling). The trace takes the parameters' layout change."""
+    return {
+        "model": flax_to_torch(model_name, {"params": params}, **model_kw),
+        "momentum": flax_to_torch(model_name, {"params": trace},
+                                  **model_kw),
+        "step": int(step),
+        "lr_scale": float(lr_scale),
+        "loss_scale": None if loss_scale is None else {
+            k: np.asarray(loss_scale[k]) for k in ("scale", "good_steps")},
+    }
+
+
+@torch.no_grad()
+def load_flax_train_state(state, carried: dict) -> None:
+    """Write :func:`flax_train_state_to_torch`'s output into the port's
+    ``TrainState`` (its module, SGD momentum buffers, step, LR scale and
+    loss scale), on the state's device."""
+    from deepvision_tpu_torch.train.optimizers import set_lr_scale
+
+    state.module.load_state_dict(carried["model"])
+    for name, p in state.module.named_parameters():
+        state.optimizer.state[p]["momentum_buffer"] = (
+            torch.empty_like(p).copy_(carried["momentum"][name]))
+    state.step = carried["step"]
+    set_lr_scale(state.optimizer, carried["lr_scale"])
+    ls = carried["loss_scale"]
+    if (ls is None) != (state.loss_scale is None):
+        raise ValueError("the carried state and the port's disagree on "
+                         "loss scaling")
+    if ls is not None:
+        dev = state.loss_scale.scale.device
+        state.loss_scale.scale = torch.tensor(float(ls["scale"]),
+                                              device=dev)
+        state.loss_scale.good_steps = torch.tensor(
+            int(ls["good_steps"]), dtype=torch.int32, device=dev)

@@ -1,6 +1,6 @@
 """Models of the port. Importing the package registers every model."""
 
 from deepvision_tpu_torch.models import alexnet  # noqa: F401  (registers)
-from deepvision_tpu_torch.models.registry import get_model
+from deepvision_tpu_torch.models.registry import create_model, get_model
 
-__all__ = ["get_model"]
+__all__ = ["create_model", "get_model"]

@@ -5,6 +5,11 @@ pool runs on the NCHW view ``x.permute(0, 3, 1, 2)``, which has
 ``torch.channels_last`` memory, so the view costs no copy and cuDNN
 writes its output in the same layout; permuting back gives a contiguous
 NHWC tensor again.
+
+Mixed precision follows flax's ``dtype`` convention: parameters stay
+float32 masters and are cast to the compute ``dtype`` at use, inside the
+forward (:func:`conv2d`, :func:`dense`), so their gradients flow back
+through the cast as float32.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["conv2d", "max_pool", "init_weights"]
+__all__ = ["conv2d", "dense", "dropout", "max_pool", "lecun_normal_",
+           "init_weights"]
 
 Padding = str | Sequence[tuple[int, int]]
 
@@ -34,14 +40,42 @@ def _explicit_pads(padding: Padding) -> tuple[int, ...] | None:
     return (0, 0, left, right, top, bottom)
 
 
-def conv2d(x: torch.Tensor, conv: nn.Conv2d,
-           padding: Padding = "VALID") -> torch.Tensor:
+def _cast(p: torch.Tensor | None, dtype: torch.dtype | None):
+    return p if p is None or dtype is None else p.to(dtype)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: Padding = "VALID",
+           dtype: torch.dtype | None = None) -> torch.Tensor:
     """``conv`` over an NHWC tensor; ``padding`` is applied explicitly
-    (zeros) before a convolution whose own padding does the rest."""
+    (zeros) before a convolution whose own padding does the rest. With
+    ``dtype`` the weights are cast to it at use (the input must already
+    be in it)."""
     pads = _explicit_pads(padding)
     if pads is not None:
         x = F.pad(x, pads)
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, dtype),
+                 _cast(conv.bias, dtype), conv.stride, conv.padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def dense(x: torch.Tensor, linear: nn.Linear,
+          dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``linear`` with its weights cast to ``dtype`` at use."""
+    return F.linear(x, _cast(linear.weight, dtype), _cast(linear.bias, dtype))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``nn.Dropout``: identity unless training with ``rate`` > 0;
+    then each value is kept with probability ``1 - rate`` (the mask drawn
+    from ``generator``, which the train step passes in) and scaled by
+    ``1 / (1 - rate)``."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit generator")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
 
 
 def max_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
@@ -57,15 +91,32 @@ def max_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
     return y.permute(0, 2, 3, 1)
 
 
+# stddev of a standard normal truncated to (-2, 2), which flax's
+# variance_scaling divides out so that the truncated draw keeps the
+# asked-for variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` (its default kernel init): variance
+    1/fan_in, truncated to two standard deviations. fan_in is the
+    product of every axis but the output one, as flax counts it for a
+    conv ``(KH, KW, I, O)`` or a Dense ``(in, out)`` kernel."""
+    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Fresh weights from ``generator``: He-normal (fan-in) kernels for
-    every Conv2d and Linear, zero biases. Works on a module whose
-    storage is uninitialised (``to_empty``)."""
+    """Fresh weights from ``generator`` by the model's own kernel init:
+    ``module.kernel_init(weight, generator)`` for every Conv2d and
+    Linear, as the model's JAX twin declares it (the AlexNets keep flax's
+    default, :func:`lecun_normal_`), and zero biases. Works on a module
+    whose storage is uninitialised (``to_empty``)."""
+    kernel_init = module.kernel_init
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, math.sqrt(2.0 / fan_in),
-                             generator=generator)
+            kernel_init(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()

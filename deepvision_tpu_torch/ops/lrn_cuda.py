@@ -1,13 +1,18 @@
-"""Fused LRN forward as a hand-written CUDA kernel (``csrc/lrn.cu``).
+"""Fused LRN forward and backward as hand-written CUDA kernels.
 
-The twin of ``deepvision_tpu/ops/lrn_pallas.py``: the same function over
-the same ``(B·H·W, C)`` view of an NHWC activation, one read and one
-write of it. The kernel is built with ``nvcc`` at first use
-(``ops/_build.py``) and launched through ctypes on PyTorch's current
-stream, with the tile rows of :func:`_launch_plan`, which the CPU tests
-pin at every shape of the model zoo; the launcher derives the rest (the
-vector width, the shared memory, the persistent grid) on the card.
-Forward only: the backward comes with the training path.
+The twins of ``deepvision_tpu/ops/lrn_pallas.py``: the same functions
+over the same ``(B·H·W, C)`` view of NHWC tensors. The forward
+(``csrc/lrn.cu``) reads the activation once and writes it once; the
+backward (``csrc/lrn_bwd.cu``, the twin of the ``custom_vjp`` backward
+``_bwd``) reads x and the incoming gradient once and writes dx once. Each
+is built with ``nvcc`` at first use (``ops/_build.py``) and launched
+through ctypes on PyTorch's current stream. The forward takes the tile
+rows of :func:`_launch_plan`, which the CPU tests pin at every shape of
+the model zoo; its launcher derives the rest (the vector width, the
+shared memory, the persistent grid) on the card.
+
+These are raw launchers: one forward-only, one backward-only. The
+autograd ``Function`` that pairs them is ``ops/lrn.py``'s.
 """
 
 from __future__ import annotations
@@ -20,10 +25,13 @@ import torch
 
 from deepvision_tpu_torch.ops._build import load_library
 
-__all__ = ["local_response_norm_cuda", "KERNEL_NAMES"]
+__all__ = ["local_response_norm_cuda", "local_response_norm_backward_cuda",
+           "KERNEL_NAMES", "BACKWARD_KERNEL_NAMES"]
 
 KERNEL_NAMES = {torch.float32: "lrn_forward_f32",
                 torch.bfloat16: "lrn_forward_bf16"}
+BACKWARD_KERNEL_NAMES = {torch.float32: "lrn_backward_f32",
+                         torch.bfloat16: "lrn_backward_bf16"}
 
 # target bytes of one warp's staged tile: 96 16-byte vectors, three whole
 # runs of 32 lanes
@@ -55,9 +63,27 @@ def _bind(lib: ctypes.CDLL, name: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:
         i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_longlong, i, i, f, f, f, i, p]
+        if name in BACKWARD_KERNEL_NAMES.values():
+            fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, f, p]
+        else:
+            fn.argtypes = [p, p, ctypes.c_longlong, i, i, f, f, f, i, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _check(x: torch.Tensor, who: str, names: dict) -> str:
+    """The kernel's entry point for ``x``; raises on what it does not
+    take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{who} takes a CUDA tensor, got {x.device}")
+    name = names.get(x.dtype)
+    if name is None:
+        raise TypeError(f"{who} takes float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(
+            f"{who} needs a contiguous NHWC tensor (channels last in "
+            f"memory); got strides {x.stride()} for shape {tuple(x.shape)}")
+    return name
 
 
 def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
@@ -69,23 +95,12 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
 
     ``local_response_norm_cuda.launches`` counts kernel launches, and
     ``launches_by_kernel`` splits them by entry point."""
-    if x.device.type != "cuda":
-        raise ValueError(
-            f"local_response_norm_cuda takes a CUDA tensor, got {x.device}")
-    name = KERNEL_NAMES.get(x.dtype)
-    if name is None:
-        raise TypeError(
-            f"local_response_norm_cuda takes float32 or bfloat16, got "
-            f"{x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(
-            "local_response_norm_cuda needs a contiguous NHWC tensor "
-            f"(channels last in memory); got strides {x.stride()} for "
-            f"shape {tuple(x.shape)}")
-    if x.requires_grad:
-        raise NotImplementedError(
-            "local_response_norm_cuda is forward-only; its backward comes "
-            "with the training path")
+    name = _check(x, "local_response_norm_cuda", KERNEL_NAMES)
+    if x.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            "local_response_norm_cuda is the raw forward launcher and "
+            "records no gradient; call ops.lrn.local_response_norm, whose "
+            "autograd Function pairs it with the backward kernel")
     if size < 1:
         raise ValueError(f"window size must be >= 1, got {size}")
     if x.data_ptr() % 16:
@@ -120,3 +135,53 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
 local_response_norm_cuda.launches = 0
 local_response_norm_cuda.launches_by_kernel = dict.fromkeys(
     KERNEL_NAMES.values(), 0)
+
+
+def local_response_norm_backward_cuda(x: torch.Tensor, g: torch.Tensor,
+                                      size: int = 5, alpha: float = 1e-4,
+                                      beta: float = 0.75,
+                                      k: float = 2.0) -> torch.Tensor:
+    """The gradient of the LRN with respect to ``x``, given the incoming
+    gradient ``g``: contiguous NHWC (or any contiguous ``(..., C)``) CUDA
+    tensors of one shape and one dtype, float32 or bfloat16; returns dx in
+    that dtype.
+
+    ``local_response_norm_backward_cuda.launches`` counts kernel
+    launches, and ``launches_by_kernel`` splits them by entry point."""
+    who = "local_response_norm_backward_cuda"
+    name = _check(x, who, BACKWARD_KERNEL_NAMES)
+    _check(g, who, BACKWARD_KERNEL_NAMES)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(
+            f"{who} needs x and g of one shape, dtype and device; got "
+            f"{tuple(x.shape)} {x.dtype} {x.device} and {tuple(g.shape)} "
+            f"{g.dtype} {g.device}")
+    if size < 1:
+        raise ValueError(f"window size must be >= 1, got {size}")
+    lib = load_library("lrn_bwd")
+    c = x.shape[-1]
+    if c > lib.lrn_backward_max_channels():
+        raise ValueError(
+            f"{who} holds at most {lib.lrn_backward_max_channels()} "
+            f"channels per row, got {c}")
+    dx = torch.empty_like(x)
+    rows = x.numel() // c if c else 0
+    if rows == 0:
+        return dx
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _bind(lib, name)(
+            x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, size,
+            alpha / size, beta, k, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed: CUDA error {err} (rows={rows}, C={c}, "
+            f"size={size})")
+    local_response_norm_backward_cuda.launches += 1
+    local_response_norm_backward_cuda.launches_by_kernel[name] += 1
+    return dx
+
+
+local_response_norm_backward_cuda.launches = 0
+local_response_norm_backward_cuda.launches_by_kernel = dict.fromkeys(
+    BACKWARD_KERNEL_NAMES.values(), 0)

@@ -6,9 +6,11 @@
 
 One JSON request per line on stdin, one response per line on stdout in
 submission order; start-up chatter goes to stderr. ``-m`` is repeatable.
-Weights are fresh, drawn from ``--seed``; restoring a checkpoint
-(``-m name=workdir``) comes with the checkpoint slice. The HTTP surface
-and the fleet mode of ``serve.py`` come later.
+Weights are fresh, drawn from ``--seed``, unless ``-m name=workdir``
+names a directory whose ``ckpt/`` holds the port trainer's checkpoints
+(``runs/alexnet1`` after ``python -m deepvision_tpu_torch.train -m
+alexnet1``): then the newest verified epoch. The HTTP surface and the
+fleet mode of ``serve.py`` come later.
 """
 
 from __future__ import annotations

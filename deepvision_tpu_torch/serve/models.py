@@ -12,6 +12,7 @@ device with one copy and brings every output back with one copy.
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -20,8 +21,8 @@ from torch import nn
 
 from deepvision_tpu_torch.convert.from_flax import flax_to_torch
 from deepvision_tpu_torch.device import resolve_device
-from deepvision_tpu_torch.models import get_model
-from deepvision_tpu_torch.models.layers import init_weights
+from deepvision_tpu_torch.models import create_model
+from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
 __all__ = ["ServedModel", "load_served"]
@@ -90,31 +91,31 @@ def load_served(name: str, workdir: str | None = None, *,
     """Registry model ``name`` as a :class:`ServedModel` on ``device``
     (default ``"cuda"``, which raises without a card).
 
-    Weights: ``variables`` are the JAX package's flax variables as nested
-    numpy dicts, carried across by ``convert.from_flax.flax_to_torch``;
-    without them the weights are fresh, drawn from a ``torch.Generator``
-    seeded with ``seed``. Restoring a training checkpoint from
-    ``workdir`` comes with the checkpoint slice and raises here."""
+    Weights, in this order: the newest verified port checkpoint under
+    ``{workdir}/ckpt`` (the trainer's ``{workdir}/{model}/ckpt`` with
+    ``workdir`` naming the model's directory, as the JAX package's); its
+    geometry unless ``input_size``/``num_classes`` say otherwise; else
+    ``variables``, the JAX package's flax variables as nested numpy
+    dicts, carried across by ``convert.from_flax.flax_to_torch``; else
+    fresh weights, drawn from a ``torch.Generator`` seeded with
+    ``seed``. A ``workdir`` without a verified checkpoint raises."""
     dev = resolve_device(device)
-    if workdir is not None:
-        raise NotImplementedError(
-            f"restoring a checkpoint from {workdir!r} comes with the port's "
-            "checkpoint slice; pass variables= (carried flax weights) or "
-            "seed= (fresh weights)")
     cfg = get_config(name)
+    restored = None
+    if workdir is not None:
+        restored, saved = CheckpointManager(
+            Path(workdir) / "ckpt").restore_model(device=dev)
+        cfg.update({k: saved[k] for k in ("input_size", "num_classes")
+                    if saved.get(k) is not None})
     size = input_size if input_size is not None else cfg["input_size"]
     classes = num_classes if num_classes is not None else cfg["num_classes"]
     model_kw = {"num_classes": classes, "input_size": size}
-    with torch.device("meta"):
-        module = get_model(name, **model_kw)
-    module = module.to_empty(device=dev)
-    if variables is not None:
+    module = create_model(name, device=dev, seed=seed, **model_kw)
+    if restored is not None:
+        module.load_state_dict(restored)
+    elif variables is not None:
         module.load_state_dict(flax_to_torch(name, variables, **model_kw))
-    else:
-        init_weights(module, torch.Generator(device=dev).manual_seed(seed))
-    # channels_last conv weights: cuDNN then reads and writes the NHWC
-    # activations the model keeps between layers without a transpose
-    module = module.to(memory_format=torch.channels_last).eval()
+    module.eval()
     module.requires_grad_(False)
     return ServedModel(
         name=name, task="classify", module=module,

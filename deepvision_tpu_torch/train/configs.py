@@ -1,33 +1,55 @@
-"""The port's copy of the serving fields of ``train/configs.py``.
+"""The port's copy of the AlexNet entries of ``train/configs.py``.
 
-Only the entries this slice serves, and only the fields serving reads:
-``input_size``, ``channels``, ``num_classes`` and ``augment`` (the pixel
-convention the model was trained with: ``"pt"`` is torch-style
-normalisation, ``"tf"`` Inception-style). The JAX table has no
-``alexnet2_tf`` entry; its lookups fall back to the defaults written out
-here.
+``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
+0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128);
+:func:`get_config` fills the JAX table's defaults. ``alexnet2_tf`` has no
+entry in the JAX table and stays serving-only here (its pixel
+convention is ``"tf"``): :data:`TRAINABLE` lists the models that train.
 """
 
 from __future__ import annotations
 
-__all__ = ["TRAINING_CONFIG", "get_config"]
+import copy
+
+__all__ = ["TRAINING_CONFIG", "TRAINABLE", "get_config"]
+
+_ALEXNET_TRAINING = {
+    "precision": "bf16",
+    "augment": "pt",
+    "batch_size": 128,
+    "input_size": 224,
+    "optimizer": "sgd",
+    "optimizer_params": {"lr": 0.01, "momentum": 0.9, "weight_decay": 5e-4},
+    "scheduler": "plateau",
+    "scheduler_params": {"factor": 0.1, "mode": "max"},
+    "total_epochs": 200,
+}
 
 TRAINING_CONFIG: dict[str, dict] = {
     # ref: deepvision_tpu/train/configs.py "alexnet1"
-    "alexnet1": {"input_size": 224, "channels": 3, "num_classes": 1000,
-                 "augment": "pt"},
+    "alexnet1": copy.deepcopy(_ALEXNET_TRAINING),
     # ref: deepvision_tpu/train/configs.py "alexnet2"
-    "alexnet2": {"input_size": 224, "channels": 3, "num_classes": 1000,
-                 "augment": "pt"},
+    "alexnet2": copy.deepcopy(_ALEXNET_TRAINING),
     "alexnet2_tf": {"input_size": 224, "channels": 3, "num_classes": 1000,
                     "augment": "tf"},
 }
 
+TRAINABLE = tuple(sorted(n for n, c in TRAINING_CONFIG.items()
+                         if "optimizer" in c))
+
 
 def get_config(name: str) -> dict:
+    """A deep copy of ``name``'s entry with the JAX table's defaults."""
     try:
-        return dict(TRAINING_CONFIG[name])
+        cfg = copy.deepcopy(TRAINING_CONFIG[name])
     except KeyError:
         raise KeyError(
-            f"no serving config for {name!r}; known: "
+            f"no config for {name!r}; known: "
             f"{sorted(TRAINING_CONFIG)}") from None
+    cfg.setdefault("input_size", 224)
+    cfg.setdefault("channels", 3)
+    cfg.setdefault("num_classes", 1000)
+    cfg.setdefault("dataset", "imagenet")
+    cfg.setdefault("precision", "bf16")
+    cfg["name"] = name
+    return cfg

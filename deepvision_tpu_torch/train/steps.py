@@ -1,0 +1,104 @@
+"""The classification train and eval steps.
+
+The twins of ``classification_train_step``, ``classification_eval_step``
+and ``aggregate_eval_parts`` in ``deepvision_tpu/train/steps.py``. The
+train step updates the :class:`~deepvision_tpu_torch.train.state.TrainState`
+in place and returns its metrics as device tensors, so that the caller
+decides when to wait for them.
+"""
+
+from __future__ import annotations
+
+from typing import Iterable
+
+import torch
+
+from deepvision_tpu_torch.core.precision import precision_metrics
+from deepvision_tpu_torch.losses.classification import (
+    softmax_cross_entropy,
+    softmax_cross_entropy_per_sample,
+    topk_accuracy,
+    topk_correct,
+)
+from deepvision_tpu_torch.ops.normalize import maybe_normalize
+from deepvision_tpu_torch.train.state import TrainState
+
+__all__ = ["classification_train_step", "classification_eval_step",
+           "aggregate_eval_parts"]
+
+
+def classification_train_step(state: TrainState, batch: dict,
+                              generator: torch.Generator,
+                              normalize_kind: str = "imagenet") -> dict:
+    """One SGD step on ``{"image", "label"}`` device tensors, dropout
+    masks from ``generator``; returns the metrics (0-d device tensors).
+
+    ``normalize_kind`` is the uint8 wire's normalization (``"torch"`` for
+    configs with ``augment: "pt"``). With ``label_b`` and ``lam`` in the
+    batch the loss is mixup's convex pair ``lam·CE(y) + (1-lam)·CE(y_b)``;
+    top-k stays against ``label``. A model that returns a tuple adds its
+    auxiliary heads' losses at 0.3. The backward runs on the loss scaled
+    by the state's loss scale; the metrics carry the raw loss."""
+    images = maybe_normalize(batch["image"], normalize_kind)
+    labels = batch["label"]
+    labels_b, lam = batch.get("label_b"), batch.get("lam")
+
+    def mixed_ce(logits):
+        loss = softmax_cross_entropy(logits, labels)
+        if labels_b is None:
+            return loss
+        return lam * loss + (1.0 - lam) * softmax_cross_entropy(
+            logits, labels_b)
+
+    state.optimizer.zero_grad(set_to_none=True)
+    out = state.module(images, train=True, generator=generator)
+    if isinstance(out, (tuple, list)):
+        logits, *aux = out
+        loss = mixed_ce(logits)
+        for a in aux:
+            loss = loss + 0.3 * mixed_ce(a)
+    else:
+        logits = out
+        loss = mixed_ce(logits)
+    state.scale_loss(loss).backward()
+    state.apply_gradients()
+    return {"loss": loss.detach(), **topk_accuracy(logits.detach(), labels),
+            **precision_metrics(state)}
+
+
+@torch.no_grad()
+def classification_eval_step(state: TrainState, batch: dict,
+                             normalize_kind: str = "imagenet") -> dict:
+    """Count-weighted sums over one batch (0-d device tensors);
+    ``batch["mask"]`` (optional, 1/0 a row) drops padding rows."""
+    images = maybe_normalize(batch["image"], normalize_kind)
+    labels = batch["label"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape[0], device=labels.device)
+    logits = state.module(images, train=False)
+    if isinstance(logits, (tuple, list)):
+        logits = logits[0]
+    losses = softmax_cross_entropy_per_sample(logits, labels)
+    correct = topk_correct(logits, labels)
+    return {"loss_sum": (losses * mask).sum(), "count": mask.sum(),
+            **{k: (v * mask).sum() for k, v in correct.items()}}
+
+
+def aggregate_eval_parts(parts: Iterable[dict]) -> tuple[dict, float]:
+    """Sum eval-step outputs into ``(val_* means, total count)``;
+    ``<k>_sum`` and bare keys both become ``val_<k>``."""
+    totals = None
+    for part in parts:
+        part = {k: float(v) for k, v in part.items()}
+        if totals is None:
+            totals = part
+        else:
+            totals = {k: totals[k] + part[k] for k in totals}
+    if not totals:
+        return {}, 0.0
+    n = totals.pop("count")
+    return {
+        f"val_{k[:-4] if k.endswith('_sum') else k}": v / n
+        for k, v in totals.items()
+    }, n

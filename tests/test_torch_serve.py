@@ -160,9 +160,12 @@ def test_cli_jsonl_round_trip(served):
         assert r["ms"] >= 0
 
 
-def test_load_served_refuses_checkpoint_restore():
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
-        load_served("alexnet1", "runs/alexnet1", device="cpu")
+def test_load_served_refuses_checkpoint_restore(tmp_path):
+    """A workdir without a verified port checkpoint is refused, never
+    served with fresh weights (tests/test_torch_trainer.py serves from
+    real ones)."""
+    with pytest.raises(FileNotFoundError, match="no verified checkpoint"):
+        load_served("alexnet1", str(tmp_path / "alexnet1"), device="cpu")
 
 
 # ------------------------------------------------------------ guards
