@@ -18,10 +18,12 @@ them against its plain version. Phases, each of which raises on failure
    LRN shape of the model zoo (AlexNet V1 at the training batch of 128
    and the serving batch of 64, and V2-TF, with n=5, k=2; the Inception
    V1 stem with n=64 and n=192, k=1), odd channel counts, row
-   counts that leave a ragged last tile, and the widest C: f32 to atol
+   counts that leave a ragged last tile, the widest C, and narrow odd and
+   even windows on the prefix-sum path (n=3, 4 and 6): f32 to atol
    1e-5 and rtol 1e-5, bf16 to atol 1e-2 and one bf16 step (rtol 2^-7)
    against the plain version run in bf16; the backward's incoming
-   gradient is N(0, 1) from a seed;
+   gradient is N(0, 1) from a seed. A base pointer off 16 bytes (the
+   forward's x, the backward's g) is refused with no launch counted;
 4. times, with CUDA events (``deepvision_tpu_torch/timing.py``: median of
    100 runs after 10 of warm-up, the stream held busy while the host
    queues them), of each kernel, its plain version and the library call
@@ -30,7 +32,10 @@ them against its plain version. Phases, each of which raises on failure
    and the three Inception V1 stem LRNs (n=64 on C=64, n=192 and n=5 on
    C=192) at batch 64, beside the least time the card could take. "Cold"
    rotates over distinct buffers, at least 100 MB of inputs, so that
-   each call misses the 50 MB L2; "warm" calls on one buffer;
+   each call misses the 50 MB L2; "warm" calls on one buffer. Beside each
+   kernel, what the card reaches in practice on the same bytes: a copy
+   for the forward (one read, one write), ``torch.add(x, g)`` for the
+   backward (two reads, one write);
 5. serve (main path 1): ``load_served("alexnet1")`` at 224x224x3 and
    1000 classes with seeded weights, an ``InferenceEngine`` on buckets
    (1, 4, 16, 64), 96 seeded requests held against the same module run
@@ -54,7 +59,9 @@ them against its plain version. Phases, each of which raises on failure
    then ``load_served`` from the newest one;
 10. training throughput at batch 128 in bf16 over 24 timed steps after
    warm-up, through the device feed and on a device-resident batch, and
-   ``torch.profiler`` windows over one step.
+   ``torch.profiler`` windows over one step, with the kernel that runs
+   just before each ``lrn_backward_*`` launch (a copy there is the
+   ``g.contiguous()`` of ``ops/lrn.py``'s backward).
 
 It then prints the ``{"kernels": [...]}`` line (all four entry points;
 per-shape times under ``shapes``, launches by path under
@@ -131,6 +138,11 @@ PARITY_CASES = [
     ("wide_c768_n192", (2, 9, 9, 768), 192, 1.0, 2.0),
     # a narrow window other than n=5 takes the prefix-sum path too
     ("n3_c96", (2, 9, 9, 96), 3, 2.0, 1.0),
+    # even narrow windows on the prefix-sum path: the backward's mirrored
+    # window differs from the forward's, on 16-byte vectors and on the
+    # ragged C=57 (one channel a lane, a last tile off 16 bytes)
+    ("n4_c96", (2, 9, 9, 96), 4, 2.0, 1.0),
+    ("n6_c57_ragged", (1, 7, 9, 57), 6, 2.0, 1.0),
 ]
 N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
@@ -203,16 +215,12 @@ def _ptxas_report(log: str) -> list[tuple[str, str]]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])E",
-                          m[1])
-            b = re.search(r"lrn_backward_kernelI(13__nv_bfloat16|f)E",
-                          m[1])
+            t = re.search(r"lrn_(forward|backward)_kernelI"
+                          r"(13__nv_bfloat16|f)Li(\d+)ELb([01])E", m[1])
             if t:
-                name = (f"forward {'bf16' if t[1] != 'f' else 'f32'} "
-                        f"vec={t[2]} "
-                        f"{'prefix sums' if t[3] == '1' else 'n=5 slide'}")
-            elif b:
-                name = f"backward {'bf16' if b[1] != 'f' else 'f32'}"
+                name = (f"{t[1]} {'bf16' if t[2] != 'f' else 'f32'} "
+                        f"vec={t[3]} "
+                        f"{'prefix sums' if t[4] == '1' else 'n=5 slide'}")
             else:
                 name = m[1]
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -271,17 +279,23 @@ def phase_parity() -> dict[str, float]:
                 errs[kernel] = max(errs[kernel], err)
                 _say(f"[parity] {kernel} {name} {tuple(shape)} n={size} "
                      f"k={k}: max abs err {err:.3e}")
-    # a base pointer off a 16-byte boundary is refused, never copied
+    # a base pointer off a 16-byte boundary is refused, never copied: the
+    # forward's input, and the backward's incoming gradient
     odd = torch.zeros(65, device="cuda")[1:].view(1, 1, 1, 64)
-    before = local_response_norm_cuda.launches
-    try:
-        local_response_norm_cuda(odd)
-    except ValueError as e:
-        assert "16-byte aligned" in str(e), e
-    else:
-        raise AssertionError("a misaligned tensor was launched")
-    assert local_response_norm_cuda.launches == before
-    _say("[parity] a tensor 4 bytes off a 16-byte boundary is refused")
+    even = torch.zeros(1, 1, 1, 64, device="cuda")
+    for wrapper, args in ((local_response_norm_cuda, (odd,)),
+                          (local_response_norm_backward_cuda, (even, odd))):
+        before = wrapper.launches
+        try:
+            wrapper(*args)
+        except ValueError as e:
+            assert "16-byte aligned" in str(e), e
+        else:
+            raise AssertionError(f"{wrapper.__name__} launched a misaligned "
+                                 "tensor")
+        assert wrapper.launches == before
+    _say("[parity] a tensor 4 bytes off a 16-byte boundary is refused by "
+         "both kernels (the backward's g), no launch counted")
     return errs
 
 
@@ -365,7 +379,10 @@ def phase_times() -> dict[str, dict]:
                       "plain_ms": time_ms(
                           lambda a: local_response_norm_backward_reference(
                               *a, *p), xgs),
-                      "library_ms": time_ms(lib_bwd, lib_inputs)},
+                      "library_ms": time_ms(lib_bwd, lib_inputs),
+                      # two reads and one write of the same bytes: what the
+                      # card reaches in practice, beside the bound
+                      "add_ms": time_ms(lambda a: torch.add(*a), xgs)},
             }
             lib_inputs = None
             # the gradient is taken with respect to the NHWC leaf
@@ -385,7 +402,9 @@ def phase_times() -> dict[str, dict]:
                 copy = (f"; a copy of the same bytes {row['copy_ms']:.4f} "
                         f"ms, {row['bound_ms'] / row['copy_ms']:.1%}"
                         if "copy_ms" in row else
-                        f"; library max abs diff to plain {lib_err:.2e}")
+                        f"; torch.add of the same bytes {row['add_ms']:.4f} "
+                        f"ms, {row['bound_ms'] / row['add_ms']:.1%}; "
+                        f"library max abs diff to plain {lib_err:.2e}")
                 _say(f"[time] {kernel} {lrn} {tuple(shape)} n={size}: "
                      f"kernel cold {row['ms']:.4f} ms warm "
                      f"{row['ms_warm']:.4f} ms ({len(xs)} buffers cold), "
@@ -512,10 +531,13 @@ def _launch_counts() -> dict[str, int]:
             **local_response_norm_backward_cuda.launches_by_kernel}
 
 
-def _profile(run, label: str, top: int = 10, windows: int = 5) -> None:
+def _profile(run, label: str, top: int = 10, windows: int = 5,
+             before: str | None = None) -> None:
     """``torch.profiler`` windows over ``run()``, which does its work and
     waits for the card. One window traces the host and the card: the
-    device time by kernel name and the LRN kernels' share of it. Then
+    device time by kernel name and the LRN kernels' share of it, and for
+    each kernel whose name holds ``before``, the kernel the card ran just
+    before it and whether that was a copy. Then
     ``windows`` windows trace the card alone, so that no tracing of host
     operations lengthens the host's wall time: the device's idle share of
     it, 1 - busy / wall, and the H2D copies' time in each."""
@@ -550,9 +572,22 @@ def _profile(run, label: str, top: int = 10, windows: int = 5) -> None:
          f"device time {total_us / 1e3:.3f} ms in {len(on_device)} "
          f"kernels/copies; LRN {lrn_us / 1e3:.4f} ms = "
          f"{lrn_us / total_us:.2%} of device time")
-    for e in sorted(on_device, key=device_us, reverse=True)[:top]:
+    ranked = sorted(on_device, key=device_us, reverse=True)
+    # the top kernels, and every LRN kernel wherever it ranks
+    for e in ranked[:top] + [e for e in ranked[top:]
+                             if "lrn" in e.key.lower()]:
         _say(f"[profile]   {device_us(e) / 1e3:9.4f} ms "
              f"{device_us(e) / total_us:6.2%} x{e.count} {e.key[:110]}")
+    if before:
+        timeline = sorted((e for e in prof.events() if e.device_type == cuda
+                           and not getattr(e, "is_user_annotation", False)),
+                          key=lambda e: e.time_range.start)
+        for i, e in enumerate(timeline):
+            if before in e.name:
+                prev = timeline[i - 1].name if i else "nothing"
+                copy = "copy" in prev.lower()
+                _say(f"[profile] before {e.name[:60]}: "
+                     f"{'a copy' if copy else 'no copy'} ({prev[:100]})")
 
     idle = []
     for w in range(windows):
@@ -830,7 +865,9 @@ def phase_throughput(trainer, steps: int = 24, warmup: int = 3) -> None:
         step(resident)
         torch.cuda.synchronize()
 
-    _profile(one_step, f"train step bf16 batch {TRAIN_BATCH}")
+    # does the layout step of the LRN's backward (g.contiguous()) copy?
+    _profile(one_step, f"train step bf16 batch {TRAIN_BATCH}",
+             before="lrn_backward")
 
 
 def main() -> int:

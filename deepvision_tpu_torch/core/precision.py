@@ -22,6 +22,8 @@ from typing import Iterable
 
 import torch
 
+from deepvision_tpu_torch.device import resolve_device
+
 __all__ = ["MixedPolicy", "DynamicLossScale", "all_finite", "get_policy",
            "precision_metrics", "PRECISION_NAMES"]
 
@@ -32,16 +34,18 @@ BACKOFF_FACTOR = 0.5
 class DynamicLossScale:
     """The loss-scale state: ``scale`` (float32), ``good_steps`` (int32,
     the finite-gradient streak) and ``last_finite`` (1.0/0.0, the verdict
-    of the last :meth:`adjust`), all 0-d tensors on the device.
+    of the last :meth:`adjust`), all 0-d tensors on ``device``: the card
+    unless the caller asks for the CPU (``resolve_device``).
 
     ``adjust(finite)``: ``growth_interval`` consecutive finite steps
     double the scale (capped at ``max_scale``); a non-finite one halves
     it (floored at ``min_scale``) and resets the streak."""
 
     def __init__(self, scale: float = float(2 ** 15), *,
-                 device: torch.device | str = "cpu",
+                 device: torch.device | str | None = None,
                  growth_interval: int = 200, min_scale: float = 1.0,
                  max_scale: float = float(2 ** 24)):
+        device = resolve_device(device)
         self.scale = torch.tensor(scale, dtype=torch.float32, device=device)
         self.good_steps = torch.zeros((), dtype=torch.int32, device=device)
         self.last_finite = torch.ones((), dtype=torch.float32, device=device)
@@ -106,10 +110,11 @@ class MixedPolicy:
             return "f32"
         return "bf16_scaled" if self.loss_scaling else "bf16"
 
-    def make_loss_scale(self, device: torch.device | str = "cpu"
+    def make_loss_scale(self, device: torch.device | str | None = None
                         ) -> DynamicLossScale | None:
         """A fresh :class:`DynamicLossScale` (2^15, doubling after 200
-        clean steps) on ``device``, or None without scaling."""
+        clean steps) on ``device`` (the card unless the caller asks for
+        the CPU), or None without scaling."""
         if not self.loss_scaling:
             return None
         return DynamicLossScale(device=device)

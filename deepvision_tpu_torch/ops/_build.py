@@ -3,8 +3,9 @@
 Each ``csrc/<stem>.cu`` is compiled on first use into a shared library
 with a plain C interface, for ``sm_90a``, under ``build/kernels/`` at
 the root of the checkout. The library's file name carries a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. There is no fallback: a missing ``nvcc`` or a
+source, of every header under ``csrc/`` and of the flags, so an edited
+source or shared header is rebuilt and an unchanged one is loaded as it
+is. There is no fallback: a missing ``nvcc`` or a
 failed build raises.
 """
 
@@ -18,8 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC", "find_nvcc", "build",
-           "load_library"]
+__all__ = ["NVCC_FLAGS", "BUILD_DIR", "CSRC", "find_nvcc", "library_path",
+           "build", "load_library"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -49,13 +50,23 @@ def find_nvcc() -> str:
         "card and have no substitute")
 
 
+def library_path(stem: str) -> Path:
+    """Where the library of ``csrc/<stem>.cu`` is built: its name carries
+    a hash of the source, of every header under ``csrc/`` (the sources
+    share one) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(p for p in CSRC.iterdir()
+                         if p.suffix in (".cuh", ".h")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
 def build(stem: str) -> Path:
-    """Compile ``csrc/<stem>.cu`` unless a library of the same source
-    and flags exists; returns the library's path."""
+    """Compile ``csrc/<stem>.cu`` unless a library of the same source,
+    headers and flags exists; returns the library's path."""
     src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{stem}-{digest}.so"
+    out = library_path(stem)
     if out.is_file():
         return out
     nvcc = find_nvcc()

@@ -6,9 +6,9 @@ over the same ``(B·H·W, C)`` view of NHWC tensors. The forward
 backward (``csrc/lrn_bwd.cu``, the twin of the ``custom_vjp`` backward
 ``_bwd``) reads x and the incoming gradient once and writes dx once. Each
 is built with ``nvcc`` at first use (``ops/_build.py``) and launched
-through ctypes on PyTorch's current stream. The forward takes the tile
-rows of :func:`_launch_plan`, which the CPU tests pin at every shape of
-the model zoo; its launcher derives the rest (the vector width, the
+through ctypes on PyTorch's current stream. Both take the tile rows of
+:func:`_launch_plan`, which the CPU tests pin at every shape of the
+model zoo; their launchers derive the rest (the vector width, the
 shared memory, the persistent grid) on the card.
 
 These are raw launchers: one forward-only, one backward-only. The
@@ -44,8 +44,9 @@ class LaunchPlan(NamedTuple):
 
 
 def _launch_plan(rows: int, c: int, itemsize: int) -> LaunchPlan:
-    """How ``csrc/lrn.cu`` tiles a ``(rows, c)`` activation of
-    ``itemsize``-byte elements.
+    """How ``csrc/lrn.cu`` and ``csrc/lrn_bwd.cu`` tile a ``(rows, c)``
+    activation of ``itemsize``-byte elements (the backward stages an x
+    tile and a g tile of this plan).
 
     A tile is ``tile_rows`` whole rows, one contiguous span that one bulk
     copy stages into a warp's ring: about ``TILE_BYTES``, and a multiple
@@ -64,7 +65,7 @@ def _bind(lib: ctypes.CDLL, name: str):
     if fn.argtypes is None:
         i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
         if name in BACKWARD_KERNEL_NAMES.values():
-            fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, f, p]
+            fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, f, f, f, i, p]
         else:
             fn.argtypes = [p, p, ctypes.c_longlong, i, i, f, f, f, i, p]
         fn.restype = ctypes.c_int
@@ -86,6 +87,15 @@ def _check(x: torch.Tensor, who: str, names: dict) -> str:
     return name
 
 
+def _check_aligned(t: torch.Tensor, who: str) -> None:
+    """The kernels stage tiles by bulk copies and store 16-byte vectors:
+    a base pointer off a 16-byte boundary is refused, never copied."""
+    if t.data_ptr() % 16:
+        raise ValueError(
+            f"{who} needs a 16-byte aligned tensor (the kernel stages it by "
+            f"bulk copies); got address {t.data_ptr():#x}")
+
+
 def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
                              alpha: float = 1e-4, beta: float = 0.75,
                              k: float = 2.0) -> torch.Tensor:
@@ -103,10 +113,7 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
             "autograd Function pairs it with the backward kernel")
     if size < 1:
         raise ValueError(f"window size must be >= 1, got {size}")
-    if x.data_ptr() % 16:
-        raise ValueError(
-            "local_response_norm_cuda needs a 16-byte aligned tensor (the "
-            f"kernel stages it by bulk copies); got address {x.data_ptr():#x}")
+    _check_aligned(x, "local_response_norm_cuda")
     lib = load_library("lrn")
     c = x.shape[-1]
     if c > lib.lrn_max_channels():
@@ -158,6 +165,8 @@ def local_response_norm_backward_cuda(x: torch.Tensor, g: torch.Tensor,
             f"{g.dtype} {g.device}")
     if size < 1:
         raise ValueError(f"window size must be >= 1, got {size}")
+    _check_aligned(x, who)
+    _check_aligned(g, who)
     lib = load_library("lrn_bwd")
     c = x.shape[-1]
     if c > lib.lrn_backward_max_channels():
@@ -165,18 +174,20 @@ def local_response_norm_backward_cuda(x: torch.Tensor, g: torch.Tensor,
             f"{who} holds at most {lib.lrn_backward_max_channels()} "
             f"channels per row, got {c}")
     dx = torch.empty_like(x)
+    _check_aligned(dx, who)
     rows = x.numel() // c if c else 0
     if rows == 0:
         return dx
+    plan = _launch_plan(rows, c, x.element_size())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _bind(lib, name)(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), rows, c, size,
-            alpha / size, beta, k, stream)
+            alpha / size, beta, k, plan.tile_rows, stream)
     if err != 0:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} (rows={rows}, C={c}, "
-            f"size={size})")
+            f"size={size}, {plan})")
     local_response_norm_backward_cuda.launches += 1
     local_response_norm_backward_cuda.launches_by_kernel[name] += 1
     return dx

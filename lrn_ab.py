@@ -5,16 +5,19 @@
 
 DIR is another checkout of this repo, for instance a parent commit
 unpacked by ``git archive`` into ``build/``. Each of ``ROUNDS`` rounds
-runs DIR's kernel, this checkout's, this checkout's again and DIR's again
-(A B B A), each in a process of its own, since both packages are named
-``deepvision_tpu_torch``. Every process builds its checkout's
-``csrc/lrn.cu`` and times that checkout's ``local_response_norm_cuda``
-with this checkout's ``deepvision_tpu_torch/timing.py``, L2-cold (inputs
-rotated over ``cold_inputs``) and warm (one buffer), at AlexNet V1's two
-LRN shapes at batch 64 in float32 and bfloat16, on the same seeded
-inputs, after holding it against its own plain version. It prints one
-JSON line a process, the card's name and power limit, and last a JSON
-summary: the median of each side's runs.
+runs DIR's kernels, this checkout's, this checkout's again and DIR's
+again (A B B A), each in a process of its own, since both packages are
+named ``deepvision_tpu_torch``. Every process builds its checkout's
+kernels and times that checkout's wrappers with this checkout's
+``deepvision_tpu_torch/timing.py``, L2-cold (inputs rotated over
+``cold_inputs``) and warm (one buffer), in float32 and bfloat16, on the
+same seeded inputs, after holding each against its own plain version:
+the forward ``local_response_norm_cuda`` at AlexNet V1's two LRN shapes
+at the serving batch of 64, and the backward
+``local_response_norm_backward_cuda`` (x and the incoming gradient g) at
+the same LRNs at the training batch of 128. It prints one JSON line a
+process, the card's name and power limit, and last a JSON summary: the
+median of each side's runs.
 
 Needs one CUDA card and ``nvcc``; exits non-zero without a card.
 """
@@ -30,8 +33,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# (name, shape): AlexNet V1's LRNs at batch 64, n=5, k=2
+# (name, shape): AlexNet V1's LRNs, n=5, k=2: the forward at the serving
+# batch of 64, the backward at the training batch of 128
 SHAPES = [("lrn1", (64, 55, 55, 96)), ("lrn2", (64, 27, 27, 256))]
+BACKWARD_SHAPES = [("lrn1", (128, 55, 55, 96)), ("lrn2", (128, 27, 27, 256))]
+LRN = (5, 1e-4, 0.75, 2.0)
 ROUNDS = 2
 
 
@@ -46,37 +52,58 @@ def _timing():
 
 
 def worker(checkout: Path) -> dict:
-    """Cold and warm times of ``checkout``'s kernel at ``SHAPES``."""
+    """Cold and warm times of ``checkout``'s forward kernel at ``SHAPES``
+    and backward kernel at ``BACKWARD_SHAPES``."""
     import torch
 
     sys.path.insert(0, str(checkout))
     import deepvision_tpu_torch
-    from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
-    from deepvision_tpu_torch.ops.lrn_cuda import local_response_norm_cuda
+    from deepvision_tpu_torch.ops.lrn import (
+        local_response_norm_backward_reference,
+        local_response_norm_reference,
+    )
+    from deepvision_tpu_torch.ops.lrn_cuda import (
+        local_response_norm_backward_cuda,
+        local_response_norm_cuda,
+    )
 
     package = Path(deepvision_tpu_torch.__file__).resolve()
     assert package.is_relative_to(checkout), (package, checkout)
     timing = _timing()
-
-    def kern(x):
-        return local_response_norm_cuda(x, 5, 1e-4, 0.75, 2.0)
-
+    kernels = {
+        "forward": (SHAPES, 1,
+                    lambda a: local_response_norm_cuda(*a, *LRN),
+                    lambda a: local_response_norm_reference(*a, *LRN)),
+        "backward": (BACKWARD_SHAPES, 2,
+                     lambda a: local_response_norm_backward_cuda(*a, *LRN),
+                     lambda a: local_response_norm_backward_reference(
+                         *a, *LRN)),
+    }
     rows = []
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for lrn, shape in SHAPES:
-            xs = timing.cold_inputs(shape, dtype, gen)
-            err = (kern(xs[0]).float() - local_response_norm_reference(
-                xs[0], 5, 1e-4, 0.75, 2.0).float()).abs().max().item()
-            assert err <= atol, (lrn, dtype, err)
-            rows.append({
-                "dtype": str(dtype).removeprefix("torch."), "lrn": lrn,
-                "shape": list(shape), "cold_buffers": len(xs),
-                "cold_ms": timing.time_ms(kern, xs),
-                "warm_ms": timing.time_ms(kern, xs[:1]),
-                "max_abs_err": err})
-            xs = None
-            torch.cuda.empty_cache()
+    # bf16: both sides compute in f32 and round once, so one bf16 step
+    # (2^-7 relative) on top of atol 1e-2
+    for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)),
+                       (torch.bfloat16, dict(atol=1e-2, rtol=2**-7))):
+        for kernel, (shapes, n_in, kern, plain) in kernels.items():
+            for lrn, shape in shapes:
+                # x, and for the backward g: the same seeded buffers in
+                # every process
+                bufs = [timing.cold_inputs(shape, dtype, gen)
+                        for _ in range(n_in)]
+                args = list(zip(*bufs))
+                got, want = kern(args[0]).float(), plain(args[0]).float()
+                torch.testing.assert_close(
+                    got, want, **tol, msg=lambda m: f"{kernel} {lrn}: {m}")
+                rows.append({
+                    "kernel": kernel,
+                    "dtype": str(dtype).removeprefix("torch."), "lrn": lrn,
+                    "shape": list(shape), "cold_buffers": len(args),
+                    "cold_ms": timing.time_ms(kern, args),
+                    "warm_ms": timing.time_ms(kern, args[:1]),
+                    "max_abs_err": (got - want).abs().max().item()})
+                bufs = args = got = want = None
+                torch.cuda.empty_cache()
     return {"checkout": str(checkout), "rows": rows}
 
 
@@ -115,7 +142,7 @@ def main() -> int:
     for side, results in runs.items():
         summary[side] = {"checkout": str(sides[side]), "runs": len(results)}
         for i, row in enumerate(results[0]["rows"]):
-            key = f"{row['dtype']} {row['lrn']}"
+            key = f"{row['kernel']} {row['dtype']} {row['lrn']}"
             summary[side][key] = {
                 f"{t}_ms": statistics.median(r["rows"][i][f"{t}_ms"]
                                              for r in results)

@@ -216,15 +216,27 @@ def test_get_policy_names_and_aliases():
     assert get_policy("mixed_scaled").name == "bf16_scaled"
     with pytest.raises(ValueError, match="unknown precision"):
         get_policy("fp8")
-    assert get_policy("bf16").make_loss_scale() is None
-    ls = get_policy("bf16_scaled").make_loss_scale()
+    assert get_policy("bf16").make_loss_scale(device="cpu") is None
+    ls = get_policy("bf16_scaled").make_loss_scale(device="cpu")
     assert float(ls.scale) == 2.0 ** 15 and ls.growth_interval == 200
+    assert ls.scale.device.type == "cpu"
+
+
+def test_loss_scale_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the loss scale goes where the gradients are, the
+    card: without one it raises instead of quietly taking the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="runs on a CUDA device"):
+        DynamicLossScale()
+    with pytest.raises(RuntimeError, match="runs on a CUDA device"):
+        get_policy("bf16_scaled").make_loss_scale()
+    assert get_policy("bf16").make_loss_scale() is None
 
 
 def test_loss_scale_grow_backoff_and_clamps_match_jax():
     t, f = torch.tensor(True), torch.tensor(False)
-    ours = DynamicLossScale(2.0, growth_interval=2, min_scale=1.0,
-                            max_scale=8.0)
+    ours = DynamicLossScale(2.0, device="cpu", growth_interval=2,
+                            min_scale=1.0, max_scale=8.0)
     theirs = JaxLossScale.create(init_scale=2.0, growth_interval=2,
                                  min_scale=1.0, max_scale=8.0)
     for finite in [1, 1, 1, 1, 1, 1, 0, 1, 0, 0, 0, 0, 1]:
@@ -237,7 +249,7 @@ def test_loss_scale_grow_backoff_and_clamps_match_jax():
 
 
 def test_loss_scale_unscale_is_exact_at_pow2():
-    ls = DynamicLossScale(float(2 ** 15))
+    ls = DynamicLossScale(float(2 ** 15), device="cpu")
     grads = [torch.tensor([1.5, -2.25, 3e-4]), torch.tensor([[7.0]])]
     want = [g.clone() for g in grads]
     scaled = [ls.scale_loss(g) for g in grads]
@@ -256,7 +268,8 @@ def _tiny_state(policy):
                           weight_decay=5e-4)
     for group in opt.param_groups:
         group.update(base_lr=0.1, lr_scale=1.0)
-    return TrainState(module, opt, loss_scale=policy.make_loss_scale())
+    return TrainState(module, opt,
+                      loss_scale=policy.make_loss_scale(device="cpu"))
 
 
 def _snapshot(state):
@@ -521,7 +534,7 @@ def test_carried_loss_scale_lands_in_the_port_state(mid_training):
     module = create_model("alexnet1", device=CPU, num_classes=CLASSES,
                           input_size=SIZE)
     opt, _ = make_optimizer(get_config("alexnet1"), module.parameters())
-    state = TrainState(module, opt, loss_scale=DynamicLossScale())
+    state = TrainState(module, opt, loss_scale=DynamicLossScale(device="cpu"))
     load_flax_train_state(state, flax_train_state_to_torch(
         "alexnet1", loss_scale={"scale": np.float32(4096.0),
                                 "good_steps": np.int32(7)}, **kw))
