@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and in a
-directory that does not hold the port. It drives the port's two main
-paths, serving AlexNet V1 and training it, and holds every kernel on
-them against its plain version. Phases, each of which raises on failure
-(nothing is caught):
+directory that does not hold the port. It drives the port's main paths,
+serving and training AlexNet V1 and Inception V1 (``inception1_ref``,
+whose stem LRNs have the wide windows n=64 and n=192, and the BN variant
+``inception1``), and holds every kernel on them against its plain
+version. Phases, each of which raises on failure (nothing is caught):
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    and the float32 policy (TF32 off for cuDNN and cuBLAS);
@@ -17,51 +18,58 @@ them against its plain version. Phases, each of which raises on failure
 3. kernels vs plain versions on the card, forward and backward, at every
    LRN shape of the model zoo (AlexNet V1 at the training batch of 128
    and the serving batch of 64, and V2-TF, with n=5, k=2; the Inception
-   V1 stem with n=64 and n=192, k=1), odd channel counts, row
-   counts that leave a ragged last tile, the widest C, and narrow odd and
-   even windows on the prefix-sum path (n=3, 4 and 6): f32 to atol
-   1e-5 and rtol 1e-5, bf16 to atol 1e-2 and one bf16 step (rtol 2^-7)
-   against the plain version run in bf16; the backward's incoming
-   gradient is N(0, 1) from a seed. A base pointer off 16 bytes (the
-   forward's x, the backward's g) is refused with no launch counted;
+   V1 stem with n=64 and n=192, k=1, at the training batch of 128 and at
+   8), odd channel counts, row counts that leave a ragged last tile, the
+   widest C, and narrow odd and even windows on the prefix-sum path
+   (n=3, 4 and 6): f32 to atol 1e-5 and rtol 1e-5, bf16 to atol 1e-2
+   and one bf16 step (rtol 2^-7) against the plain version run in bf16;
+   the backward's incoming gradient is N(0, 1) from a seed. A base
+   pointer off 16 bytes (the forward's x, the backward's g) is refused
+   with no launch counted;
 4. times, with CUDA events (``deepvision_tpu_torch/timing.py``: median of
    100 runs after 10 of warm-up, the stream held busy while the host
    queues them), of each kernel, its plain version and the library call
    (``F.local_response_norm``, and for the backward only the autograd
-   backward of it) at AlexNet V1's two LRNs at the training batch of 128
-   and the three Inception V1 stem LRNs (n=64 on C=64, n=192 and n=5 on
-   C=192) at batch 64, beside the least time the card could take. "Cold"
-   rotates over distinct buffers, at least 100 MB of inputs, so that
-   each call misses the 50 MB L2; "warm" calls on one buffer. Beside each
-   kernel, what the card reaches in practice on the same bytes: a copy
-   for the forward (one read, one write), ``torch.add(x, g)`` for the
-   backward (two reads, one write);
-5. serve (main path 1): ``load_served("alexnet1")`` at 224x224x3 and
-   1000 classes with seeded weights, an ``InferenceEngine`` on buckets
-   (1, 4, 16, 64), 96 seeded requests held against the same module run
-   with the plain LRN, 2 LRN launches per batch; ``torch.profiler``
-   windows over one bucket-64 batch;
+   backward of it) at AlexNet V1's two LRNs and Inception V1's two stem
+   LRNs at the training batch of 128, and the Inception stem's shapes at
+   batch 64 (n=64 on C=64, n=192 and n=5 on C=192), beside the least
+   time the card could take. "Cold" rotates over distinct buffers, at
+   least 100 MB of inputs, so that each call misses the 50 MB L2; "warm"
+   calls on one buffer. Beside each kernel, what the card reaches in
+   practice on the same bytes: a copy for the forward (one read, one
+   write), ``torch.add(x, g)`` for the backward (two reads, one write);
+5. serve: ``load_served`` of AlexNet V1, later of ``inception1_ref``, at
+   224x224x3 and 1000 classes with seeded weights, an
+   ``InferenceEngine`` on buckets (1, 4, 16, 64), 96 seeded requests
+   held against the same module run with the plain LRN (probabilities
+   within 1e-4), 2 LRN launches per batch; ``torch.profiler`` windows
+   over one bucket-64 batch;
 6. the serving CLI, ``python -m deepvision_tpu_torch.serve``, answering
-   like the engine;
-7. a train step on the card, kernel vs plain: ``alexnet1`` at full width,
-   batch 128, seeded weights, float32 with TF32 off, dropout off, 3 steps
-   with the kernels and 3 with the plain forward, which autograd
-   differentiates (independent of the analytic backward): loss within
-   rtol 1e-4 and every parameter within atol 1e-5, with the gap measured
-   beside the gap between two plain runs (cuDNN's backward is not
-   deterministic); 2 forward and 2 backward LRN launches a step;
-8. train (main path 2): the port's ``Trainer`` at full width in its
-   config's bf16 policy, one epoch on the synthetic set, counting the
-   LRN launches;
+   like the engine (AlexNet V1);
+7. a train step on the card, kernel vs plain: AlexNet V1, later
+   ``inception1_ref`` (aux heads on at 0.3), at full width, batch 128,
+   seeded weights, float32 with TF32 off, dropout off, 3 steps with the
+   kernels and 3 with the plain forward, which autograd differentiates
+   (independent of the analytic backward): loss within rtol 1e-4 and
+   every parameter within atol 1e-5, with the gap measured beside the
+   gap between two plain runs (cuDNN's backward is not deterministic);
+   2 forward and 2 backward LRN launches a step;
+8. train: the port's ``Trainer`` at full width in the config's bf16
+   policy, one epoch on the synthetic set, counting the LRN launches:
+   AlexNet V1, ``inception1_ref`` and ``inception1`` (no LRN);
 9. the training CLI at full width, ``python -m deepvision_tpu_torch.train
    -m alexnet1 --synthetic-size 640 --epochs 2`` (4 steps an epoch at
    batch 128, bf16), then ``--resume --epochs 3`` from its checkpoints,
-   then ``load_served`` from the newest one;
+   then ``load_served`` from the newest one; the same for
+   ``inception1_ref`` and ``inception1`` at 2 steps an epoch, where the
+   BN variant's running statistics must have moved and come back bit for
+   bit from a restore, with the LR schedule's update count;
 10. training throughput at batch 128 in bf16 over 24 timed steps after
    warm-up, through the device feed and on a device-resident batch, and
    ``torch.profiler`` windows over one step, with the kernel that runs
    just before each ``lrn_backward_*`` launch (a copy there is the
-   ``g.contiguous()`` of ``ops/lrn.py``'s backward).
+   ``g.contiguous()`` of ``ops/lrn.py``'s backward): AlexNet V1,
+   ``inception1_ref`` and ``inception1``.
 
 It then prints the ``{"kernels": [...]}`` line (all four entry points;
 per-shape times under ``shapes``, launches by path under
@@ -71,6 +79,7 @@ per-shape times under ``shapes``, launches by path under
 
 from __future__ import annotations
 
+import ast
 import copy
 import json
 import os
@@ -102,7 +111,12 @@ TRAIN_BATCH = 128
 # O(C) and not O(C*n) only if n=192 takes about the time of n=5
 ALEXNET_V1_LRNS = [("lrn1", (TRAIN_BATCH, 55, 55, 96), 5, 2.0),
                    ("lrn2", (TRAIN_BATCH, 27, 27, 256), 5, 2.0)]
-TIMED_LRNS = ALEXNET_V1_LRNS + [
+# Inception V1's stem LRNs (inception1_ref) at the training batch
+INCEPTION_V1_LRNS = [("inception1_lrn1_b128", (TRAIN_BATCH, 56, 56, 64), 64,
+                      1.0),
+                     ("inception1_lrn2_b128", (TRAIN_BATCH, 56, 56, 192),
+                      192, 1.0)]
+TIMED_LRNS = ALEXNET_V1_LRNS + INCEPTION_V1_LRNS + [
     ("inception1_lrn1", (64, 56, 56, 64), 64, 1.0),
     ("inception1_lrn2", (64, 56, 56, 192), 192, 1.0),
     ("inception1_c192_n5", (64, 56, 56, 192), 5, 1.0),
@@ -119,6 +133,8 @@ LRN_BWD_OPS_PER_ELEMENT = 20
 PARITY_CASES = [
     *((f"alexnet1_{name}_b{TRAIN_BATCH}", shape, size, k, 1.0)
       for name, shape, size, k in ALEXNET_V1_LRNS),
+    *((name, shape, size, k, 2.0)
+      for name, shape, size, k in INCEPTION_V1_LRNS),
     ("alexnet1_lrn1", (64, 55, 55, 96), 5, 2.0, 1.0),
     ("alexnet1_lrn2", (64, 27, 27, 256), 5, 2.0, 1.0),
     ("alexnet2_tf_lrn1", (8, 55, 55, 64), 5, 2.0, 1.0),
@@ -447,19 +463,20 @@ def _check_against(results, ref_probs, ref_classes, full_probs,
                 f"plain-LRN run has {ref_classes[i, j]} (gap {gap:.2e})")
 
 
-def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
-    """The port's main path; returns the LRN launches it made by kernel,
-    the answers and the inputs."""
+def phase_serve(smi: str, name: str = "alexnet1"
+                ) -> tuple[dict[str, int], list, np.ndarray]:
+    """Serving ``name`` in float32, a main path; returns the LRN launches
+    it made by kernel, the answers and the inputs."""
     import torch
 
     from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
     from deepvision_tpu_torch.serve import InferenceEngine, load_served
 
     t0 = time.perf_counter()
-    served = load_served("alexnet1", seed=0)
+    served = load_served(name, seed=0)
     engine = InferenceEngine([served], buckets=BUCKETS,
                              batch_window_s=0.002)
-    _say(f"[serve] alexnet1 {served.input_shape} -> 1000 classes on "
+    _say(f"[serve] {name} {served.input_shape} -> 1000 classes on "
          f"{served.device}, {sum(p.numel() for p in served.module.parameters())}"
          f" parameters; load + warm-up {time.perf_counter() - t0:.2f} s; "
          f"precision {engine.precision}")
@@ -481,10 +498,10 @@ def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
     assert snap["completed"] == N_REQUESTS and snap["failed"] == 0, snap
     assert launches == 2 * batches, (launches, batches)
     assert by_kernel["lrn_forward_f32"] == launches, by_kernel
-    _say(f"[serve] {N_REQUESTS} requests in {batches} batches "
+    _say(f"[serve] {name}: {N_REQUESTS} requests in {batches} batches "
          f"(pad overhead {snap['pad_overhead_frac']}); LRN launches "
          f"{launches} = 2 per batch; {by_kernel}")
-    _say(f"[serve] {N_REQUESTS / wall:.1f} images/s, e2e p50 "
+    _say(f"[serve] {name}: {N_REQUESTS / wall:.1f} images/s, e2e p50 "
          f"{snap['e2e_latency']['p50_ms']} ms p95 "
          f"{snap['e2e_latency']['p95_ms']} ms, device time per batch p50 "
          f"{snap['device_time']['p50_ms']} ms (offered as one burst; "
@@ -499,11 +516,11 @@ def phase_serve(smi: str) -> tuple[dict[str, int], list, np.ndarray]:
         top_p, top_c = torch.topk(probs, 5, dim=-1)
     _check_against(results, top_p.cpu().numpy(), top_c.cpu().numpy(),
                    probs.cpu().numpy(), atol=1e-4)
-    _say("[serve] every answer matches the plain-LRN run of the same "
-         "module (probs within 1e-4)")
+    _say(f"[serve] {name}: every answer matches the plain-LRN run of the "
+         "same module (probs within 1e-4)")
     batch = xs[:BUCKETS[-1]]
     served.run(batch)  # warm: the engine already ran this bucket
-    _profile(lambda: served.run(batch), f"bucket-{len(batch)} batch")
+    _profile(lambda: served.run(batch), f"{name} bucket-{len(batch)} batch")
     return by_kernel, results, xs
 
 
@@ -573,9 +590,9 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
          f"kernels/copies; LRN {lrn_us / 1e3:.4f} ms = "
          f"{lrn_us / total_us:.2%} of device time")
     ranked = sorted(on_device, key=device_us, reverse=True)
-    # the top kernels, and every LRN kernel wherever it ranks
-    for e in ranked[:top] + [e for e in ranked[top:]
-                             if "lrn" in e.key.lower()]:
+    # the top kernels, and every LRN kernel and copy wherever it ranks
+    for e in ranked[:top] + [e for e in ranked[top:] if any(
+            word in e.key.lower() for word in ("lrn", "copy", "memcpy"))]:
         _say(f"[profile]   {device_us(e) / 1e3:9.4f} ms "
              f"{device_us(e) / total_us:6.2%} x{e.count} {e.key[:110]}")
     if before:
@@ -650,10 +667,11 @@ def _train_batch(n: int, classes: int = 1000, seed: int = 0) -> dict:
             "label": rng.integers(0, classes, n).astype(np.int32)}
 
 
-def phase_train_step(steps: int = 3) -> dict[str, int]:
-    """The train step on the card, kernels against plain versions, in
-    float32 with TF32 off and dropout off; returns the kernel run's LRN
-    launches."""
+def phase_train_step(name: str = "alexnet1", steps: int = 3
+                     ) -> dict[str, int]:
+    """The train step of ``name`` on the card, kernels against plain
+    versions, in float32 with TF32 off and dropout off (aux heads on, at
+    0.3); returns the kernel run's LRN launches."""
     import torch
 
     from deepvision_tpu_torch.core.prng import KeySeq
@@ -666,9 +684,11 @@ def phase_train_step(steps: int = 3) -> dict[str, int]:
     from deepvision_tpu_torch.train.steps import classification_train_step
 
     strict_fp32()
-    cfg = get_config("alexnet1")
-    base = create_model("alexnet1", device=torch.device("cuda"), seed=0)
-    base.dropout_rate = 0.0
+    cfg = get_config(name)
+    base = create_model(name, device=torch.device("cuda"), seed=0)
+    for m in base.modules():
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in _train_batch(TRAIN_BATCH).items()}
 
@@ -676,7 +696,7 @@ def phase_train_step(steps: int = 3) -> dict[str, int]:
         module = copy.deepcopy(base)
         if lrn is not None:
             module.lrn = lrn
-        optimizer, _ = make_optimizer(cfg, module.parameters())
+        optimizer, _ = make_optimizer(cfg, module.parameters(), 1000)
         state = TrainState(module, optimizer)
         keys = KeySeq(1, 0, device="cuda")
         losses = [classification_train_step(state, batch, next(keys),
@@ -701,7 +721,7 @@ def phase_train_step(steps: int = 3) -> dict[str, int]:
     ref, ref2 = run(plain), run(plain)
     loss_gap, param_gap = gap(kernel, ref)
     noise_loss, noise_param = gap(ref2, ref)
-    _say(f"[train-step] alexnet1 batch {TRAIN_BATCH} f32 (TF32 off, dropout "
+    _say(f"[train-step] {name} batch {TRAIN_BATCH} f32 (TF32 off, dropout "
          f"off), {steps} steps in {time.perf_counter() - t0:.1f} s for three "
          f"runs: losses kernel {kernel[0]} plain {ref[0]}; kernel vs plain: "
          f"loss rel gap {loss_gap:.3e}, max param abs gap {param_gap:.3e}; "
@@ -714,10 +734,11 @@ def phase_train_step(steps: int = 3) -> dict[str, int]:
     return launches
 
 
-def phase_trainer(workdir: Path) -> tuple[dict[str, int], object]:
-    """Main path 2: the port's Trainer at full width in the config's bf16
-    policy, one epoch of 2 steps; returns its LRN launches and the
-    trainer."""
+def phase_trainer(workdir: Path, name: str = "alexnet1", lrns: int = 2
+                  ) -> tuple[dict[str, int], object]:
+    """Training ``name``, a main path: the port's Trainer at full width
+    in the config's bf16 policy, one epoch of 2 steps, ``lrns`` LRNs a
+    forward; returns its LRN launches and the trainer."""
     import torch
 
     from deepvision_tpu_torch.data.mnist import batches
@@ -726,10 +747,11 @@ def phase_trainer(workdir: Path) -> tuple[dict[str, int], object]:
     from deepvision_tpu_torch.train.configs import get_config
     from deepvision_tpu_torch.train.trainer import Trainer
 
-    cfg = get_config("alexnet1")
+    cfg = get_config(name)
     bs = cfg["batch_size"]
     imgs, labels, split = synthetic_classification(384, 224, 3, 1000, bs)
-    module = create_model("alexnet1", device=torch.device("cuda"), seed=0,
+    steps = (len(imgs) - split) // bs
+    module = create_model(name, device=torch.device("cuda"), seed=0,
                           dtype=torch.bfloat16)
     trainer = Trainer(
         module, cfg,
@@ -737,20 +759,19 @@ def phase_trainer(workdir: Path) -> tuple[dict[str, int], object]:
                           rng=np.random.default_rng(e)),
         lambda: batches(imgs[:split], labels[:split], bs,
                         drop_remainder=False),
-        workdir=workdir, log_every=0)
+        workdir=workdir, log_every=0, steps_per_epoch=steps)
     _zero_launch_counts()
     loggers = trainer.fit(1)
     launches = _launch_counts()
-    steps = (len(imgs) - split) // bs
     evals = 2 * -(-split // bs)  # before and after the epoch
-    _say(f"[trainer] alexnet1 bf16 batch {bs}: {steps} steps, loss "
+    _say(f"[trainer] {name} bf16 batch {bs}: {steps} steps, loss "
          f"{loggers.latest('train_loss'):.4f}, val_loss "
          f"{loggers.latest('val_loss'):.4f}, "
          f"{loggers.latest('examples_per_sec'):.1f} images/s (first epoch, "
          f"warm-up included); LRN launches {launches}")
     assert np.isfinite(loggers.latest("train_loss"))
-    assert launches["lrn_forward_bf16"] == 2 * (steps + evals), launches
-    assert launches["lrn_backward_bf16"] == 2 * steps, launches
+    assert launches["lrn_forward_bf16"] == lrns * (steps + evals), launches
+    assert launches["lrn_backward_bf16"] == lrns * steps, launches
     assert trainer.ckpt.latest_epoch() == 0
     return launches, trainer
 
@@ -764,32 +785,46 @@ def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
     return proc
 
 
-def phase_train_cli(workdir: Path) -> None:
-    """The training CLI at full width: 2 epochs, a resume to 3, then the
-    served model from the newest checkpoint."""
+def phase_train_cli(workdir: Path, name: str = "alexnet1",
+                    steps: int | None = None, lrns: int = 2) -> None:
+    """The training CLI of ``name`` at full width: 2 epochs (of ``steps``
+    steps, if given), a resume to 3, then the served model from the
+    newest checkpoint. The LRN kernels launched if the model has
+    ``lrns`` LRNs a forward, and not otherwise. A model with BN: its
+    running statistics moved and a restore gives them back bit for bit,
+    with the schedule's update count."""
     import torch
 
+    from deepvision_tpu_torch.models import create_model
     from deepvision_tpu_torch.serve import load_served
     from deepvision_tpu_torch.train import manifest
     from deepvision_tpu_torch.train.checkpoint import CheckpointManager
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
 
-    common = ["-m", "alexnet1", "--synthetic-size", "640", "--workdir",
+    common = ["-m", name, "--synthetic-size", "640", "--workdir",
               str(workdir)]
+    if steps:
+        common += ["--steps-per-epoch", str(steps)]
     t0 = time.perf_counter()
     first = _run_cli([*common, "--epochs", "2"])
     epochs = [ln for ln in first.stdout.splitlines() if ln.startswith("[")]
-    ckpt = workdir / "alexnet1" / "ckpt"
+    ckpt = workdir / name / "ckpt"
     for e in (0, 1):
         ok, why = manifest.verify_manifest(ckpt, e)
         assert ok and why == "ok", (e, why)
-    _say(f"[train-cli] 2 epochs in {time.perf_counter() - t0:.1f} s:")
+    _say(f"[train-cli] {name}: 2 epochs in {time.perf_counter() - t0:.1f} s:")
     for line in epochs:
         _say(f"[train-cli]   {line[:300]}")
     _say(f"[train-cli]   {first.stderr.strip().splitlines()[-1]}")
     loss = [float(m) for m in re.findall(r"\] train_loss=(\S+)",
                                          first.stdout)]
     assert len(loss) == 2 and np.all(np.isfinite(loss)), loss
-    assert "'lrn_backward_bf16': 0" not in first.stderr, first.stderr
+    launches = ast.literal_eval(
+        first.stderr.rsplit("LRN kernel launches ", 1)[1].strip())
+    for kernel in ("lrn_forward_bf16", "lrn_backward_bf16"):
+        assert (launches[kernel] > 0) == (lrns > 0), (kernel, launches)
 
     t0 = time.perf_counter()
     second = _run_cli([*common, "--epochs", "3", "--resume"])
@@ -797,25 +832,45 @@ def phase_train_cli(workdir: Path) -> None:
     assert re.search(r"^\[epoch 2\] ", second.stdout, re.M), second.stdout
     assert not re.search(r"^\[epoch [01]\] ", second.stdout, re.M)
     assert manifest.verify_manifest(ckpt, 2) == (True, "ok")
-    _say(f"[train-cli] --resume --epochs 3 started at epoch 2 and saved it "
-         f"in {time.perf_counter() - t0:.1f} s; "
+    _say(f"[train-cli] {name}: --resume --epochs 3 started at epoch 2 and "
+         f"saved it in {time.perf_counter() - t0:.1f} s; "
          f"{second.stderr.strip().splitlines()[-1]}")
 
-    served = load_served("alexnet1", str(workdir / "alexnet1"))
+    served = load_served(name, str(workdir / name))
     want, _ = CheckpointManager(ckpt).restore_model(2, "cuda")
-    for name, tensor in served.module.state_dict().items():
-        assert torch.equal(tensor, want[name]), name
+    for key, tensor in served.module.state_dict().items():
+        assert torch.equal(tensor, want[key]), key
     out = served.run(_train_batch(8, seed=3)["image"])
     assert out["classes"].shape == (8, 5)
     assert np.all(np.isfinite(out["probs"])), out
-    _say("[train-cli] load_served answers from the epoch-2 checkpoint "
-         f"(weights equal to it; top-1 of 8 images {out['classes'][:, 0]})")
+    _say(f"[train-cli] {name}: load_served answers from the epoch-2 "
+         f"checkpoint (weights equal to it; top-1 of 8 images "
+         f"{out['classes'][:, 0]})")
+    stats = [k for k in want if k.endswith((".bn.mean", ".bn.var"))]
+    if stats:
+        fresh = create_model(name, device=torch.device("cuda"), seed=1,
+                             dtype=torch.bfloat16)
+        cfg = get_config(name)
+        opt, _ = make_optimizer(cfg, fresh.parameters(), steps)
+        CheckpointManager(ckpt).restore(TrainState(fresh, opt), 2)
+        moved = [k for k in stats if k.endswith(".bn.mean") and want[k].any()
+                 or k.endswith(".bn.var") and not torch.equal(
+                     want[k], torch.ones_like(want[k]))]
+        restored = fresh.state_dict()
+        assert all(torch.equal(restored[k], want[k]) for k in want)
+        assert float(opt.count) == 3.0 * steps, float(opt.count)
+        assert len(moved) == len(stats), sorted(set(stats) - set(moved))[:5]
+        _say(f"[train-cli] {name}: all {len(stats)} BN running statistics "
+             f"moved from their fresh values (mean 0, var 1); a restore "
+             f"gives them back bit for bit, with the update count "
+             f"{float(opt.count):.0f}")
 
 
-def phase_throughput(trainer, steps: int = 24, warmup: int = 3) -> None:
-    """Training images/s at batch 128 in bf16: through the device feed,
-    and on one device-resident batch; then profiler windows over one
-    step."""
+def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
+                     warmup: int = 3) -> None:
+    """Training images/s of ``name`` at batch 128 in bf16: through the
+    device feed, and on one device-resident batch; then profiler windows
+    over one step."""
     import itertools
 
     import torch
@@ -854,7 +909,7 @@ def phase_throughput(trainer, steps: int = 24, warmup: int = 3) -> None:
         m = step(resident)
     m["loss"].item()
     dev = steps * TRAIN_BATCH / (time.perf_counter() - t0)
-    _say(f"[throughput] alexnet1 train bf16 batch {TRAIN_BATCH}, {steps} "
+    _say(f"[throughput] {name} train bf16 batch {TRAIN_BATCH}, {steps} "
          f"timed steps after {warmup}: {fed:.1f} images/s through the device "
          f"feed (h2d_wait {tel['h2d_wait_ms']} ms, step {tel['step_ms']} ms "
          f"a batch), {dev:.1f} images/s on a device-resident batch; loss "
@@ -866,7 +921,7 @@ def phase_throughput(trainer, steps: int = 24, warmup: int = 3) -> None:
         torch.cuda.synchronize()
 
     # does the layout step of the LRN's backward (g.contiguous()) copy?
-    _profile(one_step, f"train step bf16 batch {TRAIN_BATCH}",
+    _profile(one_step, f"{name} train step bf16 batch {TRAIN_BATCH}",
              before="lrn_backward")
 
 
@@ -896,6 +951,22 @@ def main() -> int:
     paths["trainer_bf16"], trainer = phase_trainer(workdir / "inproc")
     phase_train_cli(workdir / "cli")
     phase_throughput(trainer)
+    trainer = None
+    # Inception V1: the reference's BN-free variant, whose stem LRNs
+    # (n=64, n=192) run on the kernels, then the BN variant
+    paths["inception1_ref_serve_f32"], _, _ = phase_serve(smi,
+                                                          "inception1_ref")
+    paths["inception1_ref_train_step_f32"] = phase_train_step(
+        "inception1_ref")
+    paths["inception1_ref_trainer_bf16"], trainer = phase_trainer(
+        workdir / "inproc_inception1_ref", "inception1_ref")
+    phase_throughput(trainer, "inception1_ref")
+    paths["inception1_trainer_bf16"], trainer = phase_trainer(
+        workdir / "inproc_inception1", "inception1", lrns=0)
+    phase_throughput(trainer, "inception1")
+    trainer = None
+    phase_train_cli(workdir / "cli", "inception1_ref", steps=2)
+    phase_train_cli(workdir / "cli", "inception1", steps=2, lrns=0)
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []

@@ -1,23 +1,28 @@
 """Carry the JAX package's weights into the port's modules.
 
 :func:`flax_to_torch` takes flax ``variables`` as nested dicts of numpy
-arrays (``{"params": {"conv1": {"kernel": ..., "bias": ...}, ...}}``)
-and returns the ``state_dict`` of the port's module of the same name:
+arrays (``{"params": {"conv1": {"kernel": ..., "bias": ...}, ...},
+"batch_stats": {...}}``) and returns the ``state_dict`` of the port's
+module of the same name:
 
 - a conv kernel ``(KH, KW, I, O)`` becomes ``(O, I, KH, KW)``;
 - a Dense kernel ``(in, out)`` is transposed;
-- biases are copied.
+- biases and BatchNorm ``scale`` and ``bias`` are copied from
+  ``params``, and a module's buffers (BatchNorm ``mean`` and ``var``)
+  from ``batch_stats``.
 
-The port's parameter names follow the flax module paths (``conv1.weight``
-is ``params/conv1/kernel``), so no name table is needed. A leaf the port
-expects and the tree lacks, a leaf the tree has and the port does not
-use, or a shape that does not match raises ``ValueError``.
+The port's names follow the flax module paths (``conv1.weight`` is
+``params/conv1/kernel``, ``i3a.b1.bn.mean`` is
+``batch_stats/i3a/b1/bn/mean``), so no name table is needed. A leaf the
+port expects and the tree lacks, a leaf the tree has and the port does
+not use, or a shape that does not match raises ``ValueError``.
 
 :func:`flax_train_state_to_torch` carries a JAX ``TrainState`` mid
-training (params, the SGD momentum ``trace``, the step, the plateau's
-``lr_scale`` and the loss scale, as numpy) and
-:func:`load_flax_train_state` writes it into the port's train state, so
-that a step can start from the same point on both sides.
+training (params, BN ``batch_stats``, the SGD momentum ``trace``, the
+step, the LR schedule's update count, the plateau's ``lr_scale`` and the
+loss scale, as numpy) and :func:`load_flax_train_state` writes it into
+the port's train state, so that a step can start from the same point on
+both sides.
 """
 
 from __future__ import annotations
@@ -54,18 +59,19 @@ def _to_torch_layout(a: np.ndarray) -> np.ndarray:
     return a
 
 
-def flax_to_torch(model_name: str, variables: Mapping[str, Any],
-                  **model_kw) -> dict[str, torch.Tensor]:
-    """The port module's ``state_dict`` (CPU float tensors) from flax
-    ``variables``. ``model_kw`` (``num_classes``, ``input_size``, ...)
-    builds the module whose shapes the leaves are checked against."""
+def _convert(model_name: str, variables: Mapping[str, Any],
+             params_only: bool, model_kw: dict) -> dict[str, torch.Tensor]:
     with torch.device("meta"):
-        expected = get_model(model_name, **model_kw).state_dict()
+        module = get_model(model_name, **model_kw)
+    buffers = {name for name, _ in module.named_buffers()}
+    expected = (dict(module.named_parameters()) if params_only
+                else module.state_dict())
     leaves = _flatten(variables)
     out: dict[str, torch.Tensor] = {}
     for name, ref in expected.items():
         *modules, leaf = name.split(".")
-        path = ("params", *modules, _LEAF.get(leaf, leaf))
+        collection = "batch_stats" if name in buffers else "params"
+        path = (collection, *modules, _LEAF.get(leaf, leaf))
         if path not in leaves:
             raise ValueError(
                 f"{model_name}: flax variables lack {'/'.join(path)} "
@@ -85,22 +91,39 @@ def flax_to_torch(model_name: str, variables: Mapping[str, Any],
     return out
 
 
+def flax_to_torch(model_name: str, variables: Mapping[str, Any],
+                  **model_kw) -> dict[str, torch.Tensor]:
+    """The port module's ``state_dict`` (CPU float tensors) from flax
+    ``variables`` (``params``, and ``batch_stats`` for a model with
+    BatchNorm). ``model_kw`` (``num_classes``, ``input_size``, ...)
+    builds the module whose shapes the leaves are checked against."""
+    return _convert(model_name, variables, False, model_kw)
+
+
 def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
                               trace: Mapping[str, Any], step: int,
+                              batch_stats: Mapping[str, Any] | None = None,
+                              count: int | None = None,
                               lr_scale: float = 1.0,
                               loss_scale: Mapping[str, Any] | None = None,
                               **model_kw) -> dict:
     """A JAX train state, as numpy, in the port's terms:
     ``{"model": state_dict, "momentum": {param name: buffer}, "step",
-    "lr_scale", "loss_scale"}``. ``params`` and ``trace`` are the flax
-    parameter tree and optax's momentum trace of the same structure;
-    ``loss_scale`` holds ``scale`` and ``good_steps`` (None without
-    scaling). The trace takes the parameters' layout change."""
+    "count", "lr_scale", "loss_scale"}``. ``params`` and ``trace`` are
+    the flax parameter tree and optax's momentum trace of the same
+    structure, ``batch_stats`` the BN statistics (for a model with BN);
+    ``count`` is the update count of a step-count LR schedule (optax's
+    ``ScaleByScheduleState``; None without one); ``loss_scale`` holds
+    ``scale`` and ``good_steps`` (None without scaling). The trace takes
+    the parameters' layout change."""
+    variables = {"params": params}
+    if batch_stats:
+        variables["batch_stats"] = batch_stats
     return {
-        "model": flax_to_torch(model_name, {"params": params}, **model_kw),
-        "momentum": flax_to_torch(model_name, {"params": trace},
-                                  **model_kw),
+        "model": flax_to_torch(model_name, variables, **model_kw),
+        "momentum": _convert(model_name, {"params": trace}, True, model_kw),
         "step": int(step),
+        "count": None if count is None else int(count),
         "lr_scale": float(lr_scale),
         "loss_scale": None if loss_scale is None else {
             k: np.asarray(loss_scale[k]) for k in ("scale", "good_steps")},
@@ -110,15 +133,21 @@ def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
 @torch.no_grad()
 def load_flax_train_state(state, carried: dict) -> None:
     """Write :func:`flax_train_state_to_torch`'s output into the port's
-    ``TrainState`` (its module, SGD momentum buffers, step, LR scale and
-    loss scale), on the state's device."""
-    from deepvision_tpu_torch.train.optimizers import set_lr_scale
+    ``TrainState`` (its module with its BN statistics, SGD momentum
+    buffers, step, schedule count, LR scale and loss scale), on the
+    state's device."""
+    from deepvision_tpu_torch.train.optimizers import (
+        set_lr_scale,
+        set_update_count,
+    )
 
     state.module.load_state_dict(carried["model"])
     for name, p in state.module.named_parameters():
         state.optimizer.state[p]["momentum_buffer"] = (
             torch.empty_like(p).copy_(carried["momentum"][name]))
     state.step = carried["step"]
+    if carried["count"] is not None:
+        set_update_count(state.optimizer, carried["count"])
     set_lr_scale(state.optimizer, carried["lr_scale"])
     ls = carried["loss_scale"]
     if (ls is None) != (state.loss_scale is None):

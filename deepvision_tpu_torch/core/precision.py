@@ -4,7 +4,10 @@ The twin of ``deepvision_tpu/core/precision.py``:
 
 - **float32 master weights**: parameters and optimizer state are
   float32; the models cast parameters to the compute dtype at use
-  (``models/layers.py``), so gradients reach the masters as float32;
+  (``models/layers.py``), so gradients reach the masters as float32.
+  No module is ever cast as a whole: BN's running statistics and affine
+  stay float32 too, and ``MixedBatchNorm`` casts its folded channel
+  affine to the compute dtype at use;
 - **bf16 activations**: the model's ``dtype`` is the policy's
   ``compute_dtype``; losses and softmax stay float32;
 - **dynamic loss scaling** (:class:`DynamicLossScale`): the loss is

@@ -9,7 +9,11 @@ NHWC tensor again.
 Mixed precision follows flax's ``dtype`` convention: parameters stay
 float32 masters and are cast to the compute ``dtype`` at use, inside the
 forward (:func:`conv2d`, :func:`dense`), so their gradients flow back
-through the cast as float32.
+through the cast as float32. :class:`MixedBatchNorm` keeps its
+statistics and its affine in float32 and casts them at use too.
+
+XLA's ``"SAME"`` padding is asymmetric under a stride (trap C2): the
+pads are spelled out by :func:`same_padding` and applied explicitly.
 """
 
 from __future__ import annotations
@@ -21,14 +25,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["conv2d", "dense", "dropout", "max_pool", "lecun_normal_",
+__all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
+           "global_avg_pool", "same_padding", "make_conv", "conv_padding",
+           "lecun_normal_", "he_normal_", "MixedBatchNorm", "ConvBN",
            "init_weights"]
 
 Padding = str | Sequence[tuple[int, int]]
 
 
 def _explicit_pads(padding: Padding) -> tuple[int, ...] | None:
-    """``"VALID"`` -> None; ``[(top, bottom), (left, right)]`` -> the
+    """``"VALID"`` or pairs of zeros -> None (``F.pad`` would copy the
+    tensor for nothing); ``[(top, bottom), (left, right)]`` -> the
     ``F.pad`` tuple for the H and W axes of an NHWC tensor."""
     if isinstance(padding, str):
         if padding.upper() != "VALID":
@@ -37,6 +44,8 @@ def _explicit_pads(padding: Padding) -> tuple[int, ...] | None:
                 f"{padding!r}")
         return None
     (top, bottom), (left, right) = padding
+    if not any((top, bottom, left, right)):
+        return None
     return (0, 0, left, right, top, bottom)
 
 
@@ -85,10 +94,78 @@ def max_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
     with -inf, so a padded cell never wins (XLA's SAME pads a stride-2
     pool asymmetrically; callers spell those pads out)."""
     pads = _explicit_pads(padding)
+    own = (0, 0)
     if pads is not None:
-        x = F.pad(x, pads, value=float("-inf"))
-    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, strides or window)
+        (top, bottom), (left, right) = padding
+        if top == bottom <= window[0] // 2 and left == right <= window[1] // 2:
+            own = (top, left)  # symmetric: the pool's own -inf padding
+        else:
+            x = F.pad(x, pads, value=float("-inf"))
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), window, strides or window, own)
     return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
+             strides: tuple[int, int] | None = None,
+             padding: Padding = "VALID") -> torch.Tensor:
+    """flax's ``nn.avg_pool`` over H and W of an NHWC tensor: each
+    window's sum over the window's full size, explicit pads counted as
+    zeros."""
+    pads = _explicit_pads(padding)
+    if pads is not None:
+        x = F.pad(x, pads)
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), window, strides or window)
+    return y.permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H and W, ``(B, H, W, C) -> (B, C)``, accumulated in
+    float32 and cast back to ``x.dtype``."""
+    return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype)
+
+
+def same_padding(in_hw: Sequence[int], window: Sequence[int],
+                 strides: Sequence[int]) -> list[tuple[int, int]]:
+    """XLA's ``"SAME"`` pads ``[(top, bottom), (left, right)]`` of a
+    window over ``in_hw``: ``ceil(in / s)`` outputs, a total pad of
+    ``max((ceil(in / s) - 1)·s + k - in, 0)``, its smaller half first.
+    Under stride 2 that is asymmetric where torch pads symmetrically: a
+    3x3/2 window pads 112 by (0, 1), a 7x7/2 one 224 by (2, 3)."""
+    pads = []
+    for n, k, s in zip(in_hw, window, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def make_conv(in_features: int, features: int, kernel: tuple[int, int],
+              strides: tuple[int, int] = (1, 1), padding: Padding = "SAME",
+              bias: bool = True) -> nn.Conv2d:
+    """The ``nn.Conv2d`` of flax's ``nn.Conv(features, kernel, strides,
+    padding)``. Symmetric pads (explicit ones, or a stride-1 ``"SAME"``
+    over an odd kernel) are the convolution's own; any other padding is
+    applied by :func:`conv2d` with what :func:`conv_padding` gives."""
+    own = 0
+    if padding == "SAME":
+        if all(s == 1 and k % 2 for k, s in zip(kernel, strides)):
+            own = [k // 2 for k in kernel]
+    elif not isinstance(padding, str) and all(lo == hi for lo, hi in padding):
+        own = [lo for lo, _ in padding]
+    return nn.Conv2d(in_features, features, kernel, strides, padding=own,
+                     bias=bias)
+
+
+def conv_padding(x: torch.Tensor, conv: nn.Conv2d,
+                 padding: Padding) -> Padding:
+    """The padding :func:`conv2d` applies to NHWC ``x`` for ``conv``
+    built by :func:`make_conv` with ``padding``: none where the
+    convolution pads itself, XLA's ``"SAME"`` pads at ``x``'s size, or
+    the explicit pairs as given."""
+    if padding == "VALID" or any(conv.padding):
+        return "VALID"
+    if padding == "SAME":
+        return same_padding(x.shape[1:3], conv.kernel_size, conv.stride)
+    return padding
 
 
 # stddev of a standard normal truncated to (-2, 2), which flax's
@@ -97,26 +174,127 @@ def max_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
 _TRUNC_STD = 0.87962566103423978
 
 
+def _truncated_normal_(weight: torch.Tensor, variance: float,
+                       generator: torch.Generator) -> None:
+    std = math.sqrt(variance) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     """flax's ``lecun_normal`` (its default kernel init): variance
     1/fan_in, truncated to two standard deviations. fan_in is the
     product of every axis but the output one, as flax counts it for a
     conv ``(KH, KW, I, O)`` or a Dense ``(in, out)`` kernel."""
-    std = math.sqrt(1.0 / weight[0].numel()) / _TRUNC_STD
-    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    _truncated_normal_(weight, 1.0 / weight[0].numel(), generator)
+
+
+def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``variance_scaling(2.0, "fan_out", "truncated_normal")``,
+    the JAX ``ConvBN``'s kernel init: variance 2/fan_out, truncated to
+    two standard deviations. fan_out is the output axis times the
+    receptive field, as flax counts it for a conv ``(KH, KW, I, O)`` or
+    a Dense ``(in, out)`` kernel."""
+    fan_out = weight.shape[0] * weight[0, 0].numel()
+    _truncated_normal_(weight, 2.0 / fan_out, generator)
+
+
+class MixedBatchNorm(nn.Module):
+    """BatchNorm over the channels of an NHWC tensor, computed as the JAX
+    package's ``MixedBatchNorm``, which ``torch.nn.BatchNorm2d`` is not
+    (trap C1): the running variance takes the biased batch variance,
+    and ``momentum`` is flax's (``ra = momentum·ra + (1 - momentum)·
+    batch``, torch's 1 - momentum).
+
+    ``train``: normalize by the batch's moments, E[x] and E[x²] - E[x]²
+    clamped at 0, taken with float32 accumulators (a bf16 input is
+    squared in bf16, as the JAX twin squares it), and update the running
+    ``mean`` and ``var`` in place. Otherwise normalize by the running
+    statistics. A float32 input takes flax's stock expression
+    ``(x - mean)·(rsqrt(var + eps)·scale) + bias``; any other dtype the
+    channel affine folded in float32, cast once, and one ``x·mul +
+    shift`` in that dtype. ``scale`` and ``bias`` are float32 parameters
+    and ``mean`` and ``var`` float32 buffers, named as flax's ``params``
+    and ``batch_stats`` leaves."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+        self.mean.zero_()
+        self.var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dims, dtype=torch.float32)
+            mean2 = (x * x).mean(dims, dtype=torch.float32)
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        if x.dtype == torch.float32:
+            return (x - mean) * mul + self.bias
+        shift = self.bias - mean * mul
+        return torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
+
+
+class ConvBN(nn.Module):
+    """The JAX ``ConvBN``: a convolution without bias (``conv``), then
+    :class:`MixedBatchNorm` (``bn``, momentum 0.9, eps 1e-5), then ReLU,
+    in the compute ``dtype``. Fresh kernels are ``he_normal``."""
+
+    kernel_init = staticmethod(he_normal_)
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: tuple[int, int] = (3, 3),
+                 strides: tuple[int, int] = (1, 1),
+                 padding: Padding = "SAME",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv = make_conv(in_features, features, kernel, strides,
+                              padding, bias=False)
+        self.bn = MixedBatchNorm(features)
+        self.padding = padding
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = conv2d(x, self.conv, conv_padding(x, self.conv, self.padding),
+                   self.dtype)
+        return torch.relu(self.bn(x, train))
 
 
 @torch.no_grad()
-def init_weights(module: nn.Module, generator: torch.Generator) -> None:
-    """Fresh weights from ``generator`` by the model's own kernel init:
-    ``module.kernel_init(weight, generator)`` for every Conv2d and
-    Linear, as the model's JAX twin declares it (the AlexNets keep flax's
-    default, :func:`lecun_normal_`), and zero biases. Works on a module
-    whose storage is uninitialised (``to_empty``)."""
-    kernel_init = module.kernel_init
-    for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
-            kernel_init(m.weight, generator)
-            if m.bias is not None:
-                m.bias.zero_()
+def init_weights(module: nn.Module, generator: torch.Generator,
+                 kernel_init=None) -> None:
+    """Fresh weights from ``generator`` as the model's JAX twin declares
+    them: each Conv2d and Linear by the ``kernel_init`` of its nearest
+    enclosing module that declares one (the AlexNets and Inception V1
+    keep flax's default, :func:`lecun_normal_`; :class:`ConvBN` declares
+    :func:`he_normal_`), zero biases, and every :class:`MixedBatchNorm`
+    at scale 1, bias 0, mean 0 and var 1. Modules are visited in
+    registration order. Works on a module whose storage is
+    uninitialised (``to_empty``)."""
+    kernel_init = getattr(module, "kernel_init", kernel_init)
+    if isinstance(module, (nn.Conv2d, nn.Linear)):
+        kernel_init(module.weight, generator)
+        if module.bias is not None:
+            module.bias.zero_()
+    elif isinstance(module, MixedBatchNorm):
+        module.reset_parameters()
+    for child in module.children():
+        init_weights(child, generator, kernel_init)

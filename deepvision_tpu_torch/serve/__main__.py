@@ -9,7 +9,8 @@ submission order; start-up chatter goes to stderr. ``-m`` is repeatable.
 Weights are fresh, drawn from ``--seed``, unless ``-m name=workdir``
 names a directory whose ``ckpt/`` holds the port trainer's checkpoints
 (``runs/alexnet1`` after ``python -m deepvision_tpu_torch.train -m
-alexnet1``): then the newest verified epoch. The HTTP surface and the
+alexnet1``, ``-m inception1=runs/inception1`` after training
+``inception1``): then the newest verified epoch. The HTTP surface and the
 fleet mode of ``serve.py`` come later.
 """
 

@@ -1,7 +1,9 @@
 """Served models: one load + post-process path for the engine and the CLI.
 
 The twin of ``deepvision_tpu/serve/models.py`` for the classify task,
-the only task of the models this slice serves. A
+the only task of the models the port serves (the AlexNets, Inception V1
+in both variants; a model with aux heads returns only its main logits
+in eval, as the JAX forward keeps only them). A
 :class:`ServedModel` holds the module on its device, the per-example
 input geometry, and a host-side ``postprocess`` that turns batch row
 ``i`` into a JSON-able result. The task head (softmax and top-k) runs on
@@ -96,7 +98,8 @@ def load_served(name: str, workdir: str | None = None, *,
     ``workdir`` naming the model's directory, as the JAX package's); its
     geometry unless ``input_size``/``num_classes`` say otherwise; else
     ``variables``, the JAX package's flax variables as nested numpy
-    dicts, carried across by ``convert.from_flax.flax_to_torch``; else
+    dicts (``params``, and ``batch_stats`` for a model with BN), carried
+    across by ``convert.from_flax.flax_to_torch``; else
     fresh weights, drawn from a ``torch.Generator`` seeded with
     ``seed``. A ``workdir`` without a verified checkpoint raises."""
     dev = resolve_device(device)

@@ -1,6 +1,8 @@
-"""Training CLI of the port, the twin of ``train.py`` for the AlexNets.
+"""Training CLI of the port, the twin of ``train.py`` for the AlexNets
+and Inception V1.
 
     python -m deepvision_tpu_torch.train -m alexnet1 [--resume] [--epochs N]
+    python -m deepvision_tpu_torch.train -m inception1_ref
 
 Without a data directory the run trains on the hermetic synthetic set
 (``data/synthetic.py``), as ``train.py`` does without ``--data-dir``. It
@@ -123,6 +125,7 @@ def main(argv=None) -> int:
     trainer = Trainer(
         module, cfg, train_data, val_data, device=device,
         workdir=args.workdir, prefetch_depth=args.prefetch_depth,
+        steps_per_epoch=steps,
         train_step=partial(classification_train_step, normalize_kind=kind),
         eval_step=partial(classification_eval_step, normalize_kind=kind))
     if args.resume or args.checkpoint is not None:

@@ -1,10 +1,15 @@
-"""The port's copy of the AlexNet entries of ``train/configs.py``.
+"""The port's copy of the AlexNet and Inception V1 entries of
+``train/configs.py``.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
-0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128);
-:func:`get_config` fills the JAX table's defaults. ``alexnet2_tf`` has no
-entry in the JAX table and stays serving-only here (its pixel
-convention is ``"tf"``): :data:`TRAINABLE` lists the models that train.
+0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
+``inception1`` its (SGD 0.01 / 0.9 / 2e-4, the ``inception_poly``
+schedule, bf16, batch 128); :func:`get_config` fills the JAX table's
+defaults and, as the JAX ``get_config`` does, gives a ``<model>_ref``
+variant (``inception1_ref``, the reference's BN-free architecture) its
+base model's entry under its own name. ``alexnet2_tf`` has no entry in
+the JAX table and stays serving-only here (its pixel convention is
+``"tf"``): :data:`TRAINABLE` lists the models that train.
 """
 
 from __future__ import annotations
@@ -32,20 +37,38 @@ TRAINING_CONFIG: dict[str, dict] = {
     "alexnet2": copy.deepcopy(_ALEXNET_TRAINING),
     "alexnet2_tf": {"input_size": 224, "channels": 3, "num_classes": 1000,
                     "augment": "tf"},
+    # ref: deepvision_tpu/train/configs.py "inception1"
+    "inception1": {
+        "precision": "bf16",
+        "augment": "pt",
+        "batch_size": 128,
+        "input_size": 224,
+        "optimizer": "sgd",
+        "optimizer_params": {"lr": 0.01, "momentum": 0.9,
+                             "weight_decay": 2e-4},
+        "scheduler": "inception_poly",
+        "total_epochs": 200,
+    },
 }
 
-TRAINABLE = tuple(sorted(n for n, c in TRAINING_CONFIG.items()
-                         if "optimizer" in c))
+# reference-exact variants, trained with their base model's entry
+_REF_VARIANTS = ("inception1_ref",)
+
+TRAINABLE = tuple(sorted(
+    [n for n, c in TRAINING_CONFIG.items() if "optimizer" in c]
+    + list(_REF_VARIANTS)))
 
 
 def get_config(name: str) -> dict:
-    """A deep copy of ``name``'s entry with the JAX table's defaults."""
+    """A deep copy of ``name``'s entry (a ``_ref`` variant's base
+    model's) with the JAX table's defaults."""
+    base = name.removesuffix("_ref") if name in _REF_VARIANTS else name
     try:
-        cfg = copy.deepcopy(TRAINING_CONFIG[name])
+        cfg = copy.deepcopy(TRAINING_CONFIG[base])
     except KeyError:
         raise KeyError(
             f"no config for {name!r}; known: "
-            f"{sorted(TRAINING_CONFIG)}") from None
+            f"{sorted([*TRAINING_CONFIG, *_REF_VARIANTS])}") from None
     cfg.setdefault("input_size", 224)
     cfg.setdefault("channels", 3)
     cfg.setdefault("num_classes", 1000)

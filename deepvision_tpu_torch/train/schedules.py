@@ -8,44 +8,54 @@
   LR scale, which ``train/optimizers.set_lr_scale`` writes into the
   optimizer's param groups.
 
-Each schedule maps the optimizer's step count (the count before the
-update, as optax's) to a learning rate, a Python float.
+Each schedule maps the optimizer's update count (the count before the
+update, as optax's: a float32 tensor on the device, or a Python int) to
+the learning rate as a float32 0-d tensor on the count's device, in
+float32 arithmetic as the JAX schedules compute it. The optimizer
+evaluates it on the card at every update (``train/optimizers.py``), so
+the host never waits for the count.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
+
+import torch
 
 __all__ = ["step_decay", "inception_poly", "linear_decay",
            "PlateauController"]
 
-Schedule = Callable[[int], float]
+Schedule = Callable[[torch.Tensor | int], torch.Tensor]
+
+
+def _count(count: torch.Tensor | int) -> torch.Tensor:
+    return torch.as_tensor(count, dtype=torch.float32)
 
 
 def step_decay(base_lr: float, steps_per_epoch: int, step_size_epochs: int,
                gamma: float) -> Schedule:
-    def schedule(count: int) -> float:
-        epoch = count // steps_per_epoch
+    def schedule(count):
+        epoch = _count(count) // steps_per_epoch
         return base_lr * gamma ** (epoch // step_size_epochs)
     return schedule
 
 
 def inception_poly(base_lr: float, steps_per_epoch: int) -> Schedule:
-    def schedule(count: int) -> float:
-        epoch = count // steps_per_epoch
-        if epoch < 60:
-            return base_lr * math.sqrt(max(1.0 - epoch / 60.0, 0.0))
-        return base_lr * (0.01 if epoch < 75 else 0.001)
+    def schedule(count):
+        epoch = _count(count) // steps_per_epoch
+        frac = torch.sqrt(torch.clamp(1.0 - epoch / 60.0, min=0.0))
+        return base_lr * torch.where(
+            epoch < 60, frac, torch.where(epoch < 75, 0.01, 0.001))
     return schedule
 
 
 def linear_decay(base_lr: float, total_steps: int,
                  decay_start: int) -> Schedule:
-    def schedule(count: int) -> float:
-        frac = (count - decay_start) / max(total_steps - decay_start, 1)
-        return base_lr * (1.0 - min(max(frac, 0.0), 1.0))
+    def schedule(count):
+        frac = (_count(count) - decay_start) / max(total_steps - decay_start,
+                                                    1)
+        return base_lr * (1.0 - torch.clamp(frac, 0.0, 1.0))
     return schedule
 
 

@@ -2,16 +2,21 @@
 
 The twin of ``deepvision_tpu/train/state.py``. PyTorch updates in place,
 so the state is one mutable object rather than a pytree returned anew:
-the module's parameters are the float32 masters, the optimizer holds the
-momentum buffers, ``step`` counts updates on the host (non-finite steps
-included, as the JAX state counts them), and ``loss_scale`` is the
-policy's :class:`DynamicLossScale` or None.
+the module's parameters are the float32 masters and its buffers the BN
+running statistics (flax's ``batch_stats``), the optimizer holds the
+momentum buffers (and, under a step-count schedule, the update count
+the learning rate follows, ``optimizer.count``), ``step`` counts updates
+on the host (non-finite steps included, as the JAX state counts them),
+and ``loss_scale`` is the policy's :class:`DynamicLossScale` or None.
 
 :meth:`TrainState.apply_gradients` with loss scaling runs the JAX
 state's sequence: unscale -> one ``all_finite`` -> zero the non-finite
-gradients -> update -> select. The select keeps the pre-step parameters
-and optimizer state where the step was not finite; it is a
-``torch.where`` on the device, so the step never waits for the host.
+gradients -> update -> select. The select keeps the pre-step parameters,
+optimizer state and BN statistics where the step was not finite; it is
+a ``torch.where`` on the device, so the step never waits for the host.
+The forward has already written the BN statistics by then, so the train
+step takes their pre-step copies first
+(:meth:`TrainState.copy_batch_stats`) and hands them to the select.
 """
 
 from __future__ import annotations
@@ -40,9 +45,22 @@ class TrainState:
         return self.loss_scale.scale_loss(loss)
 
     @torch.no_grad()
-    def apply_gradients(self) -> None:
+    def copy_batch_stats(self) -> list[torch.Tensor] | None:
+        """Copies of the module's buffers (the BN running statistics)
+        before a forward that updates them, for :meth:`apply_gradients`
+        to restore on a non-finite step; None without loss scaling,
+        where every step keeps its update."""
+        if self.loss_scale is None:
+            return None
+        return [b.clone() for b in self.module.buffers()]
+
+    @torch.no_grad()
+    def apply_gradients(self, batch_stats: list[torch.Tensor] | None = None
+                        ) -> None:
         """One update from the parameters' ``.grad`` (scaled by the loss
-        scale, if any)."""
+        scale, if any). ``batch_stats``: the buffers as they were before
+        this step's forward (:meth:`copy_batch_stats`), restored where the
+        step is not finite."""
         self.step += 1
         ls = self.loss_scale
         if ls is None:
@@ -61,6 +79,9 @@ class TrainState:
         before_p = [p.detach().clone() for p in params]
         before_s = [{k: v.clone() for k, v in self.optimizer.state[p].items()
                      if torch.is_tensor(v)} for p in params]
+        # a step-count schedule's update count (ScheduledSGD)
+        count = getattr(self.optimizer, "count", None)
+        before_count = None if count is None else count.clone()
         self.optimizer.step()
         for p, old, old_state in zip(params, before_p, before_s):
             p.copy_(torch.where(finite, p, old))
@@ -69,6 +90,10 @@ class TrainState:
                     # a buffer the step created holds zeros before it
                     prev = old_state.get(key, torch.zeros_like(value))
                     value.copy_(torch.where(finite, value, prev))
+        if count is not None:
+            count.copy_(torch.where(finite, count, before_count))
+        for b, old in zip(self.module.buffers(), batch_stats or ()):
+            b.copy_(torch.where(finite, b, old))
 
     def state_dict(self) -> dict:
         return {"model": self.module.state_dict(),

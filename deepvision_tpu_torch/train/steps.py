@@ -36,9 +36,12 @@ def classification_train_step(state: TrainState, batch: dict,
     ``normalize_kind`` is the uint8 wire's normalization (``"torch"`` for
     configs with ``augment: "pt"``). With ``label_b`` and ``lam`` in the
     batch the loss is mixup's convex pair ``lam·CE(y) + (1-lam)·CE(y_b)``;
-    top-k stays against ``label``. A model that returns a tuple adds its
-    auxiliary heads' losses at 0.3. The backward runs on the loss scaled
-    by the state's loss scale; the metrics carry the raw loss."""
+    top-k stays against ``label``. The module runs in training mode: BN
+    normalizes by the batch and updates its running statistics, as
+    flax's ``mutable=["batch_stats"]`` returns them. A model that
+    returns a tuple adds its auxiliary heads' losses at 0.3. The backward
+    runs on the loss scaled by the state's loss scale; the metrics carry
+    the raw loss."""
     images = maybe_normalize(batch["image"], normalize_kind)
     labels = batch["label"]
     labels_b, lam = batch.get("label_b"), batch.get("lam")
@@ -51,6 +54,7 @@ def classification_train_step(state: TrainState, batch: dict,
             logits, labels_b)
 
     state.optimizer.zero_grad(set_to_none=True)
+    batch_stats = state.copy_batch_stats()  # the forward updates them
     out = state.module(images, train=True, generator=generator)
     if isinstance(out, (tuple, list)):
         logits, *aux = out
@@ -61,7 +65,7 @@ def classification_train_step(state: TrainState, batch: dict,
         logits = out
         loss = mixed_ce(logits)
     state.scale_loss(loss).backward()
-    state.apply_gradients()
+    state.apply_gradients(batch_stats)
     return {"loss": loss.detach(), **topk_accuracy(logits.detach(), labels),
             **precision_metrics(state)}
 
@@ -69,8 +73,9 @@ def classification_train_step(state: TrainState, batch: dict,
 @torch.no_grad()
 def classification_eval_step(state: TrainState, batch: dict,
                              normalize_kind: str = "imagenet") -> dict:
-    """Count-weighted sums over one batch (0-d device tensors);
-    ``batch["mask"]`` (optional, 1/0 a row) drops padding rows."""
+    """Count-weighted sums over one batch (0-d device tensors), BN on
+    its running statistics; ``batch["mask"]`` (optional, 1/0 a row)
+    drops padding rows."""
     images = maybe_normalize(batch["image"], normalize_kind)
     labels = batch["label"]
     mask = batch.get("mask")

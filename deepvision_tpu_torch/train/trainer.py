@@ -9,7 +9,10 @@ the JAX Trainer:
   epoch)``, metrics fetched every ``log_every`` steps and at the epoch's
   end, never per step;
 - masked validation (exact over the whole held-out set);
-- the plateau controller on ``val_top1`` (else the negated loss);
+- the plateau controller on ``val_top1`` (else the negated loss); a
+  step-count schedule (``inception_poly``, ``step``) follows the
+  optimizer's own update count on the device, which checkpoints carry,
+  so a resume goes on mid-schedule;
 - a checkpoint every epoch and :meth:`Trainer.resume`;
 - images per second.
 
@@ -68,10 +71,13 @@ class Trainer:
         log_every: int = 10,
         seed: int = 0,
         prefetch_depth: int = 2,
+        steps_per_epoch: int | None = None,
     ):
         """``module`` holds the starting weights, on ``device`` (default
         ``"cuda"``), with the policy's compute dtype; ``train_data(epoch)``
-        and ``val_data()`` yield host batches (dicts of numpy arrays)."""
+        and ``val_data()`` yield host batches (dicts of numpy arrays).
+        ``steps_per_epoch`` sets the epoch of a step-count schedule
+        (1000 when not given, as the JAX Trainer counts)."""
         self.device = resolve_device(device)
         self.config = config
         self.train_data = train_data
@@ -84,7 +90,8 @@ class Trainer:
                 f"prefetch_depth must be >= 1, got {prefetch_depth}")
         self.prefetch_depth = int(prefetch_depth)
         self.policy = get_policy(config.get("precision", "bf16"))
-        optimizer, self.plateau = make_optimizer(config, module.parameters())
+        optimizer, self.plateau = make_optimizer(
+            config, module.parameters(), steps_per_epoch or 1000)
         self.state = TrainState(
             module, optimizer,
             loss_scale=self.policy.make_loss_scale(self.device))

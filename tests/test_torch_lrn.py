@@ -96,8 +96,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 # every LRN the zoo runs, at batch 64 (AlexNet V1 and V2-TF with n=5, the
-# Inception V1 stem with n=64 and n=192), an odd channel count, the widest
-# C the kernel takes, and a single row of 3 channels (under 16 bytes)
+# Inception V1 stem with n=64 and n=192), the Inception stem at its
+# training batch of 128, an odd channel count, the widest C the kernel
+# takes, and a single row of 3 channels (under 16 bytes)
 PLAN_SHAPES = {
     "alexnet1_lrn1": (64, 55, 55, 96),
     "alexnet1_lrn2": (64, 27, 27, 256),
@@ -105,6 +106,8 @@ PLAN_SHAPES = {
     "alexnet2_tf_lrn2": (64, 27, 27, 192),
     "inception1_lrn1": (64, 56, 56, 64),
     "inception1_lrn2": (64, 56, 56, 192),
+    "inception1_lrn1_b128": (128, 56, 56, 64),
+    "inception1_lrn2_b128": (128, 56, 56, 192),
     "odd_c57": (1, 7, 9, 57),
     "odd_c57_n64": (2, 9, 9, 57),
     "c768_n192": (2, 9, 9, 768),

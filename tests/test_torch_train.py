@@ -13,8 +13,11 @@ another order by XLA:CPU and ATen); bf16 to the JAX package's own
 bf16-twin band (``CLS_LOSS_RTOL``) with identical top-1 decisions.
 """
 
+import contextlib
 import dataclasses
 
+import flax
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +26,7 @@ import pytest
 import torch
 
 from deepvision_tpu.core.precision import DynamicLossScale as JaxLossScale
+from deepvision_tpu.core.precision import get_policy as jax_get_policy
 from deepvision_tpu.data import mnist as jax_mnist
 from deepvision_tpu.data import padding as jax_padding
 from deepvision_tpu.data.synthetic import (
@@ -30,10 +34,13 @@ from deepvision_tpu.data.synthetic import (
 )
 from deepvision_tpu.losses import classification as jax_losses
 from deepvision_tpu.models import get_model as flax_get_model
+from deepvision_tpu.models import inception as jax_inception
+from deepvision_tpu.models import layers as jax_layers
 from deepvision_tpu.ops import normalize as jax_normalize
 from deepvision_tpu.train import optimizers as jax_optimizers
 from deepvision_tpu.train import schedules as jax_schedules
 from deepvision_tpu.train.configs import get_config as jax_get_config
+from deepvision_tpu.train.state import TrainState as JaxTrainState
 from deepvision_tpu.train.state import create_train_state
 from deepvision_tpu.train.steps import (
     aggregate_eval_parts as jax_aggregate_eval_parts,
@@ -41,6 +48,7 @@ from deepvision_tpu.train.steps import (
     classification_train_step as jax_train_step,
 )
 from deepvision_tpu_torch.convert.from_flax import (
+    flax_to_torch,
     flax_train_state_to_torch,
     load_flax_train_state,
 )
@@ -57,14 +65,23 @@ from deepvision_tpu_torch.losses import classification as losses
 from deepvision_tpu_torch.models import create_model
 from deepvision_tpu_torch.ops import normalize
 from deepvision_tpu_torch.train import schedules
-from deepvision_tpu_torch.train.configs import get_config
-from deepvision_tpu_torch.train.optimizers import make_optimizer, set_lr_scale
+from deepvision_tpu_torch.models import inception as port_inception
+from deepvision_tpu_torch.models import layers
+from deepvision_tpu_torch.train.configs import TRAINABLE, get_config
+from deepvision_tpu_torch.train.optimizers import (
+    ScheduledSGD,
+    make_optimizer,
+    set_lr_scale,
+    set_update_count,
+)
 from deepvision_tpu_torch.train.state import TrainState
 from deepvision_tpu_torch.train.steps import (
     aggregate_eval_parts,
     classification_eval_step,
     classification_train_step,
 )
+from tests.test_torch_inception import _draw as inception_draw
+from tests.test_torch_inception import flax_variables
 
 CPU = torch.device("cpu")
 SIZE, CLASSES, BATCH = 64, 10, 4
@@ -169,7 +186,7 @@ def test_constant_lr_matches_optax_through_the_train_state():
 
 @pytest.mark.parametrize("opt,scheduler,match", [
     ("rmsprop", None, "C7"), ("adam", None, "C7"),
-    ("sgd", "step", "scheduler 'step'")])
+    ("sgd", "linear_decay", "scheduler 'linear_decay'")])
 def test_unported_optimizers_and_schedulers_raise(opt, scheduler, match):
     cfg = {"optimizer": opt, "optimizer_params": {"lr": 0.1},
            "scheduler": scheduler}
@@ -200,8 +217,8 @@ def test_plateau_controller_and_schedules_match_jax():
     ]
     for ours, theirs in pairs:
         for count in (0, 1, 19, 20, 45, 99, 150, 200, 419, 420, 524, 600):
-            assert ours(count) == pytest.approx(float(theirs(count)),
-                                                rel=1e-6, abs=1e-12)
+            assert float(ours(count)) == pytest.approx(
+                float(theirs(count)), rel=1e-6, abs=1e-12)
 
 
 # -------------------------------------------------- numerics policy
@@ -447,16 +464,21 @@ def _jax_state(dtype=jnp.float32):
     return model, state, jax.jit(step)
 
 
-def _find_trace(opt_state):
-    if isinstance(opt_state, optax.TraceState):
-        return opt_state.trace
+def _find(opt_state, kind):
+    """The ``kind`` part of an optax state (chains, inject_hyperparams)."""
+    if isinstance(opt_state, kind):
+        return opt_state
     if isinstance(opt_state, tuple):
         for part in opt_state:
-            found = _find_trace(part)
+            found = _find(part, kind)
             if found is not None:
                 return found
     inner = getattr(opt_state, "inner_state", None)
-    return None if inner is None else _find_trace(inner)
+    return None if inner is None else _find(inner, kind)
+
+
+def _find_trace(opt_state):
+    return _find(opt_state, optax.TraceState).trace
 
 
 def _carry(jstate, model_dtype=torch.float32):
@@ -624,13 +646,15 @@ def test_dropout_needs_a_generator_and_follows_it():
 
 
 def test_config_carries_the_jax_training_fields():
-    for name in ("alexnet1", "alexnet2"):
+    assert TRAINABLE == ("alexnet1", "alexnet2", "inception1",
+                         "inception1_ref")
+    for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
                     "channels", "num_classes", "dataset", "optimizer",
                     "optimizer_params", "scheduler", "scheduler_params",
                     "total_epochs", "name"):
-            assert ours[key] == theirs[key], (name, key)
+            assert ours.get(key) == theirs.get(key), (name, key)
     assert "optimizer" not in get_config("alexnet2_tf")
     ours = get_config("alexnet1")
     ours["optimizer_params"]["lr"] = 1.0  # a copy, not the table
@@ -640,3 +664,447 @@ def test_config_carries_the_jax_training_fields():
 def test_policy_dataclass_is_frozen():
     with pytest.raises(dataclasses.FrozenInstanceError):
         get_policy("bf16").loss_scaling = True
+
+
+# ------------------------------------------ Inception V1 train steps
+
+
+INC_SIZE, INC_STEPS_PER_EPOCH = 96, 2
+# (size, batch) of each variant's three f32 steps against JAX: the BN
+# variant's at a batch BN can normalize, its aux heads' features 2x2 at
+# 128 px (32 values a channel)
+INC_STEPS_SHAPE = {"inception1_ref": (96, 2), "inception1": (128, 8)}
+
+
+@contextlib.contextmanager
+def _flax_dropout_off():
+    """flax's Dropout at rate 0 while the JAX step traces: the Inception
+    heads' rates are fixed in the module, and ``train=False`` would also
+    turn off BN's batch statistics and the aux heads."""
+    dropout = flax_nn.Dropout
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax_nn, "Dropout",
+                   lambda rate, **kw: dropout(0.0, **kw))
+        yield
+
+
+def _inc_batch(seed, n=2, size=INC_SIZE):
+    rng = np.random.default_rng(seed)
+    return {"image": rng.normal(0, 1, (n, size, size, 3))
+            .astype(np.float32),
+            "label": rng.integers(0, CLASSES, n).astype(np.int32)}
+
+
+def _jax_inc_state(model, variables, policy=None):
+    """A JAX train state on numpy ``variables`` with the inception1
+    config's optimizer (inception_poly over 2-step epochs), and its
+    jitted step."""
+    tx, _ = jax_optimizers.make_optimizer(jax_get_config("inception1"),
+                                          INC_STEPS_PER_EPOCH)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    state = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree.map(jnp.asarray,
+                                 variables.get("batch_stats", {})),
+        opt_state=tx.init(params), apply_fn=model.apply, tx=tx,
+        loss_scale=None if policy is None else policy.make_loss_scale())
+    step = jax.jit(lambda s, b, k: jax_train_step(s, b, k,
+                                                  normalize_kind="torch"))
+    return state, step
+
+
+def _inc_jax(name, dtype=jnp.float32, policy=None, size=INC_SIZE):
+    model = flax_get_model(name, num_classes=CLASSES, dtype=dtype)
+    _, variables = flax_variables(name, size, CLASSES, seed=2, gain=1.0)
+    return _jax_inc_state(model, variables, policy)
+
+
+def _inc_carry(name, jstate, dtype=torch.float32, size=INC_SIZE):
+    host = jax.tree.map(np.asarray, jstate)
+    count = _find(host.opt_state, optax.ScaleByScheduleState).count
+    carried = flax_train_state_to_torch(
+        name, params=host.params, batch_stats=host.batch_stats,
+        trace=_find_trace(host.opt_state), step=int(host.step),
+        count=int(count), num_classes=CLASSES, input_size=size)
+    module = create_model(name, device=CPU, num_classes=CLASSES,
+                          input_size=size, dtype=dtype)
+    for m in (module, module.aux1, module.aux2):
+        m.dropout_rate = 0.0
+    opt, _ = make_optimizer(get_config(name), module.parameters(),
+                            INC_STEPS_PER_EPOCH)
+    state = TrainState(module, opt)
+    load_flax_train_state(state, carried)
+    return state
+
+
+def _inc_variables(name, jstate, size):
+    """The JAX state's parameters and BN statistics as the port's
+    ``state_dict``."""
+    host = jax.tree.map(np.asarray, jstate)
+    variables = {"params": host.params}
+    if host.batch_stats:
+        variables["batch_stats"] = host.batch_stats
+    return flax_to_torch(name, variables, num_classes=CLASSES,
+                         input_size=size)
+
+
+def _leaf_gap(a, b):
+    return float((a - b).abs().max())
+
+
+def _steps_against_jax(carry, jstate, jstep, batches, orders=()):
+    """f32 steps, one a batch, of the port's state (``carry()``) and the
+    JAX ``jstate`` from the same carried point, with a second carried
+    state that takes them without momentum. ``orders`` reorder
+    each batch for more JAX runs: their largest gaps to the JAX run, in
+    the loss at each step and in each leaf at the end, are the float32
+    noise floors. -> (the port's state, JAX's, the port's starting
+    state_dict, the no-momentum twin's, the reordered JAX states)."""
+    state, twin = carry(), carry()
+    start = {k: v.clone() for k, v in state.module.state_dict().items()}
+    for group in twin.optimizer.param_groups:
+        group["momentum"] = 0.0
+    reordered = [jstate] * len(orders)
+    gen, twin_gen = KeySeq(1, 0), KeySeq(1, 0)
+    for i, batch in enumerate(batches):
+        jstate, jm = jstep(jstate, batch, jax.random.key(i))
+        floor = 0.0
+        for j, order in enumerate(orders):
+            reordered[j], fm = jstep(
+                reordered[j], {k: order(v) for k, v in batch.items()},
+                jax.random.key(i))
+            floor = max(floor, abs(float(fm["loss"]) - float(jm["loss"])))
+        m = classification_train_step(state, _torch_batch(batch), next(gen),
+                                      normalize_kind="torch")
+        classification_train_step(twin, _torch_batch(batch), next(twin_gen),
+                                  normalize_kind="torch")
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= (
+            1e-4 * abs(float(jm["loss"])) + 4 * floor), (i, floor)
+    return state, jstate, start, twin.module.state_dict(), reordered
+
+
+def _hold_leaves(got, want, tol, start, no_momentum):
+    """Every leaf of ``got`` within ``tol[leaf]`` of ``want``; the state
+    before the steps and the steps without momentum each fail that on
+    most leaves, so the comparison sees both."""
+    for key, tensor in got.items():
+        np.testing.assert_allclose(tensor.numpy(), want[key].numpy(),
+                                   rtol=0, atol=tol[key], err_msg=key)
+    for wrong in (start, no_momentum):
+        beyond = [k for k in want if _leaf_gap(wrong[k], want[k]) > tol[k]]
+        assert len(beyond) > len(want) // 2, (len(beyond), len(want))
+
+
+@pytest.mark.parametrize("name", ["inception1_ref", "inception1"])
+def test_inception_f32_train_steps_match_jax(name):
+    """Three f32 steps from a carried mid-training JAX state (momentum,
+    update count, BN statistics): aux heads on at 0.3, dropout off, the
+    LR moving with inception_poly's epochs of 2 steps, the update count
+    exactly.
+
+    ``inception1_ref``: loss to 1e-4, every parameter to 1e-5.
+    ``inception1`` trains BN on the batch's statistics, and there float32
+    cannot give 1e-5 over the whole model, not even to JAX against
+    itself: a few of its millions of pre-ReLU values lie nearer 0 than
+    the forward's rounding (7 at this state, against float64), each
+    flips its ReLU in one run and not in another, and every gradient
+    below it moves by up to 1%; three steps compound that. Two more JAX
+    runs, on each batch reversed and rolled by 3, measure that floor
+    leaf by leaf: each parameter and BN statistic is held to 1e-5 plus
+    three times its own floor, the loss to 1e-4 plus four times the
+    step's. The block test below holds the same BN path to a flat 1e-5
+    at a depth where no ReLU flips."""
+    size, n = INC_STEPS_SHAPE[name]
+    orders = ((lambda a: a[::-1].copy(), lambda a: np.roll(a, 3, axis=0))
+              if name == "inception1" else ())
+    with _flax_dropout_off():
+        jstate, jstep = _inc_jax(name, size=size)
+        jstate, _ = jstep(jstate, _inc_batch(100, n, size),
+                          jax.random.key(0))
+        state, jstate, start, no_momentum, reordered = _steps_against_jax(
+            lambda: _inc_carry(name, jstate, size=size), jstate, jstep,
+            [_inc_batch(i, n, size) for i in range(3)], orders)
+    assert state.step == 4
+    count = _find(jstate.opt_state, optax.ScaleByScheduleState).count
+    assert isinstance(state.optimizer, ScheduledSGD)
+    assert float(state.optimizer.count) == int(count) == 4
+    want = _inc_variables(name, jstate, size)
+    floors = [_inc_variables(name, s, size) for s in reordered]
+    tol = {k: 1e-5 + 3 * max((_leaf_gap(f[k], want[k]) for f in floors),
+                             default=0.0) for k in want}
+    _hold_leaves(state.module.state_dict(), want, tol, start, no_momentum)
+
+
+class _FlaxInceptionBlock(flax_nn.Module):
+    """The BN variant's blocks at the depth of one module: a ConvBN stem
+    (3x3/2, SAME), an Inception module, an aux head, the main head."""
+
+    @flax_nn.compact
+    def __call__(self, x, train=False):
+        x = jax_layers.ConvBN(16, (3, 3), (2, 2), name="stem")(x, train)
+        x = jax_inception.InceptionModule(8, 8, 16, 4, 8, 8,
+                                          name="mod")(x, train)
+        main = flax_nn.Dense(CLASSES, name="fc")(
+            jax_layers.global_avg_pool(x))
+        if not train:
+            return main
+        return main, jax_inception.AuxiliaryClassifier(
+            CLASSES, name="aux")(x, train)
+
+
+class _InceptionBlock(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        f32 = torch.float32
+        self.stem = layers.ConvBN(3, 16, (3, 3), (2, 2))
+        self.mod = port_inception.InceptionModule(16, 8, 8, 16, 4, 8, 8,
+                                                  f32, True)
+        self.fc = torch.nn.Linear(40, CLASSES)
+        self.aux = port_inception.AuxiliaryClassifier(40, 2, CLASSES, f32,
+                                                      True)
+        self.aux.dropout_rate = 0.0
+
+    def forward(self, x, train=False, generator=None):
+        x = self.mod(self.stem(x, train), train)
+        main = self.fc(layers.global_avg_pool(x))
+        if not train:
+            return main
+        return main, self.aux(x, train, generator)
+
+
+def _port_leaves(module, variables):
+    """flax ``variables`` under the names of ``module``'s state_dict (or
+    of its parameters alone, for a tree of ``params`` only), conv and
+    Dense kernels in torch's layout."""
+    flat = flax.traverse_util.flatten_dict(variables)
+    buffers = {name for name, _ in module.named_buffers()}
+    names = (module.state_dict() if "batch_stats" in variables
+             else dict(module.named_parameters()))
+    out = {}
+    for name in names:
+        *path, leaf = name.split(".")
+        a = np.asarray(flat["batch_stats" if name in buffers else "params",
+                            *path, "kernel" if leaf == "weight" else leaf])
+        a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T if a.ndim == 2 \
+            else a
+        out[name] = torch.from_numpy(a.copy())
+    return out
+
+
+def test_inception_bn_block_f32_train_steps_match_jax():
+    """The BN variant's training path at a depth where float32 is exact
+    enough for 1e-5: an Inception module of ConvBNs between a ConvBN stem
+    and an aux head with its BN, at 16 px and batch 8 (the stem's BN
+    normalizes 512 values a channel, the aux head's 32). Three f32 steps
+    from a carried mid-training JAX state under the inception1 config's
+    SGD (momentum 0.9 on every kernel, BN scale and bias, L2 2e-4,
+    inception_poly): the loss within 1e-4, every parameter and BN
+    statistic within a flat 1e-5, the update count exactly; the state
+    before the steps and the same steps without momentum fail that."""
+    model = _FlaxInceptionBlock()
+    rng = np.random.default_rng(7)
+    batches = [{"image": rng.normal(0, 1, (8, 16, 16, 3)).astype(np.float32),
+                "label": rng.integers(0, CLASSES, 8).astype(np.int32)}
+               for _ in range(4)]
+    with _flax_dropout_off():
+        shapes = jax.eval_shape(lambda k, x: model.init(k, x, train=True),
+                                jax.random.PRNGKey(0),
+                                jnp.asarray(batches[0]["image"]))
+        variables = jax.tree_util.tree_map_with_path(
+            lambda p, leaf: inception_draw(p, leaf, rng), shapes)
+        jstate, jstep = _jax_inc_state(model, variables)
+        jstate, _ = jstep(jstate, batches[0], jax.random.key(0))
+
+        host = jax.tree.map(np.asarray, jstate)
+
+        def carry():
+            module = _InceptionBlock()
+            module.load_state_dict(_port_leaves(module, {
+                "params": host.params, "batch_stats": host.batch_stats}))
+            opt, _ = make_optimizer(get_config("inception1"),
+                                    module.parameters(), INC_STEPS_PER_EPOCH)
+            trace = _port_leaves(module,
+                                 {"params": _find_trace(host.opt_state)})
+            for name, p in module.named_parameters():
+                opt.state[p]["momentum_buffer"] = trace[name]
+            set_update_count(opt, int(_find(
+                host.opt_state, optax.ScaleByScheduleState).count))
+            return TrainState(module, opt)
+
+        state, jstate, start, no_momentum, _ = _steps_against_jax(
+            carry, jstate, jstep, batches[1:])
+    assert float(state.optimizer.count) == int(
+        _find(jstate.opt_state, optax.ScaleByScheduleState).count) == 4
+    host = jax.tree.map(np.asarray, jstate)
+    want = _port_leaves(state.module, {"params": host.params,
+                                       "batch_stats": host.batch_stats})
+    _hold_leaves(state.module.state_dict(), want, dict.fromkeys(want, 1e-5),
+                 start, no_momentum)
+
+
+def test_inception_bf16_train_step_twin_of_jax_bf16():
+    """One bf16 step of the BN variant against JAX bf16 from the same
+    carried state: the loss within the bf16-twin band."""
+    with _flax_dropout_off():
+        jstate, jstep = _inc_jax("inception1", jnp.bfloat16)
+        state = _inc_carry("inception1", jstate, torch.bfloat16)
+        batch = _inc_batch(10)
+        jstate, jm = jstep(jstate, batch, jax.random.key(0))
+    m = classification_train_step(state, _torch_batch(batch), KeySeq(1, 0)
+                                  .__next__(), normalize_kind="torch")
+    assert float(m["loss"]) == pytest.approx(float(jm["loss"]),
+                                             rel=CLS_LOSS_RTOL)
+
+
+class _FlaxTinyBN(flax_nn.Module):
+    @flax_nn.compact
+    def __call__(self, x, train=False):
+        x = jax_layers.ConvBN(4, (3, 3), name="block")(x, train)
+        return flax_nn.Dense(CLASSES, name="fc")(jnp.mean(x, axis=(1, 2)))
+
+
+class _TinyBN(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.block = layers.ConvBN(3, 4, (3, 3))
+        self.fc = torch.nn.Linear(4, CLASSES)
+
+    def forward(self, x, train=False, generator=None):
+        return self.fc(self.block(x, train).mean(dim=(1, 2)))
+
+
+def test_nonfinite_step_keeps_bn_statistics_and_schedule_count():
+    """Under loss scaling a batch with an inf pixel makes the gradients
+    non-finite after its forward wrote NaN into the BN statistics: both
+    states keep the pre-step parameters, momentum, BN statistics and the
+    schedule's update count (so the LR does not advance), count the step,
+    and halve the scale; the next finite steps agree again."""
+    model = _FlaxTinyBN()
+    x0 = np.zeros((1, 8, 8, 3), np.float32)
+    variables = model.init(jax.random.PRNGKey(0), x0, train=True)
+    tx, _ = jax_optimizers.make_optimizer(jax_get_config("inception1"),
+                                          INC_STEPS_PER_EPOCH)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=tx.init(variables["params"]), apply_fn=model.apply, tx=tx,
+        loss_scale=jax_get_policy("bf16_scaled").make_loss_scale())
+    jstep = jax.jit(lambda s, b: jax_train_step(s, b, jax.random.key(0),
+                                                normalize_kind="torch"))
+
+    module = _TinyBN()
+    p, bs = jax.tree.map(np.asarray, variables["params"]), \
+        jax.tree.map(np.asarray, variables["batch_stats"])
+    module.load_state_dict({
+        "block.conv.weight": torch.from_numpy(
+            p["block"]["conv"]["kernel"].transpose(3, 2, 0, 1).copy()),
+        "block.bn.scale": torch.tensor(p["block"]["bn"]["scale"]),
+        "block.bn.bias": torch.tensor(p["block"]["bn"]["bias"]),
+        "block.bn.mean": torch.tensor(bs["block"]["bn"]["mean"]),
+        "block.bn.var": torch.tensor(bs["block"]["bn"]["var"]),
+        "fc.weight": torch.tensor(p["fc"]["kernel"].T),
+        "fc.bias": torch.tensor(p["fc"]["bias"])})
+    opt, _ = make_optimizer(get_config("inception1"), module.parameters(),
+                            INC_STEPS_PER_EPOCH)
+    state = TrainState(module, opt, loss_scale=get_policy(
+        "bf16_scaled").make_loss_scale(device="cpu"))
+
+    def snapshot():
+        return ({k: v.clone() for k, v in module.state_dict().items()},
+                [{k: v.clone() for k, v in opt.state[q].items()}
+                 for q in module.parameters()]
+                + [{"count": opt.count.clone()}])
+
+    def jax_count(s):
+        return int(_find(s.opt_state, optax.ScaleByScheduleState).count)
+
+    def agree():
+        np.testing.assert_allclose(
+            module.block.bn.var.numpy(),
+            np.asarray(jstate.batch_stats["block"]["bn"]["var"]), atol=1e-5)
+        np.testing.assert_allclose(
+            module.fc.weight.detach().numpy(),
+            np.asarray(jstate.params["fc"]["kernel"]).T, atol=1e-5)
+        assert float(opt.count) == jax_count(jstate)
+        assert float(state.loss_scale.scale) == float(jstate.loss_scale.scale)
+
+    rng = np.random.default_rng(0)
+    for i in range(4):
+        batch = {"image": rng.normal(0, 1, (2, 8, 8, 3)).astype(np.float32),
+                 "label": rng.integers(0, CLASSES, 2).astype(np.int32)}
+        if i == 2:
+            batch["image"][0, 3, 3, 1] = np.inf
+            before, before_opt = snapshot()
+            jbefore = jstate
+        jstate, jm = jstep(jstate, batch)
+        m = classification_train_step(state, _torch_batch(batch),
+                                      torch.Generator(),
+                                      normalize_kind="torch")
+        assert float(m["mp_grads_finite"]) == float(jm["mp_grads_finite"])
+        if i == 2:
+            assert float(m["mp_grads_finite"]) == 0.0
+            after, after_opt = snapshot()
+            for k in before:  # BN statistics, parameters: bit for bit
+                torch.testing.assert_close(after[k], before[k], rtol=0,
+                                           atol=0, msg=k)
+            for a, b in zip(after_opt, before_opt):
+                for k in b:  # momentum and the update count
+                    torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
+            for a, b in zip(jax.tree.leaves(jstate.batch_stats),
+                            jax.tree.leaves(jbefore.batch_stats)):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+            assert jax_count(jstate) == jax_count(jbefore) == 2
+            assert state.step == int(jstate.step) == 3
+        agree()
+    assert jax_count(jstate) == 3
+
+
+def test_inception_poly_through_make_optimizer_matches_optax():
+    """The config's SGD under inception_poly over 2-step epochs, through
+    both train states with loss scaling, for 9 updates with a skipped one
+    among them: the same parameters after each, and the LR keeps
+    following the count the select kept (optax's), not the step."""
+    cfg = jax_get_config("inception1")
+    tx, _ = jax_optimizers.make_optimizer(cfg, INC_STEPS_PER_EPOCH)
+    params = _tiny_params(4)
+    jp = jax.tree.map(jnp.asarray, params)
+    jstate = JaxTrainState(
+        step=jnp.zeros((), jnp.int32), params=jp, batch_stats={},
+        opt_state=tx.init(jp), apply_fn=None, tx=tx,
+        loss_scale=jax_get_policy("bf16_scaled").make_loss_scale())
+    module = torch.nn.Module()
+    for k, v in params.items():
+        module.register_parameter(k, torch.nn.Parameter(
+            torch.from_numpy(v.copy())))
+    opt, plateau = make_optimizer(get_config("inception1"),
+                                  module.parameters(), INC_STEPS_PER_EPOCH)
+    assert plateau is None and isinstance(opt, ScheduledSGD)
+    state = TrainState(module, opt, loss_scale=get_policy(
+        "bf16_scaled").make_loss_scale(device="cpu"))
+    schedule = schedules.inception_poly(0.01, INC_STEPS_PER_EPOCH)
+    rng = np.random.default_rng(5)
+    for i in range(9):
+        grads = {k: rng.normal(0, 1, v.shape).astype(np.float32)
+                 for k, v in params.items()}
+        if i == 3:
+            grads["w"][0, 0] = np.nan
+        scale = float(jstate.loss_scale.scale)
+        jstate = jstate.apply_gradients(jax.tree.map(
+            lambda g: jnp.asarray(g * scale), grads))
+        for k, p in module.named_parameters():
+            p.grad = torch.from_numpy(grads[k] * scale)
+        count = float(opt.count)
+        state.apply_gradients()
+        updated = float(opt.count)
+        assert updated == count + (i != 3)
+        assert updated == int(_find(jstate.opt_state,
+                                    optax.ScaleByScheduleState).count)
+        for k, p in module.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       np.asarray(jstate.params[k]),
+                                       atol=1e-6, err_msg=f"{k} step {i}")
+    assert state.step == 9 and updated == 8
+    # epochs 0..3 of 2 updates: four distinct rates were used
+    assert float(schedule(7)) < float(schedule(5)) < float(schedule(0))
+    with pytest.raises(ValueError, match="steps_per_epoch"):
+        make_optimizer(get_config("inception1"), module.parameters())

@@ -257,6 +257,68 @@ def test_served_logits_equal_the_trainers_module(tmp_path):
                                    rtol=0, atol=0)
 
 
+def test_cli_trains_inception1_ref_and_resumes_mid_schedule(tmp_path,
+                                                             capsys):
+    """``-m inception1_ref``: 2 steps of the inception_poly schedule (one
+    an epoch), then a resume that goes on at update 3 from the count the
+    checkpoint carried."""
+    common = ["-m", "inception1_ref", "--device", "cpu", "--input-size",
+              "96", "--num-classes", str(CLASSES), "--batch-size", "2",
+              "--synthetic-size", "12", "--steps-per-epoch", "1",
+              "--workdir", str(tmp_path)]
+    assert train_main([*common, "--epochs", "2"]) == 0
+    out = capsys.readouterr()
+    assert "model: inception1_ref 96x96x3" in out.out
+    assert "checkpoints [0, 1]" in out.err
+    assert train_main([*common, "--epochs", "3", "--resume"]) == 0
+    assert "resumed at epoch 2" in capsys.readouterr().out
+    state = torch.load(tmp_path / "inception1_ref" / "ckpt" / "2" /
+                       "state.pt", weights_only=True)
+    assert state["step"] == 3
+    assert float(state["optimizer"]["count"]) == 3.0
+    served = load_served("inception1_ref", str(tmp_path / "inception1_ref"),
+                         device="cpu")
+    assert served.run(np.zeros((1, 96, 96, 3), np.float32))[
+        "classes"].shape == (1, 5)
+
+
+def test_checkpoint_round_trips_bn_statistics_and_the_update_count(
+        tmp_path):
+    """inception1's BN running statistics move in training, and a resume
+    restores them and the schedule's update count bit for bit."""
+    def trainer(seed):
+        cfg = get_config("inception1")
+        cfg.update(batch_size=2, input_size=96, num_classes=CLASSES,
+                   precision="f32")
+        imgs, labels, split = synthetic_classification(8, 96, 3, CLASSES, 2)
+        module = create_model("inception1", device=CPU, seed=seed,
+                              num_classes=CLASSES, input_size=96)
+        return Trainer(
+            module, cfg,
+            lambda e: batches(imgs[split:], labels[split:], 2,
+                              rng=np.random.default_rng(e)),
+            lambda: batches(imgs[:split], labels[:split], 2,
+                            drop_remainder=False),
+            device="cpu", workdir=tmp_path, log_every=0, steps_per_epoch=3,
+            train_step=partial(classification_train_step,
+                               normalize_kind="torch"),
+            eval_step=partial(classification_eval_step,
+                              normalize_kind="torch"))
+
+    t = trainer(0)
+    t.fit(1)
+    mean = t.state.module.stem1.bn.mean
+    assert mean.any() and not torch.equal(t.state.module.i5b.b1.bn.var,
+                                          torch.ones(384))
+    fresh = trainer(1)
+    fresh.resume()
+    for (name, a), b in zip(fresh.state.module.state_dict().items(),
+                            t.state.module.state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    assert float(fresh.state.optimizer.count) == 3.0
+    assert fresh.state.step == 3
+
+
 def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="none is available"):
