@@ -5,10 +5,13 @@
 
 Needs one CUDA card and ``nvcc``; exits non-zero without them, and in a
 directory that does not hold the port. It drives the port's main paths,
-serving and training AlexNet V1 and Inception V1 (``inception1_ref``,
+serving and training AlexNet V1, Inception V1 (``inception1_ref``,
 whose stem LRNs have the wide windows n=64 and n=192, and the BN variant
-``inception1``), and holds every kernel on them against its plain
-version. Phases, each of which raises on failure (nothing is caught):
+``inception1``) and the ResNets (``resnet50``, the training side's
+north star, then ``resnet34`` and ``resnet50v2``, none of which reaches
+an LRN), and holds every kernel on them against its plain version.
+Phases, each of which raises on failure (nothing is caught) and prints
+the seconds it took:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
    and the float32 policy (TF32 off for cuDNN and cuBLAS);
@@ -43,7 +46,9 @@ version. Phases, each of which raises on failure (nothing is caught):
    ``InferenceEngine`` on buckets (1, 4, 16, 64), 96 seeded requests
    held against the same module run with the plain LRN (probabilities
    within 1e-4), 2 LRN launches per batch; ``torch.profiler`` windows
-   over one bucket-64 batch;
+   over one bucket-64 batch: device time, launches, the LRN's and the
+   reduction and elementwise kernels' shares, the top kernels, the idle
+   share;
 6. the serving CLI, ``python -m deepvision_tpu_torch.serve``, answering
    like the engine (AlexNet V1);
 7. a train step on the card, kernel vs plain: AlexNet V1, later
@@ -55,21 +60,41 @@ version. Phases, each of which raises on failure (nothing is caught):
    gap between two plain runs (cuDNN's backward is not deterministic);
    2 forward and 2 backward LRN launches a step;
 8. train: the port's ``Trainer`` at full width in the config's bf16
-   policy, one epoch on the synthetic set, counting the LRN launches:
-   AlexNet V1, ``inception1_ref`` and ``inception1`` (no LRN);
+   policy and batch, the model built with the config's ``model_kwargs``,
+   one epoch of 2 steps on a synthetic set of 3 batches (one held out),
+   counting the LRN launches: AlexNet V1, ``inception1_ref`` and
+   ``inception1`` (no LRN; every BN statistic moved);
 9. the training CLI at full width, ``python -m deepvision_tpu_torch.train
-   -m alexnet1 --synthetic-size 640 --epochs 2`` (4 steps an epoch at
-   batch 128, bf16), then ``--resume --epochs 3`` from its checkpoints,
-   then ``load_served`` from the newest one; the same for
-   ``inception1_ref`` and ``inception1`` at 2 steps an epoch, where the
-   BN variant's running statistics must have moved and come back bit for
-   bit from a restore, with the LR schedule's update count;
-10. training throughput at batch 128 in bf16 over 24 timed steps after
-   warm-up, through the device feed and on a device-resident batch, and
-   ``torch.profiler`` windows over one step, with the kernel that runs
-   just before each ``lrn_backward_*`` launch (a copy there is the
-   ``g.contiguous()`` of ``ops/lrn.py``'s backward): AlexNet V1,
-   ``inception1_ref`` and ``inception1``.
+   -m alexnet1 --synthetic-size 384 --steps-per-epoch 2 --epochs 2`` (at
+   the config's batch, bf16), then ``--resume --epochs 3`` from its
+   checkpoints, then ``load_served`` from the newest one; the same for
+   ``inception1_ref`` (its n=64 and n=192 LRN kernels launched there)
+   and ``inception1``, whose running statistics must have moved and come
+   back bit for bit from a restore, with the LR schedule's update count;
+10. training throughput at the config's batch in bf16 over 12 timed
+   steps (24 for the ResNets) after warm-up, through the device feed
+   and on a
+   device-resident batch, with the peak of allocated memory and the
+   model FLOP utilization (convolution and matmul FLOPs from their
+   shapes, the backward counted twice, over the step time and the
+   dense bf16 peak), and ``torch.profiler`` windows over one step, with
+   the kernel that runs just before each ``lrn_backward_*`` launch (a
+   copy there is the ``g.contiguous()`` of ``ops/lrn.py``'s backward):
+   AlexNet V1, ``inception1_ref`` and ``inception1``;
+11. the ResNets, with no LRN launch on any of their paths: ``resnet50``
+   served as in 5, its first 8 answers held against the same weights
+   run on this machine's CPU (probabilities within 1e-4); one float32
+   train step at batch 8 (TF32 off) on the card against the CPU, each
+   parameter and BN statistic within 1e-5 plus three times its floor,
+   the largest gap that two runs on a reordered batch give on either
+   platform (each flips its own ReLUs near 0), and two faults planted
+   on the card (the state before the step, the step at 0.9 times the
+   LR) shown to fail it; the Trainer (8) at
+   batch 256 with all 106 BN statistic tensors moved; throughput (10);
+   the training CLI (9), whose model carries the config's
+   ``s2d_stem`` (flax's stock BN on the stem) while the served one is
+   built without it; then ``resnet34`` and ``resnet50v2`` trained for
+   one epoch (8) and served one bucket-64 batch.
 
 It then prints the ``{"kernels": [...]}`` line (all four entry points;
 per-shape times under ``shapes``, launches by path under
@@ -104,6 +129,8 @@ LRN_SOURCE = "deepvision_tpu_torch/csrc/lrn.cu"
 LRN_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:79"
 LRN_BWD_SOURCE = "deepvision_tpu_torch/csrc/lrn_bwd.cu"
 LRN_BWD_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:125"
+# the LRN models' training batch (their configs'), where the kernels'
+# training shapes and the kernel-vs-plain train step are taken
 TRAIN_BATCH = 128
 # (name, shape, size, k): AlexNet V1's LRNs at the training batch, the
 # shapes the train step gives the kernels (their sums make the kernels
@@ -162,6 +189,13 @@ PARITY_CASES = [
 ]
 N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
+# served answers of a model without LRN held against the CPU's
+CPU_CHECKED = 8
+# timed training steps of the paths before the ResNets' (24 for those),
+# which keeps the whole run near its earlier length
+EARLIER_TIMED_STEPS = 12
+# H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate (MFU's peak)
+BF16_DENSE_FLOPS_PER_S = 989e12
 
 
 def _say(*parts) -> None:
@@ -463,10 +497,13 @@ def _check_against(results, ref_probs, ref_classes, full_probs,
                 f"plain-LRN run has {ref_classes[i, j]} (gap {gap:.2e})")
 
 
-def phase_serve(smi: str, name: str = "alexnet1"
+def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
                 ) -> tuple[dict[str, int], list, np.ndarray]:
-    """Serving ``name`` in float32, a main path; returns the LRN launches
-    it made by kernel, the answers and the inputs."""
+    """Serving ``name`` in float32, a main path, with ``lrns`` LRNs a
+    forward; returns the LRN launches it made by kernel, the answers and
+    the inputs. The answers are held against the same module run with
+    the plain LRN on the card, or, for a model without LRN, against the
+    same weights run on this machine's CPU (the first 8 requests)."""
     import torch
 
     from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
@@ -496,11 +533,11 @@ def phase_serve(smi: str, name: str = "alexnet1"
     batches = snap["batches"]
     launches = sum(by_kernel.values())
     assert snap["completed"] == N_REQUESTS and snap["failed"] == 0, snap
-    assert launches == 2 * batches, (launches, batches)
+    assert launches == lrns * batches, (launches, batches)
     assert by_kernel["lrn_forward_f32"] == launches, by_kernel
     _say(f"[serve] {name}: {N_REQUESTS} requests in {batches} batches "
          f"(pad overhead {snap['pad_overhead_frac']}); LRN launches "
-         f"{launches} = 2 per batch; {by_kernel}")
+         f"{launches} = {lrns} per batch; {by_kernel}")
     _say(f"[serve] {name}: {N_REQUESTS / wall:.1f} images/s, e2e p50 "
          f"{snap['e2e_latency']['p50_ms']} ms p95 "
          f"{snap['e2e_latency']['p95_ms']} ms, device time per batch p50 "
@@ -508,16 +545,22 @@ def phase_serve(smi: str, name: str = "alexnet1"
          f"{smi})")
 
     ref = copy.deepcopy(served.module)
-    ref.lrn = local_response_norm_reference
+    if lrns:
+        ref.lrn = local_response_norm_reference
+        n, where, what = N_REQUESTS, "cuda", "the plain-LRN run"
+    else:
+        ref = ref.cpu()
+        n, where, what = CPU_CHECKED, "cpu", "the CPU run"
     with torch.inference_mode():
         probs = torch.cat([
-            torch.softmax(ref(torch.from_numpy(xs[i:i + 32]).cuda()), -1)
-            for i in range(0, N_REQUESTS, 32)])
+            torch.softmax(ref(torch.from_numpy(xs[i:min(i + 32, n)])
+                              .to(where)), -1)
+            for i in range(0, n, 32)])
         top_p, top_c = torch.topk(probs, 5, dim=-1)
-    _check_against(results, top_p.cpu().numpy(), top_c.cpu().numpy(),
+    _check_against(results[:n], top_p.cpu().numpy(), top_c.cpu().numpy(),
                    probs.cpu().numpy(), atol=1e-4)
-    _say(f"[serve] {name}: every answer matches the plain-LRN run of the "
-         "same module (probs within 1e-4)")
+    _say(f"[serve] {name}: the first {n} answers match {what} of the same "
+         "weights (probs within 1e-4)")
     batch = xs[:BUCKETS[-1]]
     served.run(batch)  # warm: the engine already ran this bucket
     _profile(lambda: served.run(batch), f"{name} bucket-{len(batch)} batch")
@@ -549,15 +592,19 @@ def _launch_counts() -> dict[str, int]:
 
 
 def _profile(run, label: str, top: int = 10, windows: int = 5,
-             before: str | None = None) -> None:
+             before: str | None = None) -> dict:
     """``torch.profiler`` windows over ``run()``, which does its work and
     waits for the card. One window traces the host and the card: the
-    device time by kernel name and the LRN kernels' share of it, and for
-    each kernel whose name holds ``before``, the kernel the card ran just
-    before it and whether that was a copy. Then
-    ``windows`` windows trace the card alone, so that no tracing of host
-    operations lengthens the host's wall time: the device's idle share of
-    it, 1 - busy / wall, and the H2D copies' time in each."""
+    device time by kernel name, the launches, the LRN kernels' share of
+    the device time and that of the reduction and elementwise kernels
+    (BatchNorm's statistics and apply are both), and for each kernel
+    whose name holds ``before``, the kernel the card ran just before it
+    and whether that was a copy. Then ``windows`` windows trace the card
+    alone, so that no tracing of host operations lengthens the host's
+    wall time: the device's idle share of it, 1 - busy / wall, and the
+    H2D copies' time in each. Returns ``device_ms``, ``launches``,
+    ``reduction_share``, ``elementwise_share`` and ``idle`` (the median
+    share; None where the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -583,12 +630,24 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
     if total_us == 0:
         _say(f"[profile] {label}: device time by kernel not measured (the "
              "profiler recorded no device time)")
-        return
-    lrn_us = sum(device_us(e) for e in on_device if "lrn" in e.key.lower())
+        return {"device_ms": None, "launches": None, "idle": None,
+                "reduction_share": None, "elementwise_share": None}
+
+    def share(word: str) -> float:
+        return sum(device_us(e) for e in on_device
+                   if word in e.key.lower()) / total_us
+
+    out = {"device_ms": total_us / 1e3,
+           "launches": sum(e.count for e in on_device),
+           "reduction_share": share("reduce"),
+           "elementwise_share": share("elementwise"), "idle": None}
+    lrn = share("lrn")
     _say(f"[profile] {label} (host and card traced): "
-         f"device time {total_us / 1e3:.3f} ms in {len(on_device)} "
-         f"kernels/copies; LRN {lrn_us / 1e3:.4f} ms = "
-         f"{lrn_us / total_us:.2%} of device time")
+         f"device time {total_us / 1e3:.3f} ms in {out['launches']} "
+         f"launches of {len(on_device)} kernels/copies; LRN "
+         f"{lrn * total_us / 1e3:.4f} ms = {lrn:.2%} of device time; "
+         f"reduction kernels {out['reduction_share']:.2%}, elementwise "
+         f"kernels {out['elementwise_share']:.2%}")
     ranked = sorted(on_device, key=device_us, reverse=True)
     # the top kernels, and every LRN kernel and copy wherever it ranks
     for e in ranked[:top] + [e for e in ranked[top:] if any(
@@ -624,16 +683,18 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
         if busy_us == 0:
             _say(f"[profile] card-only window {w}: idle share not measured "
                  "(the profiler recorded no device time)")
-            return
+            return out
         h2d_us = sum(e.time_range.end - e.time_range.start for e in events
                      if "HtoD" in e.name)
         idle.append(1 - busy_us / wall_us)
         _say(f"[profile] card-only window {w}: host wall "
              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
              f"(H2D copy {h2d_us / 1e3:.3f} ms), idle share {idle[-1]:.1%}")
+    out["idle"] = statistics.median(idle)
     _say(f"[profile] {label}: device idle share, median of {windows} "
-         f"card-only windows, {statistics.median(idle):.1%} (range "
+         f"card-only windows, {out['idle']:.1%} (range "
          f"{min(idle):.1%}-{max(idle):.1%})")
+    return out
 
 
 def phase_cli(results, xs, n: int = 4) -> None:
@@ -734,11 +795,141 @@ def phase_train_step(name: str = "alexnet1", steps: int = 3
     return launches
 
 
+def phase_card_vs_cpu_step(name: str = "resnet50", n: int = 8) -> None:
+    """One float32 train step of ``name`` (config's optimizer and
+    ``model_kwargs``, fresh seeded weights, a batch of ``n`` at full
+    width, TF32 off) on the card and on this machine's CPU from the same
+    state. The loss and every parameter and BN statistic are held as the
+    CPU tests hold the port against JAX, to float32's own noise: float32
+    BN models flip ReLUs whose inputs lie within rounding of 0, and each
+    flip moves the gradients below it by up to a few percent. Each
+    platform flips its own: two more runs on each, on the batch reversed
+    and rolled by 3, give each leaf its floor, the largest gap between a
+    platform's run and its reordered runs; each leaf is held within 1e-5
+    plus three times its floor, the loss within 1e-4 plus four times
+    its. Both floors come from within one platform, so a fault of one
+    platform's path is not in them. Two faults planted on the card show
+    that the check sees one: the state left as it was before the step,
+    and the step taken at 0.9 times the config's LR; each must put
+    leaves over their tolerance. No LRN kernel launches."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import (
+        make_optimizer,
+        set_lr_scale,
+    )
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    strict_fp32()
+    cfg = get_config(name)
+    base = create_model(name, device=torch.device("cpu"), seed=0,
+                        **cfg.get("model_kwargs", {}))
+    host = _train_batch(n)
+    orders = (lambda a: a, lambda a: a[::-1],
+              lambda a: np.roll(a, 3, axis=0))
+
+    def run(device, order, lr_scale=1.0):
+        module = copy.deepcopy(base).to(device)
+        optimizer, _ = make_optimizer(cfg, module.parameters(), 1000)
+        set_lr_scale(optimizer, lr_scale)
+        state = TrainState(module, optimizer)
+        batch = {k: torch.from_numpy(order(v).copy()).to(device)
+                 for k, v in host.items()}
+        loss = classification_train_step(
+            state, batch, next(KeySeq(1, 0, device=device)), "torch")["loss"]
+        return float(loss), {k: v.detach().cpu()
+                             for k, v in module.state_dict().items()}
+
+    t0 = time.perf_counter()
+    _zero_launch_counts()
+    card = [run("cuda", o) for o in orders]
+    launches = sum(_launch_counts().values())
+    wrong_lr = run("cuda", orders[0], lr_scale=0.9)[1]
+    t_cpu = time.perf_counter()
+    cpu = [run("cpu", o) for o in orders]
+    t_cpu = time.perf_counter() - t_cpu
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+
+    def floor(runs, key):
+        return max(gap(r[1][key], runs[0][1][key]) for r in runs[1:])
+
+    floors = {key: (floor(card, key), floor(cpu, key)) for key in card[0][1]}
+
+    def used(state):
+        """Each leaf's gap between ``state`` and the CPU's step, as a
+        share of its tolerance."""
+        return {k: gap(cpu[0][1][k], v) / (1e-5 + 3 * max(floors[k]))
+                for k, v in state.items()}
+
+    held = used(card[0][1])
+    worst_key = max(held, key=held.get)
+    worst = held[worst_key]
+    planted = {"state before the step": used(base.state_dict()),
+               "LR x 0.9": used(wrong_lr)}
+    loss_floor = max(abs(r[0] - runs[0][0]) for runs in (card, cpu)
+                     for r in runs[1:])
+    loss_gap = abs(cpu[0][0] - card[0][0])
+    loss_tol = 1e-4 * abs(card[0][0]) + 4 * loss_floor
+    wk = worst_key
+    _say(f"[card-vs-cpu] {name} f32 (TF32 off) batch {n} at 224, one step "
+         f"on each of 3 batch orders on each side in "
+         f"{time.perf_counter() - t0:.1f} s (CPU {t_cpu:.1f} s): loss card "
+         f"{card[0][0]:.6f} CPU {cpu[0][0]:.6f}, gap {loss_gap:.3e} "
+         f"(tolerance {loss_tol:.3e}, floor {loss_floor:.3e}); "
+         f"{len(floors)} parameters and BN statistics, each within 1e-5 + 3 "
+         f"x its floor: at most {worst:.1%} of its tolerance used ({wk}: gap "
+         f"{gap(cpu[0][1][wk], card[0][1][wk]):.3e}, card floor "
+         f"{floors[wk][0]:.3e}, CPU floor {floors[wk][1]:.3e}); largest "
+         f"floor card {max(f[0] for f in floors.values()):.3e}, CPU "
+         f"{max(f[1] for f in floors.values()):.3e}; LRN launches "
+         f"{launches}")
+    # what the card's floor alone would say: the leaves over it, and
+    # whether the worst one's gap sits in one output channel (one ReLU
+    # flip) or across them
+    over = {k: gap(cpu[0][1][k], w) / (1e-5 + 3 * floors[k][0])
+            for k, w in card[0][1].items()}
+    ok = max(over, key=over.get)
+    per_channel = sorted(((cpu[0][1][ok] - card[0][1][ok]).abs()
+                          .reshape(len(card[0][1][ok]), -1).amax(1)
+                          .tolist()), reverse=True)
+    _say(f"[card-vs-cpu] held to the card's floor alone: "
+         f"{sum(v > 1 for v in over.values())} of {len(over)} leaves over "
+         f"it, at most {over[ok]:.2f}x ({ok}: gap "
+         f"{gap(cpu[0][1][ok], card[0][1][ok]):.3e}, card floor "
+         f"{floors[ok][0]:.3e}, CPU floor {floors[ok][1]:.3e}; largest "
+         f"gaps by output channel {per_channel[0]:.3e}, "
+         f"{per_channel[1] if len(per_channel) > 1 else 0.0:.3e})")
+    for fault, shares in planted.items():
+        over = sorted(shares.values(), reverse=True)
+        _say(f"[card-vs-cpu] planted fault on the card, {fault}: "
+             f"{sum(v > 1 for v in over)} of {len(over)} leaves over their "
+             f"tolerance, at most {over[0]:.2f}x (the sound step: "
+             f"{sum(v > 1 for v in held.values())}, at most {worst:.1%})")
+    assert np.isfinite(card[0][0]) and loss_gap <= loss_tol
+    assert worst <= 1.0, (worst_key, worst)
+    assert launches == 0
+    # the check sees both faults: the unchanged state on most leaves, as
+    # the CPU tests require of theirs, the wrong LR on at least one
+    stale = planted["state before the step"]
+    assert sum(v > 1 for v in stale.values()) > len(stale) // 2
+    assert max(planted["LR x 0.9"].values()) > 1.0
+
+
 def phase_trainer(workdir: Path, name: str = "alexnet1", lrns: int = 2
                   ) -> tuple[dict[str, int], object]:
     """Training ``name``, a main path: the port's Trainer at full width
-    in the config's bf16 policy, one epoch of 2 steps, ``lrns`` LRNs a
-    forward; returns its LRN launches and the trainer."""
+    in the config's bf16 policy and batch, the model built with the
+    config's ``model_kwargs``, one epoch of 2 steps on a synthetic set of
+    3 batches (one held out), ``lrns`` LRNs a forward; returns its LRN
+    launches and the trainer. A model with BN: every running statistic
+    moved."""
     import torch
 
     from deepvision_tpu_torch.data.mnist import batches
@@ -749,10 +940,12 @@ def phase_trainer(workdir: Path, name: str = "alexnet1", lrns: int = 2
 
     cfg = get_config(name)
     bs = cfg["batch_size"]
-    imgs, labels, split = synthetic_classification(384, 224, 3, 1000, bs)
+    imgs, labels, split = synthetic_classification(3 * bs, 224, 3, 1000, bs)
     steps = (len(imgs) - split) // bs
+    assert steps == 2, (len(imgs), split, bs)
     module = create_model(name, device=torch.device("cuda"), seed=0,
-                          dtype=torch.bfloat16)
+                          dtype=torch.bfloat16,
+                          **cfg.get("model_kwargs", {}))
     trainer = Trainer(
         module, cfg,
         lambda e: batches(imgs[split:], labels[split:], bs,
@@ -773,7 +966,25 @@ def phase_trainer(workdir: Path, name: str = "alexnet1", lrns: int = 2
     assert launches["lrn_forward_bf16"] == lrns * (steps + evals), launches
     assert launches["lrn_backward_bf16"] == lrns * steps, launches
     assert trainer.ckpt.latest_epoch() == 0
+    stats = _unmoved_bn_statistics(module)
+    if stats[1]:
+        assert not stats[0], stats[0][:5]
+        _say(f"[trainer] {name}: all {stats[1]} BN statistic tensors moved "
+             "from their fresh values (mean 0, var 1)")
     return launches, trainer
+
+
+def _unmoved_bn_statistics(module) -> tuple[list[str], int]:
+    """(names of BN running statistics still at their fresh values, mean
+    0 or var 1; how many there are in all)."""
+    import torch
+
+    stats = {k: v for k, v in module.state_dict().items()
+             if k.endswith((".mean", ".var"))}
+    unmoved = [k for k, v in stats.items()
+               if (k.endswith(".mean") and not v.any())
+               or (k.endswith(".var") and torch.equal(v, torch.ones_like(v)))]
+    return unmoved, len(stats)
 
 
 def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
@@ -786,13 +997,15 @@ def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
 
 
 def phase_train_cli(workdir: Path, name: str = "alexnet1",
-                    steps: int | None = None, lrns: int = 2) -> None:
-    """The training CLI of ``name`` at full width: 2 epochs (of ``steps``
-    steps, if given), a resume to 3, then the served model from the
-    newest checkpoint. The LRN kernels launched if the model has
-    ``lrns`` LRNs a forward, and not otherwise. A model with BN: its
-    running statistics moved and a restore gives them back bit for bit,
-    with the schedule's update count."""
+                    lrns: int = 2, steps: int = 2) -> None:
+    """The training CLI of ``name`` at full width and the config's batch:
+    2 epochs of ``steps`` steps on a synthetic set of ``steps`` + 1
+    batches (one held out), a resume to 3, then the served model from
+    the newest checkpoint. The config's ``model_kwargs`` reached the
+    model. The LRN kernels launched if the model has ``lrns`` LRNs a
+    forward, and not otherwise. A model with BN: its running statistics
+    moved and a restore gives them back bit for bit, with the schedule's
+    update count where it has one."""
     import torch
 
     from deepvision_tpu_torch.models import create_model
@@ -803,12 +1016,14 @@ def phase_train_cli(workdir: Path, name: str = "alexnet1",
     from deepvision_tpu_torch.train.optimizers import make_optimizer
     from deepvision_tpu_torch.train.state import TrainState
 
-    common = ["-m", name, "--synthetic-size", "640", "--workdir",
-              str(workdir)]
-    if steps:
-        common += ["--steps-per-epoch", str(steps)]
+    cfg = get_config(name)
+    model_kwargs = cfg.get("model_kwargs", {})
+    common = ["-m", name, "--synthetic-size",
+              str((steps + 1) * cfg["batch_size"]), "--steps-per-epoch",
+              str(steps), "--workdir", str(workdir)]
     t0 = time.perf_counter()
     first = _run_cli([*common, "--epochs", "2"])
+    assert f"model_kwargs {model_kwargs}" in first.stdout, first.stdout[:2000]
     epochs = [ln for ln in first.stdout.splitlines() if ln.startswith("[")]
     ckpt = workdir / name / "ckpt"
     for e in (0, 1):
@@ -846,31 +1061,53 @@ def phase_train_cli(workdir: Path, name: str = "alexnet1",
     _say(f"[train-cli] {name}: load_served answers from the epoch-2 "
          f"checkpoint (weights equal to it; top-1 of 8 images "
          f"{out['classes'][:, 0]})")
-    stats = [k for k in want if k.endswith((".bn.mean", ".bn.var"))]
-    if stats:
-        fresh = create_model(name, device=torch.device("cuda"), seed=1,
-                             dtype=torch.bfloat16)
-        cfg = get_config(name)
+    fresh = create_model(name, device=torch.device("cuda"), seed=1,
+                         dtype=torch.bfloat16, **model_kwargs)
+    if model_kwargs.get("s2d_stem"):
+        # the stem's BN is flax's stock one only under the config's
+        # model_kwargs, which the CLI printed it was built with
+        assert type(fresh.stem.bn).__name__ == "BatchNorm", fresh.stem.bn
+        assert type(served.module.stem.bn).__name__ == "MixedBatchNorm"
+    unmoved, n_stats = _unmoved_bn_statistics(served.module)
+    if n_stats:
         opt, _ = make_optimizer(cfg, fresh.parameters(), steps)
         CheckpointManager(ckpt).restore(TrainState(fresh, opt), 2)
-        moved = [k for k in stats if k.endswith(".bn.mean") and want[k].any()
-                 or k.endswith(".bn.var") and not torch.equal(
-                     want[k], torch.ones_like(want[k]))]
         restored = fresh.state_dict()
         assert all(torch.equal(restored[k], want[k]) for k in want)
-        assert float(opt.count) == 3.0 * steps, float(opt.count)
-        assert len(moved) == len(stats), sorted(set(stats) - set(moved))[:5]
-        _say(f"[train-cli] {name}: all {len(stats)} BN running statistics "
+        count = getattr(opt, "count", None)  # a step-count schedule's
+        if count is not None:
+            assert float(count) == 3.0 * steps, float(count)
+        assert not unmoved, unmoved[:5]
+        _say(f"[train-cli] {name}: all {n_stats} BN running statistics "
              f"moved from their fresh values (mean 0, var 1); a restore "
-             f"gives them back bit for bit, with the update count "
-             f"{float(opt.count):.0f}")
+             f"gives them back bit for bit"
+             + ("" if count is None else
+                f", with the update count {float(count):.0f}")
+             + (f"; built with model_kwargs {model_kwargs} (stock stem BN)"
+                if model_kwargs else ""))
+
+
+def _model_flops_per_image(module) -> float:
+    """Model FLOPs of one forward of one 224x224x3 image: 2 a MAC of
+    every convolution and matmul, counted from their shapes by
+    ``torch.utils.flop_counter``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.zeros(1, 224, 224, 3, device="cuda")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x)
+    return float(counter.get_total_flops())
 
 
 def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
-                     warmup: int = 3) -> None:
-    """Training images/s of ``name`` at batch 128 in bf16: through the
-    device feed, and on one device-resident batch; then profiler windows
-    over one step."""
+                     warmup: int = 3) -> dict:
+    """Training images/s of ``name`` at the trainer's batch in bf16:
+    through the device feed, and on one device-resident batch, with the
+    peak of allocated device memory over the resident steps and the
+    model FLOP utilization (a step's model FLOPs, the backward counted
+    as twice the forward, over the step time and the dense bf16 peak);
+    then profiler windows over one step. Returns the readings."""
     import itertools
 
     import torch
@@ -880,8 +1117,9 @@ def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
     from deepvision_tpu_torch.train.steps import classification_train_step
 
     state = trainer.state
+    bs = trainer.config["batch_size"]
     keys = KeySeq(1, 99, device="cuda")
-    host = [_train_batch(TRAIN_BATCH, seed=s) for s in range(4)]
+    host = [_train_batch(bs, seed=s) for s in range(4)]
 
     def step(batch):
         return classification_train_step(state, batch, next(keys), "torch")
@@ -896,7 +1134,7 @@ def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
         for batch in feed:
             m = step(batch)
         m["loss"].item()
-        fed = steps * TRAIN_BATCH / (time.perf_counter() - t0)
+        fed = steps * bs / (time.perf_counter() - t0)
         tel = feed.telemetry.summary()
     finally:
         feed.close()
@@ -904,16 +1142,25 @@ def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
     resident = {k: torch.from_numpy(v).cuda() for k, v in host[0].items()}
     for _ in range(warmup):
         step(resident)["loss"].item()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(steps):
         m = step(resident)
     m["loss"].item()
-    dev = steps * TRAIN_BATCH / (time.perf_counter() - t0)
-    _say(f"[throughput] {name} train bf16 batch {TRAIN_BATCH}, {steps} "
+    dev = steps * bs / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    flops = 3 * bs * _model_flops_per_image(state.module)
+    mfu = {k: flops * ips / bs / BF16_DENSE_FLOPS_PER_S
+           for k, ips in (("feed", fed), ("resident", dev))}
+    _say(f"[throughput] {name} train bf16 batch {bs}, {steps} "
          f"timed steps after {warmup}: {fed:.1f} images/s through the device "
          f"feed (h2d_wait {tel['h2d_wait_ms']} ms, step {tel['step_ms']} ms "
          f"a batch), {dev:.1f} images/s on a device-resident batch; loss "
-         f"{m['loss'].item():.4f}")
+         f"{m['loss'].item():.4f}; peak allocated {peak_gb:.2f} GiB; model "
+         f"FLOPs {flops:.4e} a step (convolutions and matmuls, 2 a MAC, "
+         f"backward twice the forward), MFU {mfu['feed']:.2%} fed and "
+         f"{mfu['resident']:.2%} resident of the dense bf16 peak "
+         f"{BF16_DENSE_FLOPS_PER_S:.3e} FLOP/s")
     assert np.isfinite(m["loss"].item())
 
     def one_step():
@@ -921,8 +1168,71 @@ def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
         torch.cuda.synchronize()
 
     # does the layout step of the LRN's backward (g.contiguous()) copy?
-    _profile(one_step, f"{name} train step bf16 batch {TRAIN_BATCH}",
-             before="lrn_backward")
+    prof = _profile(one_step, f"{name} train step bf16 batch {bs}",
+                    before="lrn_backward")
+    return {"fed": fed, "resident": dev, "peak_gb": peak_gb, "flops": flops,
+            "mfu": mfu, **prof}
+
+
+def phase_served_batch(name: str) -> None:
+    """``load_served(name)`` in float32 (TF32 off) answers one bucket-64
+    batch: finite top-5 answers, no LRN launch; then profiler windows
+    over the batch."""
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import load_served
+
+    strict_fp32()
+    served = load_served(name, seed=0)
+    batch = (np.random.default_rng(0)
+             .normal(0, 1, (BUCKETS[-1], *served.input_shape))
+             .astype(np.float32))
+    served.run(batch)  # warm
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    out = served.run(batch)
+    wall = time.perf_counter() - t0
+    launches = sum(_launch_counts().values())
+    assert out["classes"].shape == (len(batch), 5), out["classes"].shape
+    assert np.all(np.isfinite(out["probs"])) and launches == 0, launches
+    _say(f"[serve-batch] {name}: a bucket-{len(batch)} batch answered in "
+         f"{wall * 1e3:.1f} ms of host wall, top-1 of the first 8 "
+         f"{out['classes'][:8, 0]}; LRN launches {launches}")
+    _profile(lambda: served.run(batch), f"{name} bucket-{len(batch)} batch")
+
+
+def phase_resnets(smi: str, workdir: Path) -> None:
+    """The ResNet paths, none of which reaches an LRN kernel: ``resnet50``
+    served, its float32 step on the card against the CPU, its Trainer,
+    its training throughput and its CLI; then ``resnet34`` and
+    ``resnet50v2`` trained for one epoch and served one batch."""
+    _timed("resnet50 serve", phase_serve, smi, "resnet50", lrns=0)
+    _timed("resnet50 card-vs-cpu step", phase_card_vs_cpu_step, "resnet50")
+    _, trainer = _timed("resnet50 trainer", phase_trainer,
+                        workdir / "inproc_resnet50", "resnet50", lrns=0)
+    r = _timed("resnet50 throughput", phase_throughput, trainer, "resnet50")
+    trainer = None
+    _say(f"[resnet50] train bf16 batch 256: {r['fed']:.1f} images/s fed, "
+         f"{r['resident']:.1f} resident; MFU {r['mfu']['feed']:.2%} fed, "
+         f"{r['mfu']['resident']:.2%} resident ({r['flops']:.4e} FLOPs a "
+         f"step over {BF16_DENSE_FLOPS_PER_S:.3e} FLOP/s); device time "
+         f"{r['device_ms']} ms in {r['launches']} launches a step, idle "
+         f"{r['idle']}; reduction kernels {r['reduction_share']}, "
+         f"elementwise kernels {r['elementwise_share']} of device time; "
+         f"peak allocated {r['peak_gb']:.2f} GiB ({smi})")
+    _timed("resnet50 train CLI", phase_train_cli, workdir / "cli",
+           "resnet50", lrns=0)
+    for name in ("resnet34", "resnet50v2"):
+        _timed(f"{name} trainer", phase_trainer, workdir / f"inproc_{name}",
+               name, lrns=0)
+        _timed(f"{name} served batch", phase_served_batch, name)
+
+
+def _timed(label: str, phase, *args, **kwargs):
+    """``phase(*args, **kwargs)``, with the seconds it took printed."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    _say(f"[phase] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -939,34 +1249,46 @@ def main() -> int:
     t_start = time.perf_counter()
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
-    smi = phase_card()
-    phase_build()
-    errs = phase_parity()
-    times = phase_times()
+    smi = _timed("card", phase_card)
+    _timed("build", phase_build)
+    errs = _timed("parity", phase_parity)
+    times = _timed("times", phase_times)
     # each main path's LRN launches, counted from 0 just before it
     paths = {}
-    paths["serve_f32"], results, xs = phase_serve(smi)
-    phase_cli(results, xs)
-    paths["train_step_f32"] = phase_train_step()
-    paths["trainer_bf16"], trainer = phase_trainer(workdir / "inproc")
-    phase_train_cli(workdir / "cli")
-    phase_throughput(trainer)
+    paths["serve_f32"], results, xs = _timed("alexnet1 serve", phase_serve,
+                                             smi)
+    _timed("serving CLI", phase_cli, results, xs)
+    paths["train_step_f32"] = _timed("alexnet1 train step",
+                                     phase_train_step)
+    paths["trainer_bf16"], trainer = _timed("alexnet1 trainer",
+                                            phase_trainer, workdir / "inproc")
+    _timed("alexnet1 train CLI", phase_train_cli, workdir / "cli")
+    _timed("alexnet1 throughput", phase_throughput, trainer,
+           steps=EARLIER_TIMED_STEPS)
     trainer = None
     # Inception V1: the reference's BN-free variant, whose stem LRNs
     # (n=64, n=192) run on the kernels, then the BN variant
-    paths["inception1_ref_serve_f32"], _, _ = phase_serve(smi,
-                                                          "inception1_ref")
-    paths["inception1_ref_train_step_f32"] = phase_train_step(
-        "inception1_ref")
-    paths["inception1_ref_trainer_bf16"], trainer = phase_trainer(
+    paths["inception1_ref_serve_f32"], _, _ = _timed(
+        "inception1_ref serve", phase_serve, smi, "inception1_ref")
+    paths["inception1_ref_train_step_f32"] = _timed(
+        "inception1_ref train step", phase_train_step, "inception1_ref")
+    paths["inception1_ref_trainer_bf16"], trainer = _timed(
+        "inception1_ref trainer", phase_trainer,
         workdir / "inproc_inception1_ref", "inception1_ref")
-    phase_throughput(trainer, "inception1_ref")
-    paths["inception1_trainer_bf16"], trainer = phase_trainer(
-        workdir / "inproc_inception1", "inception1", lrns=0)
-    phase_throughput(trainer, "inception1")
+    _timed("inception1_ref throughput", phase_throughput, trainer,
+           "inception1_ref", steps=EARLIER_TIMED_STEPS)
+    paths["inception1_trainer_bf16"], trainer = _timed(
+        "inception1 trainer", phase_trainer, workdir / "inproc_inception1",
+        "inception1", lrns=0)
+    _timed("inception1 throughput", phase_throughput, trainer, "inception1",
+           steps=EARLIER_TIMED_STEPS)
     trainer = None
-    phase_train_cli(workdir / "cli", "inception1_ref", steps=2)
-    phase_train_cli(workdir / "cli", "inception1", steps=2, lrns=0)
+    _timed("inception1_ref train CLI", phase_train_cli, workdir / "cli",
+           "inception1_ref")
+    _timed("inception1 train CLI", phase_train_cli, workdir / "cli",
+           "inception1", lrns=0)
+    torch.cuda.empty_cache()
+    phase_resnets(smi, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []

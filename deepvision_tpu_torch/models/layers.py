@@ -10,7 +10,9 @@ Mixed precision follows flax's ``dtype`` convention: parameters stay
 float32 masters and are cast to the compute ``dtype`` at use, inside the
 forward (:func:`conv2d`, :func:`dense`), so their gradients flow back
 through the cast as float32. :class:`MixedBatchNorm` keeps its
-statistics and its affine in float32 and casts them at use too.
+statistics and its affine in float32 and casts them at use too;
+:class:`BatchNorm`, flax's stock layer, normalizes in float32 and casts
+only its output (trap C8).
 
 XLA's ``"SAME"`` padding is asymmetric under a stride (trap C2): the
 pads are spelled out by :func:`same_padding` and applied explicitly.
@@ -27,8 +29,8 @@ from torch import nn
 
 __all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
            "global_avg_pool", "same_padding", "make_conv", "conv_padding",
-           "lecun_normal_", "he_normal_", "MixedBatchNorm", "ConvBN",
-           "init_weights"]
+           "lecun_normal_", "he_normal_", "MixedBatchNorm", "BatchNorm",
+           "ConvBN", "init_weights"]
 
 Padding = str | Sequence[tuple[int, int]]
 
@@ -199,23 +201,12 @@ def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     _truncated_normal_(weight, 2.0 / fan_out, generator)
 
 
-class MixedBatchNorm(nn.Module):
-    """BatchNorm over the channels of an NHWC tensor, computed as the JAX
-    package's ``MixedBatchNorm``, which ``torch.nn.BatchNorm2d`` is not
-    (trap C1): the running variance takes the biased batch variance,
-    and ``momentum`` is flax's (``ra = momentum·ra + (1 - momentum)·
-    batch``, torch's 1 - momentum).
-
-    ``train``: normalize by the batch's moments, E[x] and E[x²] - E[x]²
-    clamped at 0, taken with float32 accumulators (a bf16 input is
-    squared in bf16, as the JAX twin squares it), and update the running
-    ``mean`` and ``var`` in place. Otherwise normalize by the running
-    statistics. A float32 input takes flax's stock expression
-    ``(x - mean)·(rsqrt(var + eps)·scale) + bias``; any other dtype the
-    channel affine folded in float32, cast once, and one ``x·mul +
-    shift`` in that dtype. ``scale`` and ``bias`` are float32 parameters
-    and ``mean`` and ``var`` float32 buffers, named as flax's ``params``
-    and ``batch_stats`` leaves."""
+class _BatchNorm(nn.Module):
+    """What both BatchNorms share: ``scale`` and ``bias``, float32
+    parameters, and ``mean`` and ``var``, float32 buffers, named as
+    flax's ``params`` and ``batch_stats`` leaves; flax's running update
+    ``ra = momentum·ra + (1 - momentum)·batch`` (torch's momentum is 1 -
+    flax's) with the biased batch variance (trap C1)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -234,18 +225,45 @@ class MixedBatchNorm(nn.Module):
         self.mean.zero_()
         self.var.fill_(1.0)
 
+    def _statistics(self, x: torch.Tensor, train: bool
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training: the batch's E[x] and E[x²] - E[x]² clamped at 0,
+        over every axis but the last, with float32 accumulators, and the
+        running statistics updated in place. Otherwise the running
+        statistics."""
+        if not train:
+            return self.mean, self.var
+        dims = tuple(range(x.ndim - 1))
+        mean = x.mean(dims, dtype=torch.float32)
+        mean2 = (x * x).mean(dims, dtype=torch.float32)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return mean, var
+
+
+class MixedBatchNorm(_BatchNorm):
+    """BatchNorm over the channels of an NHWC tensor, computed as the JAX
+    package's ``MixedBatchNorm``, which ``torch.nn.BatchNorm2d`` is not
+    (trap C1): the running variance takes the biased batch variance,
+    and ``momentum`` is flax's (``ra = momentum·ra + (1 - momentum)·
+    batch``, torch's 1 - momentum).
+
+    ``train``: normalize by the batch's moments, E[x] and E[x²] - E[x]²
+    clamped at 0, taken with float32 accumulators (a bf16 input is
+    squared in bf16, as the JAX twin squares it), and update the running
+    ``mean`` and ``var`` in place. Otherwise normalize by the running
+    statistics. A float32 input takes flax's stock expression
+    ``(x - mean)·(rsqrt(var + eps)·scale) + bias``; any other dtype the
+    channel affine folded in float32, cast once, and one ``x·mul +
+    shift`` in that dtype. ``scale`` and ``bias`` are float32 parameters
+    and ``mean`` and ``var`` float32 buffers, named as flax's ``params``
+    and ``batch_stats`` leaves."""
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims, dtype=torch.float32)
-            mean2 = (x * x).mean(dims, dtype=torch.float32)
-            var = torch.clamp(mean2 - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
-        else:
-            mean, var = self.mean, self.var
+        mean, var = self._statistics(x, train)
         mul = torch.rsqrt(var + self.eps) * self.scale
         if x.dtype == torch.float32:
             return (x - mean) * mul + self.bias
@@ -253,29 +271,55 @@ class MixedBatchNorm(nn.Module):
         return torch.addcmul(shift.to(x.dtype), x, mul.to(x.dtype))
 
 
+class BatchNorm(_BatchNorm):
+    """flax's stock ``nn.BatchNorm`` (``_compute_stats`` and
+    ``_normalize`` of flax 0.12) over the channels of an NHWC tensor,
+    under the names of :class:`MixedBatchNorm`. Where that one keeps a
+    bf16 input in bf16, this one casts it to float32 first (trap C8):
+    the statistics are E[x] and E[x²] - E[x]² of the float32 input, the
+    apply ``(x - mean)·(rsqrt(var + eps)·scale) + bias`` runs in
+    float32, and only the result is cast, to ``dtype`` (flax's explicit
+    ``dtype``; every site of the zoo gives one). In float32 the two
+    layers compute the same expression."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5, *, dtype: torch.dtype):
+        super().__init__(features, momentum, eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        mean, var = self._statistics(x, train)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
 class ConvBN(nn.Module):
     """The JAX ``ConvBN``: a convolution without bias (``conv``), then
-    :class:`MixedBatchNorm` (``bn``, momentum 0.9, eps 1e-5), then ReLU,
-    in the compute ``dtype``. Fresh kernels are ``he_normal``."""
+    :class:`MixedBatchNorm` (``bn``, momentum 0.9, eps 1e-5), then
+    ``act`` (ReLU; None for none), in the compute ``dtype``. Fresh
+    kernels are ``he_normal``."""
 
     kernel_init = staticmethod(he_normal_)
 
     def __init__(self, in_features: int, features: int,
                  kernel: tuple[int, int] = (3, 3),
                  strides: tuple[int, int] = (1, 1),
-                 padding: Padding = "SAME",
+                 padding: Padding = "SAME", act=torch.relu,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = make_conv(in_features, features, kernel, strides,
                               padding, bias=False)
         self.bn = MixedBatchNorm(features)
         self.padding = padding
+        self.act = act
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = conv2d(x, self.conv, conv_padding(x, self.conv, self.padding),
                    self.dtype)
-        return torch.relu(self.bn(x, train))
+        x = self.bn(x, train)
+        return x if self.act is None else self.act(x)
 
 
 @torch.no_grad()
@@ -285,7 +329,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     them: each Conv2d and Linear by the ``kernel_init`` of its nearest
     enclosing module that declares one (the AlexNets and Inception V1
     keep flax's default, :func:`lecun_normal_`; :class:`ConvBN` declares
-    :func:`he_normal_`), zero biases, and every :class:`MixedBatchNorm`
+    :func:`he_normal_`), zero biases, and every BatchNorm (either kind)
     at scale 1, bias 0, mean 0 and var 1. Modules are visited in
     registration order. Works on a module whose storage is
     uninitialised (``to_empty``)."""
@@ -294,7 +338,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
         kernel_init(module.weight, generator)
         if module.bias is not None:
             module.bias.zero_()
-    elif isinstance(module, MixedBatchNorm):
+    elif isinstance(module, _BatchNorm):
         module.reset_parameters()
     for child in module.children():
         init_weights(child, generator, kernel_init)

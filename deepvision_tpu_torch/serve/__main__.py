@@ -10,7 +10,8 @@ Weights are fresh, drawn from ``--seed``, unless ``-m name=workdir``
 names a directory whose ``ckpt/`` holds the port trainer's checkpoints
 (``runs/alexnet1`` after ``python -m deepvision_tpu_torch.train -m
 alexnet1``, ``-m inception1=runs/inception1`` after training
-``inception1``): then the newest verified epoch. The HTTP surface and the
+``inception1``, ``-m resnet50=runs/resnet50`` after training
+``resnet50``): then the newest verified epoch. The HTTP surface and the
 fleet mode of ``serve.py`` come later.
 """
 

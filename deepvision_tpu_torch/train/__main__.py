@@ -1,13 +1,15 @@
-"""Training CLI of the port, the twin of ``train.py`` for the AlexNets
-and Inception V1.
+"""Training CLI of the port, the twin of ``train.py`` for the AlexNets,
+Inception V1 and the ResNets.
 
     python -m deepvision_tpu_torch.train -m alexnet1 [--resume] [--epochs N]
-    python -m deepvision_tpu_torch.train -m inception1_ref
+    python -m deepvision_tpu_torch.train -m resnet50
 
 Without a data directory the run trains on the hermetic synthetic set
 (``data/synthetic.py``), as ``train.py`` does without ``--data-dir``. It
 runs on the card (``--device cuda``, the default, which raises without
-one); ``--device cpu`` runs on the CPU when asked. The flags are
+one); ``--device cpu`` runs on the CPU when asked. The model is built
+with the config's ``model_kwargs`` (``resnet50``'s ``s2d_stem``), as
+``train.py`` builds it. The flags are
 ``train.py``'s names for what this slice serves; the others are not
 ported and are absent, so that no flag is silently ignored.
 """
@@ -113,15 +115,17 @@ def main(argv=None) -> int:
                        drop_remainder=False)
 
     kind = "torch" if cfg.get("augment") == "pt" else "imagenet"
+    model_kwargs = cfg.get("model_kwargs", {})
     module = create_model(args.model, device=device, seed=0,
                           num_classes=cfg["num_classes"], input_size=size,
-                          dtype=policy.compute_dtype)
+                          dtype=policy.compute_dtype, **model_kwargs)
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + f"  model: {args.model} {size}x{size}x{cfg['channels']} -> "
           f"{cfg['num_classes']} classes, batch {bs}, {steps} steps an "
-          f"epoch, precision {policy.name}", flush=True)
+          f"epoch, precision {policy.name}, model_kwargs {model_kwargs}",
+          flush=True)
     trainer = Trainer(
         module, cfg, train_data, val_data, device=device,
         workdir=args.workdir, prefetch_depth=args.prefetch_depth,

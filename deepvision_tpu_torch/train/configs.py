@@ -1,15 +1,21 @@
-"""The port's copy of the AlexNet and Inception V1 entries of
+"""The port's copy of the AlexNet, Inception V1 and ResNet entries of
 ``train/configs.py``.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
 0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
 ``inception1`` its (SGD 0.01 / 0.9 / 2e-4, the ``inception_poly``
-schedule, bf16, batch 128); :func:`get_config` fills the JAX table's
-defaults and, as the JAX ``get_config`` does, gives a ``<model>_ref``
-variant (``inception1_ref``, the reference's BN-free architecture) its
-base model's entry under its own name. ``alexnet2_tf`` has no entry in
-the JAX table and stays serving-only here (its pixel convention is
-``"tf"``): :data:`TRAINABLE` lists the models that train.
+schedule, bf16, batch 128), ``resnet34``, ``resnet50`` and
+``resnet50v2`` theirs (SGD 0.1 / 0.9 / 1e-4, plateau, bf16, batch 256;
+the V1 pair builds its model with ``model_kwargs`` ``{"s2d_stem":
+True}``, and V2 has no ``augment``, so it normalizes as
+``"imagenet"``). :func:`get_config` fills the JAX table's defaults and,
+as the JAX ``get_config`` does, gives a ``<model>_ref`` variant
+(``inception1_ref``, the reference's BN-free architecture) its base
+model's entry under its own name. No entry here declares ``remat``
+(the JAX ``get_config`` folds one into ``model_kwargs``; the port's
+models refuse one, trap C11). ``alexnet2_tf`` has no entry in the JAX table
+and stays serving-only here (its pixel convention is ``"tf"``):
+:data:`TRAINABLE` lists the models that train.
 """
 
 from __future__ import annotations
@@ -28,6 +34,21 @@ _ALEXNET_TRAINING = {
     "scheduler": "plateau",
     "scheduler_params": {"factor": 0.1, "mode": "max"},
     "total_epochs": 200,
+}
+
+_RESNET_TRAINING = {
+    "precision": "bf16",
+    "augment": "pt",
+    "batch_size": 256,
+    "input_size": 224,
+    "optimizer": "sgd",
+    "optimizer_params": {"lr": 0.1, "momentum": 0.9, "weight_decay": 1e-4},
+    "scheduler": "plateau",
+    "scheduler_params": {"factor": 0.1, "mode": "max"},
+    "total_epochs": 200,
+    # the JAX package's space-to-depth stem: the same numbers over the
+    # same kernel, with flax's stock BatchNorm on the stem
+    "model_kwargs": {"s2d_stem": True},
 }
 
 TRAINING_CONFIG: dict[str, dict] = {
@@ -49,6 +70,13 @@ TRAINING_CONFIG: dict[str, dict] = {
         "scheduler": "inception_poly",
         "total_epochs": 200,
     },
+    # ref: deepvision_tpu/train/configs.py "resnet34"
+    "resnet34": copy.deepcopy(_RESNET_TRAINING),
+    # ref: deepvision_tpu/train/configs.py "resnet50", the north star
+    "resnet50": copy.deepcopy(_RESNET_TRAINING),
+    # ref: deepvision_tpu/train/configs.py "resnet50v2"
+    "resnet50v2": {k: copy.deepcopy(v) for k, v in _RESNET_TRAINING.items()
+                   if k not in ("augment", "model_kwargs")},
 }
 
 # reference-exact variants, trained with their base model's entry
@@ -61,7 +89,8 @@ TRAINABLE = tuple(sorted(
 
 def get_config(name: str) -> dict:
     """A deep copy of ``name``'s entry (a ``_ref`` variant's base
-    model's) with the JAX table's defaults."""
+    model's) with the JAX table's defaults; ``model_kwargs``, where the
+    entry has them, are what the trainer builds the model with."""
     base = name.removesuffix("_ref") if name in _REF_VARIANTS else name
     try:
         cfg = copy.deepcopy(TRAINING_CONFIG[base])

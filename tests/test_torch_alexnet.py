@@ -20,6 +20,9 @@ from deepvision_tpu.models import get_model as flax_get_model
 from deepvision_tpu_torch.convert.from_flax import flax_to_torch
 from deepvision_tpu_torch.models import get_model
 from deepvision_tpu_torch.models import layers
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 
 def _flax_variables(name, size, classes):

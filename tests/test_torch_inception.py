@@ -32,6 +32,9 @@ from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 from deepvision_tpu_torch.train.optimizers import make_optimizer
 from deepvision_tpu_torch.train.state import TrainState
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 CPU = torch.device("cpu")
 SIZE, CLASSES = 96, 10

@@ -24,6 +24,9 @@ from deepvision_tpu_torch.ops.lrn import (
     local_response_norm_reference,
 )
 from deepvision_tpu_torch.ops.lrn_cuda import local_response_norm_cuda
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 # (shape, size, k, scale): AlexNet's n=5/k=2, an odd channel count, a
 # row count (289) that is not a multiple of any tile, Inception's

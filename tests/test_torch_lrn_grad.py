@@ -32,6 +32,9 @@ from deepvision_tpu_torch.ops.lrn_cuda import (
     local_response_norm_backward_cuda,
     local_response_norm_cuda,
 )
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 from tests.test_torch_lrn import PLAN_SHAPES
 
 # (shape, size, k, scale): chip_smoke.py's PARITY_CASES at small sizes:

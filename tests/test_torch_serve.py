@@ -29,6 +29,9 @@ from deepvision_tpu_torch.serve import (
     load_served,
 )
 from deepvision_tpu_torch.serve.__main__ import main as serve_main
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE, CLASSES = 64, 10

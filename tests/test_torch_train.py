@@ -82,6 +82,9 @@ from deepvision_tpu_torch.train.steps import (
 )
 from tests.test_torch_inception import _draw as inception_draw
 from tests.test_torch_inception import flax_variables
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 CPU = torch.device("cpu")
 SIZE, CLASSES, BATCH = 64, 10, 4
@@ -647,14 +650,17 @@ def test_dropout_needs_a_generator_and_follows_it():
 
 def test_config_carries_the_jax_training_fields():
     assert TRAINABLE == ("alexnet1", "alexnet2", "inception1",
-                         "inception1_ref")
+                         "inception1_ref", "resnet34", "resnet50",
+                         "resnet50v2")
     for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
                     "channels", "num_classes", "dataset", "optimizer",
                     "optimizer_params", "scheduler", "scheduler_params",
-                    "total_epochs", "name"):
+                    "total_epochs", "name", "model_kwargs", "remat"):
             assert ours.get(key) == theirs.get(key), (name, key)
+    assert get_config("resnet50")["model_kwargs"] == {"s2d_stem": True}
+    assert "augment" not in get_config("resnet50v2")
     assert "optimizer" not in get_config("alexnet2_tf")
     ours = get_config("alexnet1")
     ours["optimizer_params"]["lr"] = 1.0  # a copy, not the table

@@ -31,17 +31,23 @@ from deepvision_tpu_torch.convert.from_flax import flax_to_torch
 from deepvision_tpu_torch.data.mnist import batches
 from deepvision_tpu_torch.data.prefetch import DevicePrefetcher, FeedTelemetry
 from deepvision_tpu_torch.data.synthetic import synthetic_classification
-from deepvision_tpu_torch.models import create_model
+from deepvision_tpu_torch import models
+from deepvision_tpu_torch.models import create_model, layers
 from deepvision_tpu_torch.serve import load_served
 from deepvision_tpu_torch.train import manifest
 from deepvision_tpu_torch.train.__main__ import main as train_main
 from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
+from deepvision_tpu_torch.train.optimizers import make_optimizer
+from deepvision_tpu_torch.train.state import TrainState
 from deepvision_tpu_torch.train.steps import (
     classification_eval_step,
     classification_train_step,
 )
 from deepvision_tpu_torch.train.trainer import Trainer
+from tests.torch_threads import (  # noqa: F401  (autouse)
+    share_cores_among_workers,
+)
 
 CPU = torch.device("cpu")
 SIZE, CLASSES, BATCH = 64, 5, 4
@@ -317,6 +323,59 @@ def test_checkpoint_round_trips_bn_statistics_and_the_update_count(
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
     assert float(fresh.state.optimizer.count) == 3.0
     assert fresh.state.step == 3
+
+
+def test_cli_trains_resnet50_under_its_model_kwargs(tmp_path, capsys,
+                                                    monkeypatch):
+    """``-m resnet50`` at 64 px in the config's bf16: the config's
+    ``model_kwargs`` reach the model (flax's stock BN on the S2D stem),
+    2 epochs of 2 steps, a resume to 3, then ``load_served`` from the
+    newest checkpoint, which builds the plain stem on the same weights.
+    All 106 BN statistic tensors moved, and a restore gives them back
+    bit for bit."""
+    built = []
+    create = models.create_model
+
+    def recording(*args, **kw):
+        built.append(create(*args, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(models, "create_model", recording)
+    common = ["-m", "resnet50", "--device", "cpu", "--input-size", "64",
+              "--num-classes", str(CLASSES), "--batch-size", "4",
+              "--synthetic-size", "16", "--steps-per-epoch", "2",
+              "--workdir", str(tmp_path)]
+    assert train_main([*common, "--epochs", "2"]) == 0
+    out = capsys.readouterr()
+    assert "model: resnet50 64x64x3" in out.out
+    assert "model_kwargs {'s2d_stem': True}" in out.out
+    assert type(built[0].stem.bn) is layers.BatchNorm
+    assert "checkpoints [0, 1]" in out.err
+    assert train_main([*common, "--epochs", "3", "--resume"]) == 0
+    assert "resumed at epoch 2" in capsys.readouterr().out
+    monkeypatch.undo()
+
+    workdir = tmp_path / "resnet50"
+    state = torch.load(workdir / "ckpt" / "2" / "state.pt",
+                       weights_only=True)
+    assert state["step"] == 6
+    served = load_served("resnet50", str(workdir), device="cpu")
+    assert type(served.module.stem.bn) is layers.MixedBatchNorm
+    assert served.input_shape == (64, 64, 3)
+    for name, tensor in state["model"].items():
+        assert torch.equal(served.module.state_dict()[name], tensor), name
+    stats = {k: v for k, v in state["model"].items()
+             if k.endswith((".mean", ".var"))}
+    assert len(stats) == 106
+    assert all(v.any() if k.endswith(".mean")
+               else not torch.equal(v, torch.ones_like(v))
+               for k, v in stats.items())
+    fresh = create_model("resnet50", device=CPU, seed=1,
+                         num_classes=CLASSES, input_size=64, s2d_stem=True)
+    opt, _ = make_optimizer(get_config("resnet50"), fresh.parameters())
+    CheckpointManager(workdir / "ckpt").restore(TrainState(fresh, opt), 2)
+    for name, tensor in fresh.state_dict().items():
+        assert torch.equal(tensor, state["model"][name]), name
 
 
 def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
