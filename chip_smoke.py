@@ -3,21 +3,29 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and ``nvcc``; exits non-zero without them, and in a
-directory that does not hold the port. It drives the port's main paths,
-serving and training AlexNet V1, Inception V1 (``inception1_ref``,
-whose stem LRNs have the wide windows n=64 and n=192, and the BN variant
-``inception1``) and the ResNets (``resnet50``, the training side's
-north star, then ``resnet34`` and ``resnet50v2``, none of which reaches
-an LRN), and holds every kernel on them against its plain version.
+Needs one CUDA card, ``nvcc`` with nvJPEG and a host C++ compiler; exits
+non-zero without them, and in a directory that does not hold the port.
+It drives the port's main paths, serving and training AlexNet V1,
+Inception V1 (``inception1_ref``, whose stem LRNs have the wide windows
+n=64 and n=192, and the BN variant ``inception1``), the ResNets
+(``resnet50``, the training side's north star, then ``resnet34`` and
+``resnet50v2``, none of which reaches an LRN), ``resnet50`` trained from
+ImageNet TFRecords over the uint8 wire (raw-crop and JPEG shards, the
+JPEGs decoded on the card) with the augmentation in the step, and
+``resnet152`` under its block rematerialization; it holds every kernel on
+them against its plain version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
 1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions,
-   and the float32 policy (TF32 off for cuDNN and cuBLAS);
-2. build: ``csrc/lrn.cu`` (forward) and ``csrc/lrn_bwd.cu`` (backward)
-   with ``nvcc`` for ``sm_90a``, from the sources in this checkout, both
-   at once, with ptxas's report;
+   and the float32 policy (TF32 off for cuDNN and cuBLAS); then the
+   probe: whether the toolkit holds ``nvjpeg.h`` and ``libnvjpeg`` and
+   the host a C++ compiler;
+2. build: ``csrc/lrn.cu`` (forward), ``csrc/lrn_bwd.cu`` (backward) and
+   ``csrc/nvjpeg.cu`` (the nvJPEG binding and the ``ycc_to_rgb``
+   kernel, linked with ``-lnvjpeg``) with ``nvcc`` for ``sm_90a``, and
+   ``csrc/crc32c.cpp`` with the host's C++ compiler, from the sources in
+   this checkout, all at once, with ptxas's report;
 3. kernels vs plain versions on the card, forward and backward, at every
    LRN shape of the model zoo (AlexNet V1 at the training batch of 128
    and the serving batch of 64, and V2-TF, with n=5, k=2; the Inception
@@ -30,7 +38,8 @@ the seconds it took:
    pointer off 16 bytes (the forward's x, the backward's g) is refused
    with no launch counted;
 4. times, with CUDA events (``deepvision_tpu_torch/timing.py``: median of
-   100 runs after 10 of warm-up, the stream held busy while the host
+   100 runs after 10 of warm-up, 20 after 3 for the plain versions and
+   library calls, the stream held busy while the host
    queues them), of each kernel, its plain version and the library call
    (``F.local_response_norm``, and for the backward only the autograd
    backward of it) at AlexNet V1's two LRNs and Inception V1's two stem
@@ -68,9 +77,10 @@ the seconds it took:
    -m alexnet1 --synthetic-size 384 --steps-per-epoch 2 --epochs 2`` (at
    the config's batch, bf16), then ``--resume --epochs 3`` from its
    checkpoints, then ``load_served`` from the newest one; the same for
-   ``inception1_ref`` (its n=64 and n=192 LRN kernels launched there)
-   and ``inception1``, whose running statistics must have moved and come
-   back bit for bit from a restore, with the LR schedule's update count;
+   ``inception1_ref`` (its n=64 and n=192 LRN kernels launched there),
+   ``inception1`` and ``resnet50``, whose running statistics must have
+   moved and come back bit for bit from a restore, with the LR
+   schedule's update count; the four models' CLIs run at once, after 11;
 10. training throughput at the config's batch in bf16 over 12 timed
    steps (24 for the ResNets) after warm-up, through the device feed
    and on a
@@ -96,10 +106,35 @@ the seconds it took:
    built without it; then ``resnet34`` and ``resnet50v2`` trained for
    one epoch (8) and served one bucket-64 batch.
 
-It then prints the ``{"kernels": [...]}`` line (all four entry points;
-per-shape times under ``shapes``, launches by path under
-``launches_by_path``), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+12. the native pieces of the ImageNet reader (after phase 4): the
+   compiled CRC32C against its plain twin on buffers of 0-64 bytes at
+   every offset and its MB/s; nvJPEG's decode of the committed fixtures
+   (``tests/data/``) against ``tf.io.decode_jpeg``'s pixels and the
+   decode stage against the JAX reader's evaluation output, within
+   stated bounds (``NVJPEG_*``); ``ycc_to_rgb`` against its plain
+   version, exactly, and its time beside its bound; the decode of 256
+   ImageNet-sized JPEGs in images/s (nvJPEG's ``gpu_hybrid`` decoder);
+13. the record path (after 11): synthetic ``raw-train-*``, ``train-*``
+   and ``validation-*`` shards written on the card (JPEGs by nvJPEG's
+   encoder), the host reader's records/s, ``resnet50``'s bf16 step at
+   batch 256 fed by the reader for ``--raw --device-aug --mixup 0.2``,
+   ``--raw`` and ``--no-raw --device-aug`` beside the same step on a
+   device-resident batch, with the feed's bytes an image and waits and
+   the idle share, validation over the JPEG shards; then the training CLI
+   of each, one epoch with validation and a checkpoint and a resume, the
+   three at once, each CLI's ``ycc_to_rgb`` launches read from its own
+   last line (the kernels line's count for that kernel);
+14. ``resnet152`` under ``remat="block"``: the Trainer at batch 256 in
+   bf16, images/s with MFU and peak memory, peak memory and step time
+   at batch 128 under no remat, ``"block"`` and ``"conv"``, a float32
+   rematerialized step against the plain one (BN statistics bit for
+   bit), one served batch.
+
+It then prints the native pieces' line (``[native] {...}``), the
+``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
+times under ``shapes``, launches by path under ``launches_by_path``, and
+the JPEG path's ``ycc_to_rgb``, which stands for no TPU kernel), the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -129,6 +164,21 @@ LRN_SOURCE = "deepvision_tpu_torch/csrc/lrn.cu"
 LRN_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:79"
 LRN_BWD_SOURCE = "deepvision_tpu_torch/csrc/lrn_bwd.cu"
 LRN_BWD_REPLACES = "deepvision_tpu/ops/lrn_pallas.py:125"
+# the native pieces of the ImageNet reader, not TPU kernels
+CRC_SOURCE = "deepvision_tpu_torch/csrc/crc32c.cpp"
+NVJPEG_SOURCE = "deepvision_tpu_torch/csrc/nvjpeg.cu"
+# the port's decode on the card (nvJPEG's planes, libjpeg's chroma
+# upsampling and colour conversion) against tf.io.decode_jpeg's pixels on
+# the committed fixtures (tests/data/), in uint8 steps. tf's default IDCT
+# is libjpeg's fast integer one, nvJPEG's is accurate: PIL's accurate
+# decode of the same files is 3-4 steps off tf's, 1.0-1.04 on average;
+# against tf's accurate IDCT only rounding remains
+NVJPEG_MAX_LSB = 8.0
+NVJPEG_MEAN_LSB = 1.5
+NVJPEG_ACCURATE_MAX_LSB = 4.0
+NVJPEG_ACCURATE_MEAN_LSB = 0.1
+# not a TPU kernel: the colour stage of the JAX reader's tf.io.decode_jpeg
+YCC_REPLACES = "deepvision_tpu/data/imagenet.py:138"
 # the LRN models' training batch (their configs'), where the kernels'
 # training shapes and the kernel-vs-plain train step are taken
 TRAIN_BATCH = 128
@@ -196,6 +246,16 @@ CPU_CHECKED = 8
 EARLIER_TIMED_STEPS = 12
 # H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate (MFU's peak)
 BF16_DENSE_FLOPS_PER_S = 989e12
+# the plain versions' and library calls' timings, 10-300x the kernels'
+# own: the median of 20 after 3 (the kernels keep 100 after 10), which
+# keeps the whole run under half its limit
+YARDSTICK = {"iters": 20, "warmup": 3}
+# the record path: batches of training records written, validation JPEGs
+# (one full batch and a padded one), timed fed steps
+RECORD_BATCHES = 2
+RECORD_VAL = 256 + 100
+RECORD_TIMED_STEPS = 8
+RESNET152_TIMED_STEPS = 8
 
 
 def _say(*parts) -> None:
@@ -238,24 +298,52 @@ def phase_card() -> str:
     return smi
 
 
-def phase_build() -> None:
-    """Both kernel sources at once, one ``nvcc`` each."""
+def phase_probe() -> None:
+    """Before any JPEG code: whether the toolkit holds nvJPEG's header and
+    library, and whether the host has a C++ compiler (the CRC32C's)."""
+    from deepvision_tpu_torch.ops import _build
+
+    nvcc = _build.find_nvcc()
+    homes = dict.fromkeys([Path(nvcc).resolve().parents[1],
+                           Path(os.environ.get("CUDA_HOME")
+                                or "/usr/local/cuda")])
+    for home in homes:
+        header = home / "include" / "nvjpeg.h"
+        lib = home / "lib64" / "libnvjpeg.so"
+        _say(f"[probe] {home}: nvjpeg.h {'present' if header.exists() else 'absent'}, "
+             f"libnvjpeg.so {'present' if lib.exists() else 'absent'}")
+    cxx = _build.find_cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[0]
+    _say(f"[probe] nvcc {nvcc}; host C++ compiler {cxx} ({version})")
+
+
+def phase_build() -> dict[str, str]:
+    """Every native source at once, one compiler each: the LRN kernels
+    and the nvJPEG binding with ``nvcc``, the CRC32C with the host's C++
+    compiler. Returns the native pieces' libraries by source."""
     from concurrent.futures import ThreadPoolExecutor
 
     from deepvision_tpu_torch.ops import _build
 
-    stems = {"lrn": LRN_SOURCE, "lrn_bwd": LRN_BWD_SOURCE}
+    stems = {"lrn": LRN_SOURCE, "lrn_bwd": LRN_BWD_SOURCE,
+             "crc32c": CRC_SOURCE, "nvjpeg": NVJPEG_SOURCE}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         libs = list(pool.map(_build.build, stems))
     wall = time.perf_counter() - t0
     for (stem, source), lib in zip(stems.items(), libs):
         _build.load_library(stem)
-        _say(f"[build] {source} -> {lib.name} ({wall:.2f} s for both, "
-             f"flags: {' '.join(_build.NVCC_FLAGS)})")
+        flags = (_build.CXX_FLAGS if source.endswith(".cpp")
+                 else _build.NVCC_FLAGS)
+        _say(f"[build] {source} -> {lib.name} ({wall:.2f} s for all "
+             f"{len(stems)}, flags: {' '.join(flags)}"
+             + (f", linked: {_build.LINK[stem]}" if stem in _build.LINK
+                else "") + ")")
         for kernel, report in _ptxas_report(_build.build_logs.get(stem,
                                                                   "")):
             _say(f"[build] ptxas {kernel}: {report}")
+    return {CRC_SOURCE: libs[2].name, NVJPEG_SOURCE: libs[3].name}
 
 
 def _ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -413,10 +501,11 @@ def phase_times() -> dict[str, dict]:
                       "ms_warm": time_ms(lambda x: local_response_norm_cuda(
                           x, *p), xs[:1]),
                       "plain_ms": time_ms(
-                          lambda x: local_response_norm_reference(x, *p), xs),
+                          lambda x: local_response_norm_reference(x, *p), xs,
+                          **YARDSTICK),
                       # on the channels_last NCHW view
                       "library_ms": time_ms(lambda x: F.local_response_norm(
-                          x.permute(0, 3, 1, 2), *p), xs),
+                          x.permute(0, 3, 1, 2), *p), xs, **YARDSTICK),
                       # one read and one write of the same bytes: what the
                       # card reaches in practice, beside the bound
                       "copy_ms": time_ms(torch.clone, xs)},
@@ -428,8 +517,9 @@ def phase_times() -> dict[str, dict]:
                           xgs[:1]),
                       "plain_ms": time_ms(
                           lambda a: local_response_norm_backward_reference(
-                              *a, *p), xgs),
-                      "library_ms": time_ms(lib_bwd, lib_inputs),
+                              *a, *p), xgs, **YARDSTICK),
+                      "library_ms": time_ms(lib_bwd, lib_inputs,
+                                            **YARDSTICK),
                       # two reads and one write of the same bytes: what the
                       # card reaches in practice, beside the bound
                       "add_ms": time_ms(lambda a: torch.add(*a), xgs)},
@@ -996,6 +1086,12 @@ def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
     return proc
 
 
+def _cli_launches(stderr: str) -> dict:
+    """The kernel launches a training CLI counted in its own process
+    (from 0 at its start), read from its last line."""
+    return ast.literal_eval(stderr.rsplit("kernel launches ", 1)[1].strip())
+
+
 def phase_train_cli(workdir: Path, name: str = "alexnet1",
                     lrns: int = 2, steps: int = 2) -> None:
     """The training CLI of ``name`` at full width and the config's batch:
@@ -1036,10 +1132,10 @@ def phase_train_cli(workdir: Path, name: str = "alexnet1",
     loss = [float(m) for m in re.findall(r"\] train_loss=(\S+)",
                                          first.stdout)]
     assert len(loss) == 2 and np.all(np.isfinite(loss)), loss
-    launches = ast.literal_eval(
-        first.stderr.rsplit("LRN kernel launches ", 1)[1].strip())
+    launches = _cli_launches(first.stderr)
     for kernel in ("lrn_forward_bf16", "lrn_backward_bf16"):
         assert (launches[kernel] > 0) == (lrns > 0), (kernel, launches)
+    assert launches["ycc_to_rgb"] == 0, launches  # no JPEG on this path
 
     t0 = time.perf_counter()
     second = _run_cli([*common, "--epochs", "3", "--resume"])
@@ -1202,9 +1298,10 @@ def phase_served_batch(name: str) -> None:
 
 def phase_resnets(smi: str, workdir: Path) -> None:
     """The ResNet paths, none of which reaches an LRN kernel: ``resnet50``
-    served, its float32 step on the card against the CPU, its Trainer,
-    its training throughput and its CLI; then ``resnet34`` and
-    ``resnet50v2`` trained for one epoch and served one batch."""
+    served, its float32 step on the card against the CPU, its Trainer and
+    its training throughput (its CLI runs in :func:`phase_train_clis`);
+    then ``resnet34`` and ``resnet50v2`` trained for one epoch and served
+    one batch."""
     _timed("resnet50 serve", phase_serve, smi, "resnet50", lrns=0)
     _timed("resnet50 card-vs-cpu step", phase_card_vs_cpu_step, "resnet50")
     _, trainer = _timed("resnet50 trainer", phase_trainer,
@@ -1219,12 +1316,591 @@ def phase_resnets(smi: str, workdir: Path) -> None:
          f"{r['idle']}; reduction kernels {r['reduction_share']}, "
          f"elementwise kernels {r['elementwise_share']} of device time; "
          f"peak allocated {r['peak_gb']:.2f} GiB ({smi})")
-    _timed("resnet50 train CLI", phase_train_cli, workdir / "cli",
-           "resnet50", lrns=0)
     for name in ("resnet34", "resnet50v2"):
         _timed(f"{name} trainer", phase_trainer, workdir / f"inproc_{name}",
                name, lrns=0)
         _timed(f"{name} served batch", phase_served_batch, name)
+
+
+def phase_train_clis(workdir: Path, runs: dict[str, int]) -> None:
+    """:func:`phase_train_cli` of each model (name -> LRNs a forward), the
+    models at once, one thread each (their processes share the card):
+    the runs' checks are their own, and their seconds are not read as
+    rates."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(runs)) as pool:
+        futures = [pool.submit(_timed, f"{name} train CLI", phase_train_cli,
+                               workdir, name, lrns=lrns)
+                   for name, lrns in runs.items()]
+        for future in futures:
+            future.result()
+
+
+def phase_crc(workdir: Path) -> dict:
+    """The compiled CRC32C against its plain twin on random buffers of 0
+    to 64 bytes at every offset 0-7 (unaligned slices) and on one record
+    of 262,144 bytes; then its rate over 64 MB and the verified read
+    (both CRCs of every record) of 256 raw-crop-sized records."""
+    from deepvision_tpu_torch.data import tfrecord
+
+    rng = np.random.default_rng(0)
+    cases = 0
+    for n in range(65):
+        buf = rng.bytes(n + 8)
+        for off in range(8):
+            view = memoryview(buf)[off:off + n]
+            assert tfrecord.crc32c(view) == tfrecord.crc32c_reference(view), \
+                (n, off)
+            cases += 1
+    record = rng.bytes(256 * 341 * 3)
+    assert tfrecord.crc32c(record) == tfrecord.crc32c_reference(record)
+    big = rng.bytes(64 << 20)
+    t0 = time.perf_counter()
+    tfrecord.crc32c(big)
+    crc_mb_s = len(big) / (time.perf_counter() - t0) / 1e6
+    path = workdir / "crc.tfrecord"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tfrecord.write_records(path, [record] * 256)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in tfrecord.read_records(path, verify=True))
+    dt = time.perf_counter() - t0
+    path.unlink()
+    hw = tfrecord.crc32c_native().dv_crc32c_hardware()
+    out = {"crc_mb_s": crc_mb_s, "read_mb_s": n * len(record) / dt / 1e6,
+           "read_records_s": n / dt}
+    _say(f"[crc] compiled CRC32C ({'crc32 instruction' if hw else 'tables'})"
+         f" equals the plain one on {cases} buffers of 0-64 bytes at "
+         f"offsets 0-7 and on a {len(record)}-byte record; "
+         f"{crc_mb_s:.1f} MB/s over 64 MB; verified read of {n} records of "
+         f"{len(record)} bytes: {out['read_records_s']:.1f} records/s, "
+         f"{out['read_mb_s']:.1f} MB/s (host CPU, one thread)")
+    return out
+
+
+def _imagenet_sized_jpegs(n: int, seed: int = 0):
+    """``n`` JPEGs of ImageNet-like sizes (sides 300-500), encoded by
+    nvJPEG from synthetic images made on the card."""
+    import torch
+
+    from deepvision_tpu_torch.data.jpeg import encode_images
+    from deepvision_tpu_torch.data.synthetic_records import synthetic_image
+
+    rng = np.random.default_rng(seed)
+    images = [synthetic_image(rng, int(rng.integers(300, 501)),
+                              int(rng.integers(300, 501)), i % 1000,
+                              torch.device("cuda")) for i in range(n)]
+    return encode_images(images), images
+
+
+def _ycc_bound_ms(desc) -> float:
+    """Least time of one ``ycc_to_rgb`` launch: Y and both chroma planes
+    read once, three bytes a pixel written, over the HBM rate (a few
+    integer operations a pixel are far below the card's rate)."""
+    luma = int((desc["h"].astype(np.int64) * desc["w"]).sum())
+    chroma = int((desc["ch"].astype(np.int64) * desc["cw"]).sum())
+    return (luma + 2 * chroma + 3 * luma) / HBM_BYTES_PER_S * 1e3
+
+
+def phase_nvjpeg() -> dict:
+    """nvJPEG and the ``ycc_to_rgb`` kernel on the card. The committed
+    fixtures (``tests/data/``) decoded and held to ``tf.io.decode_jpeg``'s
+    pixels, its default fast IDCT's (the JAX reader's; bounds
+    ``NVJPEG_MAX_LSB``, ``NVJPEG_MEAN_LSB``) and its accurate IDCT's
+    (``NVJPEG_ACCURATE_*``), in uint8 steps; the decode stage on them held
+    to the JAX reader's evaluation output (the normalized gap taken back
+    to pixel steps). The kernel against its plain version on the planes
+    nvJPEG gives, for the fixtures and a batch of 256 ImageNet-sized JPEGs
+    (exact: integer math on both sides), and its time at that batch
+    beside the bound and the plain version's. Then the batched decode of
+    the 256 alone and with the train stage (resize, crop, flip, jitter,
+    uint8), in images/s. Returns the readings and the kernel's line."""
+    import torch
+
+    from deepvision_tpu_torch.data import jpeg
+    from deepvision_tpu_torch.ops.normalize import TORCH_CHANNEL_STDS
+    from deepvision_tpu_torch.timing import time_ms
+
+    cuda = torch.device("cuda")
+    nv = jpeg.nvjpeg(cuda)
+    ref = np.load(ROOT / "tests" / "data" / "jpeg_reference.npz")
+    n_fix = len([k for k in ref.files if k.startswith("pixels_accurate_")])
+    blobs = [(ROOT / "tests" / "data" / f"jpeg_{i}.jpg").read_bytes()
+             for i in range(n_fix)]
+    packed, offsets = jpeg.pack(blobs)
+    decoded = jpeg.decode_images(packed, offsets, cuda)
+    torch.cuda.synchronize()
+    worst = dict.fromkeys(["fast_max", "fast_mean", "accurate_max",
+                           "accurate_mean", "eval_max", "eval_mean"], 0.0)
+    for i, img in enumerate(decoded):
+        got = img.cpu().numpy().astype(np.int32)
+        for key, name in (("fast", "pixels"), ("accurate", "pixels_accurate")):
+            d = np.abs(got - ref[f"{name}_{i}"].astype(np.int32))
+            worst[f"{key}_max"] = max(worst[f"{key}_max"], float(d.max()))
+            worst[f"{key}_mean"] = max(worst[f"{key}_mean"], float(d.mean()))
+    size = int(ref["eval_size"])
+    batch = jpeg.PackedJpegBatch(blobs, list(range(n_fix)), jpeg.JpegPlan(
+        size, jpeg.resize_min_for(size), normalize="torch")).decode(cuda)
+    steps = 255.0 * np.asarray(TORCH_CHANNEL_STDS, np.float32)
+    for i in range(n_fix):
+        d = np.abs(batch["image"][i].cpu().numpy() - ref[f"eval_{i}"]) * steps
+        worst["eval_max"] = max(worst["eval_max"], float(d.max()))
+        worst["eval_mean"] = max(worst["eval_mean"], float(d.mean()))
+    _say(f"[nvjpeg] {n_fix} fixtures, uint8 steps (worst image): against "
+         f"tf.io.decode_jpeg's default IDCT max {worst['fast_max']:.0f}, mean "
+         f"{worst['fast_mean']:.4f} (bounds {NVJPEG_MAX_LSB}, "
+         f"{NVJPEG_MEAN_LSB}); against its accurate IDCT max "
+         f"{worst['accurate_max']:.0f}, mean {worst['accurate_mean']:.4f} "
+         f"(bounds {NVJPEG_ACCURATE_MAX_LSB}, {NVJPEG_ACCURATE_MEAN_LSB}); "
+         f"the decode stage against the JAX eval output at size {size}: max "
+         f"{worst['eval_max']:.4f}, mean {worst['eval_mean']:.4f} (bounds "
+         f"{NVJPEG_MAX_LSB}, {NVJPEG_MEAN_LSB})")
+    for key, (top, mean) in (
+            ("fast", (NVJPEG_MAX_LSB, NVJPEG_MEAN_LSB)),
+            ("eval", (NVJPEG_MAX_LSB, NVJPEG_MEAN_LSB)),
+            ("accurate", (NVJPEG_ACCURATE_MAX_LSB, NVJPEG_ACCURATE_MEAN_LSB))):
+        assert worst[f"{key}_max"] <= top, worst
+        assert worst[f"{key}_mean"] <= mean, worst
+
+    big, images = _imagenet_sized_jpegs(256)
+    packed, offsets = jpeg.pack(big)
+    back = jpeg.decode_images(packed[:offsets[1]], offsets[:2], cuda)[0]
+    rt = (back.int() - images[0].int()).abs()
+    _say(f"[nvjpeg] encode-decode round trip of a {tuple(images[0].shape)} "
+         f"image at quality 90: max |delta| {rt.max().item()}, mean "
+         f"{rt.float().mean().item():.3f} steps")
+    # a sanity bound, set after the first reading (4.749 steps: the
+    # synthetic images' noise, 6 steps, is what JPEG drops); a wrong
+    # layout or channel order is tens of steps off
+    assert rt.float().mean().item() < 8.0
+    images = None
+
+    # the kernel against its plain version, on nvJPEG's planes
+    err = 0
+    for batch_blobs in (blobs, big[:16], big):
+        planes = nv.decode_to_planes(*jpeg.pack(batch_blobs))
+        got = nv.ycc_to_rgb(planes)
+        want = torch.cat([jpeg.ycc_to_rgb_reference(*p).reshape(-1)
+                          for p in jpeg.planes_of(planes)])
+        torch.cuda.synchronize()
+        assert got.numel() == want.numel()
+        err = max(err, (got.int() - want.int()).abs().max().item())
+    assert err == 0, err
+    desc = planes[3]
+
+    def plain(_):
+        return [jpeg.ycc_to_rgb_reference(*p)
+                for p in jpeg.planes_of(planes)]
+
+    ms = time_ms(lambda _: nv.ycc_to_rgb(planes), [None], iters=50)
+    plain_ms = time_ms(plain, [None], iters=5, warmup=2)
+    bound_ms = _ycc_bound_ms(desc)
+    pixels = int(desc["h"].astype(np.int64).dot(desc["w"]))
+    _say(f"[nvjpeg] ycc_to_rgb kernel equals its plain version on the "
+         f"{n_fix} fixtures, 16 ImageNet-sized JPEGs and the batch of 256 "
+         f"({pixels} pixels; max |delta| {err}): {ms:.4f} ms a launch "
+         f"(warm), bound {bound_ms:.4f} ms (bytes), plain version "
+         f"{plain_ms:.3f} ms")
+
+    plan = jpeg.JpegPlan(
+        224, 256, crop_u=np.random.default_rng(1).random((256, 2)),
+        flips=np.arange(256) % 2 == 0,
+        jitter=np.full((256, 3), 1.1, np.float32))
+    stage = jpeg.PackedJpegBatch(big, np.zeros(256, np.int32), plan)
+    rates = {}
+    for label, run in (("decode", lambda: jpeg.decode_images(packed, offsets,
+                                                             cuda)),
+                       ("decode+stage", lambda: stage.decode(cuda))):
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rates[label] = 256 / statistics.median(times)
+    mb = offsets[-1] / 1e6
+    _say(f"[nvjpeg] batch of 256 JPEGs ({mb:.2f} MB, sides 300-500), "
+         f"gpu_hybrid decoder: decode {rates['decode']:.1f} images/s, decode with the train "
+         f"stage (resize, crop 224, flip, jitter, uint8) "
+         f"{rates['decode+stage']:.1f} images/s (median of 3, host wall)")
+    line = {"name": "ycc_to_rgb", "route": "cuda", "source": NVJPEG_SOURCE,
+            "replaces": YCC_REPLACES, "max_abs_err": float(err), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None}
+    return {**worst, **{f"{k}_images_s": v for k, v in rates.items()},
+            "kernel": line}
+
+
+def _reader_rates(d: Path) -> dict:
+    """Host records/s of the raw-crop reader at batch 256 (one thread):
+    the crop only (``device_aug``) and the crop with the host flip and
+    jitter, over the batches after the shuffle buffer's first fill."""
+    from deepvision_tpu_torch.data import imagenet
+
+    files = sorted(d.glob("raw-train-*"))
+    out = {}
+    for device_aug in (True, False):
+        it = imagenet.raw_train_batches(files, 256, 224, seed=0, steps=4,
+                                        augment="pt", device_aug=device_aug)
+        t0 = time.perf_counter()
+        next(it)  # reads every file into the shuffle buffer
+        fill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n = sum(len(b["label"]) for b in it)
+        rate = n / (time.perf_counter() - t0)
+        out["crop" if device_aug else "crop+flip+jitter"] = rate
+        _say(f"[records] host raw reader, "
+             f"{'crop only' if device_aug else 'crop, flip and jitter'}: "
+             f"{rate:.1f} records/s after the first batch ({fill:.2f} s: "
+             f"the shuffle buffer's fill from disk); one host thread")
+    return out
+
+
+def _feed_run(trainer, d: Path, label: str, use_raw, device_aug: bool,
+              mixup: float) -> dict:
+    """The training step of ``trainer`` (resnet50, bf16, batch 256) fed
+    by the ImageNet reader over ``d``: images/s through the device feed
+    over ``RECORD_TIMED_STEPS`` steps after 2, the same step (augmentation
+    included) on a device-resident batch, the feed's telemetry, and
+    profiler windows (idle share) over two fed steps each."""
+    from functools import partial
+
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.imagenet import PT_JITTER, make_imagenet_data
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    warm, timed, windows = 2, RECORD_TIMED_STEPS, 3
+    total = warm + timed + 2 * (1 + windows)
+    train_data, _, _ = make_imagenet_data(
+        str(d), 256, 224, augment="pt", use_raw=use_raw,
+        steps_per_epoch=total, device_aug=device_aug)
+    step = partial(classification_train_step, normalize_kind="torch")
+    if device_aug:
+        step = augment_step(step, DeviceAugment(
+            "classification", flip=True, jitter=PT_JITTER, mixup=mixup))
+    keys = KeySeq(1, 7, device="cuda")
+    state = trainer.state
+    feed = DevicePrefetcher(train_data(0), torch.device("cuda"), depth=2)
+    try:
+        first = next(feed)
+        step(state, first, next(keys))["loss"].item()
+        resident = {k: v.clone() for k, v in first.items()}
+        step(state, next(feed), next(keys))["loss"].item()
+        tel0 = feed.telemetry.summary()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            m = step(state, next(feed), next(keys))
+        m["loss"].item()
+        fed = timed * 256 / (time.perf_counter() - t0)
+        tel = feed.telemetry.summary()
+
+        def two_fed_steps():
+            for _ in range(2):
+                step(state, next(feed), next(keys))
+            torch.cuda.synchronize()
+
+        prof = _profile(two_fed_steps, f"resnet50 {label}: two fed steps",
+                        top=5, windows=windows)
+    finally:
+        feed.close()
+    for _ in range(2):
+        step(state, resident, next(keys))["loss"].item()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = step(state, resident, next(keys))
+    m["loss"].item()
+    dev = timed * 256 / (time.perf_counter() - t0)
+    assert np.isfinite(m["loss"].item())
+    assert tel["wire_dtype"] == ("uint8" if use_raw else "jpeg"), tel
+    if use_raw:
+        assert tel["image_bytes_per_image"] == 224 * 224 * 3, tel
+    _say(f"[records] resnet50 bf16 batch 256, {label}: {fed:.1f} images/s "
+         f"through the feed over {timed} steps, {dev:.1f} images/s on a "
+         f"device-resident batch (same step); wire {tel['wire_dtype']}, "
+         f"h2d_bytes_per_image {tel['h2d_bytes_per_image']} (image bytes "
+         f"{tel['image_bytes_per_image']}), h2d_wait {tel['h2d_wait_ms']} ms "
+         f"and host_wait {tel['host_wait_ms']} ms a batch (first two "
+         f"batches: {tel0['h2d_wait_ms']} and {tel0['host_wait_ms']}), "
+         f"staging {tel['shard_ms']} ms a batch; idle share {prof['idle']}")
+    return {"fed": fed, "resident": dev, "idle": prof["idle"], **tel}
+
+
+def _run_clis(runs: dict[str, list[str]]) -> dict[str, tuple[str, str]]:
+    """The training CLI for each run at once (one process each, on the
+    one card); (stdout, stderr) by run. Fails if any fails."""
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-m", "deepvision_tpu_torch.train", *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+        for label, args in runs.items()}
+    out = {}
+    for label, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=900)
+        assert proc.returncode == 0, (label, stdout[-2000:], stderr[-4000:])
+        out[label] = stdout, stderr
+    return out
+
+
+def phase_records(smi: str, workdir: Path) -> dict:
+    """The record-backed ImageNet path of ``resnet50`` at batch 256:
+    synthetic shards written on the card (``raw-train-*`` frames 256 by
+    256-512 with their sidecar; ``train-*`` and ``validation-*`` JPEGs
+    encoded by nvJPEG, sides 300-500), the host reader's records/s, then
+    in this process the step fed by the reader for ``--raw --device-aug
+    --mixup 0.2``, ``--raw`` and ``--no-raw --device-aug`` beside the same
+    step on a device-resident batch, and validation over the JPEG shards;
+    then the training CLI of each, 1 epoch with validation and a
+    checkpoint, and a resume to epoch 2, the three at once. Each CLI
+    launched ``ycc_to_rgb`` once for each JPEG batch it decoded: the
+    validation batches of each validation (before training and after
+    each epoch) and, reading the JPEG shards, each training batch.
+    Returns the CLIs' launches of it by run as ``ycc_launches``."""
+    import torch
+
+    from deepvision_tpu_torch.data.jpeg import nvjpeg
+    from deepvision_tpu_torch.data.synthetic_records import (
+        write_synthetic_imagenet,
+    )
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train import manifest
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.trainer import Trainer
+
+    d = workdir / "records"
+    t0 = time.perf_counter()
+    counts = write_synthetic_imagenet(
+        d, train=RECORD_BATCHES * 256, val=RECORD_VAL, raw=RECORD_BATCHES * 256,
+        classes=1000, shards=8, jpeg_sizes=(300, 500), device="cuda")
+    size_mb = sum(p.stat().st_size for p in d.iterdir()) / 1e6
+    _say(f"[records] wrote {counts} ({size_mb:.1f} MB in {len(list(d.iterdir()))}"
+         f" files) under {d.name}/ in {time.perf_counter() - t0:.1f} s")
+    rates = _reader_rates(d)
+
+    cfg = get_config("resnet50")
+    module = create_model("resnet50", device=torch.device("cuda"), seed=0,
+                          dtype=torch.bfloat16, **cfg["model_kwargs"])
+    from deepvision_tpu_torch.data.imagenet import make_imagenet_data
+
+    _, val_data, _ = make_imagenet_data(str(d), 256, 224, augment="pt",
+                                        steps_per_epoch=1)
+    trainer = Trainer(module, cfg, lambda e: iter(()), val_data,
+                      workdir=workdir / "records_inproc", log_every=0,
+                      steps_per_epoch=1)
+    nv = nvjpeg("cuda")
+    nv.ycc_launches = 0
+    runs = {}
+    for label, use_raw, device_aug, mixup in (
+            ("--raw --device-aug --mixup 0.2", True, True, 0.2),
+            ("--raw", True, False, 0.0),
+            ("--no-raw --device-aug", False, True, 0.0)):
+        runs[label] = _feed_run(trainer, d, label, use_raw, device_aug, mixup)
+    t0 = time.perf_counter()
+    val = trainer.validate()
+    _say(f"[records] validation over {RECORD_VAL} JPEGs (two batches, the "
+         f"last padded and masked) in {time.perf_counter() - t0:.2f} s: "
+         f"{val}")
+    assert np.isfinite(val["val_loss"]), val
+    _say(f"[records] ycc_to_rgb launched {nv.ycc_launches} times by the "
+         f"JPEG feed and validation above")
+    assert nv.ycc_launches > 0
+    trainer = module = None
+    torch.cuda.empty_cache()
+
+    steps = 2
+    common = ["-m", "resnet50", "--data-dir", str(d), "--steps-per-epoch",
+              str(steps)]
+    flags = {"raw_device_aug_mixup": ["--raw", "--device-aug", "--mixup",
+                                      "0.2"],
+             "raw": ["--raw"], "jpeg_device_aug": ["--no-raw", "--device-aug"]}
+    t0 = time.perf_counter()
+    first = _run_clis({k: [*common, *v, "--epochs", "1", "--workdir",
+                           str(workdir / f"cli_{k}")]
+                       for k, v in flags.items()})
+    second = _run_clis({k: [*common, *v, "--epochs", "2", "--resume",
+                            "--workdir", str(workdir / f"cli_{k}")]
+                        for k, v in flags.items()})
+    val_batches = -(-RECORD_VAL // 256)
+    launches = {}
+    for k, v in flags.items():
+        out = first[k][0] + second[k][0]
+        assert "[pre-train] val_loss=" in first[k][0], first[k][0][-2000:]
+        assert "resumed at epoch 1" in second[k][0], second[k][0][-2000:]
+        # epoch 0: validation before and after it; epoch 1: after it
+        train_jpeg = steps if "--no-raw" in v else 0
+        path = f"train_cli {' '.join(v)}"
+        launches[path] = 0
+        for run, validations in ((first[k], 2), (second[k], 1)):
+            n = _cli_launches(run[1])
+            assert n["ycc_to_rgb"] == validations * val_batches + train_jpeg, (
+                k, n)
+            assert n["lrn_forward_bf16"] == n["lrn_backward_bf16"] == 0, n
+            launches[path] += n["ycc_to_rgb"]
+        wire = re.findall(r"^\[feed\] epoch \d: wire (\S+), ([\d.]+) bytes an "
+                          r"image crossed \(([\d.]+) of them", out, re.M)
+        assert len(wire) == 2, out[-2000:]
+        for dtype, total, image in wire:
+            assert dtype == ("jpeg" if "--no-raw" in v else "uint8"), wire
+            if dtype == "uint8":
+                assert float(image) == 224 * 224 * 3, wire
+        loss = [float(x) for x in re.findall(r"\] train_loss=(\S+)", out)]
+        assert len(loss) == 2 and np.all(np.isfinite(loss)), loss
+        for e in (0, 1):
+            ckpt = workdir / f"cli_{k}" / "resnet50" / "ckpt"
+            assert manifest.verify_manifest(ckpt, e) == (True, "ok"), (k, e)
+        for line in out.splitlines():
+            if line.startswith(("[epoch 0]", "[epoch 1]", "[feed]",
+                                "[device-aug]", "[data]")):
+                _say(f"[records-cli] {' '.join(v)}: {line[:260]}")
+    _say(f"[records-cli] the three CLIs trained, validated over the JPEG "
+         f"shards, checkpointed and resumed ({time.perf_counter() - t0:.1f} s,"
+         f" run at once on the one card); ycc_to_rgb launches {launches}")
+    return {"reader": rates, "runs": runs, "ycc_launches": launches}
+
+
+def phase_remat_memory(batch: int = 128, steps: int = 5) -> dict:
+    """``resnet152`` in bf16 at a batch where every policy fits: peak
+    allocated memory and step time under no remat, ``"block"`` and
+    ``"conv"``, the same seeded weights and batch."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    cfg = get_config("resnet152")
+    kw = {k: v for k, v in cfg["model_kwargs"].items() if k != "remat"}
+    host = _train_batch(batch)
+    out = {}
+    for policy in (None, "block", "conv"):
+        torch.cuda.empty_cache()
+        module = create_model("resnet152", device=torch.device("cuda"),
+                              seed=0, dtype=torch.bfloat16, remat=policy,
+                              **kw)
+        opt, _ = make_optimizer(cfg, module.parameters(), 1000)
+        state = TrainState(module, opt)
+        resident = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        keys = KeySeq(1, 0, device="cuda")
+        for _ in range(2):
+            classification_train_step(state, resident, next(keys),
+                                      "torch")["loss"].item()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m = classification_train_step(state, resident, next(keys),
+                                          "torch")
+        m["loss"].item()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[str(policy)] = {"step_ms": ms, "peak_gib": peak}
+        _say(f"[resnet152] remat={policy} bf16 batch {batch}: {ms:.1f} ms a "
+             f"step, {batch / ms * 1e3:.1f} images/s, peak allocated "
+             f"{peak:.2f} GiB")
+        module = state = opt = resident = None
+    return out
+
+
+def phase_remat_step(n: int = 8) -> dict:
+    """One float32 ``resnet152`` step at batch ``n`` (TF32 off, cuDNN's
+    deterministic algorithms) under ``"block"`` and ``"conv"`` against
+    the un-rematerialized step from the same weights: the BN running
+    statistics bit for bit (a second running update in the recompute
+    would move them), each parameter within 1e-6 plus three times its
+    gap between two plain runs (the max pool's backward adds with
+    atomics in no fixed order)."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    strict_fp32()
+    cfg = get_config("resnet152")
+    kw = {k: v for k, v in cfg["model_kwargs"].items() if k != "remat"}
+    base = create_model("resnet152", device=torch.device("cuda"), seed=0,
+                        **kw)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(n, seed=5).items()}
+
+    def run(policy):
+        module = copy.deepcopy(base)
+        module.remat = policy
+        opt, _ = make_optimizer(cfg, module.parameters(), 1000)
+        state = TrainState(module, opt)
+        loss = classification_train_step(state, batch, next(KeySeq(1, 0)),
+                                         "torch")["loss"].item()
+        torch.cuda.synchronize()
+        return loss, {k: v.detach().clone()
+                      for k, v in module.state_dict().items()}
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, plain2, block, conv = (run(p) for p in (None, None, "block",
+                                                       "conv"))
+    finally:
+        torch.backends.cudnn.deterministic = was
+    stats = [k for k in plain[1] if k.endswith((".mean", ".var"))]
+    noise = {k: (plain2[1][k] - plain[1][k]).abs().max().item()
+             for k in plain[1]}
+    out = {}
+    for name, got in (("block", block), ("conv", conv)):
+        assert got[0] == plain[0], (name, got[0], plain[0])
+        for k in stats:
+            assert torch.equal(got[1][k], plain[1][k]), (name, k)
+        gaps = {k: (got[1][k] - plain[1][k]).abs().max().item()
+                for k in plain[1] if k not in stats}
+        over = [k for k, g in gaps.items() if g > 1e-6 + 3 * noise[k]]
+        assert not over, (name, over[:5])
+        out[name] = max(gaps.values())
+        _say(f"[resnet152] remat={name} f32 step at batch {n} against the "
+             f"plain step: loss {got[0]:.6f} equal, all {len(stats)} BN "
+             f"statistic tensors bit for bit, parameters within "
+             f"{out[name]:.3e} (plain against plain: "
+             f"{max(noise.values()):.3e})")
+    return out
+
+
+def phase_resnet152(smi: str, workdir: Path) -> dict:
+    """``resnet152`` under its registry default ``remat="block"``: the
+    Trainer at batch 256 in bf16 (all BN statistics moved), images/s with
+    MFU and peak memory, the three policies' memory and time at batch
+    128, the rematerialized step against the plain one, one served
+    batch."""
+    import torch
+
+    _, trainer = _timed("resnet152 trainer", phase_trainer,
+                        workdir / "inproc_resnet152", "resnet152", lrns=0)
+    assert trainer.state.module.remat == "block"
+    r = _timed("resnet152 throughput", phase_throughput, trainer,
+               "resnet152", steps=RESNET152_TIMED_STEPS)
+    trainer = None
+    torch.cuda.empty_cache()
+    _say(f"[resnet152] train bf16 batch 256, remat=block: {r['fed']:.1f} "
+         f"images/s fed, {r['resident']:.1f} resident; MFU "
+         f"{r['mfu']['feed']:.2%} fed, {r['mfu']['resident']:.2%} resident "
+         f"({r['flops']:.4e} model FLOPs a step, the recompute not counted); "
+         f"device time {r['device_ms']} ms a step, idle {r['idle']}; peak "
+         f"allocated {r['peak_gb']:.2f} GiB ({smi})")
+    memory = _timed("resnet152 remat memory", phase_remat_memory)
+    step = _timed("resnet152 remat step", phase_remat_step)
+    _timed("resnet152 served batch", phase_served_batch, "resnet152")
+    return {"throughput": r, "memory": memory, "step": step}
 
 
 def _timed(label: str, phase, *args, **kwargs):
@@ -1250,9 +1926,12 @@ def main() -> int:
     workdir = ROOT / "build" / "chip_smoke_train"
     shutil.rmtree(workdir, ignore_errors=True)
     smi = _timed("card", phase_card)
-    _timed("build", phase_build)
+    _timed("probe", phase_probe)
+    libs = _timed("build", phase_build)
     errs = _timed("parity", phase_parity)
     times = _timed("times", phase_times)
+    crc = _timed("crc", phase_crc, workdir)
+    jpeg = _timed("nvjpeg", phase_nvjpeg)
     # each main path's LRN launches, counted from 0 just before it
     paths = {}
     paths["serve_f32"], results, xs = _timed("alexnet1 serve", phase_serve,
@@ -1262,7 +1941,6 @@ def main() -> int:
                                      phase_train_step)
     paths["trainer_bf16"], trainer = _timed("alexnet1 trainer",
                                             phase_trainer, workdir / "inproc")
-    _timed("alexnet1 train CLI", phase_train_cli, workdir / "cli")
     _timed("alexnet1 throughput", phase_throughput, trainer,
            steps=EARLIER_TIMED_STEPS)
     trainer = None
@@ -1283,12 +1961,14 @@ def main() -> int:
     _timed("inception1 throughput", phase_throughput, trainer, "inception1",
            steps=EARLIER_TIMED_STEPS)
     trainer = None
-    _timed("inception1_ref train CLI", phase_train_cli, workdir / "cli",
-           "inception1_ref")
-    _timed("inception1 train CLI", phase_train_cli, workdir / "cli",
-           "inception1", lrns=0)
     torch.cuda.empty_cache()
     phase_resnets(smi, workdir)
+    torch.cuda.empty_cache()
+    _timed("train CLIs", phase_train_clis, workdir / "cli", {
+        "alexnet1": 2, "inception1_ref": 2, "inception1": 0, "resnet50": 0})
+    records = _timed("records", phase_records, smi, workdir)
+    torch.cuda.empty_cache()
+    _timed("resnet152", phase_resnet152, smi, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
@@ -1307,7 +1987,26 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "ms_warm": t["ms_warm"], "shapes": t["shapes"],
         })
+    # the JPEG path's colour kernel, launched by the record CLIs, each
+    # counting from 0 in its own process (it stands for no TPU kernel)
+    by_path = records["ycc_launches"]
+    kernels.append({**jpeg["kernel"], "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "note": "not a TPU kernel: the chroma upsampling and "
+                            "colour conversion of tf.io.decode_jpeg"})
+    native = {
+        "crc32c": {"source": CRC_SOURCE, "library": libs[CRC_SOURCE],
+                   **{k: round(v, 1) for k, v in crc.items()}},
+        "nvjpeg": {"source": NVJPEG_SOURCE, "library": libs[NVJPEG_SOURCE],
+                   **{k: (round(v, 4) if isinstance(v, float) else v)
+                      for k, v in jpeg.items() if k != "kernel"}},
+        "reader_records_s": {k: round(v, 1)
+                             for k, v in records["reader"].items()},
+        "fed_vs_resident_images_s": {
+            k: [round(v["fed"], 1), round(v["resident"], 1)]
+            for k, v in records["runs"].items()}}
     _say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"[native] {json.dumps(native)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,12 @@ stream, so that the allocator does not reuse its memory before the
 consumer's work on it is done. A pinned buffer is refilled only after
 its last copy's event has completed. On the CPU the producer only
 converts and queues.
+
+A packed batch (one with a ``decode(device)`` method, such as
+``data/jpeg.py``'s JPEG batches) crosses as it is and is decoded by that
+method on the side stream (on the CPU, in the producer); it names its
+own image bytes, image count and wire (``image_bytes``, ``n_images``,
+``wire_dtype``) for the byte accounting.
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ class FeedTelemetry:
     ``host_wait_s``: the producer blocked on the upstream iterator;
     ``shard_s``: the producer staging into pinned memory and issuing the
     copies; ``h2d_wait_s``: the consumer blocked on a ready batch;
-    ``step_s``: the consumer's time between batches. Each field has one
-    writer thread."""
+    ``step_s``: the consumer's time between batches; ``h2d_bytes``: every
+    array that crossed, of which ``h2d_image_bytes`` the images (uint8 or
+    float32 pixels, or a packed batch's own ``image_bytes``). Each field
+    has one writer thread."""
 
     def __init__(self):
         self.host_wait_s = 0.0
@@ -51,25 +59,37 @@ class FeedTelemetry:
         self.step_s = 0.0
         self.batches = 0
         self.h2d_bytes = 0
+        self.h2d_image_bytes = 0
         self.h2d_images = 0
         self.wire_dtype: str | None = None
 
     def record_wire(self, batch: dict) -> None:
         """Account one host batch about to cross the wire: the bytes of
-        every array, the images (rows of every 4-D array) and their
-        dtype."""
+        every array, the images (rows of every 4-D array), their bytes and
+        their dtype; a packed batch names its own."""
         leaves = [v for v in batch.values() if hasattr(v, "nbytes")]
         if not leaves:
             return
         self.h2d_bytes += int(sum(v.nbytes for v in leaves))
+        if _packed(batch):
+            self.h2d_image_bytes += batch.image_bytes
+            self.h2d_images += batch.n_images
+            self.wire_dtype = batch.wire_dtype
+            return
         images = [v for v in leaves if getattr(v, "ndim", 0) >= 4]
         images = images or leaves[:1]
+        self.h2d_image_bytes += int(sum(v.nbytes for v in images))
         self.h2d_images += int(sum(len(v) for v in images))
         self.wire_dtype = str(images[0].dtype)
 
     @property
     def h2d_bytes_per_image(self) -> float:
         return self.h2d_bytes / self.h2d_images if self.h2d_images else 0.0
+
+    @property
+    def image_bytes_per_image(self) -> float:
+        return (self.h2d_image_bytes / self.h2d_images
+                if self.h2d_images else 0.0)
 
     def summary(self) -> dict:
         """Per-batch milliseconds of each stage, and ``wait_frac``, the
@@ -85,8 +105,15 @@ class FeedTelemetry:
             "wait_frac": (round(wait / (wait + busy), 4)
                           if wait + busy > 0 else 0.0),
             "h2d_bytes_per_image": round(self.h2d_bytes_per_image, 1),
+            "image_bytes_per_image": round(self.image_bytes_per_image, 1),
             "wire_dtype": self.wire_dtype,
         }
+
+
+def _packed(batch) -> bool:
+    """Whether ``batch`` is a packed batch, decoded on the device by its
+    own ``decode``."""
+    return callable(getattr(batch, "decode", None))
 
 
 # queue item kinds (first tuple element)
@@ -175,6 +202,15 @@ class DevicePrefetcher:
             self._put((_ERROR, e))
 
     def _to_device(self, batch: dict):
+        if _packed(batch):
+            if self._ring is None:
+                return batch.decode(self.device), None
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self._stream):
+                out = batch.decode(self.device)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+            return out, event
         if self._ring is None:
             return {k: torch.from_numpy(np.ascontiguousarray(v))
                     for k, v in batch.items()}, None

@@ -1,0 +1,127 @@
+"""A small synthetic ImageNet record directory, in the reference builder's
+schema, for drives and tests of the record reader (``data/imagenet.py``).
+
+    python -m deepvision_tpu_torch.data.synthetic_records DIR \\
+        [--train 64] [--val 16] [--raw 64] [--classes 5] [--device cuda|cpu]
+
+writes ``train-*`` and ``validation-*`` JPEG shards and, with ``--raw``,
+``raw-train-*`` raw-frame shards of the full shorter-side-``stored``
+frame (256 by 256 to 512, either way round) with their
+``raw-train.meta.json`` sidecar. Images are smooth random fields tinted
+by class, made from ``--seed``; labels are 1-indexed on disk, as the
+reference builder writes them. It runs on the card (``--device cuda``,
+the default, which raises without one; JPEGs are encoded by nvJPEG), and
+on the CPU when asked (``--device cpu``; JPEGs are encoded by PIL).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from deepvision_tpu_torch.data.jpeg import encode_images
+from deepvision_tpu_torch.data.tfrecord import encode_example, write_records
+from deepvision_tpu_torch.device import resolve_device
+
+__all__ = ["synthetic_image", "write_synthetic_imagenet", "main"]
+
+
+def synthetic_image(rng: np.random.Generator, h: int, w: int, label: int,
+                    device: torch.device) -> torch.Tensor:
+    """A uint8 (h, w, 3) image on ``device``: an 8x8 random field
+    upsampled bilinearly, tinted by ``label``, with mild noise."""
+    low = torch.from_numpy(rng.uniform(0, 255, (1, 3, 8, 8)).astype(
+        np.float32)).to(device)
+    x = F.interpolate(low, size=(h, w), mode="bilinear",
+                      align_corners=False)[0].permute(1, 2, 0)
+    tint = torch.tensor([(label * 53) % 256, (label * 101) % 256,
+                         (label * 29) % 256], dtype=torch.float32,
+                        device=device)
+    noise = torch.from_numpy(rng.normal(0, 6, (h, w, 3)).astype(
+        np.float32)).to(device)
+    return (0.6 * x + 0.4 * tint + noise).round().clamp(0, 255).to(
+        torch.uint8)
+
+
+def _shards(out: Path, prefix: str, records: list[bytes], shards: int):
+    n = max(1, min(shards, len(records)))
+    for i in range(n):
+        write_records(out / f"{prefix}-{i:05d}-of-{n:05d}",
+                      records[i::n])
+
+
+def _sizes(rng, n: int, lo: int, hi: int):
+    return [(int(rng.integers(lo, hi + 1)), int(rng.integers(lo, hi + 1)))
+            for _ in range(n)]
+
+
+def write_synthetic_imagenet(out_dir, *, train: int = 64, val: int = 16,
+                             raw: int = 0, classes: int = 5, shards: int = 2,
+                             stored: int = 256, jpeg_sizes=(160, 400),
+                             seed: int = 0,
+                             device: torch.device | str = "cuda") -> dict:
+    """Write the record directory, with the images made and encoded on
+    ``device`` (``"cuda"``, raising without a card, or ``"cpu"``);
+    returns the counts written."""
+    device = resolve_device(device)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def jpeg_records(n):
+        labels = rng.integers(0, classes, n)
+        images = [synthetic_image(rng, h, w, int(lbl), device)
+                  for (h, w), lbl in zip(_sizes(rng, n, *jpeg_sizes), labels)]
+        return [encode_example({"image/encoded": [blob],
+                                "image/class/label": [int(lbl) + 1]})
+                for blob, lbl in zip(encode_images(images), labels)]
+
+    _shards(out, "train", jpeg_records(train), shards)
+    _shards(out, "validation", jpeg_records(val), shards)
+    if raw:
+        records = []
+        for _ in range(raw):
+            label = int(rng.integers(0, classes))
+            long = int(rng.integers(stored, 2 * stored + 1))
+            h, w = (stored, long) if rng.random() < 0.5 else (long, stored)
+            frame = synthetic_image(rng, h, w, label, device).cpu().numpy()
+            records.append(encode_example({
+                "image/raw": [frame.tobytes()],
+                "image/class/label": [label + 1],
+                "image/height": [h], "image/width": [w]}))
+        _shards(out, "raw-train", records, shards)
+        (out / "raw-train.meta.json").write_text(json.dumps(
+            {"stored": stored, "count": raw, "full_frame": True}))
+    return {"train": train, "validation": val, "raw-train": raw}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m deepvision_tpu_torch.data.synthetic_records",
+        description=__doc__.splitlines()[0])
+    p.add_argument("out_dir")
+    p.add_argument("--train", type=int, default=64)
+    p.add_argument("--val", type=int, default=16)
+    p.add_argument("--raw", type=int, default=0)
+    p.add_argument("--classes", type=int, default=5)
+    p.add_argument("--shards", type=int, default=2)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default; raises without a card) or 'cpu'")
+    args = p.parse_args(argv)
+    counts = write_synthetic_imagenet(
+        args.out_dir, train=args.train, val=args.val, raw=args.raw,
+        classes=args.classes, shards=args.shards, seed=args.seed,
+        device=args.device)
+    print(f"wrote {counts} under {args.out_dir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

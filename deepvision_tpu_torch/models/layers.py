@@ -16,21 +16,33 @@ only its output (trap C8).
 
 XLA's ``"SAME"`` padding is asymmetric under a stride (trap C2): the
 pads are spelled out by :func:`same_padding` and applied explicitly.
+
+Rematerialization (:func:`remat`) runs a region under
+``torch.utils.checkpoint`` and recomputes it in the backward. Both
+BatchNorms update their running statistics in place in the forward, so
+the recompute would apply the momentum a second time (trap C11); while a
+region is recomputed (:func:`recomputing`) they normalize by the batch as
+before and skip the update, as flax's functional ``nn.remat`` updates
+once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 __all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
            "global_avg_pool", "same_padding", "make_conv", "conv_padding",
            "lecun_normal_", "he_normal_", "MixedBatchNorm", "BatchNorm",
-           "ConvBN", "init_weights"]
+           "ConvBN", "init_weights", "REMAT_POLICIES", "CONV_OUT",
+           "recomputing", "remat"]
 
 Padding = str | Sequence[tuple[int, int]]
 
@@ -237,6 +249,8 @@ class _BatchNorm(nn.Module):
         mean = x.mean(dims, dtype=torch.float32)
         mean2 = (x * x).mean(dims, dtype=torch.float32)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
+        if _recompute.depth:  # the forward already updated them (C11)
+            return mean, var
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -342,3 +356,75 @@ def init_weights(module: nn.Module, generator: torch.Generator,
         module.reset_parameters()
     for child in module.children():
         init_weights(child, generator, kernel_init)
+
+
+# -------------------------------------------------- rematerialization
+
+
+class _RecomputeDepth(threading.local):
+    """How many rematerialized regions this thread is recomputing (the
+    autograd engine recomputes in the thread that runs the backward)."""
+
+    depth = 0
+
+
+_recompute = _RecomputeDepth()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recompute of a rematerialized region: BatchNorm skips its
+    running update inside (trap C11)."""
+    _recompute.depth += 1
+    try:
+        yield
+    finally:
+        _recompute.depth -= 1
+
+
+# The "conv_out" of the JAX ``ConvBN`` (``checkpoint_name(x,
+# "conv_out")`` on its convolution's output): every ``F.conv2d`` of
+# :func:`conv2d` reaches the dispatcher as this op, whose outputs the
+# ``"conv"`` policy saves.
+CONV_OUT = torch.ops.aten.convolution.default
+
+REMAT_POLICIES = ("block", "conv")
+
+
+def _save_conv_out(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op is CONV_OUT:
+        return torch_checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _contexts(policy: str):
+    """``checkpoint``'s ``context_fn`` for ``policy``: (the forward's
+    context, the recompute's), the recompute's with :func:`recomputing`
+    inside."""
+    if policy == "block":
+        return contextlib.nullcontext(), recomputing()
+    forward, recompute = torch_checkpoint.create_selective_checkpoint_contexts(
+        _save_conv_out)
+    return forward, _both(recompute, recomputing())
+
+
+def remat(fn, *args, policy: str):
+    """``fn(*args)`` rematerialized, flax's ``nn.remat`` of the JAX
+    ResNet: ``"block"`` saves nothing inside ``fn`` and recomputes it in
+    the backward; ``"conv"`` saves only the convolutions' outputs
+    (:data:`CONV_OUT`) and recomputes the BatchNorms and ReLUs. BatchNorm
+    updates its running statistics once, in the forward. No RNG state is
+    carried: the regions it serves draw no random numbers."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat policy {policy!r}; one of {REMAT_POLICIES}")
+    return torch_checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: _contexts(policy))

@@ -32,8 +32,15 @@ in float32 and ``fc`` in float32.
 Conventions as in ``inception.py``: NHWC activations; float32
 parameters cast to ``dtype`` at use; parameter names are flax's module
 paths (``stem.conv.weight``, ``stage2_block1.proj.bn.scale``,
-``stage1_block1.preact_bn.mean``, ``fc``). ``resnet152`` is not
-registered: its config rematerializes every block (trap C11).
+``stage1_block1.preact_bn.mean``, ``fc``).
+
+``remat`` (V1) rematerializes every block in training, as flax's
+``nn.remat`` over the JAX block: ``"block"`` saves nothing inside a
+block, ``"conv"`` only its convolutions' outputs
+(:func:`~layers.remat`); BatchNorm's running statistics are updated
+once, in the forward (trap C11). Parameter names do not change.
+``resnet152`` declares ``"block"`` in the registry, which its training
+config folds into ``model_kwargs``.
 """
 
 from __future__ import annotations
@@ -124,8 +131,8 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     """ResNet V1: stem, max pool, ``stage{i}_block{j}`` blocks, GAP,
-    ``fc``. ``remat`` takes only None: rematerializing a block would run
-    ``MixedBatchNorm``'s running update twice a step (trap C11)."""
+    ``fc``. ``remat``: None, ``"block"`` or ``"conv"`` (each block
+    rematerialized in training, :func:`~layers.remat`)."""
 
     # he_normal for fc too; every ConvBN declares it as well
     kernel_init = staticmethod(layers.he_normal_)
@@ -138,11 +145,10 @@ class ResNet(nn.Module):
                  input_size: int | None = None):
         super().__init__()
         del input_size  # any size: the head pools globally
-        if remat is not None:
-            raise ValueError(
-                f"remat={remat!r} is not ported: torch.utils.checkpoint "
-                "would run each block's BatchNorm running update again in "
-                "the backward (trap C11)")
+        if remat is not None and remat not in layers.REMAT_POLICIES:
+            raise ValueError(f"unknown remat {remat!r} for ResNet; None or "
+                             f"one of {layers.REMAT_POLICIES}")
+        self.remat = remat
         self.dtype = dtype
         if s2d_stem:
             self.stem = S2DStem(64, dtype=dtype)
@@ -171,8 +177,13 @@ class ResNet(nn.Module):
         del generator
         x = self.stem(x.to(self.dtype), train)
         x = layers.max_pool(x, (3, 3), (2, 2), _PAD1)
+        remat = self.remat if train and torch.is_grad_enabled() else None
         for name in self.blocks:
-            x = getattr(self, name)(x, train)
+            block = getattr(self, name)
+            if remat is None:
+                x = block(x, train)
+            else:
+                x = layers.remat(block, x, train, policy=remat)
         x = layers.global_avg_pool(x)
         return layers.dense(x.float(), self.fc)
 
@@ -271,6 +282,13 @@ def _resnet34(**kw):
 @register("resnet50")
 def _resnet50(**kw):
     return ResNet(stage_sizes=(3, 4, 6, 3), block=BottleneckBlock, **kw)
+
+
+@register("resnet152", remat="block")
+def _resnet152(**kw):
+    # the registry's default remat: at 36 stage-3 blocks the saved
+    # activations dominate the step's memory
+    return ResNet(stage_sizes=(3, 8, 36, 3), block=BottleneckBlock, **kw)
 
 
 @register("resnet50v2")

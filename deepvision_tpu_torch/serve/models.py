@@ -2,12 +2,14 @@
 
 The twin of ``deepvision_tpu/serve/models.py`` for the classify task,
 the only task of the models the port serves (the AlexNets, Inception V1
-in both variants, ``resnet34``, ``resnet50`` and ``resnet50v2``; a model
+in both variants, ``resnet34``, ``resnet50``, ``resnet152`` and
+``resnet50v2``; a model
 with aux heads returns only its main logits in eval, as the JAX forward
 keeps only them). A model is built without its training config's
 ``model_kwargs``, as the JAX ``load_served`` builds it: a checkpoint
 trained under ``resnet50``'s ``s2d_stem`` has the same state dict and
-serves on the plain stem, whose float32 numbers are the same. A
+serves on the plain stem, whose float32 numbers are the same, and
+``resnet152`` serves without the remat it trains under. A
 :class:`ServedModel` holds the module on its device, the per-example
 input geometry, and a host-side ``postprocess`` that turns batch row
 ``i`` into a JSON-able result. The task head (softmax and top-k) runs on

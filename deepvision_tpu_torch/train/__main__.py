@@ -2,16 +2,24 @@
 Inception V1 and the ResNets.
 
     python -m deepvision_tpu_torch.train -m alexnet1 [--resume] [--epochs N]
-    python -m deepvision_tpu_torch.train -m resnet50
+    python -m deepvision_tpu_torch.train -m resnet50 --data-dir DIR \
+        [--raw|--no-raw] [--device-aug [--mixup ALPHA]] [--steps-per-epoch N]
 
-Without a data directory the run trains on the hermetic synthetic set
-(``data/synthetic.py``), as ``train.py`` does without ``--data-dir``. It
-runs on the card (``--device cuda``, the default, which raises without
-one); ``--device cpu`` runs on the CPU when asked. The model is built
-with the config's ``model_kwargs`` (``resnet50``'s ``s2d_stem``), as
-``train.py`` builds it. The flags are
-``train.py``'s names for what this slice serves; the others are not
-ported and are absent, so that no flag is silently ignored.
+``--data-dir`` reads ImageNet TFRecords (``data/imagenet.py``): the
+raw-crop shards when usable (``--raw`` demands them, ``--no-raw``
+refuses them), else the JPEG shards, decoded on the card by nvJPEG;
+training batches cross as uint8 and validation reads the JPEG shards.
+``--device-aug`` leaves the host only the crop and runs flip, jitter and
+``--mixup`` inside the step (``data/device_aug.py``); eval steps are not
+augmented. Without a data directory the run trains on the hermetic
+synthetic set (``data/synthetic.py``), as ``train.py`` does without
+``--data-dir``. It runs on the card (``--device cuda``, the default,
+which raises without one); ``--device cpu`` runs on the CPU when asked.
+The model is built with the config's ``model_kwargs`` (``resnet50``'s
+``s2d_stem``, ``resnet152``'s ``remat``), as ``train.py`` builds it. The
+flags are ``train.py``'s names for what this slice serves, refused where
+``train.py`` refuses them; the others are not ported and are absent, so
+that no flag is silently ignored.
 """
 
 from __future__ import annotations
@@ -23,7 +31,7 @@ from itertools import islice
 
 import numpy as np
 
-__all__ = ["main", "parse_args"]
+__all__ = ["main", "parse_args", "check_data_flags"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,6 +58,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--precision", default=None, choices=PRECISION_NAMES,
                    help="numerics policy (core/precision.py); default: "
                         "the model config's")
+    p.add_argument("--data-dir", default=None,
+                   help="ImageNet TFRecord directory (train-*/"
+                        "validation-*, raw-train-* + raw-train.meta.json); "
+                        "default: the synthetic set")
+    p.add_argument("--raw", dest="use_raw", action="store_true",
+                   default=None,
+                   help="demand the raw-crop shards (raw-train-*) of "
+                        "--data-dir")
+    p.add_argument("--no-raw", dest="use_raw", action="store_false",
+                   help="read the JPEG shards even where raw-crop shards "
+                        "are usable")
+    p.add_argument("--device-aug", action="store_true",
+                   help="split input pipeline (data/device_aug.py): the "
+                        "host ships uint8 crops, flip/jitter/normalize "
+                        "run inside the train step")
+    p.add_argument("--mixup", type=float, default=0.0, metavar="ALPHA",
+                   help="device-side mixup with Beta(ALPHA, ALPHA); "
+                        "needs --device-aug")
     p.add_argument("--synthetic-size", type=int, default=2048,
                    help="synthetic dataset size")
     p.add_argument("--steps-per-epoch", type=int, default=None,
@@ -65,12 +91,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def check_data_flags(args, cfg: dict) -> None:
+    """``train.py``'s refusals of the data flags, with their meaning:
+    each needs a ``--data-dir`` ImageNet config, and ``--mixup`` also
+    ``--device-aug`` and a non-negative alpha."""
+    imagenet = bool(args.data_dir) and cfg["dataset"] == "imagenet"
+    if args.use_raw is not None and not imagenet:
+        raise SystemExit(
+            "--raw/--no-raw only applies to --data-dir ImageNet configs "
+            f"(this run: dataset={cfg['dataset']!r}, "
+            f"data_dir={args.data_dir!r})")
+    if args.device_aug and not imagenet:
+        raise SystemExit(
+            "--device-aug splits a record-backed host pipeline: "
+            "--data-dir ImageNet configs only "
+            f"(this run: dataset={cfg['dataset']!r}, "
+            f"data_dir={args.data_dir!r})")
+    if args.mixup and not (args.device_aug and imagenet):
+        raise SystemExit(
+            "--mixup is a device-side classification augmentation; it "
+            "requires --device-aug on a --data-dir ImageNet config "
+            f"(this run: {args.model!r})")
+    if args.mixup < 0:
+        raise SystemExit(f"--mixup must be >= 0, got {args.mixup}")
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
 
     import torch
 
     from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.imagenet import (
+        PT_JITTER,
+        make_imagenet_data,
+    )
+    from deepvision_tpu_torch.data.jpeg import ycc_launches
     from deepvision_tpu_torch.data.mnist import batches
     from deepvision_tpu_torch.data.synthetic import synthetic_classification
     from deepvision_tpu_torch.device import resolve_device, strict_fp32
@@ -86,7 +146,6 @@ def main(argv=None) -> int:
     )
     from deepvision_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
     cfg = get_config(args.model)
     if args.batch_size:
         cfg["batch_size"] = args.batch_size
@@ -98,23 +157,40 @@ def main(argv=None) -> int:
         cfg["input_size"] = args.input_size
     policy = get_policy(args.precision or cfg["precision"])
     cfg["precision"] = policy.name
+    check_data_flags(args, cfg)
+    device = resolve_device(args.device)
     if device.type == "cuda":
         strict_fp32()  # float32 math in full float32, as on the CPU
 
     bs, size = cfg["batch_size"], cfg["input_size"]
-    imgs, labels, split = synthetic_classification(
-        args.synthetic_size, size, cfg["channels"], cfg["num_classes"], bs)
-    steps = args.steps_per_epoch or (args.synthetic_size - split) // bs
+    if args.data_dir:
+        train_data, val_data, steps = make_imagenet_data(
+            args.data_dir, bs, size, augment=cfg.get("augment", "tf"),
+            use_raw=args.use_raw, steps_per_epoch=args.steps_per_epoch,
+            device_aug=args.device_aug)
+    else:
+        imgs, labels, split = synthetic_classification(
+            args.synthetic_size, size, cfg["channels"], cfg["num_classes"],
+            bs)
+        steps = args.steps_per_epoch or (args.synthetic_size - split) // bs
 
-    def train_data(epoch):
-        return islice(batches(imgs[split:], labels[split:], bs,
-                              rng=np.random.default_rng(epoch)), steps)
+        def train_data(epoch):
+            return islice(batches(imgs[split:], labels[split:], bs,
+                                  rng=np.random.default_rng(epoch)), steps)
 
-    def val_data():
-        return batches(imgs[:split], labels[:split], bs,
-                       drop_remainder=False)
+        def val_data():
+            return batches(imgs[:split], labels[:split], bs,
+                           drop_remainder=False)
 
     kind = "torch" if cfg.get("augment") == "pt" else "imagenet"
+    train_step = partial(classification_train_step, normalize_kind=kind)
+    if args.device_aug:
+        aug = DeviceAugment(
+            "classification", flip=True,
+            jitter=PT_JITTER if cfg.get("augment") == "pt" else 0.0,
+            mixup=args.mixup)
+        train_step = augment_step(train_step, aug)
+        print(f"[device-aug] {aug} fused into the train step", flush=True)
     model_kwargs = cfg.get("model_kwargs", {})
     module = create_model(args.model, device=device, seed=0,
                           num_classes=cfg["num_classes"], input_size=size,
@@ -129,19 +205,19 @@ def main(argv=None) -> int:
     trainer = Trainer(
         module, cfg, train_data, val_data, device=device,
         workdir=args.workdir, prefetch_depth=args.prefetch_depth,
-        steps_per_epoch=steps,
-        train_step=partial(classification_train_step, normalize_kind=kind),
+        steps_per_epoch=steps, train_step=train_step,
         eval_step=partial(classification_eval_step, normalize_kind=kind))
     if args.resume or args.checkpoint is not None:
         trainer.resume(args.checkpoint)
         print(f"resumed at epoch {trainer.start_epoch}", flush=True)
     trainer.fit(args.epochs)
     launches = {**local_response_norm_cuda.launches_by_kernel,
-                **local_response_norm_backward_cuda.launches_by_kernel}
+                **local_response_norm_backward_cuda.launches_by_kernel,
+                "ycc_to_rgb": ycc_launches()}
     print(f"[train] {args.model}: epochs {trainer.start_epoch}.."
           f"{(args.epochs or cfg['total_epochs']) - 1} done, checkpoints "
           f"{trainer.ckpt.saved_epochs()} under {trainer.ckpt.directory}; "
-          f"LRN kernel launches {launches}", file=sys.stderr, flush=True)
+          f"kernel launches {launches}", file=sys.stderr, flush=True)
     return 0
 
 

@@ -11,9 +11,11 @@ True}``, and V2 has no ``augment``, so it normalizes as
 ``"imagenet"``). :func:`get_config` fills the JAX table's defaults and,
 as the JAX ``get_config`` does, gives a ``<model>_ref`` variant
 (``inception1_ref``, the reference's BN-free architecture) its base
-model's entry under its own name. No entry here declares ``remat``
-(the JAX ``get_config`` folds one into ``model_kwargs``; the port's
-models refuse one, trap C11). ``alexnet2_tf`` has no entry in the JAX table
+model's entry under its own name. ``resnet152`` carries ``resnet50``'s
+fields and ``remat: "block"``; as in the JAX ``get_config``, an entry's
+``remat`` (else the registry's ``model_remat``) is folded into
+``model_kwargs``, so that the trainer builds the model with it.
+``alexnet2_tf`` has no entry in the JAX table
 and stays serving-only here (its pixel convention is ``"tf"``):
 :data:`TRAINABLE` lists the models that train.
 """
@@ -74,6 +76,10 @@ TRAINING_CONFIG: dict[str, dict] = {
     "resnet34": copy.deepcopy(_RESNET_TRAINING),
     # ref: deepvision_tpu/train/configs.py "resnet50", the north star
     "resnet50": copy.deepcopy(_RESNET_TRAINING),
+    # ref: deepvision_tpu/train/configs.py "resnet152": every block
+    # rematerialized ("block"), trading a recomputed forward for the
+    # saved activations of 50 blocks
+    "resnet152": {"remat": "block", **copy.deepcopy(_RESNET_TRAINING)},
     # ref: deepvision_tpu/train/configs.py "resnet50v2"
     "resnet50v2": {k: copy.deepcopy(v) for k, v in _RESNET_TRAINING.items()
                    if k not in ("augment", "model_kwargs")},
@@ -90,7 +96,8 @@ TRAINABLE = tuple(sorted(
 def get_config(name: str) -> dict:
     """A deep copy of ``name``'s entry (a ``_ref`` variant's base
     model's) with the JAX table's defaults; ``model_kwargs``, where the
-    entry has them, are what the trainer builds the model with."""
+    entry has them, are what the trainer builds the model with, the
+    remat policy folded in."""
     base = name.removesuffix("_ref") if name in _REF_VARIANTS else name
     try:
         cfg = copy.deepcopy(TRAINING_CONFIG[base])
@@ -103,5 +110,11 @@ def get_config(name: str) -> dict:
     cfg.setdefault("num_classes", 1000)
     cfg.setdefault("dataset", "imagenet")
     cfg.setdefault("precision", "bf16")
+    if "remat" not in cfg:
+        from deepvision_tpu_torch.models.registry import model_remat
+
+        cfg["remat"] = model_remat(base)
+    if cfg["remat"] is not None:
+        cfg.setdefault("model_kwargs", {}).setdefault("remat", cfg["remat"])
     cfg["name"] = name
     return cfg

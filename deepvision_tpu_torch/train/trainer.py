@@ -8,7 +8,9 @@ the JAX Trainer:
   dropout generator a step from the epoch's stream ``KeySeq(seed + 1,
   epoch)``, metrics fetched every ``log_every`` steps and at the epoch's
   end, never per step;
-- masked validation (exact over the whole held-out set);
+- masked validation (exact over the whole held-out set), through the
+  device feed too, so that packed JPEG batches decode on its side
+  stream;
 - the plateau controller on ``val_top1`` (else the negated loss); a
   step-count schedule (``inception_poly``, ``step``) follows the
   optimizer's own update count on the device, which checkpoints carry,
@@ -49,7 +51,7 @@ __all__ = ["Trainer"]
 
 # feed telemetry logged per epoch, as input_<key>
 _INPUT_KEYS = ("host_wait_ms", "shard_ms", "h2d_wait_ms", "step_ms",
-               "wait_frac", "h2d_bytes_per_image")
+               "wait_frac", "h2d_bytes_per_image", "image_bytes_per_image")
 
 
 def _fmt(d: dict) -> str:
@@ -102,10 +104,6 @@ class Trainer:
         self.start_epoch = 0
         self.best_metric = -float("inf")
 
-    def _host_to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
-
     # -- resume ----------------------------------------------------------
     def resume(self, epoch: int | None = None) -> None:
         """Restore the newest (or the given) verified checkpoint: the
@@ -141,7 +139,7 @@ class Trainer:
 
         def counted():
             for batch in self.train_data(epoch):
-                counts.append(len(batch["image"]))
+                counts.append(len(batch["label"]))
                 yield batch
 
         tel = FeedTelemetry()
@@ -163,6 +161,12 @@ class Trainer:
         drain()  # waits for the epoch's last step
         dt = time.perf_counter() - t0
         summary = tel.summary()
+        print(f"[feed] epoch {epoch}: wire {summary['wire_dtype']}, "
+              f"{summary['h2d_bytes_per_image']} bytes an image crossed "
+              f"({summary['image_bytes_per_image']} of them image bytes), "
+              f"h2d_wait {summary['h2d_wait_ms']} ms and host_wait "
+              f"{summary['host_wait_ms']} ms a batch, wait_frac "
+              f"{summary['wait_frac']}", flush=True)
         out = {f"train_{k}": float(np.average([m[k] for m in fetched],
                                                weights=counts))
                for k in (fetched[0] if fetched else {})}
@@ -172,9 +176,13 @@ class Trainer:
         return out
 
     def validate(self) -> dict:
-        parts = (self._eval_step(self.state, self._host_to_device(b))
-                 for b in self.val_data())
-        metrics, _ = aggregate_eval_parts(parts)
+        feed = DevicePrefetcher(self.val_data(), self.device,
+                                depth=self.prefetch_depth)
+        try:
+            metrics, _ = aggregate_eval_parts(
+                self._eval_step(self.state, b) for b in feed)
+        finally:
+            feed.close()
         return metrics
 
     def fit(self, epochs: int | None = None) -> Loggers:

@@ -164,8 +164,11 @@ def test_s2d_stem_refuses_odd_sizes_and_remat_names_trap_c11():
     with pytest.raises(ValueError, match="even H/W"):
         jax.eval_shape(lambda k, x: jax_model.init(k, x),
                        jax.random.PRNGKey(0), jnp.zeros((1, 63, 64, 3)))
-    with pytest.raises(ValueError, match="trap C11"):
-        get_model("resnet50", remat="block")
+    # remat is ported with trap C11's guard (tests/test_torch_remat.py);
+    # a policy the ResNet does not have is refused
+    assert get_model("resnet50", remat="block").remat == "block"
+    with pytest.raises(ValueError, match="unknown remat 'stack'"):
+        get_model("resnet50", remat="stack")
 
 
 # ----------------------------------------- BatchNorm, traps C1 and C8

@@ -15,6 +15,7 @@ bf16-twin band (``CLS_LOSS_RTOL``) with identical top-1 decisions.
 
 import contextlib
 import dataclasses
+import re
 
 import flax
 import flax.linen as flax_nn
@@ -650,8 +651,8 @@ def test_dropout_needs_a_generator_and_follows_it():
 
 def test_config_carries_the_jax_training_fields():
     assert TRAINABLE == ("alexnet1", "alexnet2", "inception1",
-                         "inception1_ref", "resnet34", "resnet50",
-                         "resnet50v2")
+                         "inception1_ref", "resnet152", "resnet34",
+                         "resnet50", "resnet50v2")
     for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
@@ -1114,3 +1115,99 @@ def test_inception_poly_through_make_optimizer_matches_optax():
     assert float(schedule(7)) < float(schedule(5)) < float(schedule(0))
     with pytest.raises(ValueError, match="steps_per_epoch"):
         make_optimizer(get_config("inception1"), module.parameters())
+
+
+# ------------------------------------------ the CLI over ImageNet records
+
+
+@pytest.fixture(scope="module")
+def record_dir(tmp_path_factory):
+    from tests.test_torch_imagenet import _write
+
+    d = tmp_path_factory.mktemp("records")
+    _write(d)
+    return d
+
+
+def _cli(record_dir, workdir, *flags):
+    from tests.test_torch_imagenet import N_RAW, SIZE
+
+    return ["-m", "resnet50", "--device", "cpu", "--data-dir",
+            str(record_dir), "--input-size", str(SIZE), "--num-classes",
+            str(N_RAW), "--batch-size", "4", "--steps-per-epoch", "2",
+            "--lr", "0.001", "--workdir", str(workdir), *flags]
+
+
+@pytest.mark.parametrize("flags", [
+    ("--raw",), ("--raw", "--device-aug", "--mixup", "0.2")])
+def test_cli_trains_resnet50_from_raw_records(record_dir, tmp_path, capsys,
+                                              flags):
+    """A tiny ``resnet50`` trained from test-written ``raw-train-*`` and
+    ``validation-*`` shards: validation over the JPEGs, a checkpoint and
+    a resume; the feed reports the uint8 wire at size²·3 image bytes an
+    image (and the 4 bytes of its label beside them)."""
+    from deepvision_tpu_torch.train.__main__ import main as train_main
+    from tests.test_torch_imagenet import SIZE
+
+    assert train_main([*_cli(record_dir, tmp_path, *flags),
+                       "--epochs", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "[pre-train] val_loss=" in out
+    assert ("[device-aug] DeviceAugment(classification, flip, jitter=0.2, "
+            "mixup=0.2)" in out) == ("--device-aug" in flags)
+    image_bytes = SIZE * SIZE * 3
+    assert (f"[feed] epoch 0: wire uint8, {image_bytes + 4.0} bytes an image "
+            f"crossed ({float(image_bytes)} of them image bytes)") in out
+    loss = [float(v) for v in re.findall(r"\] train_loss=(\S+)", out)]
+    assert len(loss) == 1 and np.isfinite(loss[0])
+    assert "val_top1=" in out.split("[epoch 0]")[1]
+    assert train_main([*_cli(record_dir, tmp_path, *flags),
+                       "--epochs", "2", "--resume"]) == 0
+    out = capsys.readouterr().out
+    assert "resumed at epoch 1" in out and "[epoch 1]" in out
+    state = torch.load(tmp_path / "resnet50" / "ckpt" / "1" / "state.pt",
+                       weights_only=True)
+    assert state["step"] == 4
+
+
+def test_cli_trains_from_jpeg_records(record_dir, tmp_path, capsys):
+    """``--no-raw --device-aug``: the JPEG shards cross packed and decode
+    on the feed (PIL on the CPU, so the card's ``ycc_to_rgb`` kernel is
+    never launched); the feed counts the JPEG bytes."""
+    from deepvision_tpu_torch.train.__main__ import main as train_main
+
+    assert train_main([*_cli(record_dir, tmp_path, "--no-raw",
+                             "--device-aug"), "--epochs", "1"]) == 0
+    captured = capsys.readouterr()
+    assert "[feed] epoch 0: wire jpeg" in captured.out
+    assert "raw-frame fast path" not in captured.out
+    assert "'ycc_to_rgb': 0}" in captured.err.splitlines()[-1]
+
+
+@pytest.mark.parametrize("flags,needs_dir,message", [
+    (("--raw",), False, "--raw/--no-raw only applies"),
+    (("--no-raw",), False, "--raw/--no-raw only applies"),
+    (("--device-aug",), False, "--device-aug splits a record-backed"),
+    (("--mixup", "0.2"), False, "--mixup is a device-side"),
+    (("--mixup", "0.2"), True, "--mixup is a device-side"),
+    (("--device-aug", "--mixup", "-1"), True, "--mixup must be >= 0"),
+])
+def test_cli_refuses_the_data_flags_as_train_py_does(
+        record_dir, tmp_path, monkeypatch, flags, needs_dir, message):
+    """Each refusal of ``train.py`` reproduced by the port's CLI, with the
+    same leading words; both refuse before touching data or a device."""
+    import sys
+
+    import train as jax_train
+    from deepvision_tpu_torch.train.__main__ import main as train_main
+
+    data = ("--data-dir", str(record_dir)) if needs_dir else ()
+    args = ["-m", "resnet50", *data, *flags, "--workdir", str(tmp_path)]
+    with pytest.raises(SystemExit, match=message.replace("+", r"\+")) as ours:
+        train_main(args)
+    monkeypatch.setattr(sys, "argv", ["train.py", *args])
+    with pytest.raises(SystemExit) as theirs:
+        jax_train.main()
+    assert str(theirs.value).startswith(message), theirs.value
+    assert str(ours.value).split(" (this run")[0][:20] \
+        == str(theirs.value)[:20]
