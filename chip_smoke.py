@@ -11,9 +11,11 @@ n=64 and n=192, and the BN variant ``inception1``), the ResNets
 (``resnet50``, the training side's north star, then ``resnet34`` and
 ``resnet50v2``, none of which reaches an LRN), ``resnet50`` trained from
 ImageNet TFRecords over the uint8 wire (raw-crop and JPEG shards, the
-JPEGs decoded on the card) with the augmentation in the step, and
-``resnet152`` under its block rematerialization; it holds every kernel on
-them against its plain version.
+JPEGs decoded on the card) with the augmentation in the step,
+``resnet152`` under its block rematerialization, and YOLO v3 (``yolov3``
+on Darknet-53) served, trained from detection TFRecords, evaluated and
+post-processed by the NMS sweep kernel; it holds every kernel on them
+against its plain version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
@@ -130,11 +132,34 @@ the seconds it took:
    rematerialized step against the plain one (BN statistics bit for
    bit), one served batch.
 
+15. YOLO v3 (``phase_yolo``, last): ``yolov3`` served at 416x416x3 and
+   20 classes with seeded weights in float32 behind an
+   ``InferenceEngine`` on buckets (1, 4, 16, 64), 32 queued requests and
+   4 single ones, each answer identical to the same batch post-processed
+   with the plain NMS sweep, with a profile of a bucket-64 batch; the NMS
+   sweep kernel (``csrc/nms.cu``) against its plain version (alive masks
+   identical) and ``batched_nms`` on the card against the CPU's (every
+   output identical) on ``yolov3``'s candidates at buckets 64 and 16,
+   N < K, planted equal scores (trap C17) and near-threshold pairs (trap
+   C18), at score thresholds 0.5 and 0.05, and its time beside its bound,
+   its plain version and ``yolo_postprocess`` whole; ``encode_labels``
+   on the card against the CPU with a planted collision (trap C16); a
+   skipped ``bf16_scaled`` Adam step with no host sync (trap C10); an
+   f32 step, card against CPU, at batch 4 and 128 px with two planted
+   faults; then detection records written on the card (256 train, 64
+   val, nvJPEG), the fed and device-resident step at 416 and batch 16 in
+   bf16 (images/s, MFU, peak memory, idle), and the training CLI
+   (``--data-dir --device-aug``, 2 epochs, ``--resume`` to 3), the
+   serving CLI and the ``eval detection`` CLI from its checkpoint, whose
+   mAP line is printed and not gated. No YOLO path launches an LRN
+   kernel.
+
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
-times under ``shapes``, launches by path under ``launches_by_path``, and
-the JPEG path's ``ycc_to_rgb``, which stands for no TPU kernel), the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+times under ``shapes``, launches by path under ``launches_by_path``, the
+JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
+which stand for no TPU kernel), the ``[yolo] {...}`` summary, the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -256,6 +281,22 @@ RECORD_BATCHES = 2
 RECORD_VAL = 256 + 100
 RECORD_TIMED_STEPS = 8
 RESNET152_TIMED_STEPS = 8
+# YOLO v3 (slice 8): the NMS sweep kernel, not a TPU kernel (the greedy
+# fori_loop of the JAX nms_indices, stock XLA)
+NMS_SOURCE = "deepvision_tpu_torch/csrc/nms.cu"
+NMS_REPLACES = "deepvision_tpu/ops/nms.py:59"
+# float32 operations of one IoU and its comparison (csrc/nms.cu's iou():
+# 4 max/min, 2 sub and 2 max for the overlap, its product, 2 x (2 sub,
+# 2 max, 1 mul) for the areas, add, sub and max for the union, the
+# division, the comparison)
+NMS_IOU_OPS = 24
+YOLO_SIZE = 416
+YOLO_CLASSES = 20
+YOLO_N = 3 * (52 ** 2 + 26 ** 2 + 13 ** 2)  # 10,647 candidate boxes
+MAX_BOXES = 100
+YOLO_REQUESTS = 32
+YOLO_TIMED_STEPS = 8
+YOLO_CLI_STEPS = 4
 
 
 def _say(*parts) -> None:
@@ -319,15 +360,17 @@ def phase_probe() -> None:
 
 
 def phase_build() -> dict[str, str]:
-    """Every native source at once, one compiler each: the LRN kernels
-    and the nvJPEG binding with ``nvcc``, the CRC32C with the host's C++
-    compiler. Returns the native pieces' libraries by source."""
+    """Every native source at once, one compiler each: the LRN kernels,
+    the nvJPEG binding and the NMS sweep with ``nvcc``, the CRC32C with
+    the host's C++ compiler. Returns the native pieces' libraries by
+    source."""
     from concurrent.futures import ThreadPoolExecutor
 
     from deepvision_tpu_torch.ops import _build
 
     stems = {"lrn": LRN_SOURCE, "lrn_bwd": LRN_BWD_SOURCE,
-             "crc32c": CRC_SOURCE, "nvjpeg": NVJPEG_SOURCE}
+             "crc32c": CRC_SOURCE, "nvjpeg": NVJPEG_SOURCE,
+             "nms": NMS_SOURCE}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(stems)) as pool:
         libs = list(pool.map(_build.build, stems))
@@ -343,7 +386,8 @@ def phase_build() -> dict[str, str]:
         for kernel, report in _ptxas_report(_build.build_logs.get(stem,
                                                                   "")):
             _say(f"[build] ptxas {kernel}: {report}")
-    return {CRC_SOURCE: libs[2].name, NVJPEG_SOURCE: libs[3].name}
+    return {CRC_SOURCE: libs[2].name, NVJPEG_SOURCE: libs[3].name,
+            NMS_SOURCE: libs[4].name}
 
 
 def _ptxas_report(log: str) -> list[tuple[str, str]]:
@@ -663,11 +707,22 @@ def _zero_launch_counts() -> None:
         local_response_norm_cuda,
     )
 
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+
     for wrapper in (local_response_norm_cuda,
                     local_response_norm_backward_cuda):
         wrapper.launches = 0
         for key in wrapper.launches_by_kernel:
             wrapper.launches_by_kernel[key] = 0
+    nms_sweep_cuda.launches = 0
+
+
+def _nms_launches() -> int:
+    """The NMS sweep kernel's launches since the last
+    ``_zero_launch_counts``."""
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+
+    return nms_sweep_cuda.launches
 
 
 def _launch_counts() -> dict[str, int]:
@@ -682,7 +737,7 @@ def _launch_counts() -> dict[str, int]:
 
 
 def _profile(run, label: str, top: int = 10, windows: int = 5,
-             before: str | None = None) -> dict:
+             before: str | None = None, share_of: str = "lrn") -> dict:
     """``torch.profiler`` windows over ``run()``, which does its work and
     waits for the card. One window traces the host and the card: the
     device time by kernel name, the launches, the LRN kernels' share of
@@ -693,7 +748,8 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
     alone, so that no tracing of host operations lengthens the host's
     wall time: the device's idle share of it, 1 - busy / wall, and the
     H2D copies' time in each. Returns ``device_ms``, ``launches``,
-    ``reduction_share``, ``elementwise_share`` and ``idle`` (the median
+    ``reduction_share``, ``elementwise_share``, ``kernel_share`` (that of
+    the kernels whose names hold ``share_of``) and ``idle`` (the median
     share; None where the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -721,27 +777,31 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
         _say(f"[profile] {label}: device time by kernel not measured (the "
              "profiler recorded no device time)")
         return {"device_ms": None, "launches": None, "idle": None,
-                "reduction_share": None, "elementwise_share": None}
+                "reduction_share": None, "elementwise_share": None,
+                "kernel_share": None}
 
     def share(word: str) -> float:
         return sum(device_us(e) for e in on_device
                    if word in e.key.lower()) / total_us
 
+    kernel = share(share_of)
     out = {"device_ms": total_us / 1e3,
            "launches": sum(e.count for e in on_device),
            "reduction_share": share("reduce"),
-           "elementwise_share": share("elementwise"), "idle": None}
-    lrn = share("lrn")
+           "elementwise_share": share("elementwise"), "idle": None,
+           "kernel_share": kernel}
     _say(f"[profile] {label} (host and card traced): "
          f"device time {total_us / 1e3:.3f} ms in {out['launches']} "
-         f"launches of {len(on_device)} kernels/copies; LRN "
-         f"{lrn * total_us / 1e3:.4f} ms = {lrn:.2%} of device time; "
+         f"launches of {len(on_device)} kernels/copies; "
+         f"{share_of.upper()} {kernel * total_us / 1e3:.4f} ms = "
+         f"{kernel:.2%} of device time; "
          f"reduction kernels {out['reduction_share']:.2%}, elementwise "
          f"kernels {out['elementwise_share']:.2%}")
     ranked = sorted(on_device, key=device_us, reverse=True)
     # the top kernels, and every LRN kernel and copy wherever it ranks
     for e in ranked[:top] + [e for e in ranked[top:] if any(
-            word in e.key.lower() for word in ("lrn", "copy", "memcpy"))]:
+            word in e.key.lower()
+            for word in (share_of, "copy", "memcpy"))]:
         _say(f"[profile]   {device_us(e) / 1e3:9.4f} ms "
              f"{device_us(e) / total_us:6.2%} x{e.count} {e.key[:110]}")
     if before:
@@ -1903,6 +1963,655 @@ def phase_resnet152(smi: str, workdir: Path) -> dict:
     return {"throughput": r, "memory": memory, "step": step}
 
 
+# ------------------------------------------------------------ YOLO v3
+
+
+def _detection_host_batch(n: int, size: int, seed: int = 0,
+                          classes: int = YOLO_CLASSES) -> dict:
+    """A seeded host batch of ``n`` float32 images in [-1, 1] with 1-4
+    padded boxes each, two planted on one grid slot in image 0 (trap
+    C16)."""
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((n, MAX_BOXES, 4), np.float32)
+    labels = np.full((n, MAX_BOXES), -1, np.int32)
+    for i in range(n):
+        for j in range(int(rng.integers(1, 5))):
+            w, h = rng.uniform(0.02, 0.8, 2)
+            boxes[i, j] = [rng.uniform(w / 2, 1 - w / 2),
+                           rng.uniform(h / 2, 1 - h / 2), w, h]
+            labels[i, j] = rng.integers(0, classes)
+    boxes[0, 4:6] = [[0.5, 0.5, 0.1, 0.1], [0.501, 0.502, 0.1, 0.1]]
+    labels[0, 4:6] = [1, 2]
+    return {"image": rng.uniform(-1, 1, (n, size, size, 3)).astype(
+                np.float32), "boxes": boxes, "label": labels}
+
+
+def _near_threshold_pairs(rng, n: int) -> np.ndarray:
+    """``n`` adjacent pairs of equal boxes shifted by a third of their
+    width (IoU 1/2 up to float32 rounding), jittered by an ulp (trap
+    C18)."""
+    w = rng.uniform(0.05, 0.3, n).astype(np.float32)
+    h = rng.uniform(0.05, 0.3, n).astype(np.float32)
+    x = rng.uniform(0, 0.6, n).astype(np.float32)
+    y = rng.uniform(0, 0.6, n).astype(np.float32)
+    d = np.nextafter((w / np.float32(3)).astype(np.float32), np.where(
+        rng.random(n) < 0.5, 0, 1).astype(np.float32))
+    a = np.stack([x, y, x + w, y + h], -1)
+    b = np.stack([x + d, y, x + d + w, y + h], -1)
+    return np.stack([a, b], 1).reshape(2 * n, 4).astype(np.float32)
+
+
+def _nms_cases(grids) -> dict:
+    """The NMS inputs held on the card (boxes, scores, classes, on the
+    card): ``yolov3``'s candidates at bucket 64 and 16 (N = 10,647 at
+    416, from the seeded head on seeded images), N < K, planted equal
+    scores (a third at exactly 1.0, trap C17) and planted near-threshold
+    pairs (trap C18)."""
+    import torch
+
+    from deepvision_tpu_torch.ops.yolo_postprocess import yolo_candidates
+
+    boxes, scores, classes = yolo_candidates(grids, YOLO_CLASSES)
+    assert boxes.shape == (BUCKETS[-1], YOLO_N, 4), boxes.shape
+    cases = {"yolov3_b64": (boxes, scores, classes),
+             "yolov3_b16": (boxes[:16], scores[:16], classes[:16])}
+    rng = np.random.default_rng(11)
+
+    def random(b, n):
+        c = rng.uniform(0, 1, (b, n, 2))
+        wh = rng.uniform(0.02, 0.3, (b, n, 2))
+        bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+        sc = rng.uniform(0, 1, (b, n)).astype(np.float32)
+        cl = rng.integers(0, YOLO_CLASSES, (b, n)).astype(np.int32)
+        return bx, sc, cl
+
+    bx, sc, cl = random(16, 300)
+    cases["n_300_below_k"] = bx, sc, cl
+    bx, sc, cl = random(16, YOLO_N)
+    sc[rng.uniform(0, 1, sc.shape) < 0.33] = 1.0
+    sc[rng.uniform(0, 1, sc.shape) < 0.2] = np.float32(0.75)
+    cases["planted_ties"] = bx, sc, cl
+    bx, sc, cl = random(16, YOLO_N)
+    for i in range(16):
+        bx[i, :400] = _near_threshold_pairs(rng, 200)
+        sc[i, :400] = np.linspace(1.0, 0.99, 400)
+    cases["planted_near_threshold"] = bx, sc, cl
+    return {k: tuple(torch.as_tensor(a).cuda() for a in v)
+            for k, v in cases.items()}
+
+
+def _nms_bound_ms(b: int, k: int) -> tuple[float, str]:
+    """Least time for the sweep of ``b`` images of ``k`` candidates:
+    each box (16 bytes) and seed (1 byte) read once and each flag (1
+    byte) written once, over the HBM rate, against the K(K-1)/2 IoUs of
+    ``NMS_IOU_OPS`` float32 operations each, over the float32 rate."""
+    bytes_s = b * k * (16 + 1 + 1) / HBM_BYTES_PER_S
+    ops_s = b * k * (k - 1) / 2 * NMS_IOU_OPS / F32_OPS_PER_S
+    return (bytes_s * 1e3, "bytes") if bytes_s >= ops_s else (
+        ops_s * 1e3, "operations")
+
+
+def phase_nms(served) -> dict:
+    """The NMS sweep kernel against its plain version on the card, at
+    every case of :func:`_nms_cases` and score thresholds 0.5 and 0.05:
+    the alive masks of the kernel and the plain sweep on the same sorted
+    candidates identical, and ``batched_nms`` on the card (kernel) equal
+    to ``batched_nms`` on this machine's CPU (plain version, CPU sort):
+    indices, boxes, scores, classes, valid and ``n_candidates``. Then the
+    times (``timing.time_ms``) at bucket 64: the kernel, its plain
+    version and ``yolo_postprocess`` whole, beside the bound."""
+    import torch
+
+    from deepvision_tpu_torch.ops import nms
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+    from deepvision_tpu_torch.ops.yolo_postprocess import yolo_postprocess
+    from deepvision_tpu_torch.timing import time_ms
+
+    x = (np.random.default_rng(3).uniform(-1, 1, (BUCKETS[-1], YOLO_SIZE,
+                                                  YOLO_SIZE, 3))
+         .astype(np.float32))
+    with torch.inference_mode():
+        grids = served.module(torch.from_numpy(x).cuda())
+    cases = _nms_cases(grids)
+    over_cap = []
+    for name, (boxes, scores, classes) in cases.items():
+        for thresh in (0.5, 0.05):
+            k = min(boxes.shape[1], nms.NMS_CANDIDATE_CAP)
+            top, seeds, _, _, n_cand = nms.nms_prefilter(
+                boxes, scores, score_thresh=thresh, k=k)
+            kernel = nms_sweep_cuda(top, seeds, 0.5)
+            plain = nms.nms_sweep_reference(top, seeds, 0.5)
+            assert torch.equal(kernel, plain), (name, thresh, int(
+                (kernel != plain).sum()))
+            card = nms.batched_nms(boxes, scores, classes,
+                                   score_thresh=thresh)
+            cpu = nms.batched_nms(boxes.cpu(), scores.cpu(), classes.cpu(),
+                                  score_thresh=thresh)
+            for c, h in zip(card, cpu):
+                assert torch.equal(c.cpu(), h), (name, thresh)
+            kept = int(card[3].sum())
+            if int(n_cand.max()) > nms.NMS_CANDIDATE_CAP:
+                over_cap.append(f"{name}@{thresh}")
+            _say(f"[nms] {name} (B={boxes.shape[0]}, N={boxes.shape[1]}, "
+                 f"K={k}) at score {thresh}: alive masks identical "
+                 f"({int(seeds.sum())} seeds, {int(kernel.sum())} alive), "
+                 f"batched_nms on the card equal to the CPU's: {kept} kept, "
+                 f"n_candidates at most {int(n_cand.max())}")
+    assert over_cap, "no case put n_candidates above the cap"
+    _say(f"[nms] n_candidates above the cap of {nms.NMS_CANDIDATE_CAP} in "
+         f"{over_cap}: the tripwire's case, held all the same")
+
+    boxes, scores, _ = cases["yolov3_b64"]
+    top, seeds, _, _, _ = nms.nms_prefilter(boxes, scores, score_thresh=0.5,
+                                            k=nms.NMS_CANDIDATE_CAP)
+    b, k = seeds.shape
+    ms = time_ms(lambda a: nms_sweep_cuda(a[0], a[1], 0.5), [(top, seeds)])
+    plain_ms = time_ms(lambda a: nms.nms_sweep_reference(a[0], a[1], 0.5),
+                       [(top, seeds)], **YARDSTICK)
+    post_ms = time_ms(lambda g: yolo_postprocess(g, YOLO_CLASSES), [grids],
+                      **YARDSTICK)
+    bound_ms, bound_by = _nms_bound_ms(b, k)
+    _say(f"[nms] times at bucket {b} (K={k}, {int(seeds.sum())} seeds at "
+         f"score 0.5): kernel {ms:.4f} ms, plain version {plain_ms:.4f} ms, "
+         f"bound {bound_ms:.4f} ms ({bound_by}; {ms and bound_ms / ms:.1%} "
+         f"of it); yolo_postprocess whole {post_ms:.4f} ms (decode, "
+         f"prefilter and compaction in torch ops, {post_ms - ms:.4f} ms "
+         "beside the kernel); no PyTorch call computes NMS")
+    return {"name": "nms_sweep_f32", "route": "cuda", "source": NMS_SOURCE,
+            "replaces": NMS_REPLACES, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "yolo_postprocess_ms": post_ms}
+
+
+def phase_encode_labels() -> None:
+    """``encode_labels`` on the card equals the CPU's grids at 416 (52²,
+    26², 13²), batch 16, with two boxes planted on one slot (trap C16:
+    the last in index order owns it)."""
+    import torch
+
+    from deepvision_tpu_torch.ops.yolo_encode import encode_labels
+
+    host = _detection_host_batch(16, 8)
+    boxes, labels = (torch.from_numpy(host[k]) for k in ("boxes", "label"))
+    cpu = encode_labels(boxes, labels, YOLO_CLASSES)
+    card = encode_labels(boxes.cuda(), labels.cuda(), YOLO_CLASSES)
+    for c, h in zip(card, cpu):
+        assert torch.equal(c.cpu(), h)
+    owner = cpu[1][0, 13, 13, :, :4]
+    assert (owner == boxes[0, 5]).all(-1).any()
+    _say(f"[encode] encode_labels on the card equals the CPU's grids "
+         f"{[tuple(g.shape) for g in card]} bit for bit, the planted "
+         f"collision's slot held by the later box")
+
+
+def phase_adam_skip() -> None:
+    """Trap C10: ``yolov3`` (full width, 128 px, batch 2) under
+    ``bf16_scaled`` with Adam built by ``make_optimizer`` (its step count
+    on the card): one clean step, then one whose images hold an inf, run
+    under ``torch.cuda.set_sync_debug_mode("error")`` (any host sync
+    raises). The step is skipped: every parameter, both Adam moments,
+    Adam's step count and the BN statistics keep their values, and the
+    loss scale halves."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import yolo_train_step
+
+    policy = get_policy("bf16_scaled")
+    module = create_model("yolov3", device=torch.device("cuda"), seed=0,
+                          num_classes=YOLO_CLASSES,
+                          dtype=policy.compute_dtype)
+    opt, _ = make_optimizer(get_config("yolov3"), module.parameters())
+    assert opt.param_groups[0]["capturable"]
+    state = TrainState(module, opt, loss_scale=policy.make_loss_scale())
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _detection_host_batch(2, 128, seed=1).items()}
+    yolo_train_step(state, batch, None)["loss"].item()
+    before = {**{k: v.clone() for k, v in module.state_dict().items()},
+              **{f"{i}:{k}": v.clone() for i, p in
+                 enumerate(module.parameters())
+                 for k, v in opt.state[p].items()}}
+    scale = float(state.loss_scale.scale)
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0, 5, 5, 0] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = yolo_train_step(state, bad, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = {**module.state_dict(),
+             **{f"{i}:{k}": v for i, p in enumerate(module.parameters())
+                for k, v in opt.state[p].items()}}
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    assert not moved, moved[:5]
+    assert float(m["mp_grads_finite"]) == 0.0
+    assert float(state.loss_scale.scale) == scale / 2
+    assert not torch.isfinite(m["loss"])
+    steps = {str(v.device) for k, v in after.items() if k.endswith(":step")}
+    _say(f"[adam] C10: a bf16_scaled yolov3 step with an inf in its images "
+         f"ran with no host sync (sync debug mode 'error'); skipped: "
+         f"{len(before)} tensors (parameters, BN statistics, Adam's "
+         f"exp_avg, exp_avg_sq and step, on {sorted(steps)}) unchanged, "
+         f"loss scale {scale:g} -> {float(state.loss_scale.scale):g}")
+
+
+def phase_yolo_serve(smi: str) -> tuple:
+    """``load_served("yolov3")`` at 416x416x3 and 20 classes, seeded
+    weights, float32 (TF32 off), behind an ``InferenceEngine`` on buckets
+    (1, 4, 16, 64): 32 seeded requests queued at once (one bucket-64
+    batch) and 4 one at a time (bucket 1), each answer identical (boxes,
+    scores, classes) to the same module's batch post-processed with the
+    plain NMS sweep; the NMS kernel launched once a batch, no LRN; then
+    profiler windows over a bucket-64 batch. Returns (the served model,
+    the path's NMS launches, the profile)."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.ops.nms import nms_sweep_reference
+    from deepvision_tpu_torch.ops.yolo_postprocess import yolo_postprocess
+    from deepvision_tpu_torch.serve import InferenceEngine, load_served
+    from deepvision_tpu_torch.serve.models import _detect_post, _to_host
+
+    strict_fp32()
+    # the same convolution algorithms in the engine's run and the plain
+    # one, so that their grids are the same bits and only NMS differs
+    torch.backends.cudnn.deterministic = True
+    served = load_served("yolov3", seed=0)
+    assert served.task == "detect"
+    assert served.input_shape == (YOLO_SIZE, YOLO_SIZE, 3)
+    xs = (np.random.default_rng(0).uniform(
+        -1, 1, (YOLO_REQUESTS, *served.input_shape)).astype(np.float32))
+
+    def plain(batch):
+        with torch.inference_mode():
+            out = yolo_postprocess(
+                served.module(torch.from_numpy(batch).cuda()), YOLO_CLASSES,
+                sweep=nms_sweep_reference)
+        keys = ("boxes", "scores", "classes", "valid")
+        return _to_host(dict(zip(keys, out[:4])))
+
+    t0 = time.perf_counter()
+    with InferenceEngine([served], buckets=BUCKETS) as eng:
+        _zero_launch_counts()
+        eng.pause()
+        futures = [eng.submit(x) for x in xs]
+        eng.resume()
+        answers = [f.result(timeout=600) for f in futures]
+        singles = [eng.submit(x).result(timeout=600) for x in xs[:4]]
+        stats = eng.stats()
+    wall = time.perf_counter() - t0
+    launches, lrn = _nms_launches(), sum(_launch_counts().values())
+    tel = stats["telemetry"]
+    padded = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
+    padded[:len(xs)] = xs
+    want = plain(padded)
+    for i, a in enumerate(answers):
+        assert a == _detect_post(want, i), i
+    for i, a in enumerate(singles):
+        assert a == _detect_post(plain(xs[i:i + 1]), 0), i
+    assert launches == tel["batches"] == 5, (launches, tel)
+    assert lrn == 0
+    kept = [len(a["scores"]) for a in answers]
+    _say(f"[yolo-serve] yolov3 f32 at {YOLO_SIZE}, {YOLO_CLASSES} classes: "
+         f"{len(xs)} queued requests (one bucket-64 batch) and 4 single "
+         f"ones answered in {wall:.1f} s with detections identical to the "
+         f"plain-NMS run of the same batches; kept {min(kept)}-{max(kept)} "
+         f"boxes a request; batches {tel['batches']}, NMS kernel launches "
+         f"{launches}, LRN {lrn}; e2e latency p50 "
+         f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
+         f"{tel['device_time']['p50_ms']} ms")
+
+    torch.backends.cudnn.deterministic = False
+    batch = padded
+    prof = _profile(lambda: served.run(batch),
+                    f"yolov3 bucket-{BUCKETS[-1]} batch f32", share_of="nms")
+    return served, launches, prof
+
+
+def _cli(module: str, args: list[str], stdin: str | None = None
+         ) -> subprocess.CompletedProcess:
+    """``python -m <module> <args>`` from the checkout; fails if it
+    fails."""
+    proc = subprocess.run(
+        [sys.executable, "-m", module, *args], input=stdin,
+        capture_output=True, text=True, cwd=ROOT, timeout=900,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert proc.returncode == 0, (module, proc.stdout[-2000:],
+                                  proc.stderr[-4000:])
+    return proc
+
+
+def _yolo_feed_run(d: Path) -> dict:
+    """``yolov3``'s bf16 step at 416 and batch 16 (Adam, the detection
+    flip in the step) fed by the detection reader over ``d`` (JPEGs
+    decoded on the card by nvJPEG, cropped and resized there): images/s
+    through the feed and on a device-resident batch, the feed's
+    telemetry, MFU, peak memory and profiler windows (idle share) over a
+    fed and a resident step."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.detection import make_detection_data
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import yolo_train_step
+
+    cfg = get_config("yolov3")
+    bs = cfg["batch_size"]
+    module = create_model("yolov3", device=torch.device("cuda"), seed=0,
+                          num_classes=YOLO_CLASSES, dtype=torch.bfloat16)
+    opt, _ = make_optimizer(cfg, module.parameters())
+    state = TrainState(module, opt)
+    step = augment_step(yolo_train_step, DeviceAugment("detection",
+                                                       flip=True))
+    keys = KeySeq(1, 5, device="cuda")
+    warm, timed, windows = 2, YOLO_TIMED_STEPS, 3
+    train_data, _, _ = make_detection_data(
+        str(d), bs, YOLO_SIZE, steps_per_epoch=warm + timed + 2 * (
+            1 + windows), device_aug=True)
+    feed = DevicePrefetcher(train_data(0), torch.device("cuda"), depth=2)
+    try:
+        first = next(feed)
+        step(state, first, next(keys))["loss"].item()
+        resident = {k: v.clone() for k, v in first.items()}
+        step(state, next(feed), next(keys))["loss"].item()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            m = step(state, next(feed), next(keys))
+        m["loss"].item()
+        fed = timed * bs / (time.perf_counter() - t0)
+        tel = feed.telemetry.summary()
+
+        def two_fed_steps():
+            for _ in range(2):
+                step(state, next(feed), next(keys))
+            torch.cuda.synchronize()
+
+        fed_prof = _profile(two_fed_steps, "yolov3 two fed steps", top=5,
+                            windows=windows, share_of="nms")
+    finally:
+        feed.close()
+    for _ in range(2):
+        step(state, resident, next(keys))["loss"].item()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = step(state, resident, next(keys))
+    m["loss"].item()
+    dev = timed * bs / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    x = torch.zeros(1, YOLO_SIZE, YOLO_SIZE, 3, device="cuda")
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x)
+    flops = 3 * bs * float(counter.get_total_flops())
+    mfu = {k: flops * v / bs / BF16_DENSE_FLOPS_PER_S
+           for k, v in (("fed", fed), ("resident", dev))}
+
+    def one_step():
+        step(state, resident, next(keys))
+        torch.cuda.synchronize()
+
+    prof = _profile(one_step, f"yolov3 train step bf16 batch {bs}",
+                    share_of="nms")
+    assert np.isfinite(m["loss"].item())
+    assert tel["wire_dtype"] == "jpeg", tel
+    _say(f"[yolo-records] yolov3 bf16 batch {bs} at {YOLO_SIZE}: {fed:.1f} "
+         f"images/s through the feed over {timed} steps, {dev:.1f} "
+         f"images/s on a device-resident batch (same step); wire "
+         f"{tel['wire_dtype']}, {tel['image_bytes_per_image']} JPEG bytes "
+         f"an image, h2d_wait {tel['h2d_wait_ms']} ms and host_wait "
+         f"{tel['host_wait_ms']} ms a batch; model FLOPs {flops:.4e} a step "
+         f"(backward twice the forward), MFU {mfu['fed']:.2%} fed and "
+         f"{mfu['resident']:.2%} resident; peak allocated {peak_gb:.2f} "
+         f"GiB; idle share fed {fed_prof['idle']}, resident {prof['idle']}")
+    return {"fed": fed, "resident": dev, "mfu": mfu, "peak_gb": peak_gb,
+            "idle_fed": fed_prof["idle"], "idle": prof["idle"],
+            "device_ms": prof["device_ms"], "launches": prof["launches"]}
+
+
+def phase_yolo_records(smi: str, workdir: Path) -> dict:
+    """The detection path from records: synthetic ``train-*`` (256) and
+    ``val-*`` (64) shards of 8 each written on the card (nvJPEG's
+    encoder; 20 classes, sides 300-500), the fed step
+    (:func:`_yolo_feed_run`), then the training CLI ``-m yolov3
+    --data-dir ... --device-aug`` at the config's 416, batch 16 and bf16
+    for 2 epochs of ``YOLO_CLI_STEPS`` steps, ``--resume`` to 3, and from
+    that checkpoint the serving CLI (2 requests) and the ``eval
+    detection`` CLI over the ``val-*`` shards at once; its mAP line is
+    printed, not gated (seeded weights after a few steps). Returns the
+    rates and the NMS launches by path."""
+    import torch
+
+    from deepvision_tpu_torch.data.synthetic_records import (
+        write_synthetic_detection,
+    )
+
+    d = workdir / "detection_records"
+    t0 = time.perf_counter()
+    counts = write_synthetic_detection(d, train=256, val=64,
+                                       classes=YOLO_CLASSES, shards=8)
+    _say(f"[yolo-records] wrote {counts} on the card (nvJPEG) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    rates = _yolo_feed_run(d)
+    torch.cuda.empty_cache()
+
+    wd = workdir / "yolo_cli"
+    common = ["-m", "yolov3", "--data-dir", str(d), "--device-aug",
+              "--steps-per-epoch", str(YOLO_CLI_STEPS), "--workdir", str(wd)]
+    t0 = time.perf_counter()
+    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "2"])
+    resumed = _cli("deepvision_tpu_torch.train",
+                   [*common, "--epochs", "3", "--resume"])
+    assert "resumed at epoch 2" in resumed.stdout
+    epochs = [s for s in (first.stdout + resumed.stdout).splitlines()
+              if s.startswith("[epoch ") and "] train_loss" in s]
+    assert len(epochs) == 3, epochs
+    for line in epochs:
+        loss = float(line.split("train_loss=")[1].split()[0])
+        assert np.isfinite(loss), line
+        _say(f"[yolo-cli] {line[:220]}")
+    train_launches = [_cli_launches(p.stderr) for p in (first, resumed)]
+    for launches in train_launches:
+        assert launches["nms_sweep"] == 0
+        assert not any(v for k, v in launches.items() if "lrn" in k)
+    _say(f"[yolo-cli] train CLI at {YOLO_SIZE}, batch 16, bf16, 2 epochs "
+         f"then --resume to 3 in {time.perf_counter() - t0:.1f} s; "
+         f"launches {train_launches}")
+
+    xs = (np.random.default_rng(1).uniform(-1, 1, (2, YOLO_SIZE, YOLO_SIZE,
+                                                   3)).astype(np.float32))
+    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
+                    for i in range(2))
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
+                            ["-m", f"yolov3={wd / 'yolov3'}", "--buckets",
+                             "1,4", "--score", "0.05"], lines)
+        evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
+                               ["detection", "--workdir", str(wd / "yolov3"),
+                                "--data-dir", str(d), "--batch-size", "16"])
+        serve, evaluate = serve.result(), evaluate.result()
+    replies = [json.loads(s) for s in serve.stdout.splitlines()]
+    assert [r["id"] for r in replies] == [0, 1], replies
+    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
+               for r in replies)
+    serve_nms = _cli_launches(serve.stderr)["nms_sweep"]
+    eval_nms = _cli_launches(evaluate.stderr)["nms_sweep"]
+    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "mAP" and line["images"] == 64, line
+    assert serve_nms > 0 and eval_nms == 4, (serve_nms, eval_nms)
+    _say(f"[yolo-cli] serving CLI answered {len(replies)} requests from the "
+         f"checkpoint ({serve.stderr.strip().splitlines()[-1]}); eval CLI "
+         f"over {line['images']} val images: {json.dumps(line)}; NMS kernel "
+         f"launches serve {serve_nms}, eval {eval_nms}; both in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return {**rates, "nms_launches": {"serving_cli": serve_nms,
+                                      "eval_cli": eval_nms},
+            "map": line}
+
+
+def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
+    """One float32 ``yolov3`` step (full width, the config's Adam at lr
+    0.01) at batch ``n`` and ``size`` px, TF32 off,
+    on the card and on this machine's CPU from the same seeded state.
+    As the CPU tests hold the port against JAX: each leaf (parameters,
+    BN statistics, both Adam moments) within 1e-5 plus three times its
+    floor, the largest gap between a platform's run and its runs on the
+    batch reversed and rolled by 1 and 2 (six samples of float32's
+    noise, three a platform), but for at most 0.1% of its elements (at
+    least one), each within 2·lr more (Adam's first update is ±lr for
+    any gradient above eps, so a gradient rounding moves across 0 turns
+    its update around); the loss within 1e-4 plus four times its floor.
+    Batch 4, not 2: at batch 2 a platform has one reordered run, and
+    leaky ReLUs flipping beside BatchNorms of 32 values a channel moved
+    10 of 810 leaves past that one sample's floor. Two faults planted on
+    the card must fail it: the state before the step, and the step at
+    0.9 times the LR. No LRN kernel launches."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import (
+        make_optimizer,
+        set_lr_scale,
+    )
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import yolo_train_step
+
+    strict_fp32()
+    cfg = get_config("yolov3")
+    base = create_model("yolov3", device=torch.device("cpu"), seed=0,
+                        num_classes=YOLO_CLASSES)
+    host = _detection_host_batch(n, size, seed=2)
+    orders = (lambda a: a, lambda a: a[::-1],
+              lambda a: np.roll(a, 1, axis=0),
+              lambda a: np.roll(a, 2, axis=0))
+
+    def run(device, order, lr_scale=1.0):
+        module = copy.deepcopy(base).to(device)
+        optimizer, _ = make_optimizer(cfg, module.parameters())
+        set_lr_scale(optimizer, lr_scale)
+        state = TrainState(module, optimizer)
+        batch = {k: torch.from_numpy(order(v).copy()).to(device)
+                 for k, v in host.items()}
+        loss = float(yolo_train_step(state, batch, None)["loss"])
+        leaves = {k: v.detach().cpu()
+                  for k, v in module.state_dict().items()}
+        for name, p in module.named_parameters():
+            for key in ("exp_avg", "exp_avg_sq"):
+                leaves[f"{name}:{key}"] = optimizer.state[p][key].cpu()
+        return loss, leaves
+
+    t0 = time.perf_counter()
+    _zero_launch_counts()
+    card = [run("cuda", o) for o in orders]
+    launches = sum(_launch_counts().values())
+    wrong_lr = run("cuda", orders[0], lr_scale=0.9)[1]
+    cpu = [run("cpu", o) for o in orders]
+    lr = cfg["optimizer_params"]["lr"]
+
+    def gap(a, b):
+        return (a - b).abs()
+
+    floors = {k: max(float(gap(r[1][k], runs[0][1][k]).max())
+                     for runs in (card, cpu) for r in runs[1:])
+              for k in card[0][1]}
+    tol = {k: 1e-5 + 3 * f for k, f in floors.items()}
+
+    def verdict(leaves):
+        """(leaves beyond the rule, the most elements of a leaf over its
+        tolerance, the three largest gaps over their tolerance)"""
+        bad, most, worst = [], 0, []
+        for k, v in leaves.items():
+            g = gap(cpu[0][1][k], v)
+            over = int((g > tol[k]).sum())
+            most = max(most, over)
+            worst.append((float(g.max()) / tol[k], k))
+            if over > max(1, g.numel() // 1000) or float(
+                    g.max()) > tol[k] + 2 * lr:
+                bad.append(k)
+        return bad, most, sorted(worst, reverse=True)[:3]
+
+    bad, most, worst = verdict(card[0][1])
+    stale = {k: v for k, v in base.state_dict().items()}
+    stale.update({k: torch.zeros_like(v) for k, v in card[0][1].items()
+                  if ":" in k})
+    planted = {"state before the step": verdict(stale)[0],
+               "LR x 0.9": verdict(wrong_lr)[0]}
+    loss_floor = max(abs(r[0] - rs[0][0]) for rs in (card, cpu)
+                     for r in rs[1:])
+    loss_gap = abs(cpu[0][0] - card[0][0])
+    loss_tol = 1e-4 * abs(card[0][0]) + 4 * loss_floor
+    _say(f"[card-vs-cpu] yolov3 f32 (TF32 off) batch {n} at {size}, one "
+         f"Adam step (lr {lr:g}) on {len(orders)} batch orders on each "
+         f"side in "
+         f"{time.perf_counter() - t0:.1f} s: loss card {card[0][0]:.6f} CPU "
+         f"{cpu[0][0]:.6f}, gap {loss_gap:.3e} (tolerance {loss_tol:.3e}); "
+         f"{len(tol)} leaves, {len(bad)} beyond the rule {bad[:3]}, at most "
+         f"{most} elements of a leaf over its floor tolerance, largest gaps "
+         f"over tolerance {[(round(r, 2), k) for r, k in worst]}; planted "
+         "faults: " + ", ".join(f"{k}: {len(v)} leaves beyond"
+                                for k, v in planted.items()) + "; "
+         f"LRN launches {launches}")
+    assert np.isfinite(card[0][0]) and loss_gap <= loss_tol
+    assert not bad, bad[:10]
+    assert launches == 0
+    assert len(planted["state before the step"]) > len(tol) // 2
+    assert planted["LR x 0.9"]
+
+
+def phase_yolo(smi: str, workdir: Path) -> dict:
+    """Every YOLO v3 phase: serving (engine, then the NMS kernel against
+    its plain version and its times), the label grids on the card, the
+    skipped Adam step, the card-vs-CPU step, the record path and its
+    CLIs. Returns the NMS kernel's entry, its launches by path and a
+    summary; every path's LRN launches are 0."""
+    import torch
+
+    served, serve_nms, serve_prof = _timed("yolov3 serve", phase_yolo_serve,
+                                           smi)
+    nms = _timed("nms sweep", phase_nms, served)
+    served = None
+    torch.cuda.empty_cache()
+    _timed("encode labels", phase_encode_labels)
+    _timed("adam skip", phase_adam_skip)
+    _timed("yolov3 card vs cpu", phase_yolo_card_vs_cpu)
+    torch.cuda.empty_cache()
+    records = _timed("yolov3 records", phase_yolo_records, smi, workdir)
+    summary = {
+        "serve_bucket64": {k: serve_prof[k] for k in (
+            "device_ms", "launches", "kernel_share", "idle")},
+        "train_bf16_b16": {k: records[k] for k in (
+            "fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
+            "device_ms", "launches")},
+        "nms_ms": nms["ms"], "yolo_postprocess_ms":
+            nms["yolo_postprocess_ms"], "map_line": records["map"],
+        "card": smi}
+    return {"nms": {k: v for k, v in nms.items()
+                    if k != "yolo_postprocess_ms"},
+            "nms_launches": {"serve_engine": serve_nms,
+                             **records["nms_launches"]},
+            "summary": summary}
+
+
 def _timed(label: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, with the seconds it took printed."""
     t0 = time.perf_counter()
@@ -1969,6 +2678,8 @@ def main() -> int:
     records = _timed("records", phase_records, smi, workdir)
     torch.cuda.empty_cache()
     _timed("resnet152", phase_resnet152, smi, workdir)
+    torch.cuda.empty_cache()
+    yolo = phase_yolo(smi, workdir)
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
@@ -1994,7 +2705,14 @@ def main() -> int:
                     "launches_by_path": by_path,
                     "note": "not a TPU kernel: the chroma upsampling and "
                             "colour conversion of tf.io.decode_jpeg"})
+    # the YOLO post-process's NMS sweep (it stands for no TPU kernel)
+    by_path = yolo["nms_launches"]
+    kernels.append({**yolo["nms"], "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
+                    "note": "not a TPU kernel: the greedy fori_loop of the "
+                            "JAX nms_indices (stock XLA)"})
     native = {
+        "nms": {"source": NMS_SOURCE, "library": libs[NMS_SOURCE]},
         "crc32c": {"source": CRC_SOURCE, "library": libs[CRC_SOURCE],
                    **{k: round(v, 1) for k, v in crc.items()}},
         "nvjpeg": {"source": NVJPEG_SOURCE, "library": libs[NVJPEG_SOURCE],
@@ -2007,6 +2725,7 @@ def main() -> int:
             for k, v in records["runs"].items()}}
     _say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"[native] {json.dumps(native)}")
+    print(f"[yolo] {json.dumps(yolo['summary'])}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

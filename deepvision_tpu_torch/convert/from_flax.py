@@ -34,8 +34,8 @@ import torch
 
 from deepvision_tpu_torch.models import get_model
 
-__all__ = ["flax_to_torch", "flax_train_state_to_torch",
-           "load_flax_train_state"]
+__all__ = ["flax_to_torch", "flax_param_tree_to_torch",
+           "flax_train_state_to_torch", "load_flax_train_state"]
 
 _LEAF = {"weight": "kernel", "bias": "bias"}
 
@@ -100,6 +100,14 @@ def flax_to_torch(model_name: str, variables: Mapping[str, Any],
     return _convert(model_name, variables, False, model_kw)
 
 
+def flax_param_tree_to_torch(model_name: str, tree: Mapping[str, Any],
+                             **model_kw) -> dict[str, torch.Tensor]:
+    """A tree of the flax parameters' structure (an optimizer's moments,
+    such as Adam's ``mu`` and ``nu``) as ``{parameter name: tensor}`` in
+    the port's layout."""
+    return _convert(model_name, {"params": tree}, True, model_kw)
+
+
 def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
                               trace: Mapping[str, Any], step: int,
                               batch_stats: Mapping[str, Any] | None = None,
@@ -121,7 +129,7 @@ def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
         variables["batch_stats"] = batch_stats
     return {
         "model": flax_to_torch(model_name, variables, **model_kw),
-        "momentum": _convert(model_name, {"params": trace}, True, model_kw),
+        "momentum": flax_param_tree_to_torch(model_name, trace, **model_kw),
         "step": int(step),
         "count": None if count is None else int(count),
         "lr_scale": float(lr_scale),

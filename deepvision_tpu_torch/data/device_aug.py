@@ -1,8 +1,9 @@
-"""Device-side augmentation inside the train step, the classification
-family of ``deepvision_tpu/data/device_aug.py``.
+"""Device-side augmentation inside the train step, the classification and
+detection families of ``deepvision_tpu/data/device_aug.py``.
 
-The host ships decode-stage uint8 crops (``data/imagenet.py`` with
-``device_aug``) and every per-element op runs on the card, in the step:
+The host ships decode-stage uint8 images (``data/imagenet.py`` and
+``data/detection.py`` with ``device_aug``) and every per-element op runs
+on the card, in the step:
 
 - the deterministic cores :func:`crop`, :func:`flip`,
   :func:`color_jitter` and :func:`mixup` take EXPLICIT decisions
@@ -25,7 +26,12 @@ Color jitter is factor for factor the JAX ``color_jitter`` (PIL-enhance
 semantics, brightness then contrast then saturation), and every uint8
 result is re-rounded by ``image_io.wire_uint8``. Normalization stays in
 the step (``ops/normalize.maybe_normalize``) unless ``normalize`` is
-given. The detection, pose and GAN families wait for their models.
+given. The detection family moves the boxes with the pixels:
+:func:`flip_boxes` mirrors the centres of real rows, :func:`crop_boxes`
+renormalizes them to a crop window (dropping a box whose centre leaves
+it); the detection reader keeps its bbox-preserving crop on the host, so
+``--device-aug`` runs the flip alone there. The pose and GAN families
+wait for their models.
 """
 
 from __future__ import annotations
@@ -40,8 +46,8 @@ from deepvision_tpu_torch.data.image_io import wire_uint8
 from deepvision_tpu_torch.ops.normalize import maybe_normalize
 
 __all__ = ["crop", "crop_params", "flip", "flip_params", "color_jitter",
-           "jitter_params", "mixup", "mixup_params", "DeviceAugment",
-           "augment_step", "derive_seed"]
+           "jitter_params", "mixup", "mixup_params", "flip_boxes",
+           "crop_boxes", "DeviceAugment", "augment_step", "derive_seed"]
 
 # PIL / ITU-R 601 luma, as the JAX twins weigh it
 _LUMA = (0.299, 0.587, 0.114)
@@ -178,17 +184,59 @@ def mixup(images: torch.Tensor, perm: torch.Tensor,
     return wire_uint8(mixed) if was_uint8 else mixed
 
 
+# -------------------------------------------------- detection targets
+
+
+def flip_boxes(boxes: torch.Tensor, labels: torch.Tensor,
+               flips: torch.Tensor) -> torch.Tensor:
+    """Mirror xywh-normalized boxes of flipped samples: cx -> 1 - cx on
+    real rows (label >= 0); padding rows stay all-zero."""
+    real = (labels >= 0) & flips.to(boxes.device)[:, None]
+    cx = torch.where(real, 1.0 - boxes[..., 0], boxes[..., 0])
+    return torch.cat([cx[..., None], boxes[..., 1:]], dim=-1)
+
+
+def crop_boxes(boxes: torch.Tensor, labels: torch.Tensor,
+               tops: torch.Tensor, lefts: torch.Tensor, in_h: int,
+               in_w: int, size: int, min_extent: float = 1e-3
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Renormalize xywh boxes of an ``in_h`` x ``in_w`` canvas to each
+    sample's ``size``² crop window, clipped to it; a box whose centre
+    leaves the window, or whose clipped extent falls below
+    ``min_extent``, becomes padding (zero box, label -1)."""
+    ty = tops.to(boxes.device)[:, None].float() / size
+    lx = lefts.to(boxes.device)[:, None].float() / size
+    sx = in_w / size
+    sy = in_h / size
+    cx = boxes[..., 0] * sx - lx
+    cy = boxes[..., 1] * sy - ty
+    w = boxes[..., 2] * sx
+    h = boxes[..., 3] * sy
+    x1 = (cx - w / 2).clamp(0.0, 1.0)
+    y1 = (cy - h / 2).clamp(0.0, 1.0)
+    x2 = (cx + w / 2).clamp(0.0, 1.0)
+    y2 = (cy + h / 2).clamp(0.0, 1.0)
+    valid = ((labels >= 0) & (cx > 0.0) & (cx < 1.0) & (cy > 0.0)
+             & (cy < 1.0) & (x2 - x1 > min_extent)
+             & (y2 - y1 > min_extent))
+    new = torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1],
+                      dim=-1)
+    new = torch.where(valid[..., None], new, torch.zeros_like(new))
+    return new, torch.where(valid, labels, torch.full_like(labels, -1))
+
+
 # ------------------------------------------------------- composition
 
 
 class DeviceAugment:
-    """The classification pipeline run inside the step:
-    ``augment(batch, seed) -> batch``. Crops from the host's uint8
-    canvas when ``crop`` is set, flips, jitters, mixes up (adding
-    ``label_b`` and ``lam``, which ``steps.classification_train_step``
-    takes) and normalizes only when ``normalize`` is given."""
+    """The pipeline run inside the step: ``augment(batch, seed) ->
+    batch``. Crops from the host's uint8 canvas when ``crop`` is set,
+    flips, jitters, mixes up (adding ``label_b`` and ``lam``, which
+    ``steps.classification_train_step`` takes) and normalizes only when
+    ``normalize`` is given. The ``"detection"`` family moves the batch's
+    ``boxes`` and ``label`` with the crop and the flip."""
 
-    FAMILIES = ("classification",)
+    FAMILIES = ("classification", "detection")
     # one stream a slot, fixed by the config: toggling an op never
     # re-deals another op's draws
     _SLOTS = ("crop", "flip", "jitter", "mixup")
@@ -200,7 +248,7 @@ class DeviceAugment:
         if family not in self.FAMILIES:
             raise ValueError(
                 f"device augmentation family {family!r} is not ported; the "
-                "detection, pose and GAN families come with their models")
+                "pose and GAN families come with their models")
         if mixup < 0:
             raise ValueError(f"mixup alpha must be >= 0, got {mixup}")
         self.family = family
@@ -234,9 +282,16 @@ class DeviceAugment:
             tops, lefts = crop_params(_generator(seeds["crop"], dev), b,
                                       in_h, in_w, self.crop)
             images = crop(images, tops, lefts, self.crop)
+            if self.family == "detection":
+                batch["boxes"], batch["label"] = crop_boxes(
+                    batch["boxes"], batch["label"], tops, lefts, in_h,
+                    in_w, self.crop)
         if self.flip:
-            images = flip(images, flip_params(
-                _generator(seeds["flip"], dev), b))
+            flips = flip_params(_generator(seeds["flip"], dev), b)
+            images = flip(images, flips)
+            if self.family == "detection":
+                batch["boxes"] = flip_boxes(batch["boxes"], batch["label"],
+                                            flips)
         if self.jitter:
             a = self.jitter
             images = color_jitter(images, *jitter_params(

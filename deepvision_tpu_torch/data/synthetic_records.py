@@ -1,17 +1,26 @@
-"""A small synthetic ImageNet record directory, in the reference builder's
-schema, for drives and tests of the record reader (``data/imagenet.py``).
+"""Small synthetic record directories, in the reference builders'
+schemas, for drives and tests of the record readers (``data/imagenet.py``
+and, with ``--detection``, ``data/detection.py``).
 
     python -m deepvision_tpu_torch.data.synthetic_records DIR \\
         [--train 64] [--val 16] [--raw 64] [--classes 5] [--device cuda|cpu]
+    python -m deepvision_tpu_torch.data.synthetic_records DIR --detection \\
+        [--train 64] [--val 16] [--classes 20] [--device cuda|cpu]
 
 writes ``train-*`` and ``validation-*`` JPEG shards and, with ``--raw``,
 ``raw-train-*`` raw-frame shards of the full shorter-side-``stored``
 frame (256 by 256 to 512, either way round) with their
 ``raw-train.meta.json`` sidecar. Images are smooth random fields tinted
 by class, made from ``--seed``; labels are 1-indexed on disk, as the
-reference builder writes them. It runs on the card (``--device cuda``,
-the default, which raises without one; JPEGs are encoded by nvJPEG), and
-on the CPU when asked (``--device cpu``; JPEGs are encoded by PIL).
+reference builder writes them. ``--detection`` writes ``train-*`` and
+``val-*`` shards in the detection builder's schema (``image/encoded``,
+``image/height``, ``image/width``, ``image/object/bbox/{xmin,ymin,xmax,
+ymax}``, ``image/object/class/label`` 1-based, ``image/object/count``):
+images of sides 300 to 500, each with 1-3 filled rectangles whose colour
+encodes the class, on a dim noisy field. It runs on the card
+(``--device cuda``, the default, which raises without one; JPEGs are
+encoded by nvJPEG), and on the CPU when asked (``--device cpu``; JPEGs
+are encoded by PIL).
 """
 
 from __future__ import annotations
@@ -26,10 +35,16 @@ import torch
 import torch.nn.functional as F
 
 from deepvision_tpu_torch.data.jpeg import encode_images
-from deepvision_tpu_torch.data.tfrecord import encode_example, write_records
+from deepvision_tpu_torch.data.tfrecord import (
+    FloatList,
+    Int64List,
+    encode_example,
+    write_records,
+)
 from deepvision_tpu_torch.device import resolve_device
 
-__all__ = ["synthetic_image", "write_synthetic_imagenet", "main"]
+__all__ = ["synthetic_image", "write_synthetic_imagenet",
+           "detection_image", "write_synthetic_detection", "main"]
 
 
 def synthetic_image(rng: np.random.Generator, h: int, w: int, label: int,
@@ -101,6 +116,65 @@ def write_synthetic_imagenet(out_dir, *, train: int = 64, val: int = 16,
     return {"train": train, "validation": val, "raw-train": raw}
 
 
+def _class_colour(label: int) -> tuple[int, int, int]:
+    return ((label * 53 + 96) % 256, (label * 101 + 48) % 256,
+            (label * 29 + 160) % 256)
+
+
+def detection_image(rng: np.random.Generator, h: int, w: int, classes: int,
+                    device: torch.device):
+    """A uint8 (h, w, 3) image on ``device`` with 1-3 filled rectangles,
+    each coloured by its class, on a dim noisy field -> (image, corners
+    (N, 4) float32 normalized to the image, labels (N,) 0-based)."""
+    noise = rng.normal(40, 8, (h, w, 3)).astype(np.float32)
+    image = torch.from_numpy(noise).to(device)
+    corners, labels = [], []
+    for _ in range(int(rng.integers(1, 4))):
+        label = int(rng.integers(0, classes))
+        bw, bh = rng.uniform(0.2, 0.5, 2)
+        x1 = int(rng.uniform(0, 1 - bw) * w)
+        y1 = int(rng.uniform(0, 1 - bh) * h)
+        x2, y2 = x1 + max(1, int(bw * w)), y1 + max(1, int(bh * h))
+        image[y1:y2, x1:x2] = torch.tensor(_class_colour(label),
+                                           dtype=torch.float32,
+                                           device=device)
+        corners.append((x1 / w, y1 / h, x2 / w, y2 / h))
+        labels.append(label)
+    image = image.round().clamp(0, 255).to(torch.uint8)
+    return image, np.array(corners, np.float32), np.array(labels, np.int64)
+
+
+def write_synthetic_detection(out_dir, *, train: int = 64, val: int = 16,
+                              classes: int = 20, shards: int = 2,
+                              sizes=(300, 500), seed: int = 0,
+                              device: torch.device | str = "cuda") -> dict:
+    """Write ``train-*`` and ``val-*`` detection shards, the images made
+    and encoded on ``device`` (``"cuda"``, raising without a card, or
+    ``"cpu"``); returns the counts written."""
+    device = resolve_device(device)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def records(n):
+        made = [detection_image(rng, h, w, classes, device)
+                for h, w in _sizes(rng, n, *sizes)]
+        blobs = encode_images([img for img, _, _ in made])
+        return [encode_example({
+            "image/encoded": [blob],
+            "image/height": [int(img.shape[0])],
+            "image/width": [int(img.shape[1])],
+            **{f"image/object/bbox/{k}": FloatList(corners[:, i].tolist())
+               for i, k in enumerate(("xmin", "ymin", "xmax", "ymax"))},
+            "image/object/class/label": Int64List((labels + 1).tolist()),
+            "image/object/count": [len(labels)]})
+            for blob, (img, corners, labels) in zip(blobs, made)]
+
+    _shards(out, "train", records(train), shards)
+    _shards(out, "val", records(val), shards)
+    return {"train": train, "val": val}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m deepvision_tpu_torch.data.synthetic_records",
@@ -109,16 +183,27 @@ def main(argv=None) -> int:
     p.add_argument("--train", type=int, default=64)
     p.add_argument("--val", type=int, default=16)
     p.add_argument("--raw", type=int, default=0)
-    p.add_argument("--classes", type=int, default=5)
+    p.add_argument("--detection", action="store_true",
+                   help="write detection shards (train-*, val-*)")
+    p.add_argument("--classes", type=int, default=None,
+                   help="classes (default 5; 20 with --detection)")
     p.add_argument("--shards", type=int, default=2)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    counts = write_synthetic_imagenet(
-        args.out_dir, train=args.train, val=args.val, raw=args.raw,
-        classes=args.classes, shards=args.shards, seed=args.seed,
-        device=args.device)
+    if args.detection:
+        if args.raw:
+            p.error("--raw writes ImageNet raw-crop shards, not detection")
+        counts = write_synthetic_detection(
+            args.out_dir, train=args.train, val=args.val,
+            classes=args.classes or 20, shards=args.shards, seed=args.seed,
+            device=args.device)
+    else:
+        counts = write_synthetic_imagenet(
+            args.out_dir, train=args.train, val=args.val, raw=args.raw,
+            classes=args.classes or 5, shards=args.shards, seed=args.seed,
+            device=args.device)
     print(f"wrote {counts} under {args.out_dir}")
     return 0
 

@@ -1,0 +1,154 @@
+"""Offline evaluation CLI of the port, the twin of ``evaluate.py``'s
+``detection`` subcommand.
+
+    python -m deepvision_tpu_torch.eval detection -m yolov3 \
+        --workdir runs/yolov3 --data-dir DIR [--split val] [--names voc] \
+        [--num-classes N] [--size 416] [--batch-size 16] [--score 0.05] \
+        [--iou 0.5] [--ap-method area|11point] [--epoch E]
+
+Scores the newest verified checkpoint under ``--workdir`` (or
+``--epoch``'s; seeded fresh weights without a workdir) on the
+``{split}-*`` detection shards of ``--data-dir`` (decoded on the card by
+nvJPEG, resized to ``--size``, unaugmented, the last batch short) or,
+without a data directory, on the synthetic set (64 images, at most 128
+px, as ``evaluate.py``). The detections are ``yolo_postprocess``'s at
+``--score`` (NMS at IoU 0.5); ``--iou`` is the matching threshold of the
+mAP. One JSON line goes to stdout: ``{"metric": "mAP", "iou", "value",
+"images", "per_class", "nms_candidates_max", "nms_exact"}``, where
+``nms_candidates_max`` is the most boxes of one image that cleared the
+score threshold and ``nms_exact`` says whether that stayed within the
+NMS candidate cap (else greedy NMS was cut short, and a warning goes to
+stderr). The last stderr line counts the kernel launches. It runs on the
+card (``--device cuda``, the default, which raises without one) and on
+the CPU when asked.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+__all__ = ["main", "cmd_detection"]
+
+
+def cmd_detection(args) -> dict:
+    import torch
+
+    from deepvision_tpu_torch.data.detection import (
+        eval_batches,
+        synthetic_batches,
+        synthetic_detection,
+    )
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.device import resolve_device, strict_fp32
+    from deepvision_tpu_torch.eval.detection import class_names, evaluate_map
+    from deepvision_tpu_torch.ops.iou import xywh_to_corners
+    from deepvision_tpu_torch.ops.nms import NMS_CANDIDATE_CAP
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+    from deepvision_tpu_torch.ops.normalize import maybe_normalize
+    from deepvision_tpu_torch.ops.yolo_postprocess import yolo_postprocess
+    from deepvision_tpu_torch.serve.models import load_served
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        strict_fp32()
+    names = class_names(args.names)
+    if args.num_classes:  # synthetic runs train with few classes
+        names = (names[:args.num_classes] if args.num_classes <= len(names)
+                 else [f"class{i}" for i in range(args.num_classes)])
+    num_classes = len(names)
+    size = args.size
+    if args.data_dir:
+        files = sorted(Path(args.data_dir).glob(f"{args.split}-*"))
+        if not files:
+            raise FileNotFoundError(
+                f"no {args.split}-* records under {args.data_dir}")
+        batches = eval_batches(files, args.batch_size, size, pad=False)
+    else:
+        size = min(size, 128)
+        imgs, boxes, labels = synthetic_detection(64, size=size,
+                                                  num_classes=num_classes)
+        batches = synthetic_batches(imgs, boxes, labels, args.batch_size)
+    served = load_served(args.model, args.workdir, epoch=args.epoch,
+                         device=device, input_size=size,
+                         num_classes=num_classes)
+
+    dets, gts = [], []
+    candidates_max = 0
+    feed = DevicePrefetcher(batches, device)
+    try:
+        for batch in feed:
+            with torch.inference_mode():
+                preds = served.module(maybe_normalize(batch["image"],
+                                                      "tanh"))
+                out = yolo_postprocess(preds, num_classes,
+                                       score_thresh=args.score)
+            b_boxes, b_scores, b_cls, b_valid, b_ncand = (
+                t.cpu().numpy() for t in out)
+            candidates_max = max(candidates_max, int(b_ncand.max()))
+            true_boxes = xywh_to_corners(batch["boxes"]).cpu().numpy()
+            true_labels = batch["label"].cpu().numpy()
+            for i in range(len(b_boxes)):
+                keep = b_valid[i].astype(bool)
+                dets.append({"boxes": b_boxes[i][keep],
+                             "scores": b_scores[i][keep],
+                             "classes": b_cls[i][keep]})
+                real = true_labels[i] >= 0
+                gts.append({"boxes": true_boxes[i][real],
+                            "classes": true_labels[i][real]})
+    finally:
+        feed.close()
+    out = evaluate_map(dets, gts, num_classes, iou_thresh=args.iou,
+                       method=args.ap_method)
+    per_class = {names[c]: round(float(out["ap"][c]), 4)
+                 for c in range(num_classes) if np.isfinite(out["ap"][c])}
+    if candidates_max > NMS_CANDIDATE_CAP:
+        print(f"# WARNING: {candidates_max} candidates cleared the score "
+              f"threshold (> candidate_cap={NMS_CANDIDATE_CAP}); greedy-NMS "
+              "exactness degraded: raise the cap or the score threshold.",
+              file=sys.stderr)
+    line = {"metric": "mAP", "iou": args.iou, "value": round(out["map"], 4),
+            "images": len(dets), "per_class": per_class,
+            "nms_candidates_max": candidates_max,
+            "nms_exact": candidates_max <= NMS_CANDIDATE_CAP}
+    print(json.dumps(line), flush=True)
+    print(f"[eval] {args.model}: {len(dets)} images on {device}; kernel "
+          f"launches {{'nms_sweep': {nms_sweep_cuda.launches}}}",
+          file=sys.stderr, flush=True)
+    return line
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m deepvision_tpu_torch.eval",
+                                description=__doc__.splitlines()[0])
+    sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("detection", help="detection mAP")
+    sp.add_argument("-m", "--model", default="yolov3", choices=["yolov3"])
+    sp.add_argument("--workdir", default=None)
+    sp.add_argument("--data-dir", default=None)
+    sp.add_argument("--split", default="val")
+    sp.add_argument("--names", default="voc", choices=["voc", "mscoco"])
+    sp.add_argument("--num-classes", type=int, default=None,
+                    help="override the class count (synthetic runs)")
+    sp.add_argument("--size", type=int, default=416)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--score", type=float, default=0.05)
+    sp.add_argument("--iou", type=float, default=0.5)
+    sp.add_argument("--ap-method", default="area",
+                    choices=["area", "11point"])
+    sp.add_argument("--epoch", type=int, default=None,
+                    help="saved epoch to score (default: the newest)")
+    sp.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    sp.set_defaults(fn=cmd_detection)
+    args = p.parse_args(argv)
+    args.fn(args)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

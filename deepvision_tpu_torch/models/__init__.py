@@ -3,6 +3,7 @@
 from deepvision_tpu_torch.models import alexnet  # noqa: F401  (registers)
 from deepvision_tpu_torch.models import inception  # noqa: F401  (registers)
 from deepvision_tpu_torch.models import resnet  # noqa: F401  (registers)
+from deepvision_tpu_torch.models import yolo  # noqa: F401  (registers)
 from deepvision_tpu_torch.models.registry import create_model, get_model
 
 __all__ = ["create_model", "get_model"]

@@ -3,6 +3,10 @@
     python -m deepvision_tpu_torch.serve -m alexnet1 --buckets 1,4,16,64
     {"id": 1, "model": "alexnet1", "input": [[[...224x224x3 floats...]]]}
     -> {"id": 1, "result": {"classes": [...], "probs": [...]}, "ms": 4.2}
+    python -m deepvision_tpu_torch.serve -m yolov3=runs/yolov3 --score 0.5
+    {"id": 1, "input": [[[...416x416x3 floats in [-1, 1]...]]]}
+    -> {"id": 1, "result": {"boxes": [[x1, y1, x2, y2], ...],
+        "scores": [...], "classes": [...]}, "ms": 9.1}
 
 One JSON request per line on stdin, one response per line on stdout in
 submission order; start-up chatter goes to stderr. ``-m`` is repeatable.
@@ -11,8 +15,11 @@ names a directory whose ``ckpt/`` holds the port trainer's checkpoints
 (``runs/alexnet1`` after ``python -m deepvision_tpu_torch.train -m
 alexnet1``, ``-m inception1=runs/inception1`` after training
 ``inception1``, ``-m resnet50=runs/resnet50`` after training
-``resnet50``): then the newest verified epoch. The HTTP surface and the
-fleet mode of ``serve.py`` come later.
+``resnet50``, ``-m yolov3=runs/yolov3`` after training ``yolov3``): then
+the newest verified epoch. ``yolov3`` serves the detect task: ``--score``
+and ``--iou`` are its NMS thresholds, and its boxes are normalized
+corners. The HTTP surface and the fleet mode of ``serve.py`` come
+later.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ def build_engine(args) -> InferenceEngine:
         models.append(load_served(
             name, workdir or None, seed=args.seed, device=args.device,
             input_size=args.input_size, num_classes=args.num_classes,
-            top_k=args.top))
+            top_k=args.top, score_thresh=args.score,
+            iou_thresh=args.iou))
     buckets = tuple(int(b) for b in args.buckets.split(","))
     print(f"serving {[m.name for m in models]} buckets={buckets} on "
           f"{args.device}; warming...", file=sys.stderr)
@@ -128,15 +136,22 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     p.add_argument("--input-size", type=int, default=None)
     p.add_argument("--num-classes", type=int, default=None)
     p.add_argument("--top", type=int, default=5)
+    p.add_argument("--score", type=float, default=0.5,
+                   help="detect: the NMS score threshold")
+    p.add_argument("--iou", type=float, default=0.5,
+                   help="detect: the NMS IoU threshold")
     args = p.parse_args(argv)
     engine = build_engine(args)
     try:
         run_stdin(engine, args, stdin, stdout)
     finally:
         engine.close()
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+
     t = engine.telemetry
     print(f"[serve] completed={t.completed} batches={t.batches} "
-          f"failed={t.failed} shed={t.shed} timed_out={t.timed_out}",
+          f"failed={t.failed} shed={t.shed} timed_out={t.timed_out}; "
+          f"kernel launches {{'nms_sweep': {nms_sweep_cuda.launches}}}",
           file=sys.stderr)
     return 0
 

@@ -1,20 +1,24 @@
 """Served models: one load + post-process path for the engine and the CLI.
 
-The twin of ``deepvision_tpu/serve/models.py`` for the classify task,
-the only task of the models the port serves (the AlexNets, Inception V1
-in both variants, ``resnet34``, ``resnet50``, ``resnet152`` and
-``resnet50v2``; a model
+The twin of ``deepvision_tpu/serve/models.py`` for the classify task
+(the AlexNets, Inception V1 in both variants, ``resnet34``,
+``resnet50``, ``resnet152``, ``resnet50v2`` and ``darknet53``; a model
 with aux heads returns only its main logits in eval, as the JAX forward
-keeps only them). A model is built without its training config's
-``model_kwargs``, as the JAX ``load_served`` builds it: a checkpoint
-trained under ``resnet50``'s ``s2d_stem`` has the same state dict and
-serves on the plain stem, whose float32 numbers are the same, and
-``resnet152`` serves without the remat it trains under. A
-:class:`ServedModel` holds the module on its device, the per-example
-input geometry, and a host-side ``postprocess`` that turns batch row
-``i`` into a JSON-able result. The task head (softmax and top-k) runs on
-the device inside :meth:`ServedModel.run`, which moves a batch to the
-device with one copy and brings every output back with one copy.
+keeps only them) and the detect task of ``yolov3``: its raw grids go
+through ``ops/yolo_postprocess`` (decode, then batched greedy NMS with
+``score_thresh`` and ``iou_thresh``, the sweep on the CUDA kernel for a
+batch on the card), and each answer keeps the valid rows as normalized
+corner boxes ``(x1, y1, x2, y2)`` with their scores and classes. A model
+is built without its training config's ``model_kwargs``, as the JAX
+``load_served`` builds it: a checkpoint trained under ``resnet50``'s
+``s2d_stem`` has the same state dict and serves on the plain stem, whose
+float32 numbers are the same, and ``resnet152`` serves without the remat
+it trains under. A :class:`ServedModel` holds the module on its device,
+the per-example input geometry, and a host-side ``postprocess`` that
+turns batch row ``i`` into a JSON-able result. The task head (softmax
+and top-k) runs on the device inside :meth:`ServedModel.run`, which
+moves a batch to the device with one copy and brings every output back
+with one copy.
 """
 
 from __future__ import annotations
@@ -33,7 +37,15 @@ from deepvision_tpu_torch.models import create_model
 from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
-__all__ = ["ServedModel", "load_served"]
+__all__ = ["ServedModel", "load_served", "task_for"]
+
+# the served task of each model that is not a classifier
+_TASKS = {"yolov3": "detect"}
+
+
+def task_for(name: str) -> str:
+    """The serving task of registry model ``name``."""
+    return _TASKS.get(name, "classify")
 
 
 @dataclasses.dataclass
@@ -90,16 +102,42 @@ def _classify_post(host: dict, i: int) -> dict:
             "probs": np.asarray(host["probs"][i]).tolist()}
 
 
+def _yolo_forward(module: nn.Module, num_classes: int, score_thresh: float,
+                  iou_thresh: float):
+    from deepvision_tpu_torch.ops.yolo_postprocess import yolo_postprocess
+
+    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
+        boxes, scores, classes, valid, _ = yolo_postprocess(
+            module(x), num_classes, score_thresh=score_thresh,
+            iou_thresh=iou_thresh)
+        return {"boxes": boxes, "scores": scores, "classes": classes,
+                "valid": valid}
+
+    return forward
+
+
+def _detect_post(host: dict, i: int) -> dict:
+    keep = np.asarray(host["valid"][i]).astype(bool)
+    return {"boxes": np.asarray(host["boxes"][i])[keep].tolist(),
+            "scores": np.asarray(host["scores"][i])[keep].tolist(),
+            "classes": np.asarray(host["classes"][i])[keep].tolist()}
+
+
 def load_served(name: str, workdir: str | None = None, *,
+                epoch: int | None = None,
                 variables: Mapping[str, Any] | None = None, seed: int = 0,
                 device: str | torch.device | None = None,
                 input_size: int | None = None,
                 num_classes: int | None = None,
-                top_k: int = 5) -> ServedModel:
+                top_k: int = 5, score_thresh: float = 0.5,
+                iou_thresh: float = 0.5) -> ServedModel:
     """Registry model ``name`` as a :class:`ServedModel` on ``device``
-    (default ``"cuda"``, which raises without a card).
+    (default ``"cuda"``, which raises without a card), for its task
+    (:func:`task_for`): classify answers the ``top_k`` classes, detect
+    the boxes that ``score_thresh`` and ``iou_thresh`` keep.
 
-    Weights, in this order: the newest verified port checkpoint under
+    Weights, in this order: the newest verified port checkpoint (or
+    ``epoch``'s, which must verify) under
     ``{workdir}/ckpt`` (the trainer's ``{workdir}/{model}/ckpt`` with
     ``workdir`` naming the model's directory, as the JAX package's); its
     geometry unless ``input_size``/``num_classes`` say otherwise; else
@@ -113,7 +151,7 @@ def load_served(name: str, workdir: str | None = None, *,
     restored = None
     if workdir is not None:
         restored, saved = CheckpointManager(
-            Path(workdir) / "ckpt").restore_model(device=dev)
+            Path(workdir) / "ckpt").restore_model(epoch, device=dev)
         cfg.update({k: saved[k] for k in ("input_size", "num_classes")
                     if saved.get(k) is not None})
     size = input_size if input_size is not None else cfg["input_size"]
@@ -126,8 +164,13 @@ def load_served(name: str, workdir: str | None = None, *,
         module.load_state_dict(flax_to_torch(name, variables, **model_kw))
     module.eval()
     module.requires_grad_(False)
+    task = task_for(name)
+    if task == "detect":
+        forward = _yolo_forward(module, classes, score_thresh, iou_thresh)
+        post = _detect_post
+    else:
+        forward, post = _classify_forward(module, top_k), _classify_post
     return ServedModel(
-        name=name, task="classify", module=module,
-        input_shape=(size, size, cfg["channels"]),
-        postprocess=_classify_post, device=dev,
-        forward=_classify_forward(module, top_k))
+        name=name, task=task, module=module,
+        input_shape=(size, size, cfg["channels"]), postprocess=post,
+        device=dev, forward=forward)

@@ -1,9 +1,11 @@
 """Training CLI of the port, the twin of ``train.py`` for the AlexNets,
-Inception V1 and the ResNets.
+Inception V1, the ResNets, Darknet-53 and YOLO v3.
 
     python -m deepvision_tpu_torch.train -m alexnet1 [--resume] [--epochs N]
     python -m deepvision_tpu_torch.train -m resnet50 --data-dir DIR \
         [--raw|--no-raw] [--device-aug [--mixup ALPHA]] [--steps-per-epoch N]
+    python -m deepvision_tpu_torch.train -m yolov3 [--data-dir DIR \
+        [--device-aug] [--steps-per-epoch N]]
 
 ``--data-dir`` reads ImageNet TFRecords (``data/imagenet.py``): the
 raw-crop shards when usable (``--raw`` demands them, ``--no-raw``
@@ -11,13 +13,20 @@ refuses them), else the JPEG shards, decoded on the card by nvJPEG;
 training batches cross as uint8 and validation reads the JPEG shards.
 ``--device-aug`` leaves the host only the crop and runs flip, jitter and
 ``--mixup`` inside the step (``data/device_aug.py``); eval steps are not
-augmented. Without a data directory the run trains on the hermetic
-synthetic set (``data/synthetic.py``), as ``train.py`` does without
-``--data-dir``. It runs on the card (``--device cuda``, the default,
-which raises without one); ``--device cpu`` runs on the CPU when asked.
-The model is built with the config's ``model_kwargs`` (``resnet50``'s
-``s2d_stem``, ``resnet152``'s ``remat``), as ``train.py`` builds it. The
-flags are ``train.py``'s names for what this slice serves, refused where
+augmented. A detection config (``yolov3``) reads detection TFRecords
+(``data/detection.py``: ``train-*`` and ``val-*``, the JPEGs decoded on
+the card, ``--steps-per-epoch`` defaulting to ``2501 // batch``, VOC
+2007's trainval over the batch); ``--device-aug`` moves its flip, with
+the boxes, into the step, and its steps encode the label grids and take
+the YOLO loss (``train/steps.yolo_train_step``). Without a data
+directory the run trains on the hermetic synthetic sets
+(``data/synthetic.py``; ``data/detection.synthetic_detection``, at most
+128 px, flip-augmented), as ``train.py`` does without ``--data-dir``. It
+runs on the card (``--device cuda``, the default, which raises without
+one); ``--device cpu`` runs on the CPU when asked. The model is built
+with the config's ``model_kwargs`` (``resnet50``'s ``s2d_stem``,
+``resnet152``'s ``remat``), as ``train.py`` builds it. The flags are
+``train.py``'s names for what this slice serves, refused where
 ``train.py`` refuses them; the others are not ported and are absent, so
 that no flag is silently ignored.
 """
@@ -59,9 +68,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="numerics policy (core/precision.py); default: "
                         "the model config's")
     p.add_argument("--data-dir", default=None,
-                   help="ImageNet TFRecord directory (train-*/"
-                        "validation-*, raw-train-* + raw-train.meta.json); "
-                        "default: the synthetic set")
+                   help="TFRecord directory: ImageNet (train-*/"
+                        "validation-*, raw-train-* + raw-train.meta.json) "
+                        "or detection (train-*/val-*); default: the "
+                        "synthetic set")
     p.add_argument("--raw", dest="use_raw", action="store_true",
                    default=None,
                    help="demand the raw-crop shards (raw-train-*) of "
@@ -93,18 +103,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_data_flags(args, cfg: dict) -> None:
     """``train.py``'s refusals of the data flags, with their meaning:
-    each needs a ``--data-dir`` ImageNet config, and ``--mixup`` also
-    ``--device-aug`` and a non-negative alpha."""
+    ``--raw`` needs a ``--data-dir`` ImageNet config, ``--device-aug`` a
+    ``--data-dir`` ImageNet or detection config, and ``--mixup`` also
+    ``--device-aug`` on ImageNet and a non-negative alpha."""
     imagenet = bool(args.data_dir) and cfg["dataset"] == "imagenet"
     if args.use_raw is not None and not imagenet:
         raise SystemExit(
             "--raw/--no-raw only applies to --data-dir ImageNet configs "
             f"(this run: dataset={cfg['dataset']!r}, "
             f"data_dir={args.data_dir!r})")
-    if args.device_aug and not imagenet:
+    if args.device_aug and not (args.data_dir and cfg["dataset"] in
+                                ("imagenet", "detection")):
         raise SystemExit(
             "--device-aug splits a record-backed host pipeline: "
-            "--data-dir ImageNet configs only "
+            "--data-dir ImageNet and detection configs only "
             f"(this run: dataset={cfg['dataset']!r}, "
             f"data_dir={args.data_dir!r})")
     if args.mixup and not (args.device_aug and imagenet):
@@ -130,6 +142,11 @@ def main(argv=None) -> int:
         PT_JITTER,
         make_imagenet_data,
     )
+    from deepvision_tpu_torch.data.detection import (
+        make_detection_data,
+        synthetic_batches,
+        synthetic_detection,
+    )
     from deepvision_tpu_torch.data.jpeg import ycc_launches
     from deepvision_tpu_torch.data.mnist import batches
     from deepvision_tpu_torch.data.synthetic import synthetic_classification
@@ -140,9 +157,12 @@ def main(argv=None) -> int:
         local_response_norm_cuda,
     )
     from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
     from deepvision_tpu_torch.train.steps import (
         classification_eval_step,
         classification_train_step,
+        yolo_eval_step,
+        yolo_train_step,
     )
     from deepvision_tpu_torch.train.trainer import Trainer
 
@@ -163,7 +183,30 @@ def main(argv=None) -> int:
         strict_fp32()  # float32 math in full float32, as on the CPU
 
     bs, size = cfg["batch_size"], cfg["input_size"]
-    if args.data_dir:
+    detection = cfg["dataset"] == "detection"
+    if detection and args.data_dir:
+        train_data, val_data, steps = make_detection_data(
+            args.data_dir, bs, size,
+            steps_per_epoch=args.steps_per_epoch or 2501 // bs,
+            device_aug=args.device_aug)
+    elif detection:
+        n = args.synthetic_size
+        size = cfg["input_size"] = min(size, 128)
+        imgs, boxes, labels = synthetic_detection(
+            n, size=size, num_classes=cfg["num_classes"])
+        split = max(bs, int(n * 0.1))
+        steps = args.steps_per_epoch or (n - split) // bs
+
+        def train_data(epoch):
+            return islice(synthetic_batches(
+                imgs[split:], boxes[split:], labels[split:], bs,
+                rng=np.random.default_rng(epoch), augment=True), steps)
+
+        def val_data():
+            return synthetic_batches(imgs[:split], boxes[:split],
+                                     labels[:split], bs,
+                                     drop_remainder=False)
+    elif args.data_dir:
         train_data, val_data, steps = make_imagenet_data(
             args.data_dir, bs, size, augment=cfg.get("augment", "tf"),
             use_raw=args.use_raw, steps_per_epoch=args.steps_per_epoch,
@@ -183,12 +226,17 @@ def main(argv=None) -> int:
                            drop_remainder=False)
 
     kind = "torch" if cfg.get("augment") == "pt" else "imagenet"
-    train_step = partial(classification_train_step, normalize_kind=kind)
+    if detection:
+        train_step, eval_step = yolo_train_step, yolo_eval_step
+    else:
+        train_step = partial(classification_train_step, normalize_kind=kind)
+        eval_step = partial(classification_eval_step, normalize_kind=kind)
     if args.device_aug:
-        aug = DeviceAugment(
-            "classification", flip=True,
-            jitter=PT_JITTER if cfg.get("augment") == "pt" else 0.0,
-            mixup=args.mixup)
+        aug = (DeviceAugment("detection", flip=True) if detection
+               else DeviceAugment(
+                   "classification", flip=True,
+                   jitter=PT_JITTER if cfg.get("augment") == "pt" else 0.0,
+                   mixup=args.mixup))
         train_step = augment_step(train_step, aug)
         print(f"[device-aug] {aug} fused into the train step", flush=True)
     model_kwargs = cfg.get("model_kwargs", {})
@@ -205,15 +253,15 @@ def main(argv=None) -> int:
     trainer = Trainer(
         module, cfg, train_data, val_data, device=device,
         workdir=args.workdir, prefetch_depth=args.prefetch_depth,
-        steps_per_epoch=steps, train_step=train_step,
-        eval_step=partial(classification_eval_step, normalize_kind=kind))
+        steps_per_epoch=steps, train_step=train_step, eval_step=eval_step)
     if args.resume or args.checkpoint is not None:
         trainer.resume(args.checkpoint)
         print(f"resumed at epoch {trainer.start_epoch}", flush=True)
     trainer.fit(args.epochs)
     launches = {**local_response_norm_cuda.launches_by_kernel,
                 **local_response_norm_backward_cuda.launches_by_kernel,
-                "ycc_to_rgb": ycc_launches()}
+                "ycc_to_rgb": ycc_launches(),
+                "nms_sweep": nms_sweep_cuda.launches}
     print(f"[train] {args.model}: epochs {trainer.start_epoch}.."
           f"{(args.epochs or cfg['total_epochs']) - 1} done, checkpoints "
           f"{trainer.ckpt.saved_epochs()} under {trainer.ckpt.directory}; "

@@ -1,5 +1,5 @@
-"""The port's copy of the AlexNet, Inception V1 and ResNet entries of
-``train/configs.py``.
+"""The port's copy of the AlexNet, Inception V1, ResNet, Darknet-53 and
+YOLO v3 entries of ``train/configs.py``.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
 0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
@@ -15,6 +15,11 @@ model's entry under its own name. ``resnet152`` carries ``resnet50``'s
 fields and ``remat: "block"``; as in the JAX ``get_config``, an entry's
 ``remat`` (else the registry's ``model_remat``) is folded into
 ``model_kwargs``, so that the trainer builds the model with it.
+``darknet53`` carries the JAX entry of the YOLO backbone's ImageNet
+pretraining (SGD 0.1 / 0.9 / 5e-4, a step schedule of 30 epochs at
+0.1, bf16, batch 128, 256 px) and ``yolov3`` the detector's (Adam 0.01,
+plateau on the negated validation loss with patience 10, bf16, batch
+16, 416 px, 20 VOC classes, ``"dataset": "detection"``).
 ``alexnet2_tf`` has no entry in the JAX table
 and stays serving-only here (its pixel convention is ``"tf"``):
 :data:`TRAINABLE` lists the models that train.
@@ -83,6 +88,31 @@ TRAINING_CONFIG: dict[str, dict] = {
     # ref: deepvision_tpu/train/configs.py "resnet50v2"
     "resnet50v2": {k: copy.deepcopy(v) for k, v in _RESNET_TRAINING.items()
                    if k not in ("augment", "model_kwargs")},
+    # ref: deepvision_tpu/train/configs.py "darknet53"
+    "darknet53": {
+        "precision": "bf16",
+        "batch_size": 128,
+        "input_size": 256,
+        "optimizer": "sgd",
+        "optimizer_params": {"lr": 0.1, "momentum": 0.9,
+                             "weight_decay": 5e-4},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 30, "gamma": 0.1},
+        "total_epochs": 120,
+    },
+    # ref: deepvision_tpu/train/configs.py "yolov3"
+    "yolov3": {
+        "precision": "bf16",
+        "batch_size": 16,
+        "input_size": 416,
+        "num_classes": 20,
+        "dataset": "detection",
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 0.01},
+        "scheduler": "plateau",
+        "scheduler_params": {"factor": 0.1, "mode": "max", "patience": 10},
+        "total_epochs": 300,
+    },
 }
 
 # reference-exact variants, trained with their base model's entry

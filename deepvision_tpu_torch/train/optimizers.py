@@ -1,8 +1,8 @@
 """Optimizer factory: a ``training_config`` entry -> a torch optimizer.
 
-The twin of ``deepvision_tpu/train/optimizers.py`` for ``sgd``. The JAX
-chain ``add_decayed_weights(wd) -> sgd(lr, momentum)`` adds the L2 term
-to every gradient before the momentum trace, which is
+The twin of ``deepvision_tpu/train/optimizers.py`` for ``sgd`` and
+``adam``. The JAX chain ``add_decayed_weights(wd) -> sgd(lr, momentum)``
+adds the L2 term to every gradient before the momentum trace, which is
 ``torch.optim.SGD(weight_decay=wd, momentum=m, dampening=0)``.
 
 A plateau-scheduled config gets a :class:`PlateauController` whose scale
@@ -15,9 +15,17 @@ each update from an update count that a skipped step does not advance,
 as optax's count inside the optimizer state. ``linear_decay`` comes with
 CycleGAN, whose config also needs Adam.
 
-``rmsprop`` and ``adam`` raise (trap C7): optax's ``scale_by_rms`` adds
-eps inside the square root, torch's ``RMSprop`` outside it, and with the
-eps=1.0 of MobileNet's and Inception V3's configs the two differ.
+``adam`` is optax's ``adam(lr, b1, b2, eps)`` (no weight decay), which
+``torch.optim.Adam`` computes alike: both divide the bias-corrected first
+moment by the square root of the bias-corrected second plus eps. It is
+built with its step count on the parameters' device (``capturable`` on
+the card, trap C10), so that the train state's select of the optimizer
+state never mixes a host tensor with a device one, and it follows a
+plateau through :func:`set_lr_scale` as SGD does.
+
+``rmsprop`` raises (trap C7): optax's ``scale_by_rms`` adds eps inside
+the square root, torch's ``RMSprop`` outside it, and with the eps=1.0 of
+MobileNet's and Inception V3's configs the two differ.
 """
 
 from __future__ import annotations
@@ -100,14 +108,25 @@ def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
     opt = cfg["optimizer"]
     p = dict(cfg.get("optimizer_params", {}))
     base_lr = p.pop("lr")
-    if opt != "sgd":
+    if opt not in ("sgd", "adam"):
         raise NotImplementedError(
-            f"optimizer {opt!r} is not ported: only sgd is. rmsprop waits "
-            "on trap C7 (optax's scale_by_rms puts eps inside the square "
-            "root, torch's RMSprop outside; with eps=1.0 they differ), and "
-            "adam comes with it")
+            f"optimizer {opt!r} is not ported: sgd and adam are. rmsprop "
+            "waits on trap C7 (optax's scale_by_rms puts eps inside the "
+            "square root, torch's RMSprop outside; with eps=1.0 they "
+            "differ)")
     sched_name = cfg.get("scheduler")
     sched_p = cfg.get("scheduler_params", {})
+    if opt == "adam":
+        if sched_name not in (None, "constant", "plateau"):
+            raise NotImplementedError(
+                f"scheduler {sched_name!r} with adam is not wired into the "
+                "port's optimizer yet: plateau and constant are")
+        params = list(params)
+        optimizer = torch.optim.Adam(
+            params, lr=base_lr, betas=(p.get("beta1", 0.9),
+                                       p.get("beta2", 0.999)),
+            eps=p.get("eps", 1e-8), capturable=params[0].is_cuda)
+        return _with_plateau(optimizer, base_lr, sched_name, sched_p)
     sgd = {"lr": base_lr, "momentum": p.get("momentum", 0.0),
            "weight_decay": p.get("weight_decay", 0.0)}
     if sched_name in ("step", "inception_poly"):
@@ -128,6 +147,12 @@ def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
         raise NotImplementedError(
             f"scheduler {sched_name!r} is not wired into the port's optimizer "
             "yet: plateau, constant, step and inception_poly are")
+    return _with_plateau(optimizer, base_lr, sched_name, sched_p)
+
+
+def _with_plateau(optimizer, base_lr: float, sched_name, sched_p: dict):
+    """``(optimizer, PlateauController | None)``, the param groups
+    carrying ``base_lr`` and an LR scale of 1."""
     for group in optimizer.param_groups:
         group["base_lr"] = base_lr
         group["lr_scale"] = 1.0

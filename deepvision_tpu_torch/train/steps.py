@@ -1,10 +1,12 @@
-"""The classification train and eval steps.
+"""The classification and YOLO train and eval steps.
 
-The twins of ``classification_train_step``, ``classification_eval_step``
-and ``aggregate_eval_parts`` in ``deepvision_tpu/train/steps.py``. The
-train step updates the :class:`~deepvision_tpu_torch.train.state.TrainState`
-in place and returns its metrics as device tensors, so that the caller
-decides when to wait for them.
+The twins of ``classification_train_step``,
+``classification_eval_step``, ``yolo_train_step``, ``yolo_eval_step``
+and ``aggregate_eval_parts`` in ``deepvision_tpu/train/steps.py``. A
+train step updates the
+:class:`~deepvision_tpu_torch.train.state.TrainState` in place and
+returns its metrics as device tensors, so that the caller decides when
+to wait for them.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from deepvision_tpu_torch.ops.normalize import maybe_normalize
 from deepvision_tpu_torch.train.state import TrainState
 
 __all__ = ["classification_train_step", "classification_eval_step",
-           "aggregate_eval_parts"]
+           "yolo_train_step", "yolo_eval_step", "aggregate_eval_parts"]
 
 
 def classification_train_step(state: TrainState, batch: dict,
@@ -88,6 +90,60 @@ def classification_eval_step(state: TrainState, batch: dict,
     correct = topk_correct(logits, labels)
     return {"loss_sum": (losses * mask).sum(), "count": mask.sum(),
             **{k: (v * mask).sum() for k, v in correct.items()}}
+
+
+def _grid_sizes(images: torch.Tensor) -> tuple[int, int, int]:
+    size = images.shape[1]
+    return size // 8, size // 16, size // 32
+
+
+def yolo_train_step(state: TrainState, batch: dict,
+                    generator: torch.Generator) -> dict:
+    """One detection step on ``{"image", "boxes", "label"}``: ``boxes``
+    ``(B, M, 4)`` xywh normalized with zero padding rows, ``label`` ``(B,
+    M)`` with -1 padding. The images normalize as ``"tanh"`` (uint8 to
+    [-1, 1]); the grids are encoded inside the step
+    (``ops/yolo_encode``), never on the host; the loss is the batch mean
+    of ``yolo_loss``'s per-image sums. Returns ``loss``, ``xy``, ``wh``,
+    ``class`` and ``obj`` (batch means) and the precision metrics."""
+    from deepvision_tpu_torch.losses.yolo import yolo_loss
+    from deepvision_tpu_torch.ops.yolo_encode import encode_labels
+
+    del generator  # YOLO v3 draws no random numbers in the step
+    images = maybe_normalize(batch["image"], "tanh")
+    boxes, labels = batch["boxes"], batch["label"]
+    state.optimizer.zero_grad(set_to_none=True)
+    batch_stats = state.copy_batch_stats()
+    preds = state.module(images, train=True)
+    num_classes = preds[0].shape[-1] - 5
+    y_true = encode_labels(boxes, labels, num_classes,
+                           grid_sizes=_grid_sizes(images))
+    parts = yolo_loss(y_true, preds, num_classes, true_boxes_xywh=boxes)
+    loss = parts["loss"].mean()
+    state.scale_loss(loss).backward()
+    state.apply_gradients(batch_stats)
+    return {**{k: v.detach().mean() for k, v in parts.items()},
+            **precision_metrics(state)}
+
+
+@torch.no_grad()
+def yolo_eval_step(state: TrainState, batch: dict) -> dict:
+    """The mask-weighted validation-loss sum and count (0-d device
+    tensors) of one batch, BN on its running statistics."""
+    from deepvision_tpu_torch.losses.yolo import yolo_loss
+    from deepvision_tpu_torch.ops.yolo_encode import encode_labels
+
+    images = maybe_normalize(batch["image"], "tanh")
+    boxes, labels = batch["boxes"], batch["label"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(images.shape[0], device=images.device)
+    preds = state.module(images, train=False)
+    num_classes = preds[0].shape[-1] - 5
+    y_true = encode_labels(boxes, labels, num_classes,
+                           grid_sizes=_grid_sizes(images))
+    parts = yolo_loss(y_true, preds, num_classes, true_boxes_xywh=boxes)
+    return {"loss_sum": (parts["loss"] * mask).sum(), "count": mask.sum()}
 
 
 def aggregate_eval_parts(parts: Iterable[dict]) -> tuple[dict, float]:

@@ -211,6 +211,36 @@ def test_importing_every_port_module_loads_no_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+# the detection slice's modules, each of which the two scans above
+# must reach
+DETECTION_MODULES = (
+    "ops/iou.py", "ops/yolo_decode.py", "ops/yolo_encode.py", "ops/nms.py",
+    "ops/nms_cuda.py", "ops/yolo_postprocess.py", "losses/yolo.py",
+    "models/yolo.py", "data/detection.py", "eval/__init__.py",
+    "eval/detection.py", "eval/__main__.py")
+
+
+def test_the_scans_reach_every_module_and_native_binding():
+    """Both scans walk every ``.py`` under the package (the detection
+    modules among them), and every native source under ``csrc/`` is
+    loaded by a scanned module's ``load_library`` call, so its binding
+    is scanned too."""
+    package = REPO / "deepvision_tpu_torch"
+    scanned = {p.relative_to(package).as_posix() for p in _port_files()
+               if package in p.parents}
+    assert set(DETECTION_MODULES) <= scanned
+    loaded = set()
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Call)
+                    and getattr(node.func, "id", None) == "load_library"
+                    and node.args and isinstance(node.args[0], ast.Constant)):
+                loaded.add(node.args[0].value)
+    sources = {p.stem for p in (package / "csrc").iterdir()
+               if p.suffix in (".cu", ".cpp")}
+    assert "nms" in sources and sources <= loaded, sources - loaded
+
+
 def test_no_quiet_cpu_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="none is available"):

@@ -189,7 +189,7 @@ def test_constant_lr_matches_optax_through_the_train_state():
 
 
 @pytest.mark.parametrize("opt,scheduler,match", [
-    ("rmsprop", None, "C7"), ("adam", None, "C7"),
+    ("rmsprop", None, "C7"), ("adam", "step", "scheduler 'step' with adam"),
     ("sgd", "linear_decay", "scheduler 'linear_decay'")])
 def test_unported_optimizers_and_schedulers_raise(opt, scheduler, match):
     cfg = {"optimizer": opt, "optimizer_params": {"lr": 0.1},
@@ -650,9 +650,9 @@ def test_dropout_needs_a_generator_and_follows_it():
 
 
 def test_config_carries_the_jax_training_fields():
-    assert TRAINABLE == ("alexnet1", "alexnet2", "inception1",
+    assert TRAINABLE == ("alexnet1", "alexnet2", "darknet53", "inception1",
                          "inception1_ref", "resnet152", "resnet34",
-                         "resnet50", "resnet50v2")
+                         "resnet50", "resnet50v2", "yolov3")
     for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
@@ -1181,7 +1181,7 @@ def test_cli_trains_from_jpeg_records(record_dir, tmp_path, capsys):
     captured = capsys.readouterr()
     assert "[feed] epoch 0: wire jpeg" in captured.out
     assert "raw-frame fast path" not in captured.out
-    assert "'ycc_to_rgb': 0}" in captured.err.splitlines()[-1]
+    assert "'ycc_to_rgb': 0, 'nms_sweep': 0}" in captured.err.splitlines()[-1]
 
 
 @pytest.mark.parametrize("flags,needs_dir,message", [
