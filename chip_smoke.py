@@ -12,10 +12,12 @@ n=64 and n=192, and the BN variant ``inception1``), the ResNets
 ``resnet50v2``, none of which reaches an LRN), ``resnet50`` trained from
 ImageNet TFRecords over the uint8 wire (raw-crop and JPEG shards, the
 JPEGs decoded on the card) with the augmentation in the step,
-``resnet152`` under its block rematerialization, and YOLO v3 (``yolov3``
+``resnet152`` under its block rematerialization, YOLO v3 (``yolov3``
 on Darknet-53) served, trained from detection TFRecords, evaluated and
-post-processed by the NMS sweep kernel; it holds every kernel on them
-against its plain version.
+post-processed by the NMS sweep kernel, and the hourglass models,
+CenterNet (``centernet``) and Hourglass-104 pose (``hourglass104``),
+served, trained from records and evaluated; it holds every kernel on
+them against its plain version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
@@ -83,7 +85,7 @@ the seconds it took:
    ``inception1`` and ``resnet50``, whose running statistics must have
    moved and come back bit for bit from a restore, with the LR
    schedule's update count; the four models' CLIs run at once, after 11;
-10. training throughput at the config's batch in bf16 over 12 timed
+10. training throughput at the config's batch in bf16 over 8 timed
    steps (24 for the ResNets) after warm-up, through the device feed
    and on a
    device-resident batch, with the peak of allocated memory and the
@@ -153,13 +155,37 @@ the seconds it took:
    serving CLI and the ``eval detection`` CLI from its checkpoint, whose
    mAP line is printed and not gated. No YOLO path launches an LRN
    kernel.
+16. CenterNet and Hourglass-104 (``phase_centernet``, ``phase_pose``,
+   after 15), neither of which launches an LRN or NMS kernel: each
+   served at 256x256x3 with seeded weights in float32 behind an
+   ``InferenceEngine`` on buckets (1, 4, 16, 64), 32 queued requests and
+   4 single ones, the first 8 answers held against this machine's CPU
+   (CenterNet: kept scores within 1e-4, classes and boxes at every rank
+   whose score is 2e-4 from its neighbours'; pose: each joint's cell
+   holding the CPU heatmap's peak within 1e-4 of the maps' scale), with
+   a profile of a bucket-64 batch (and CenterNet's peak decode timed on
+   its heads); CenterNet's targets (planted shared centres and padding,
+   trap C19) and peak decode (planted ties, trap C20) on the card
+   against the CPU; a float32 step of each (the config's Adam, batch 4;
+   CenterNet at 128 px, the hourglass at 256) on the card against the
+   CPU under the YOLO step's rule, with the same two planted faults;
+   the hourglass's ``"stack"`` remat step against the plain one, bit for
+   bit (trap C11), and a skipped ``bf16_scaled`` step under
+   ``set_sync_debug_mode("error")``; then records written on the card
+   (detection with 80 classes, and pose in the builder's schema), the
+   fed and device-resident step at 256 and batch 16 in each config's
+   precision (images/s, MFU, peak memory, idle, launches), and the
+   training CLI (``--data-dir --device-aug``, 2 epochs, ``--resume`` to
+   3), the serving CLI and ``eval detection -m centernet`` and ``eval
+   pose`` from its checkpoint (mAP and PCK printed, not gated).
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
 times under ``shapes``, launches by path under ``launches_by_path``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
-which stand for no TPU kernel), the ``[yolo] {...}`` summary, the card's
-name and power limit, and last ``{"ok": true, "device": {...}}``.
+which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
+{...}`` and ``[pose] {...}`` summaries, the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,6 +200,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -268,7 +295,7 @@ BUCKETS = (1, 4, 16, 64)
 CPU_CHECKED = 8
 # timed training steps of the paths before the ResNets' (24 for those),
 # which keeps the whole run near its earlier length
-EARLIER_TIMED_STEPS = 12
+EARLIER_TIMED_STEPS = 8
 # H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate (MFU's peak)
 BF16_DENSE_FLOPS_PER_S = 989e12
 # the plain versions' and library calls' timings, 10-300x the kernels'
@@ -279,8 +306,8 @@ YARDSTICK = {"iters": 20, "warmup": 3}
 # (one full batch and a padded one), timed fed steps
 RECORD_BATCHES = 2
 RECORD_VAL = 256 + 100
-RECORD_TIMED_STEPS = 8
-RESNET152_TIMED_STEPS = 8
+RECORD_TIMED_STEPS = 4
+RESNET152_TIMED_STEPS = 4
 # YOLO v3 (slice 8): the NMS sweep kernel, not a TPU kernel (the greedy
 # fori_loop of the JAX nms_indices, stock XLA)
 NMS_SOURCE = "deepvision_tpu_torch/csrc/nms.cu"
@@ -295,8 +322,24 @@ YOLO_CLASSES = 20
 YOLO_N = 3 * (52 ** 2 + 26 ** 2 + 13 ** 2)  # 10,647 candidate boxes
 MAX_BOXES = 100
 YOLO_REQUESTS = 32
-YOLO_TIMED_STEPS = 8
-YOLO_CLI_STEPS = 4
+YOLO_TIMED_STEPS = 4
+YOLO_CLI_STEPS = 2
+# CenterNet and Hourglass-104: their configs' 256 px, 80 COCO
+# classes, 16 MPII joints; synthetic records (train, val), timed fed
+# steps and CLI steps an epoch
+CN_SIZE = 256
+CN_CLASSES = 80
+CN_REQUESTS = 32
+CN_SCORE = 0.05
+CN_BATCH = 16
+CN_TRAIN, CN_VAL = 128, 32
+CN_TIMED_STEPS = 4
+CN_CLI_STEPS = 2
+POSE_SIZE = 256
+POSE_JOINTS = 16
+POSE_TRAIN, POSE_VAL = 128, 32
+POSE_TIMED_STEPS = 4
+POSE_CLI_STEPS = 2
 
 
 def _say(*parts) -> None:
@@ -744,10 +787,8 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
     the device time and that of the reduction and elementwise kernels
     (BatchNorm's statistics and apply are both), and for each kernel
     whose name holds ``before``, the kernel the card ran just before it
-    and whether that was a copy. Then ``windows`` windows trace the card
-    alone, so that no tracing of host operations lengthens the host's
-    wall time: the device's idle share of it, 1 - busy / wall, and the
-    H2D copies' time in each. Returns ``device_ms``, ``launches``,
+    and whether that was a copy. Then :func:`_idle_share` over
+    ``windows`` card-only windows. Returns ``device_ms``, ``launches``,
     ``reduction_share``, ``elementwise_share``, ``kernel_share`` (that of
     the kernels whose names hold ``share_of``) and ``idle`` (the median
     share; None where the profiler recorded no device time)."""
@@ -815,6 +856,20 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
                 _say(f"[profile] before {e.name[:60]}: "
                      f"{'a copy' if copy else 'no copy'} ({prev[:100]})")
 
+    out["idle"] = _idle_share(run, label, windows)
+    return out
+
+
+def _idle_share(run, label: str, windows: int) -> float | None:
+    """``windows`` ``torch.profiler`` windows over ``run()`` that trace
+    the card alone, so that no tracing of host operations lengthens the
+    host's wall time: the device's idle share of it, 1 - busy / wall,
+    and the H2D copies' time in each. Returns the median share (None
+    where the profiler recorded no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
     idle = []
     for w in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -833,18 +888,18 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
         if busy_us == 0:
             _say(f"[profile] card-only window {w}: idle share not measured "
                  "(the profiler recorded no device time)")
-            return out
+            return None
         h2d_us = sum(e.time_range.end - e.time_range.start for e in events
                      if "HtoD" in e.name)
         idle.append(1 - busy_us / wall_us)
         _say(f"[profile] card-only window {w}: host wall "
              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
              f"(H2D copy {h2d_us / 1e3:.3f} ms), idle share {idle[-1]:.1%}")
-    out["idle"] = statistics.median(idle)
+    share = statistics.median(idle)
     _say(f"[profile] {label}: device idle share, median of {windows} "
-         f"card-only windows, {out['idle']:.1%} (range "
+         f"card-only windows, {share:.1%} (range "
          f"{min(idle):.1%}-{max(idle):.1%})")
-    return out
+    return share
 
 
 def phase_cli(results, xs, n: int = 4) -> None:
@@ -2287,22 +2342,95 @@ def _cli(module: str, args: list[str], stdin: str | None = None
     return proc
 
 
-def _yolo_feed_run(d: Path) -> dict:
-    """``yolov3``'s bf16 step at 416 and batch 16 (Adam, the detection
-    flip in the step) fed by the detection reader over ``d`` (JPEGs
-    decoded on the card by nvJPEG, cropped and resized there): images/s
-    through the feed and on a device-resident batch, the feed's
-    telemetry, MFU, peak memory and profiler windows (idle share) over a
-    fed and a resident step."""
+def _fed_and_resident(label: str, module, step, train_data, bs: int,
+                      size: int, timed: int, share_of: str = "nms",
+                      windows: int = 3) -> dict:
+    """``step`` (an augmented train step) at batch ``bs`` fed by the
+    reader's ``train_data(0)`` (JPEGs decoded on the card by nvJPEG,
+    cropped and resized there): images/s through the feed and on a
+    device-resident batch, the feed's telemetry, MFU, peak memory and
+    profiler windows (idle share: ``windows`` card-only ones over two fed
+    steps, two more over a resident step)."""
     import torch
 
     from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+
+    keys = KeySeq(1, 5, device="cuda")
+    feed = DevicePrefetcher(train_data(0), torch.device("cuda"), depth=2)
+    try:
+        first = next(feed)
+        step(first, next(keys))["loss"].item()
+        resident = {k: v.clone() for k, v in first.items()}
+        step(next(feed), next(keys))["loss"].item()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            m = step(next(feed), next(keys))
+        m["loss"].item()
+        fed = timed * bs / (time.perf_counter() - t0)
+        tel = feed.telemetry.summary()
+
+        def two_fed_steps():
+            for _ in range(2):
+                step(next(feed), next(keys))
+            torch.cuda.synchronize()
+
+        idle_fed = _idle_share(two_fed_steps, f"{label} two fed steps",
+                               windows)
+    finally:
+        feed.close()
+    for _ in range(2):
+        step(resident, next(keys))["loss"].item()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = step(resident, next(keys))
+    m["loss"].item()
+    dev = timed * bs / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    x = torch.zeros(1, size, size, 3, device="cuda")
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x)
+    flops = 3 * bs * float(counter.get_total_flops())
+    mfu = {k: flops * v / bs / BF16_DENSE_FLOPS_PER_S
+           for k, v in (("fed", fed), ("resident", dev))}
+
+    def one_step():
+        step(resident, next(keys))
+        torch.cuda.synchronize()
+
+    prof = _profile(one_step, f"{label} train step batch {bs}",
+                    share_of=share_of, windows=windows + 2)
+    assert np.isfinite(m["loss"].item())
+    assert tel["wire_dtype"] == "jpeg", tel
+    _say(f"[{label}-records] {label} batch {bs} at {size}: {fed:.1f} "
+         f"images/s through the feed over {timed} steps, {dev:.1f} "
+         f"images/s on a device-resident batch (same step); wire "
+         f"{tel['wire_dtype']}, {tel['image_bytes_per_image']} JPEG bytes "
+         f"an image, h2d_wait {tel['h2d_wait_ms']} ms and host_wait "
+         f"{tel['host_wait_ms']} ms a batch; model FLOPs {flops:.4e} a step "
+         f"(backward twice the forward), MFU {mfu['fed']:.2%} fed and "
+         f"{mfu['resident']:.2%} resident; peak allocated {peak_gb:.2f} "
+         f"GiB; idle share fed {idle_fed}, resident {prof['idle']}; "
+         f"{prof['launches']} launches a resident step")
+    return {"fed": fed, "resident": dev, "mfu": mfu, "peak_gb": peak_gb,
+            "idle_fed": idle_fed, "idle": prof["idle"],
+            "device_ms": prof["device_ms"], "launches": prof["launches"]}
+
+
+def _yolo_feed_run(d: Path) -> dict:
+    """``yolov3``'s bf16 step at 416 and batch 16 (Adam, the detection
+    flip in the step) fed by the detection reader over ``d``
+    (:func:`_fed_and_resident`)."""
+    import torch
+
     from deepvision_tpu_torch.data.detection import make_detection_data
     from deepvision_tpu_torch.data.device_aug import (
         DeviceAugment,
         augment_step,
     )
-    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
     from deepvision_tpu_torch.models import create_model
     from deepvision_tpu_torch.train.configs import get_config
     from deepvision_tpu_torch.train.optimizers import make_optimizer
@@ -2317,71 +2445,11 @@ def _yolo_feed_run(d: Path) -> dict:
     state = TrainState(module, opt)
     step = augment_step(yolo_train_step, DeviceAugment("detection",
                                                        flip=True))
-    keys = KeySeq(1, 5, device="cuda")
-    warm, timed, windows = 2, YOLO_TIMED_STEPS, 3
     train_data, _, _ = make_detection_data(
-        str(d), bs, YOLO_SIZE, steps_per_epoch=warm + timed + 2 * (
-            1 + windows), device_aug=True)
-    feed = DevicePrefetcher(train_data(0), torch.device("cuda"), depth=2)
-    try:
-        first = next(feed)
-        step(state, first, next(keys))["loss"].item()
-        resident = {k: v.clone() for k, v in first.items()}
-        step(state, next(feed), next(keys))["loss"].item()
-        t0 = time.perf_counter()
-        for _ in range(timed):
-            m = step(state, next(feed), next(keys))
-        m["loss"].item()
-        fed = timed * bs / (time.perf_counter() - t0)
-        tel = feed.telemetry.summary()
-
-        def two_fed_steps():
-            for _ in range(2):
-                step(state, next(feed), next(keys))
-            torch.cuda.synchronize()
-
-        fed_prof = _profile(two_fed_steps, "yolov3 two fed steps", top=5,
-                            windows=windows, share_of="nms")
-    finally:
-        feed.close()
-    for _ in range(2):
-        step(state, resident, next(keys))["loss"].item()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        m = step(state, resident, next(keys))
-    m["loss"].item()
-    dev = timed * bs / (time.perf_counter() - t0)
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    x = torch.zeros(1, YOLO_SIZE, YOLO_SIZE, 3, device="cuda")
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with torch.no_grad(), FlopCounterMode(display=False) as counter:
-        module(x)
-    flops = 3 * bs * float(counter.get_total_flops())
-    mfu = {k: flops * v / bs / BF16_DENSE_FLOPS_PER_S
-           for k, v in (("fed", fed), ("resident", dev))}
-
-    def one_step():
-        step(state, resident, next(keys))
-        torch.cuda.synchronize()
-
-    prof = _profile(one_step, f"yolov3 train step bf16 batch {bs}",
-                    share_of="nms")
-    assert np.isfinite(m["loss"].item())
-    assert tel["wire_dtype"] == "jpeg", tel
-    _say(f"[yolo-records] yolov3 bf16 batch {bs} at {YOLO_SIZE}: {fed:.1f} "
-         f"images/s through the feed over {timed} steps, {dev:.1f} "
-         f"images/s on a device-resident batch (same step); wire "
-         f"{tel['wire_dtype']}, {tel['image_bytes_per_image']} JPEG bytes "
-         f"an image, h2d_wait {tel['h2d_wait_ms']} ms and host_wait "
-         f"{tel['host_wait_ms']} ms a batch; model FLOPs {flops:.4e} a step "
-         f"(backward twice the forward), MFU {mfu['fed']:.2%} fed and "
-         f"{mfu['resident']:.2%} resident; peak allocated {peak_gb:.2f} "
-         f"GiB; idle share fed {fed_prof['idle']}, resident {prof['idle']}")
-    return {"fed": fed, "resident": dev, "mfu": mfu, "peak_gb": peak_gb,
-            "idle_fed": fed_prof["idle"], "idle": prof["idle"],
-            "device_ms": prof["device_ms"], "launches": prof["launches"]}
+        str(d), bs, YOLO_SIZE, steps_per_epoch=2 + YOLO_TIMED_STEPS + 8,
+        device_aug=True)
+    return _fed_and_resident("yolov3", module, partial(step, state),
+                             train_data, bs, YOLO_SIZE, YOLO_TIMED_STEPS)
 
 
 def phase_yolo_records(smi: str, workdir: Path) -> dict:
@@ -2410,97 +2478,49 @@ def phase_yolo_records(smi: str, workdir: Path) -> dict:
     rates = _yolo_feed_run(d)
     torch.cuda.empty_cache()
 
-    wd = workdir / "yolo_cli"
-    common = ["-m", "yolov3", "--data-dir", str(d), "--device-aug",
-              "--steps-per-epoch", str(YOLO_CLI_STEPS), "--workdir", str(wd)]
-    t0 = time.perf_counter()
-    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "2"])
-    resumed = _cli("deepvision_tpu_torch.train",
-                   [*common, "--epochs", "3", "--resume"])
-    assert "resumed at epoch 2" in resumed.stdout
-    epochs = [s for s in (first.stdout + resumed.stdout).splitlines()
-              if s.startswith("[epoch ") and "] train_loss" in s]
-    assert len(epochs) == 3, epochs
-    for line in epochs:
-        loss = float(line.split("train_loss=")[1].split()[0])
-        assert np.isfinite(loss), line
-        _say(f"[yolo-cli] {line[:220]}")
-    train_launches = [_cli_launches(p.stderr) for p in (first, resumed)]
-    for launches in train_launches:
-        assert launches["nms_sweep"] == 0
-        assert not any(v for k, v in launches.items() if "lrn" in k)
-    _say(f"[yolo-cli] train CLI at {YOLO_SIZE}, batch 16, bf16, 2 epochs "
-         f"then --resume to 3 in {time.perf_counter() - t0:.1f} s; "
-         f"launches {train_launches}")
-
-    xs = (np.random.default_rng(1).uniform(-1, 1, (2, YOLO_SIZE, YOLO_SIZE,
-                                                   3)).astype(np.float32))
-    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
-                    for i in range(2))
-    from concurrent.futures import ThreadPoolExecutor
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
-                            ["-m", f"yolov3={wd / 'yolov3'}", "--buckets",
-                             "1,4", "--score", "0.05"], lines)
-        evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
-                               ["detection", "--workdir", str(wd / "yolov3"),
-                                "--data-dir", str(d), "--batch-size", "16"])
-        serve, evaluate = serve.result(), evaluate.result()
-    replies = [json.loads(s) for s in serve.stdout.splitlines()]
-    assert [r["id"] for r in replies] == [0, 1], replies
+    clis = _model_clis(
+        "yolov3", d, workdir / "yolo_cli", YOLO_SIZE,
+        ["--steps-per-epoch", str(YOLO_CLI_STEPS)], ["--score", "0.05"],
+        ["detection"])
+    line = clis["eval"]
     assert all(set(r["result"]) == {"boxes", "scores", "classes"}
-               for r in replies)
-    serve_nms = _cli_launches(serve.stderr)["nms_sweep"]
-    eval_nms = _cli_launches(evaluate.stderr)["nms_sweep"]
-    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+               for r in clis["replies"])
+    serve_nms = clis["serve_launches"]["nms_sweep"]
+    eval_nms = clis["eval_launches"]["nms_sweep"]
     assert line["metric"] == "mAP" and line["images"] == 64, line
     assert serve_nms > 0 and eval_nms == 4, (serve_nms, eval_nms)
-    _say(f"[yolo-cli] serving CLI answered {len(replies)} requests from the "
-         f"checkpoint ({serve.stderr.strip().splitlines()[-1]}); eval CLI "
-         f"over {line['images']} val images: {json.dumps(line)}; NMS kernel "
-         f"launches serve {serve_nms}, eval {eval_nms}; both in "
-         f"{time.perf_counter() - t0:.1f} s")
+    _say(f"[yolo-cli] NMS kernel launches serve {serve_nms}, eval "
+         f"{eval_nms}")
     return {**rates, "nms_launches": {"serving_cli": serve_nms,
                                       "eval_cli": eval_nms},
             "map": line}
 
 
-def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
-    """One float32 ``yolov3`` step (full width, the config's Adam at lr
-    0.01) at batch ``n`` and ``size`` px, TF32 off,
-    on the card and on this machine's CPU from the same seeded state.
-    As the CPU tests hold the port against JAX: each leaf (parameters,
-    BN statistics, both Adam moments) within 1e-5 plus three times its
+def _adam_step_card_vs_cpu(label: str, cfg: dict, base, host: dict,
+                           step) -> dict:
+    """One float32 step of ``step`` (the config's Adam) on the card and on
+    this machine's CPU from the same seeded module ``base``, TF32 off. As
+    the CPU tests hold the port against JAX: each leaf (parameters, BN
+    statistics, both Adam moments) within 1e-5 plus three times its
     floor, the largest gap between a platform's run and its runs on the
-    batch reversed and rolled by 1 and 2 (six samples of float32's
-    noise, three a platform), but for at most 0.1% of its elements (at
-    least one), each within 2·lr more (Adam's first update is ±lr for
-    any gradient above eps, so a gradient rounding moves across 0 turns
-    its update around); the loss within 1e-4 plus four times its floor.
-    Batch 4, not 2: at batch 2 a platform has one reordered run, and
-    leaky ReLUs flipping beside BatchNorms of 32 values a channel moved
-    10 of 810 leaves past that one sample's floor. Two faults planted on
-    the card must fail it: the state before the step, and the step at
-    0.9 times the LR. No LRN kernel launches."""
+    batch reversed and rolled by 1 and 2 (six samples of float32's noise,
+    three a platform), but for at most 0.1% of its elements (at least
+    one), each within 2·lr more (Adam's first update is ±lr for any
+    gradient above eps, so a gradient rounding moves across 0 turns its
+    update around); the loss within 1e-4 plus four times its floor. Two
+    faults planted on the card must fail it: the state before the step,
+    and the step at 0.9 times the LR. No LRN kernel launches. Returns the
+    readings."""
     import torch
 
     from deepvision_tpu_torch.device import strict_fp32
-    from deepvision_tpu_torch.models import create_model
-    from deepvision_tpu_torch.train.configs import get_config
     from deepvision_tpu_torch.train.optimizers import (
         make_optimizer,
         set_lr_scale,
     )
     from deepvision_tpu_torch.train.state import TrainState
-    from deepvision_tpu_torch.train.steps import yolo_train_step
 
     strict_fp32()
-    cfg = get_config("yolov3")
-    base = create_model("yolov3", device=torch.device("cpu"), seed=0,
-                        num_classes=YOLO_CLASSES)
-    host = _detection_host_batch(n, size, seed=2)
     orders = (lambda a: a, lambda a: a[::-1],
               lambda a: np.roll(a, 1, axis=0),
               lambda a: np.roll(a, 2, axis=0))
@@ -2512,7 +2532,7 @@ def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
         state = TrainState(module, optimizer)
         batch = {k: torch.from_numpy(order(v).copy()).to(device)
                  for k, v in host.items()}
-        loss = float(yolo_train_step(state, batch, None)["loss"])
+        loss = float(step(state, batch, None)["loss"])
         leaves = {k: v.detach().cpu()
                   for k, v in module.state_dict().items()}
         for name, p in module.named_parameters():
@@ -2560,7 +2580,8 @@ def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
                      for r in rs[1:])
     loss_gap = abs(cpu[0][0] - card[0][0])
     loss_tol = 1e-4 * abs(card[0][0]) + 4 * loss_floor
-    _say(f"[card-vs-cpu] yolov3 f32 (TF32 off) batch {n} at {size}, one "
+    n, size = host["image"].shape[:2]
+    _say(f"[card-vs-cpu] {label} f32 (TF32 off) batch {n} at {size}, one "
          f"Adam step (lr {lr:g}) on {len(orders)} batch orders on each "
          f"side in "
          f"{time.perf_counter() - t0:.1f} s: loss card {card[0][0]:.6f} CPU "
@@ -2574,8 +2595,32 @@ def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
     assert np.isfinite(card[0][0]) and loss_gap <= loss_tol
     assert not bad, bad[:10]
     assert launches == 0
-    assert len(planted["state before the step"]) > len(tol) // 2
+    assert planted["state before the step"]
     assert planted["LR x 0.9"]
+    return {"loss_gap": loss_gap, "loss_tol": loss_tol,
+            "planted": {k: len(v) for k, v in planted.items()},
+            "leaves": len(tol)}
+
+
+def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
+    """``yolov3`` (full width, the config's Adam at lr 0.01) at batch
+    ``n`` and ``size`` px (:func:`_adam_step_card_vs_cpu`). Batch 4, not
+    2: at batch 2 a platform has one reordered run, and leaky ReLUs
+    flipping beside BatchNorms of 32 values a channel moved 10 of 810
+    leaves past that one sample's floor. The stale state must put over
+    half the leaves beyond the rule."""
+    import torch
+
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.steps import yolo_train_step
+
+    base = create_model("yolov3", device=torch.device("cpu"), seed=0,
+                        num_classes=YOLO_CLASSES)
+    out = _adam_step_card_vs_cpu("yolov3", get_config("yolov3"), base,
+                                 _detection_host_batch(n, size, seed=2),
+                                 yolo_train_step)
+    assert out["planted"]["state before the step"] > out["leaves"] // 2
 
 
 def phase_yolo(smi: str, workdir: Path) -> dict:
@@ -2610,6 +2655,653 @@ def phase_yolo(smi: str, workdir: Path) -> dict:
             "nms_launches": {"serve_engine": serve_nms,
                              **records["nms_launches"]},
             "summary": summary}
+
+
+# ---------------------------------------------------- CenterNet and pose
+
+
+def _serve_against_cpu(served, xs, check, **load_kw) -> tuple:
+    """``served`` behind an ``InferenceEngine`` on ``BUCKETS``: ``xs``
+    queued at once (one bucket-64 batch) and 4 single requests, then
+    ``check(the first 8 answers, the singles, cpu, xs[:8])``, where
+    ``cpu`` is the served model rebuilt on this machine's CPU
+    (``load_served(**load_kw)``) with the card's weights. Returns (the
+    answers, the engine's telemetry, the seconds)."""
+    from deepvision_tpu_torch.serve import InferenceEngine, load_served
+
+    t0 = time.perf_counter()
+    with InferenceEngine([served], buckets=BUCKETS) as eng:
+        _zero_launch_counts()
+        eng.pause()
+        futures = [eng.submit(x) for x in xs]
+        eng.resume()
+        answers = [f.result(timeout=600) for f in futures]
+        singles = [eng.submit(x).result(timeout=600) for x in xs[:4]]
+        stats = eng.stats()
+    wall = time.perf_counter() - t0
+    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+    cpu = load_served(served.name, device="cpu",
+                      input_size=served.input_shape[0], **load_kw)
+    cpu.module.load_state_dict(served.module.state_dict())
+    check(answers[:CPU_CHECKED], singles, cpu,
+          xs[:max(CPU_CHECKED, len(singles))])
+    return answers, stats["telemetry"], wall
+
+
+def _centernet_check(got: dict, want: dict, tol: float = 1e-4) -> None:
+    """A served CenterNet answer against the CPU's: the kept scores, in
+    rank order, within ``tol``; at every rank whose score is more than
+    2·tol from its neighbours' (an unambiguous rank) the same class and
+    box (corners within ``tol``). Near-ties may trade ranks, and a score
+    within ``tol`` of the threshold may be kept on one side only, so the
+    counts may differ by the near-threshold rows."""
+    g, w = np.asarray(got["scores"]), np.asarray(want["scores"])
+    n = min(len(g), len(w))
+    assert abs(len(g) - len(w)) <= int(np.sum(np.abs(w - CN_SCORE) <= tol)
+                                       + np.sum(np.abs(g - CN_SCORE) <= tol))
+    assert np.all(np.abs(g[:n] - w[:n]) <= tol), np.abs(g[:n] - w[:n]).max()
+    for i in range(n):
+        near = [abs(w[i] - w[j]) <= 2 * tol for j in (i - 1, i + 1)
+                if 0 <= j < len(w)]
+        if any(near):
+            continue
+        assert got["classes"][i] == want["classes"][i], i
+        assert np.allclose(got["boxes"][i], want["boxes"][i], atol=tol), i
+
+
+def _centernet_checks(answers, singles, cpu, xs) -> None:
+    for single, batched in zip(singles, answers):
+        _centernet_check(single, batched)
+    host = cpu.run(xs[:len(answers)])
+    for i, answer in enumerate(answers):
+        _centernet_check(answer, cpu.postprocess(host, i))
+
+
+def phase_centernet_serve(smi: str) -> dict:
+    """``load_served("centernet")`` at 256x256x3, 80 classes, seeded
+    weights, float32 (TF32 off), ``score_thresh`` ``CN_SCORE``, behind an
+    ``InferenceEngine`` on buckets (1, 4, 16, 64): 32 queued requests
+    and 4 single ones; the first 8 answers held against the CPU
+    (:func:`_centernet_check`); the peak decode's time on the bucket-64
+    batch's heads beside the whole batch's device time; profiler windows
+    over the batch."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.ops.centernet_decode import decode_centernet
+    from deepvision_tpu_torch.serve import load_served
+    from deepvision_tpu_torch.timing import time_ms
+
+    strict_fp32()
+    served = load_served("centernet", seed=0, score_thresh=CN_SCORE,
+                         input_size=CN_SIZE)
+    assert served.task == "detect"
+    assert served.input_shape == (CN_SIZE, CN_SIZE, 3)
+    xs = (np.random.default_rng(0).uniform(
+        -1, 1, (CN_REQUESTS, *served.input_shape)).astype(np.float32))
+    answers, tel, wall = _serve_against_cpu(served, xs, _centernet_checks,
+                                            score_thresh=CN_SCORE)
+    kept = [len(a["scores"]) for a in answers]
+    assert tel["batches"] == 5, tel
+    batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
+    batch[:len(xs)] = xs
+    with torch.inference_mode():
+        heads = served.module(torch.from_numpy(batch).cuda())[-1]
+        decode_ms = time_ms(lambda _: decode_centernet(*heads), [None],
+                            **YARDSTICK)
+    _say(f"[centernet-serve] centernet f32 at {CN_SIZE}, {CN_CLASSES} "
+         f"classes: {len(xs)} queued requests and 4 single ones answered in "
+         f"{wall:.1f} s; the first {CPU_CHECKED} held against the CPU "
+         f"(kept scores within 1e-4, classes and boxes at unambiguous "
+         f"ranks); kept {min(kept)}-{max(kept)} boxes a request at score "
+         f"> {CN_SCORE}; batches {tel['batches']}; e2e latency p50 "
+         f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
+         f"{tel['device_time']['p50_ms']} ms; the peak decode of a "
+         f"bucket-{BUCKETS[-1]} batch's heads {decode_ms:.4f} ms")
+    prof = _profile(lambda: served.run(batch),
+                    f"centernet bucket-{BUCKETS[-1]} batch f32",
+                    share_of="sort")
+    if prof["device_ms"]:
+        _say(f"[centernet-serve] the decode is {decode_ms:.4f} of "
+             f"{prof['device_ms']:.3f} ms = "
+             f"{decode_ms / prof['device_ms']:.2%} of the batch's device "
+             f"time ({smi})")
+    return {**prof, "decode_ms": decode_ms}
+
+
+def _centernet_targets_batch(n: int, size: int, seed: int = 0) -> dict:
+    """A detection host batch (:func:`_detection_host_batch`) with more
+    collisions planted for trap C19: image 1 holds three boxes on one
+    centre cell of the 64² grid, the padding rows follow."""
+    host = _detection_host_batch(n, size, seed=seed, classes=CN_CLASSES)
+    for j in range(3):
+        host["boxes"][1, 6 + j] = [0.3 + j / 1024, 0.7, 0.1 * (j + 1), 0.2]
+        host["label"][1, 6 + j] = 10 * j
+    return host
+
+
+def _decode_ties(rng, b: int = 16, g: int = 64, c: int = CN_CLASSES):
+    """Heat logits with planted ties (trap C20): equal plateaus, a
+    saturated map (sigmoid 1.0), and images with one peak a class (80
+    peaks, fewer than K = 100: 0.0 ties after them)."""
+    heat = rng.normal(-3, 2, (b, g, g, c)).astype(np.float32)
+    heat[0, ::4, ::4, 1] = 2.0
+    heat[1] = 40.0
+    yy, xx = np.mgrid[:g, :g]
+    for i in (2, 3):  # one peak a class: c peaks, then 0.0 ties
+        for ch in range(c):
+            py, px = rng.integers(0, g, 2)
+            top = 2.0 if ch % 40 == 0 else -30.0
+            heat[i, ..., ch] = top - np.hypot(yy - py, xx - px)
+    wh = rng.uniform(0, 8, (b, g, g, 2)).astype(np.float32)
+    off = rng.uniform(0, 1, (b, g, g, 2)).astype(np.float32)
+    return heat, wh, off
+
+
+def phase_centernet_codec() -> None:
+    """The CenterNet targets and decode on the card against the CPU, at
+    the 64² grid of 256 px: ``encode_centernet``'s ``wh``, ``offset`` and
+    ``mask`` bit for bit with planted collisions and padding (trap C19),
+    the heatmap within 1e-6 on the same support (``exp`` is CUDA's on one
+    side and ATen's on the other); ``decode_centernet`` with planted ties
+    (trap C20): classes and cells identical, scores within 1e-6."""
+    import torch
+
+    from deepvision_tpu_torch.ops.centernet_decode import decode_centernet
+    from deepvision_tpu_torch.ops.centernet_encode import encode_centernet
+
+    host = _centernet_targets_batch(CN_BATCH, 8)
+    boxes, labels = (torch.from_numpy(host[k]) for k in ("boxes", "label"))
+    g = CN_SIZE // 4
+    cpu = encode_centernet(boxes, labels, CN_CLASSES, g)
+    card = encode_centernet(boxes.cuda(), labels.cuda(), CN_CLASSES, g)
+    for k in ("wh", "offset", "mask"):
+        assert torch.equal(card[k].cpu(), cpu[k]), k
+    heat_gap = float((card["heatmap"].cpu() - cpu["heatmap"]).abs().max())
+    assert torch.equal(card["heatmap"].cpu() > 0, cpu["heatmap"] > 0)
+    assert heat_gap <= 1e-6, heat_gap
+    assert cpu["mask"][1].sum() < (labels[1] >= 0).sum()
+    assert cpu["mask"][:, 0, 0].sum() == 0
+    heat, wh, off = _decode_ties(np.random.default_rng(3))
+    args = [torch.from_numpy(a) for a in (heat, wh, off)]
+    want = decode_centernet(*args)
+    got = decode_centernet(*(a.cuda() for a in args))
+    assert torch.equal(got["classes"].cpu(), want["classes"])
+    cells = (want["boxes"][..., :2] * g).floor()
+    assert torch.equal((got["boxes"][..., :2].cpu() * g).floor(), cells)
+    score_gap = float((got["scores"].cpu() - want["scores"]).abs().max())
+    assert score_gap <= 1e-6, score_gap
+    assert (want["scores"][2:4, :CN_CLASSES] > 0).all()
+    assert (want["scores"][2:4, CN_CLASSES:] == 0).all()
+    _say(f"[centernet-codec] encode_centernet at {g}² on the card: wh, "
+         f"offset and mask equal to the CPU's bit for bit (planted "
+         f"collisions, padding kept off cell (0, 0)), heatmap within "
+         f"{heat_gap:.2e}; decode_centernet with planted ties: classes and "
+         f"cells identical, scores within {score_gap:.2e}")
+
+
+def phase_centernet_step(size: int = 128) -> None:
+    """The float32 CenterNet step (full width, two stacks, the config's
+    Adam) at batch 4 and ``size`` px on the card against the CPU
+    (:func:`_adam_step_card_vs_cpu`)."""
+    import torch
+
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.steps import centernet_train_step
+
+    base = create_model("centernet", device=torch.device("cpu"), seed=0,
+                        num_classes=CN_CLASSES)
+    _adam_step_card_vs_cpu("centernet", get_config("centernet"), base,
+                           _centernet_targets_batch(4, size, seed=2),
+                           centernet_train_step)
+
+
+def _model_clis(name: str, d: Path, wd: Path, size: int,
+                train_args: list[str], serve_args: list[str],
+                eval_args: list[str]) -> dict:
+    """The training CLI of ``name`` over the records in ``d`` with
+    ``--device-aug`` for 2 epochs, then ``--resume`` to 3 (every epoch's
+    train loss finite, no kernel but nvJPEG's ``ycc_to_rgb`` launched);
+    then from its newest checkpoint the serving CLI (2 requests of
+    ``size`` px) and the eval CLI at once. Returns the epoch lines, the
+    replies, the eval line and the kernel launches each CLI counted
+    (None where it prints none)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    common = ["-m", name, "--data-dir", str(d), "--device-aug",
+              "--workdir", str(wd), *train_args]
+    t0 = time.perf_counter()
+    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "2"])
+    resumed = _cli("deepvision_tpu_torch.train",
+                   [*common, "--epochs", "3", "--resume"])
+    assert "resumed at epoch 2" in resumed.stdout
+    epochs = [s for s in (first.stdout + resumed.stdout).splitlines()
+              if s.startswith("[epoch ") and "] train_loss" in s]
+    assert len(epochs) == 3, epochs
+    for line in epochs:
+        assert np.isfinite(float(line.split("train_loss=")[1].split()[0]))
+        _say(f"[{name}-cli] {line[:240]}")
+    train_launches = [_cli_launches(p.stderr) for p in (first, resumed)]
+    for counts in train_launches:
+        assert not any(v for k, v in counts.items() if k != "ycc_to_rgb"), (
+            counts)
+    _say(f"[{name}-cli] train CLI 2 epochs then --resume to 3 in "
+         f"{time.perf_counter() - t0:.1f} s; launches {train_launches}")
+    xs = (np.random.default_rng(1).uniform(-1, 1, (2, size, size, 3))
+          .astype(np.float32))
+    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
+                    for i in range(2))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
+                            ["-m", f"{name}={wd / name}", "--buckets", "1,4",
+                             *serve_args], lines)
+        evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
+                               [*eval_args, "--workdir", str(wd / name),
+                                "--data-dir", str(d), "--batch-size", "16"])
+        serve, evaluate = serve.result(), evaluate.result()
+    replies = [json.loads(s) for s in serve.stdout.splitlines()]
+    assert [r["id"] for r in replies] == [0, 1], replies
+    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+    _say(f"[{name}-cli] serving CLI answered {len(replies)} requests from "
+         f"the checkpoint ({serve.stderr.strip().splitlines()[-1]}); eval "
+         f"CLI: {json.dumps(line)[:400]}; both in "
+         f"{time.perf_counter() - t0:.1f} s")
+
+    def launches(proc):
+        return (_cli_launches(proc.stderr)
+                if "kernel launches " in proc.stderr else None)
+
+    return {"epochs": epochs, "replies": replies, "eval": line,
+            "train_launches": train_launches,
+            "serve_launches": launches(serve),
+            "eval_launches": launches(evaluate)}
+
+
+def phase_centernet_records(smi: str, workdir: Path) -> dict:
+    """The CenterNet path from records: synthetic detection shards (80
+    classes, ``CN_TRAIN`` train and ``CN_VAL`` val, 4 shards each, JPEGs
+    by nvJPEG), the fed and device-resident bf16 step at 256 and batch
+    16 (:func:`_fed_and_resident`). Returns the readings and the
+    records' directory, whose CLIs :func:`phase_hourglass_clis` runs."""
+    import torch
+
+    from deepvision_tpu_torch.data.detection import make_detection_data
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.synthetic_records import (
+        write_synthetic_detection,
+    )
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import centernet_train_step
+
+    d = workdir / "centernet_records"
+    t0 = time.perf_counter()
+    counts = write_synthetic_detection(d, train=CN_TRAIN, val=CN_VAL,
+                                       classes=CN_CLASSES, shards=4)
+    _say(f"[centernet-records] wrote {counts} on the card (nvJPEG) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    cfg = get_config("centernet")
+    bs = cfg["batch_size"]
+    module = create_model("centernet", device=torch.device("cuda"), seed=0,
+                          num_classes=CN_CLASSES, dtype=torch.bfloat16)
+    opt, _ = make_optimizer(cfg, module.parameters())
+    step = augment_step(centernet_train_step,
+                        DeviceAugment("detection", flip=True))
+    train_data, _, _ = make_detection_data(
+        str(d), bs, CN_SIZE, steps_per_epoch=2 + CN_TIMED_STEPS + 8,
+        device_aug=True)
+    rates = _fed_and_resident("centernet", module,
+                              partial(step, TrainState(module, opt)),
+                              train_data, bs, CN_SIZE, CN_TIMED_STEPS,
+                              share_of="sort", windows=2)
+    return {**rates, "records": d}
+
+
+def _centernet_clis(d: Path, workdir: Path) -> dict:
+    """``centernet``'s CLIs over its records (:func:`_model_clis`): the
+    detect answers, ``eval detection -m centernet`` over the ``val-*``
+    shards with null NMS fields; no NMS kernel launched."""
+    clis = _model_clis(
+        "centernet", d, workdir / "centernet_cli", CN_SIZE,
+        ["--steps-per-epoch", str(CN_CLI_STEPS)], ["--score", "0.05"],
+        ["detection", "-m", "centernet", "--names", "mscoco", "--size",
+         str(CN_SIZE)])
+    line = clis["eval"]
+    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
+               for r in clis["replies"])
+    assert clis["serve_launches"]["nms_sweep"] == 0
+    assert clis["eval_launches"]["nms_sweep"] == 0
+    assert line["metric"] == "mAP" and line["images"] == CN_VAL, line
+    assert line["nms_candidates_max"] is None and line["nms_exact"] is None
+    return line
+
+
+def _pose_clis(d: Path, workdir: Path) -> dict:
+    """``hourglass104``'s CLIs over its records (:func:`_model_clis`):
+    16 joints an answer, ``eval pose`` over the ``val-*`` shards."""
+    clis = _model_clis(
+        "hourglass104", d, workdir / "pose_cli", POSE_SIZE,
+        ["--steps-per-epoch", str(POSE_CLI_STEPS)], [],
+        ["pose", "--size", str(POSE_SIZE)])
+    line = clis["eval"]
+    assert all(len(r["result"]["joints"]) == POSE_JOINTS
+               for r in clis["replies"])
+    assert clis["serve_launches"]["nms_sweep"] == 0
+    assert line["metric"] == "PCK@0.5" and 0.0 <= line["value"] <= 1.0
+    return line
+
+
+def phase_hourglass_clis(workdir: Path, centernet: dict,
+                         pose: dict) -> dict:
+    """The CenterNet and pose CLI chains at once, one thread each (their
+    processes share the card; their checks are their own and their
+    seconds are not read as rates). Adds the mAP and PCK lines to the
+    summaries."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        cn = pool.submit(_timed, "centernet CLIs", _centernet_clis,
+                         centernet.pop("records"), workdir)
+        hg = pool.submit(_timed, "hourglass104 CLIs", _pose_clis,
+                         pose.pop("records"), workdir)
+        centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
+    return {"centernet": centernet, "pose": pose}
+
+
+def phase_centernet(smi: str, workdir: Path) -> dict:
+    """Every CenterNet phase but the CLIs: serving, the targets and
+    decode on the card, the card-vs-CPU step, the record path. Returns a
+    summary and the records' directory (for
+    :func:`phase_hourglass_clis`); no LRN or NMS kernel is launched."""
+    import torch
+
+    serve = _timed("centernet serve", phase_centernet_serve, smi)
+    _timed("centernet codec", phase_centernet_codec)
+    _timed("centernet card vs cpu", phase_centernet_step)
+    torch.cuda.empty_cache()
+    records = _timed("centernet records", phase_centernet_records, smi,
+                     workdir)
+    torch.cuda.empty_cache()
+    return {"serve_bucket64": {k: serve[k] for k in (
+                "device_ms", "launches", "kernel_share", "idle",
+                "decode_ms")},
+            "train_bf16_b16": {k: records[k] for k in (
+                "fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
+                "device_ms", "launches")},
+            "records": records["records"], "card": smi}
+
+
+def _pose_checks(answers, singles, cpu, xs) -> None:
+    """Served pose answers against the CPU's heatmaps of the same
+    images: each joint's cell holds the CPU map's peak within 1e-4 of the
+    maps' scale (a near-tie may pick another cell), its confidence within
+    that of the peak; the single requests' answers likewise."""
+    import torch
+
+    with torch.inference_mode():
+        heat = cpu.module(torch.from_numpy(xs))[-1].numpy()
+    h, w = heat.shape[1:3]
+    tol = 1e-4 * float(np.abs(heat).max())
+    for i, answer in [*enumerate(answers), *enumerate(singles)]:
+        joints = np.asarray(answer["joints"])
+        assert joints.shape == (POSE_JOINTS, 3)
+        cx = np.rint(joints[:, 0] * w).astype(int)
+        cy = np.rint(joints[:, 1] * h).astype(int)
+        at = heat[i, cy, cx, np.arange(POSE_JOINTS)]
+        peak = heat[i].reshape(-1, POSE_JOINTS).max(0)
+        assert np.all(at >= peak - tol), (i, (peak - at).max(), tol)
+        assert np.all(np.abs(joints[:, 2] - peak) <= tol), i
+
+
+def phase_pose_serve(smi: str) -> dict:
+    """``load_served("hourglass104")`` at 256x256x3, 16 joints, seeded
+    weights, float32 (TF32 off), behind an ``InferenceEngine``: 32 queued
+    requests (a bucket-64 batch) and 4 single ones, the first 8 answers
+    held against the CPU (:func:`_pose_checks`); profiler windows over the
+    bucket-64 batch."""
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import load_served
+
+    strict_fp32()
+    served = load_served("hourglass104", seed=0, input_size=POSE_SIZE)
+    assert served.task == "pose" and served.input_shape == (POSE_SIZE,
+                                                            POSE_SIZE, 3)
+    xs = (np.random.default_rng(0).uniform(
+        -1, 1, (CN_REQUESTS, *served.input_shape)).astype(np.float32))
+    answers, tel, wall = _serve_against_cpu(served, xs, _pose_checks)
+    assert all(len(a["joints"]) == POSE_JOINTS for a in answers)
+    assert tel["batches"] == 5, tel
+    _say(f"[pose-serve] hourglass104 f32 at {POSE_SIZE}, {POSE_JOINTS} "
+         f"joints: {len(xs)} queued requests and 4 single ones answered in "
+         f"{wall:.1f} s; the first {CPU_CHECKED} and the single ones "
+         f"held against the CPU's heatmaps (peak within 1e-4 of their "
+         f"scale); "
+         f"batches {tel['batches']}; e2e latency p50 "
+         f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
+         f"{tel['device_time']['p50_ms']} ms")
+    batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
+    batch[:len(xs)] = xs
+    return _profile(lambda: served.run(batch),
+                    f"hourglass104 bucket-{BUCKETS[-1]} batch f32",
+                    share_of="argmax")
+
+
+def phase_pose_remat(n: int = 4) -> None:
+    """Trap C11 at ``"stack"``: one float32 ``hourglass104`` step (the
+    config's Adam) at batch ``n`` and 256 px, TF32 off and cuDNN's
+    deterministic algorithms, under ``remat="stack"`` against the plain
+    step from the same weights: the loss, every BN statistic and every
+    parameter bit for bit (two plain runs are bit for bit too)."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import pose_train_step
+
+    strict_fp32()
+    cfg = get_config("hourglass104")
+    base = create_model("hourglass104", device=torch.device("cuda"), seed=0)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _pose_host_batch(n, POSE_SIZE, seed=5).items()}
+
+    def run(policy):
+        module = copy.deepcopy(base)
+        module.remat = policy
+        opt, _ = make_optimizer(cfg, module.parameters())
+        loss = pose_train_step(TrainState(module, opt), batch,
+                               None)["loss"].item()
+        torch.cuda.synchronize()
+        return loss, {k: v.detach().clone()
+                      for k, v in module.state_dict().items()}
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, plain2, stack = run(None), run(None), run("stack")
+    finally:
+        torch.backends.cudnn.deterministic = was
+    assert plain[0] == plain2[0] == stack[0], (plain[0], stack[0])
+    for k, v in plain[1].items():
+        assert torch.equal(plain2[1][k], v), ("plain twice", k)
+        assert torch.equal(stack[1][k], v), ("stack", k)
+    stats = sum(k.endswith((".mean", ".var")) for k in plain[1])
+    _say(f"[pose-remat] hourglass104 remat=stack f32 step at batch {n}, "
+         f"{POSE_SIZE} px: loss {stack[0]:.6f}, all {len(plain[1])} tensors "
+         f"({stats} BN statistics) equal to the plain step's bit for bit")
+
+
+def _pose_host_batch(n: int, size: int, seed: int = 0) -> dict:
+    """A seeded pose host batch: float32 images in [-1, 1], 16 joints,
+    some off the image or hidden."""
+    rng = np.random.default_rng(seed)
+    return {"image": rng.uniform(-1, 1, (n, size, size, 3)).astype(
+                np.float32),
+            "kx": rng.uniform(-0.1, 1.1, (n, POSE_JOINTS)).astype(
+                np.float32),
+            "ky": rng.uniform(-0.1, 1.1, (n, POSE_JOINTS)).astype(
+                np.float32),
+            "v": (rng.uniform(size=(n, POSE_JOINTS)) > 0.2).astype(
+                np.int32)}
+
+
+def phase_pose_loss_scale() -> None:
+    """The config's ``bf16_scaled`` ``hourglass104`` step (Adam on the
+    card, the loss scale on the card, ``"stack"`` remat) at batch 2 and
+    256 px: a clean step, then one whose images hold an inf, run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync raises).
+    The second is skipped: every parameter, both Adam moments, Adam's
+    step count and the BN statistics keep their values, and the loss
+    scale halves."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import pose_train_step
+
+    cfg = get_config("hourglass104")
+    policy = get_policy(cfg["precision"])
+    assert policy.name == "bf16_scaled"
+    module = create_model("hourglass104", device=torch.device("cuda"),
+                          seed=0, dtype=policy.compute_dtype,
+                          **cfg["model_kwargs"])
+    assert module.remat == "stack"
+    opt, _ = make_optimizer(cfg, module.parameters())
+    state = TrainState(module, opt, loss_scale=policy.make_loss_scale())
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _pose_host_batch(2, POSE_SIZE, seed=1).items()}
+    first = pose_train_step(state, batch, None)
+    first_finite = float(first["mp_grads_finite"])
+    before = {**{k: v.clone() for k, v in module.state_dict().items()},
+              **{f"{i}:{k}": v.clone() for i, p in
+                 enumerate(module.parameters())
+                 for k, v in opt.state[p].items()}}
+    scale = float(state.loss_scale.scale)
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0, 5, 5, 0] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = pose_train_step(state, bad, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = {**module.state_dict(),
+             **{f"{i}:{k}": v for i, p in enumerate(module.parameters())
+                for k, v in opt.state[p].items()}}
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    assert not moved, moved[:5]
+    assert float(m["mp_grads_finite"]) == 0.0
+    assert float(state.loss_scale.scale) == scale / 2
+    _say(f"[pose-loss-scale] bf16_scaled hourglass104 under remat=stack: "
+         f"a first step (finite {first_finite:g}, loss "
+         f"{float(first['loss']):.4f}), then one with an inf in its images "
+         f"that ran with no host sync (sync debug mode 'error') and was "
+         f"skipped: {len(before)} tensors unchanged, loss scale {scale:g} "
+         f"-> {float(state.loss_scale.scale):g}")
+
+
+def phase_pose_step(size: int = POSE_SIZE) -> None:
+    """The float32 ``hourglass104`` step (full width, the config's Adam)
+    at batch 4 and ``size`` px on the card against the CPU
+    (:func:`_adam_step_card_vs_cpu`). At 128 px the recursion's bottom
+    BatchNorms see 16 values a channel, and one first moment behind them
+    fell 1.9 times its tolerance off on an H100; at 256, 64."""
+    import torch
+
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.steps import pose_train_step
+
+    base = create_model("hourglass104", device=torch.device("cpu"), seed=0)
+    _adam_step_card_vs_cpu("hourglass104", get_config("hourglass104"), base,
+                           _pose_host_batch(4, size, seed=2),
+                           pose_train_step)
+
+
+def phase_pose_records(smi: str, workdir: Path) -> dict:
+    """The pose path from records: synthetic pose shards (``POSE_TRAIN``
+    train and ``POSE_VAL`` val, 4 shards each, JPEGs by nvJPEG, written on
+    the card in the builder's schema), the fed and device-resident step
+    at 256 and batch 16 in the config's ``bf16_scaled`` under ``"stack"``
+    remat with the pose flip in the step (:func:`_fed_and_resident`).
+    Returns the readings and the records' directory, whose CLIs
+    :func:`phase_hourglass_clis` runs."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.data.device_aug import (
+        MPII_FLIP_PERM,
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.pose import make_pose_data
+    from deepvision_tpu_torch.data.synthetic_records import (
+        write_synthetic_pose,
+    )
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import pose_train_step
+
+    d = workdir / "pose_records"
+    t0 = time.perf_counter()
+    counts = write_synthetic_pose(d, train=POSE_TRAIN, val=POSE_VAL,
+                                  shards=4)
+    _say(f"[pose-records] wrote {counts} on the card (nvJPEG) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    cfg = get_config("hourglass104")
+    bs = cfg["batch_size"]
+    policy = get_policy(cfg["precision"])
+    module = create_model("hourglass104", device=torch.device("cuda"),
+                          seed=0, dtype=policy.compute_dtype,
+                          **cfg["model_kwargs"])
+    opt, _ = make_optimizer(cfg, module.parameters())
+    state = TrainState(module, opt, loss_scale=policy.make_loss_scale())
+    step = augment_step(pose_train_step, DeviceAugment(
+        "pose", flip=True, flip_pairs=MPII_FLIP_PERM))
+    train_data, _, _ = make_pose_data(
+        str(d), bs, POSE_SIZE, steps_per_epoch=2 + POSE_TIMED_STEPS + 8,
+        device_aug=True)
+    rates = _fed_and_resident("hourglass104", module, partial(step, state),
+                              train_data, bs, POSE_SIZE, POSE_TIMED_STEPS,
+                              share_of="sort", windows=1)
+    return {**rates, "records": d}
+
+
+def phase_pose(smi: str, workdir: Path) -> dict:
+    """Every pose phase but the CLIs: serving, the ``"stack"`` remat
+    step, the loss scale's skipped step, the card-vs-CPU step, the record
+    path. Returns a summary and the records' directory; no LRN or NMS
+    kernel is launched."""
+    import torch
+
+    serve = _timed("hourglass104 serve", phase_pose_serve, smi)
+    _timed("hourglass104 remat stack", phase_pose_remat)
+    _timed("hourglass104 loss scale", phase_pose_loss_scale)
+    _timed("hourglass104 card vs cpu", phase_pose_step)
+    torch.cuda.empty_cache()
+    records = _timed("hourglass104 records", phase_pose_records, smi,
+                     workdir)
+    torch.cuda.empty_cache()
+    return {"serve_bucket64": {k: serve[k] for k in (
+                "device_ms", "launches", "idle")},
+            "train_bf16_scaled_b16": {k: records[k] for k in (
+                "fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
+                "device_ms", "launches")},
+            "records": records["records"], "card": smi}
 
 
 def _timed(label: str, phase, *args, **kwargs):
@@ -2680,6 +3372,10 @@ def main() -> int:
     _timed("resnet152", phase_resnet152, smi, workdir)
     torch.cuda.empty_cache()
     yolo = phase_yolo(smi, workdir)
+    torch.cuda.empty_cache()
+    hourglass = _timed("hourglass CLIs", phase_hourglass_clis, workdir,
+                       phase_centernet(smi, workdir),
+                       phase_pose(smi, workdir))
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
@@ -2726,6 +3422,8 @@ def main() -> int:
     _say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(f"[native] {json.dumps(native)}")
     print(f"[yolo] {json.dumps(yolo['summary'])}")
+    for name, summary in hourglass.items():
+        print(f"[{name}] {json.dumps(summary)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

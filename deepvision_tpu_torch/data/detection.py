@@ -28,7 +28,7 @@ Training, as the JAX reader's ``prep``:
 The host draws every decision (coins and crop draws) from numpy
 generators seeded by the epoch (trap C6) and computes the crop window
 from the JPEG header's size (:func:`jpeg_size`) and the boxes; the batch
-crosses packed (:class:`PackedDetectionBatch`), and the decode, the
+crosses packed (:class:`PackedTargetBatch`), and the decode, the
 flip, the crop and the resize run on the device feed's side stream:
 nvJPEG on the card (``data/jpeg.py``; its ``gpu_hybrid`` decoder or an
 error), PIL on the CPU when the CPU is asked for.
@@ -54,7 +54,7 @@ from deepvision_tpu_torch.data.tfrecord import decode_example, read_records
 
 __all__ = ["MAX_BOXES", "parse_detection_record", "jpeg_size",
            "flip_corners", "crop_window", "crop_corners", "to_model_inputs",
-           "DetectionPlan", "PackedDetectionBatch", "train_batches",
+           "DecodePlan", "PackedTargetBatch", "train_batches",
            "eval_batches", "synthetic_detection", "synthetic_batches",
            "make_detection_data"]
 
@@ -172,7 +172,7 @@ def to_model_inputs(image: torch.Tensor, corners: np.ndarray,
 
 
 @dataclasses.dataclass(frozen=True)
-class DetectionPlan:
+class DecodePlan:
     """What the decode stage does to each image of a packed batch: the
     flip (``flips``, (B,) bool, or None), the crop (``windows``, one
     ``(top, left, height, width)`` or None an image, or None), then the
@@ -187,21 +187,21 @@ class DetectionPlan:
     pad_to: int | None = None
 
 
-class PackedDetectionBatch(dict):
-    """A detection batch as it crosses to the device: ``jpeg`` (packed
-    bytes), ``offsets``, and the targets the host already moved with the
-    planned flip and crop, ``boxes`` ``(B, MAX_BOXES, 4)`` and ``label``
-    ``(B, MAX_BOXES)``. A packed batch of the device feed
-    (``data/prefetch.py``): the feed runs :meth:`decode` on its side
-    stream."""
+class PackedTargetBatch(dict):
+    """A batch of JPEGs and their targets as it crosses to the device:
+    ``jpeg`` (packed bytes), ``offsets``, and the targets, numpy arrays
+    the host already moved with the planned flip and crop (detection:
+    ``boxes`` ``(B, MAX_BOXES, 4)`` and ``label`` ``(B, MAX_BOXES)``;
+    pose, ``data/pose.py``: ``kx``, ``ky`` and ``v``). A packed batch of
+    the device feed (``data/prefetch.py``): the feed runs :meth:`decode`
+    on its side stream."""
 
     wire_dtype = "jpeg"
 
-    def __init__(self, blobs, boxes: np.ndarray, labels: np.ndarray,
-                 plan: DetectionPlan):
+    def __init__(self, blobs, targets: dict, plan: DecodePlan):
         packed, offsets = pack(blobs)
-        super().__init__(jpeg=packed, offsets=offsets, boxes=boxes,
-                         label=labels)
+        super().__init__(jpeg=packed, offsets=offsets, **targets)
+        self.targets = tuple(targets)
         self.plan = plan
 
     @property
@@ -213,9 +213,8 @@ class PackedDetectionBatch(dict):
         return int(self["jpeg"].nbytes)
 
     def decode(self, device: torch.device) -> dict:
-        """Decode, flip, crop and resize as planned -> ``image``,
-        ``boxes`` and ``label`` (and ``mask`` when padded) on
-        ``device``."""
+        """Decode, flip, crop and resize as planned -> ``image`` and the
+        targets (and ``mask`` when padded) on ``device``."""
         device = torch.device(device)
         plan = self.plan
         s = plan.size
@@ -232,9 +231,8 @@ class PackedDetectionBatch(dict):
         x = _model_pixels(torch.stack(images) if images
                           else torch.zeros((0, s, s, 3), device=device),
                           plan.as_uint8)
-        batch = {"image": x,
-                 "boxes": torch.from_numpy(self["boxes"]).to(device),
-                 "label": torch.from_numpy(self["label"]).to(device)}
+        batch = {"image": x, **{k: torch.from_numpy(self[k]).to(device)
+                                for k in self.targets}}
         n = self.n_images
         if plan.pad_to is not None:
             pad = plan.pad_to - n
@@ -249,9 +247,9 @@ class PackedDetectionBatch(dict):
         return batch
 
 
-def _targets(parsed) -> tuple[np.ndarray, np.ndarray]:
+def _targets(parsed) -> dict:
     boxes, labels = zip(*(padded_targets(c, lbl) for c, lbl in parsed))
-    return np.stack(boxes), np.stack(labels)
+    return {"boxes": np.stack(boxes), "label": np.stack(labels)}
 
 
 def train_batches(files, batch_size: int, size: int, *, seed: int,
@@ -259,7 +257,7 @@ def train_batches(files, batch_size: int, size: int, *, seed: int,
                   rank: int = 0, world: int = 1,
                   shuffle_buffer: int = 1000):
     """Training batches of the ``train-*`` shards as
-    :class:`PackedDetectionBatch`: a flip (unless ``device_aug``) and the
+    :class:`PackedTargetBatch`: a flip (unless ``device_aug``) and the
     bbox-preserving crop, each with probability 1/2, drawn here; ``steps``
     full batches (None: forever)."""
     rng, records = shuffled_records(files, seed=seed, rank=rank,
@@ -282,8 +280,7 @@ def train_batches(files, batch_size: int, size: int, *, seed: int,
             parsed.append((corners, labels))
             flips.append(flip)
             windows.append(window)
-        boxes, labels = _targets(parsed)
-        yield PackedDetectionBatch(blobs, boxes, labels, DetectionPlan(
+        yield PackedTargetBatch(blobs, _targets(parsed), DecodePlan(
             size, flips=np.array(flips), windows=tuple(windows),
             as_uint8=device_aug))
 
@@ -303,8 +300,7 @@ def eval_batches(files, batch_size: int, size: int, *,
             blob, corners, labels = parse_detection_record(rec)
             blobs.append(blob)
             parsed.append((corners, labels))
-        boxes, labels = _targets(parsed)
-        yield PackedDetectionBatch(blobs, boxes, labels, DetectionPlan(
+        yield PackedTargetBatch(blobs, _targets(parsed), DecodePlan(
             size, as_uint8=as_uint8, pad_to=local if pad else None))
 
 

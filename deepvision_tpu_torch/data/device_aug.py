@@ -1,5 +1,5 @@
-"""Device-side augmentation inside the train step, the classification and
-detection families of ``deepvision_tpu/data/device_aug.py``.
+"""Device-side augmentation inside the train step, the classification,
+detection and pose families of ``deepvision_tpu/data/device_aug.py``.
 
 The host ships decode-stage uint8 images (``data/imagenet.py`` and
 ``data/detection.py`` with ``device_aug``) and every per-element op runs
@@ -30,8 +30,12 @@ given. The detection family moves the boxes with the pixels:
 :func:`flip_boxes` mirrors the centres of real rows, :func:`crop_boxes`
 renormalizes them to a crop window (dropping a box whose centre leaves
 it); the detection reader keeps its bbox-preserving crop on the host, so
-``--device-aug`` runs the flip alone there. The pose and GAN families
-wait for their models.
+``--device-aug`` runs the flip alone there. The pose family moves the
+keypoints: :func:`flip_keypoints` mirrors them and swaps the left and
+right joints by a permutation (:data:`MPII_FLIP_PERM` for the 16 MPII
+joints), :func:`crop_keypoints` renormalizes them to a crop window and
+hides a joint that leaves it; the pose reader keeps its person crop on
+the host. The GAN family waits for its models.
 """
 
 from __future__ import annotations
@@ -47,10 +51,17 @@ from deepvision_tpu_torch.ops.normalize import maybe_normalize
 
 __all__ = ["crop", "crop_params", "flip", "flip_params", "color_jitter",
            "jitter_params", "mixup", "mixup_params", "flip_boxes",
-           "crop_boxes", "DeviceAugment", "augment_step", "derive_seed"]
+           "crop_boxes", "flip_keypoints", "crop_keypoints",
+           "MPII_FLIP_PERM", "DeviceAugment", "augment_step",
+           "derive_seed"]
 
 # PIL / ITU-R 601 luma, as the JAX twins weigh it
 _LUMA = (0.299, 0.587, 0.114)
+
+# the MPII joint order: r-ankle..r-hip (0-2), l-hip..l-ankle (3-5),
+# pelvis, thorax, neck, head (6-9), r-wrist..r-shoulder (10-12),
+# l-shoulder..l-wrist (13-15); a horizontal flip swaps left and right
+MPII_FLIP_PERM = (5, 4, 3, 2, 1, 0, 6, 7, 8, 9, 15, 14, 13, 12, 11, 10)
 
 
 def derive_seed(seed: int, *path: int) -> int:
@@ -225,6 +236,47 @@ def crop_boxes(boxes: torch.Tensor, labels: torch.Tensor,
     return new, torch.where(valid, labels, torch.full_like(labels, -1))
 
 
+# ------------------------------------------------------- pose targets
+
+
+@functools.lru_cache(maxsize=None)
+def _perm_tensor(perm: tuple, device: torch.device) -> torch.Tensor:
+    """``perm`` on ``device``, made once a device: a host-to-device copy
+    of a pageable array waits for the host, and the step makes none."""
+    with torch.inference_mode(False):
+        return torch.tensor(perm, device=device)
+
+
+def flip_keypoints(kx: torch.Tensor, ky: torch.Tensor, v: torch.Tensor,
+                   flips: torch.Tensor, perm=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mirror the normalized keypoints of flipped samples (kx -> 1 - kx),
+    with ``perm`` (a joint permutation, or None) applied to kx, ky and v
+    together: a mirrored person's left wrist is the right-wrist
+    channel."""
+    if perm is not None:
+        idx = _perm_tensor(tuple(perm), kx.device)
+        kx_f, ky_f, v_f = kx[:, idx], ky[:, idx], v[:, idx]
+    else:
+        kx_f, ky_f, v_f = kx, ky, v
+    f = flips.to(kx.device)[:, None]
+    return (torch.where(f, 1.0 - kx_f, kx), torch.where(f, ky_f, ky),
+            torch.where(f, v_f, v))
+
+
+def crop_keypoints(kx: torch.Tensor, ky: torch.Tensor, v: torch.Tensor,
+                   tops: torch.Tensor, lefts: torch.Tensor, in_h: int,
+                   in_w: int, size: int
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Renormalize keypoints of an ``in_h`` x ``in_w`` canvas to each
+    sample's ``size``² crop window; a joint that leaves the window loses
+    its visibility (the heatmaps then skip it)."""
+    nkx = (kx * in_w - lefts.to(kx.device)[:, None]) / size
+    nky = (ky * in_h - tops.to(kx.device)[:, None]) / size
+    inside = (nkx >= 0.0) & (nkx <= 1.0) & (nky >= 0.0) & (nky <= 1.0)
+    return nkx, nky, torch.where(inside, v, torch.zeros_like(v))
+
+
 # ------------------------------------------------------- composition
 
 
@@ -234,26 +286,32 @@ class DeviceAugment:
     flips, jitters, mixes up (adding ``label_b`` and ``lam``, which
     ``steps.classification_train_step`` takes) and normalizes only when
     ``normalize`` is given. The ``"detection"`` family moves the batch's
-    ``boxes`` and ``label`` with the crop and the flip."""
+    ``boxes`` and ``label`` with the crop and the flip, the ``"pose"``
+    family its ``kx``, ``ky`` and ``v`` (``flip_pairs``: the joint
+    permutation of a flip, or None)."""
 
-    FAMILIES = ("classification", "detection")
+    FAMILIES = ("classification", "detection", "pose")
     # one stream a slot, fixed by the config: toggling an op never
     # re-deals another op's draws
     _SLOTS = ("crop", "flip", "jitter", "mixup")
 
     def __init__(self, family: str = "classification", *,
                  crop: int | None = None, flip: bool = True,
-                 jitter: float = 0.0, mixup: float = 0.0,
+                 flip_pairs=None, jitter: float = 0.0, mixup: float = 0.0,
                  normalize: str | None = None):
         if family not in self.FAMILIES:
             raise ValueError(
                 f"device augmentation family {family!r} is not ported; the "
-                "pose and GAN families come with their models")
+                "GAN family comes with its models")
         if mixup < 0:
             raise ValueError(f"mixup alpha must be >= 0, got {mixup}")
+        if mixup and family != "classification":
+            raise ValueError("mixup mixes labels pairwise: a "
+                             "classification-only augmentation")
         self.family = family
         self.crop = crop
         self.flip = flip
+        self.flip_pairs = flip_pairs
         self.jitter = float(jitter)
         self.mixup = float(mixup)
         self.normalize = normalize
@@ -286,12 +344,20 @@ class DeviceAugment:
                 batch["boxes"], batch["label"] = crop_boxes(
                     batch["boxes"], batch["label"], tops, lefts, in_h,
                     in_w, self.crop)
+            elif self.family == "pose":
+                batch["kx"], batch["ky"], batch["v"] = crop_keypoints(
+                    batch["kx"], batch["ky"], batch["v"], tops, lefts,
+                    in_h, in_w, self.crop)
         if self.flip:
             flips = flip_params(_generator(seeds["flip"], dev), b)
             images = flip(images, flips)
             if self.family == "detection":
                 batch["boxes"] = flip_boxes(batch["boxes"], batch["label"],
                                             flips)
+            elif self.family == "pose":
+                batch["kx"], batch["ky"], batch["v"] = flip_keypoints(
+                    batch["kx"], batch["ky"], batch["v"], flips,
+                    self.flip_pairs)
         if self.jitter:
             a = self.jitter
             images = color_jitter(images, *jitter_params(

@@ -1,11 +1,14 @@
 """Small synthetic record directories, in the reference builders'
-schemas, for drives and tests of the record readers (``data/imagenet.py``
-and, with ``--detection``, ``data/detection.py``).
+schemas, for drives and tests of the record readers (``data/imagenet.py``;
+with ``--detection``, ``data/detection.py``; with ``--pose``,
+``data/pose.py``).
 
     python -m deepvision_tpu_torch.data.synthetic_records DIR \\
         [--train 64] [--val 16] [--raw 64] [--classes 5] [--device cuda|cpu]
     python -m deepvision_tpu_torch.data.synthetic_records DIR --detection \\
         [--train 64] [--val 16] [--classes 20] [--device cuda|cpu]
+    python -m deepvision_tpu_torch.data.synthetic_records DIR --pose \\
+        [--train 64] [--val 16] [--device cuda|cpu]
 
 writes ``train-*`` and ``validation-*`` JPEG shards and, with ``--raw``,
 ``raw-train-*`` raw-frame shards of the full shorter-side-``stored``
@@ -17,7 +20,14 @@ reference builder writes them. ``--detection`` writes ``train-*`` and
 ``image/height``, ``image/width``, ``image/object/bbox/{xmin,ymin,xmax,
 ymax}``, ``image/object/class/label`` 1-based, ``image/object/count``):
 images of sides 300 to 500, each with 1-3 filled rectangles whose colour
-encodes the class, on a dim noisy field. It runs on the card
+encodes the class, on a dim noisy field. ``--pose`` writes ``train-*``
+and ``val-*`` shards in the pose builder's schema (``image/encoded``,
+``image/height``, ``image/width``, ``image/filename``,
+``image/person/center/{x,y}`` and ``image/person/scale``,
+``image/person/keypoints/{x,y}`` normalized to the image and
+``image/person/keypoints/v``, 16 joints, the absent ones at (0, 0) with
+v = 0): images of sides 300 to 500, one person a record whose visible
+joints are bright squares in the channel ``joint % 3``. It runs on the card
 (``--device cuda``, the default, which raises without one; JPEGs are
 encoded by nvJPEG), and on the CPU when asked (``--device cpu``; JPEGs
 are encoded by PIL).
@@ -44,7 +54,8 @@ from deepvision_tpu_torch.data.tfrecord import (
 from deepvision_tpu_torch.device import resolve_device
 
 __all__ = ["synthetic_image", "write_synthetic_imagenet",
-           "detection_image", "write_synthetic_detection", "main"]
+           "detection_image", "write_synthetic_detection", "pose_image",
+           "write_synthetic_pose", "main"]
 
 
 def synthetic_image(rng: np.random.Generator, h: int, w: int, label: int,
@@ -175,6 +186,67 @@ def write_synthetic_detection(out_dir, *, train: int = 64, val: int = 16,
     return {"train": train, "val": val}
 
 
+def pose_image(rng: np.random.Generator, h: int, w: int, joints: int,
+               device: torch.device):
+    """A uint8 (h, w, 3) image on ``device`` with one person: a body
+    height of 0.5 to 0.9 of the shorter side (scale = height / 200), its
+    joints spread over a box of half that width and that height around
+    the centre, 80% of them visible, each visible one a bright square in
+    channel ``joint % 3`` on a dim noisy field -> (image, centre (2,)
+    pixels, scale, kx, ky normalized to the image, v (joints,))."""
+    noise = rng.normal(40, 8, (h, w, 3)).astype(np.float32)
+    image = torch.from_numpy(noise).to(device)
+    body = rng.uniform(0.5, 0.9) * min(h, w)
+    cx = rng.uniform(0.3, 0.7) * w
+    cy = rng.uniform(0.3, 0.7) * h
+    px = np.clip(cx + rng.uniform(-0.25, 0.25, joints) * body, 0, w - 1)
+    py = np.clip(cy + rng.uniform(-0.5, 0.5, joints) * body, 0, h - 1)
+    v = (rng.uniform(size=joints) > 0.2).astype(np.int64)
+    r = max(min(h, w) // 64, 2)
+    for j in np.flatnonzero(v):
+        x, y = int(px[j]), int(py[j])
+        image[max(y - r, 0):y + r + 1, max(x - r, 0):x + r + 1, j % 3] = 255.0
+    image = image.round().clamp(0, 255).to(torch.uint8)
+    kx = np.where(v > 0, px / w, 0.0)
+    ky = np.where(v > 0, py / h, 0.0)
+    return image, np.array([cx, cy]), body / 200.0, kx, ky, v
+
+
+def write_synthetic_pose(out_dir, *, train: int = 64, val: int = 16,
+                         joints: int = 16, shards: int = 2,
+                         sizes=(300, 500), seed: int = 0,
+                         device: torch.device | str = "cuda") -> dict:
+    """Write ``train-*`` and ``val-*`` pose shards, the images made and
+    encoded on ``device`` (``"cuda"``, raising without a card, or
+    ``"cpu"``); returns the counts written."""
+    device = resolve_device(device)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    def records(split, n):
+        made = [pose_image(rng, h, w, joints, device)
+                for h, w in _sizes(rng, n, *sizes)]
+        blobs = encode_images([m[0] for m in made])
+        return [encode_example({
+            "image/encoded": [blob],
+            "image/height": [int(img.shape[0])],
+            "image/width": [int(img.shape[1])],
+            "image/filename": [f"{split}_{i:05d}.jpg".encode()],
+            "image/person/center/x": [float(centre[0]) / img.shape[1]],
+            "image/person/center/y": [float(centre[1]) / img.shape[0]],
+            "image/person/scale": [float(scale)],
+            "image/person/keypoints/x": FloatList(kx.tolist()),
+            "image/person/keypoints/y": FloatList(ky.tolist()),
+            "image/person/keypoints/v": Int64List(v.tolist())})
+            for i, (blob, (img, centre, scale, kx, ky, v))
+            in enumerate(zip(blobs, made))]
+
+    _shards(out, "train", records("train", train), shards)
+    _shards(out, "val", records("val", val), shards)
+    return {"train": train, "val": val}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m deepvision_tpu_torch.data.synthetic_records",
@@ -183,8 +255,11 @@ def main(argv=None) -> int:
     p.add_argument("--train", type=int, default=64)
     p.add_argument("--val", type=int, default=16)
     p.add_argument("--raw", type=int, default=0)
-    p.add_argument("--detection", action="store_true",
-                   help="write detection shards (train-*, val-*)")
+    kind = p.add_mutually_exclusive_group()
+    kind.add_argument("--detection", action="store_true",
+                      help="write detection shards (train-*, val-*)")
+    kind.add_argument("--pose", action="store_true",
+                      help="write pose shards (train-*, val-*)")
     p.add_argument("--classes", type=int, default=None,
                    help="classes (default 5; 20 with --detection)")
     p.add_argument("--shards", type=int, default=2)
@@ -192,9 +267,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    if args.detection:
-        if args.raw:
-            p.error("--raw writes ImageNet raw-crop shards, not detection")
+    if (args.detection or args.pose) and args.raw:
+        p.error("--raw writes ImageNet raw-crop shards, not detection or "
+                "pose")
+    if args.pose:
+        counts = write_synthetic_pose(
+            args.out_dir, train=args.train, val=args.val,
+            shards=args.shards, seed=args.seed, device=args.device)
+    elif args.detection:
         counts = write_synthetic_detection(
             args.out_dir, train=args.train, val=args.val,
             classes=args.classes or 20, shards=args.shards, seed=args.seed,

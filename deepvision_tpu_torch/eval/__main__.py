@@ -1,10 +1,14 @@
 """Offline evaluation CLI of the port, the twin of ``evaluate.py``'s
-``detection`` subcommand.
+``detection`` and ``pose`` subcommands.
 
-    python -m deepvision_tpu_torch.eval detection -m yolov3 \
+    python -m deepvision_tpu_torch.eval detection -m yolov3|centernet \
         --workdir runs/yolov3 --data-dir DIR [--split val] [--names voc] \
         [--num-classes N] [--size 416] [--batch-size 16] [--score 0.05] \
         [--iou 0.5] [--ap-method area|11point] [--epoch E]
+    python -m deepvision_tpu_torch.eval pose -m hourglass104 \
+        --workdir runs/hourglass104 --data-dir DIR [--split val] \
+        [--num-joints K] [--size 256] [--batch-size 16] [--threshold 0.5] \
+        [--norm 0.1] [--epoch E]
 
 Scores the newest verified checkpoint under ``--workdir`` (or
 ``--epoch``'s; seeded fresh weights without a workdir) on the
@@ -18,9 +22,17 @@ mAP. One JSON line goes to stdout: ``{"metric": "mAP", "iou", "value",
 ``nms_candidates_max`` is the most boxes of one image that cleared the
 score threshold and ``nms_exact`` says whether that stayed within the
 NMS candidate cap (else greedy NMS was cut short, and a warning goes to
-stderr). The last stderr line counts the kernel launches. It runs on the
-card (``--device cuda``, the default, which raises without one) and on
-the CPU when asked.
+stderr). ``-m centernet`` decodes the last stack's peaks
+(``ops/centernet_decode``, its 100 best, kept at ``--score`` or above)
+and has no NMS, so both fields are null. ``pose`` scores the last
+stack's heatmap argmax against the keypoints of the ``{split}-*`` pose
+shards (each person cropped at the validation margin) or, without a
+data directory, of the synthetic set (32 images, at most 128 px), with
+``--num-joints`` joints (16 by default): ``{"metric": "PCK@<threshold>",
+"norm", "value", "per_joint"}``, where a joint is correct within
+``threshold · norm`` of the crop. The last stderr line counts the kernel
+launches. It runs on the card (``--device cuda``, the default, which
+raises without one) and on the CPU when asked.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["main", "cmd_detection"]
+__all__ = ["main", "cmd_detection", "cmd_pose"]
 
 
 def cmd_detection(args) -> dict:
@@ -44,8 +56,8 @@ def cmd_detection(args) -> dict:
         synthetic_detection,
     )
     from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
-    from deepvision_tpu_torch.device import resolve_device, strict_fp32
     from deepvision_tpu_torch.eval.detection import class_names, evaluate_map
+    from deepvision_tpu_torch.ops.centernet_decode import decode_centernet
     from deepvision_tpu_torch.ops.iou import xywh_to_corners
     from deepvision_tpu_torch.ops.nms import NMS_CANDIDATE_CAP
     from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
@@ -53,9 +65,7 @@ def cmd_detection(args) -> dict:
     from deepvision_tpu_torch.ops.yolo_postprocess import yolo_postprocess
     from deepvision_tpu_torch.serve.models import load_served
 
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        strict_fp32()
+    device = _device(args)
     names = class_names(args.names)
     if args.num_classes:  # synthetic runs train with few classes
         names = (names[:args.num_classes] if args.num_classes <= len(names)
@@ -77,19 +87,29 @@ def cmd_detection(args) -> dict:
                          device=device, input_size=size,
                          num_classes=num_classes)
 
+    centernet = args.model == "centernet"
     dets, gts = [], []
-    candidates_max = 0
+    # the greedy NMS's exactness tripwire; CenterNet's peak decode has
+    # no candidate cap, so its fields stay null
+    candidates_max = None if centernet else 0
     feed = DevicePrefetcher(batches, device)
     try:
         for batch in feed:
             with torch.inference_mode():
                 preds = served.module(maybe_normalize(batch["image"],
                                                       "tanh"))
-                out = yolo_postprocess(preds, num_classes,
-                                       score_thresh=args.score)
-            b_boxes, b_scores, b_cls, b_valid, b_ncand = (
-                t.cpu().numpy() for t in out)
-            candidates_max = max(candidates_max, int(b_ncand.max()))
+                if centernet:
+                    d = decode_centernet(*preds[-1])
+                    out = (xywh_to_corners(d["boxes"]), d["scores"],
+                           d["classes"], d["scores"] >= args.score)
+                else:
+                    out = yolo_postprocess(preds, num_classes,
+                                           score_thresh=args.score)
+            b_boxes, b_scores, b_cls, b_valid = (
+                t.cpu().numpy() for t in out[:4])
+            if not centernet:
+                candidates_max = max(candidates_max,
+                                     int(out[4].cpu().numpy().max()))
             true_boxes = xywh_to_corners(batch["boxes"]).cpu().numpy()
             true_labels = batch["label"].cpu().numpy()
             for i in range(len(b_boxes)):
@@ -106,7 +126,7 @@ def cmd_detection(args) -> dict:
                        method=args.ap_method)
     per_class = {names[c]: round(float(out["ap"][c]), 4)
                  for c in range(num_classes) if np.isfinite(out["ap"][c])}
-    if candidates_max > NMS_CANDIDATE_CAP:
+    if candidates_max is not None and candidates_max > NMS_CANDIDATE_CAP:
         print(f"# WARNING: {candidates_max} candidates cleared the score "
               f"threshold (> candidate_cap={NMS_CANDIDATE_CAP}); greedy-NMS "
               "exactness degraded: raise the cap or the score threshold.",
@@ -114,11 +134,78 @@ def cmd_detection(args) -> dict:
     line = {"metric": "mAP", "iou": args.iou, "value": round(out["map"], 4),
             "images": len(dets), "per_class": per_class,
             "nms_candidates_max": candidates_max,
-            "nms_exact": candidates_max <= NMS_CANDIDATE_CAP}
+            "nms_exact": (None if candidates_max is None
+                          else candidates_max <= NMS_CANDIDATE_CAP)}
     print(json.dumps(line), flush=True)
     print(f"[eval] {args.model}: {len(dets)} images on {device}; kernel "
           f"launches {{'nms_sweep': {nms_sweep_cuda.launches}}}",
           file=sys.stderr, flush=True)
+    return line
+
+
+def _device(args):
+    from deepvision_tpu_torch.device import resolve_device, strict_fp32
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        strict_fp32()
+    return device
+
+
+def cmd_pose(args) -> dict:
+    import torch
+
+    from deepvision_tpu_torch.data.pose import (
+        eval_batches,
+        synthetic_pose,
+        synthetic_pose_batches,
+    )
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.eval.pose import heatmap_argmax_keypoints, pck
+    from deepvision_tpu_torch.ops.normalize import maybe_normalize
+    from deepvision_tpu_torch.serve.models import load_served
+
+    device = _device(args)
+    size = args.size
+    joints = args.num_joints or 16
+    if args.data_dir:
+        files = sorted(Path(args.data_dir).glob(f"{args.split}-*"))
+        if not files:
+            raise FileNotFoundError(
+                f"no {args.split}-* records under {args.data_dir}")
+        batches = eval_batches(files, args.batch_size, size, pad=False)
+    else:
+        size = min(size, 128)
+        imgs, kx, ky, v = synthetic_pose(32, size=size, num_joints=joints)
+        batches = synthetic_pose_batches(imgs, kx, ky, v, args.batch_size)
+    served = load_served(args.model, args.workdir, epoch=args.epoch,
+                         device=device, input_size=size,
+                         num_heatmaps=joints)
+    preds, trues, viss = [], [], []
+    feed = DevicePrefetcher(batches, device)
+    try:
+        for batch in feed:
+            with torch.inference_mode():
+                heat = served.module(maybe_normalize(batch["image"],
+                                                     "tanh"))[-1]
+            heat = heat.cpu().numpy()
+            preds.append(heatmap_argmax_keypoints(heat) / heat.shape[1])
+            trues.append(torch.stack([batch["kx"], batch["ky"]], dim=-1)
+                         .cpu().numpy())
+            viss.append(batch["v"].cpu().numpy())
+    finally:
+        feed.close()
+    pred, true, vis = (np.concatenate(a) for a in (preds, trues, viss))
+    out = pck(pred, true, vis, norm_length=np.full(len(pred), args.norm),
+              threshold=args.threshold)
+    line = {"metric": f"PCK@{args.threshold}", "norm": args.norm,
+            "value": round(out["pck"], 4),
+            "per_joint": [round(float(x), 4) if np.isfinite(x) else None
+                          for x in out["per_joint"]]}
+    print(json.dumps(line), flush=True)
+    # no kernel of the port's is on the pose path
+    print(f"[eval] {args.model}: {len(pred)} images on {device}; kernel "
+          "launches {}", file=sys.stderr, flush=True)
     return line
 
 
@@ -127,7 +214,8 @@ def main(argv=None) -> int:
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("detection", help="detection mAP")
-    sp.add_argument("-m", "--model", default="yolov3", choices=["yolov3"])
+    sp.add_argument("-m", "--model", default="yolov3",
+                    choices=["yolov3", "centernet"])
     sp.add_argument("--workdir", default=None)
     sp.add_argument("--data-dir", default=None)
     sp.add_argument("--split", default="val")
@@ -145,6 +233,25 @@ def main(argv=None) -> int:
     sp.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     sp.set_defaults(fn=cmd_detection)
+    sp = sub.add_parser("pose", help="pose PCK")
+    sp.add_argument("-m", "--model", default="hourglass104",
+                    choices=["hourglass104"])
+    sp.add_argument("--num-joints", type=int, default=None,
+                    help="the joint count (default 16; synthetic runs)")
+    sp.add_argument("--workdir", default=None)
+    sp.add_argument("--data-dir", default=None)
+    sp.add_argument("--split", default="val")
+    sp.add_argument("--size", type=int, default=256)
+    sp.add_argument("--batch-size", type=int, default=16)
+    sp.add_argument("--threshold", type=float, default=0.5)
+    sp.add_argument("--norm", type=float, default=0.1,
+                    help="the PCK reference length, a fraction of the "
+                         "crop")
+    sp.add_argument("--epoch", type=int, default=None,
+                    help="saved epoch to score (default: the newest)")
+    sp.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    sp.set_defaults(fn=cmd_pose)
     args = p.parse_args(argv)
     args.fn(args)
     return 0

@@ -1,6 +1,8 @@
 """Models of the port. Importing the package registers every model."""
 
 from deepvision_tpu_torch.models import alexnet  # noqa: F401  (registers)
+from deepvision_tpu_torch.models import centernet  # noqa: F401  (registers)
+from deepvision_tpu_torch.models import hourglass  # noqa: F401  (registers)
 from deepvision_tpu_torch.models import inception  # noqa: F401  (registers)
 from deepvision_tpu_torch.models import resnet  # noqa: F401  (registers)
 from deepvision_tpu_torch.models import yolo  # noqa: F401  (registers)

@@ -39,7 +39,8 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 __all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
-           "global_avg_pool", "same_padding", "make_conv", "conv_padding",
+           "global_avg_pool", "upsample2x", "same_padding", "make_conv",
+           "conv_padding", "same_conv",
            "lecun_normal_", "he_normal_", "MixedBatchNorm", "BatchNorm",
            "ConvBN", "init_weights", "REMAT_POLICIES", "CONV_OUT",
            "recomputing", "remat"]
@@ -138,6 +139,15 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2), dtype=torch.float32).to(x.dtype)
 
 
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x of an NHWC tensor: each value repeated over
+    a 2x2 block, which is what ``jax.image.resize(..., "nearest")`` gives
+    at exactly twice the size."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
+        b, 2 * h, 2 * w, c)
+
+
 def same_padding(in_hw: Sequence[int], window: Sequence[int],
                  strides: Sequence[int]) -> list[tuple[int, int]]:
     """XLA's ``"SAME"`` pads ``[(top, bottom), (left, right)]`` of a
@@ -180,6 +190,16 @@ def conv_padding(x: torch.Tensor, conv: nn.Conv2d,
     if padding == "SAME":
         return same_padding(x.shape[1:3], conv.kernel_size, conv.stride)
     return padding
+
+
+def same_conv(x: torch.Tensor, conv: nn.Conv2d,
+              dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax's ``nn.Conv(..., padding="SAME", dtype=dtype)`` over NHWC
+    ``x`` for ``conv`` built by :func:`make_conv` with ``"SAME"``: ``x``
+    cast to ``dtype`` (flax casts its input), XLA's SAME pads, the
+    weights cast at use; float32 throughout without a ``dtype``."""
+    x = x.to(dtype or torch.float32)
+    return conv2d(x, conv, conv_padding(x, conv, "SAME"), dtype)
 
 
 # stddev of a standard normal truncated to (-2, 2), which flax's
@@ -343,7 +363,9 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     them: each Conv2d and Linear by the ``kernel_init`` of its nearest
     enclosing module that declares one (the AlexNets and Inception V1
     keep flax's default, :func:`lecun_normal_`; :class:`ConvBN` declares
-    :func:`he_normal_`), zero biases, and every BatchNorm (either kind)
+    :func:`he_normal_`; a layer may declare its own), biases at the
+    layer's ``bias_init`` (0 where it declares none), and every
+    BatchNorm (either kind)
     at scale 1, bias 0, mean 0 and var 1. Modules are visited in
     registration order. Works on a module whose storage is
     uninitialised (``to_empty``)."""
@@ -351,7 +373,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     if isinstance(module, (nn.Conv2d, nn.Linear)):
         kernel_init(module.weight, generator)
         if module.bias is not None:
-            module.bias.zero_()
+            module.bias.fill_(getattr(module, "bias_init", 0.0))
     elif isinstance(module, _BatchNorm):
         module.reset_parameters()
     for child in module.children():
@@ -388,7 +410,7 @@ def recomputing():
 # ``"conv"`` policy saves.
 CONV_OUT = torch.ops.aten.convolution.default
 
-REMAT_POLICIES = ("block", "conv")
+REMAT_POLICIES = ("block", "conv", "stack")
 
 
 def _save_conv_out(ctx, op, *args, **kwargs):
@@ -408,7 +430,7 @@ def _contexts(policy: str):
     """``checkpoint``'s ``context_fn`` for ``policy``: (the forward's
     context, the recompute's), the recompute's with :func:`recomputing`
     inside."""
-    if policy == "block":
+    if policy in ("block", "stack"):
         return contextlib.nullcontext(), recomputing()
     forward, recompute = torch_checkpoint.create_selective_checkpoint_contexts(
         _save_conv_out)
@@ -417,7 +439,8 @@ def _contexts(policy: str):
 
 def remat(fn, *args, policy: str):
     """``fn(*args)`` rematerialized, flax's ``nn.remat`` of the JAX
-    ResNet: ``"block"`` saves nothing inside ``fn`` and recomputes it in
+    ResNet and Hourglass: ``"block"`` (a ResNet block) and ``"stack"``
+    (an hourglass module) save nothing inside ``fn`` and recompute it in
     the backward; ``"conv"`` saves only the convolutions' outputs
     (:data:`CONV_OUT`) and recomputes the BatchNorms and ReLUs. BatchNorm
     updates its running statistics once, in the forward. No RNG state is

@@ -56,6 +56,9 @@ __all__ = ["S2DStem", "BasicBlock", "BottleneckBlock", "ResNet",
            "PreActBottleneck", "ResNetV2"]
 
 _PAD1 = [(1, 1), (1, 1)]
+# the JAX ResNet's remat policies (layers.REMAT_POLICIES' "stack" is the
+# hourglass's)
+RESNET_REMAT = ("block", "conv")
 
 
 class S2DStem(nn.Module):
@@ -145,9 +148,9 @@ class ResNet(nn.Module):
                  input_size: int | None = None):
         super().__init__()
         del input_size  # any size: the head pools globally
-        if remat is not None and remat not in layers.REMAT_POLICIES:
+        if remat is not None and remat not in RESNET_REMAT:
             raise ValueError(f"unknown remat {remat!r} for ResNet; None or "
-                             f"one of {layers.REMAT_POLICIES}")
+                             f"one of {RESNET_REMAT}")
         self.remat = remat
         self.dtype = dtype
         if s2d_stem:

@@ -35,11 +35,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepvision_tpu_torch.models import layers
-from deepvision_tpu_torch.models.layers import ConvBN
+from deepvision_tpu_torch.models.layers import ConvBN, upsample2x
 from deepvision_tpu_torch.models.registry import register
 
 __all__ = ["leaky", "DarknetBlock", "Darknet53", "DarknetClassifier",
-           "HeadBlock", "YoloV3", "upsample2x"]
+           "HeadBlock", "YoloV3"]
 
 STAGE_BLOCKS = (1, 2, 8, 8, 4)
 
@@ -142,13 +142,6 @@ class HeadBlock(nn.Module):
         branch = x
         x = self.conv3x3_2(x, train)
         return branch, layers.conv2d(x.float(), self.out)
-
-
-def upsample2x(x: torch.Tensor) -> torch.Tensor:
-    """Nearest-neighbour 2x of an NHWC tensor."""
-    b, h, w, c = x.shape
-    return x[:, :, None, :, None, :].expand(b, h, 2, w, 2, c).reshape(
-        b, 2 * h, 2 * w, c)
 
 
 class YoloV3(nn.Module):

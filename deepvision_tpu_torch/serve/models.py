@@ -4,11 +4,17 @@ The twin of ``deepvision_tpu/serve/models.py`` for the classify task
 (the AlexNets, Inception V1 in both variants, ``resnet34``,
 ``resnet50``, ``resnet152``, ``resnet50v2`` and ``darknet53``; a model
 with aux heads returns only its main logits in eval, as the JAX forward
-keeps only them) and the detect task of ``yolov3``: its raw grids go
-through ``ops/yolo_postprocess`` (decode, then batched greedy NMS with
+keeps only them), the detect task of ``yolov3`` and ``centernet``, and
+the pose task of ``hourglass104``. ``yolov3``'s raw grids go through
+``ops/yolo_postprocess`` (decode, then batched greedy NMS with
 ``score_thresh`` and ``iou_thresh``, the sweep on the CUDA kernel for a
-batch on the card), and each answer keeps the valid rows as normalized
-corner boxes ``(x1, y1, x2, y2)`` with their scores and classes. A model
+batch on the card); ``centernet``'s last stack goes through the peak
+decode (``ops/centernet_decode``, its 100 best peaks, valid above
+``score_thresh``). Each detect answer keeps the valid rows as
+normalized corner boxes ``(x1, y1, x2, y2)`` with their scores and
+classes. A pose answer is each joint's ``(x, y, conf)`` from the last
+stack's heatmaps (``ops/heatmap.decode_heatmaps``), x and y normalized.
+A model
 is built without its training config's ``model_kwargs``, as the JAX
 ``load_served`` builds it: a checkpoint trained under ``resnet50``'s
 ``s2d_stem`` has the same state dict and serves on the plain stem, whose
@@ -40,7 +46,7 @@ from deepvision_tpu_torch.train.configs import get_config
 __all__ = ["ServedModel", "load_served", "task_for"]
 
 # the served task of each model that is not a classifier
-_TASKS = {"yolov3": "detect"}
+_TASKS = {"yolov3": "detect", "centernet": "detect", "hourglass104": "pose"}
 
 
 def task_for(name: str) -> str:
@@ -116,6 +122,38 @@ def _yolo_forward(module: nn.Module, num_classes: int, score_thresh: float,
     return forward
 
 
+def _centernet_forward(module: nn.Module, score_thresh: float,
+                       top_k: int = 100):
+    from deepvision_tpu_torch.ops.centernet_decode import decode_centernet
+    from deepvision_tpu_torch.ops.iou import xywh_to_corners
+
+    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
+        heat, wh, off = module(x)[-1]
+        det = decode_centernet(heat, wh, off, top_k=top_k)
+        # the detect head's corner-box contract, as YOLO's
+        return {"boxes": xywh_to_corners(det["boxes"]),
+                "scores": det["scores"], "classes": det["classes"],
+                "valid": det["scores"] > score_thresh}
+
+    return forward
+
+
+def _pose_forward(module: nn.Module):
+    from deepvision_tpu_torch.ops.heatmap import decode_heatmaps
+
+    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
+        kx, ky, conf = decode_heatmaps(module(x)[-1])  # the last stack
+        return {"x": kx, "y": ky, "conf": conf}
+
+    return forward
+
+
+def _pose_post(host: dict, i: int) -> dict:
+    return {"joints": np.stack(
+        [np.asarray(host["x"][i]), np.asarray(host["y"][i]),
+         np.asarray(host["conf"][i])], axis=-1).tolist()}
+
+
 def _detect_post(host: dict, i: int) -> dict:
     keep = np.asarray(host["valid"][i]).astype(bool)
     return {"boxes": np.asarray(host["boxes"][i])[keep].tolist(),
@@ -129,12 +167,14 @@ def load_served(name: str, workdir: str | None = None, *,
                 device: str | torch.device | None = None,
                 input_size: int | None = None,
                 num_classes: int | None = None,
+                num_heatmaps: int | None = None,
                 top_k: int = 5, score_thresh: float = 0.5,
                 iou_thresh: float = 0.5) -> ServedModel:
     """Registry model ``name`` as a :class:`ServedModel` on ``device``
     (default ``"cuda"``, which raises without a card), for its task
     (:func:`task_for`): classify answers the ``top_k`` classes, detect
-    the boxes that ``score_thresh`` and ``iou_thresh`` keep.
+    the boxes that ``score_thresh`` (and for ``yolov3`` ``iou_thresh``)
+    keep, pose the ``num_heatmaps`` joints.
 
     Weights, in this order: the newest verified port checkpoint (or
     ``epoch``'s, which must verify) under
@@ -152,11 +192,16 @@ def load_served(name: str, workdir: str | None = None, *,
     if workdir is not None:
         restored, saved = CheckpointManager(
             Path(workdir) / "ckpt").restore_model(epoch, device=dev)
-        cfg.update({k: saved[k] for k in ("input_size", "num_classes")
+        cfg.update({k: saved[k] for k in ("input_size", "num_classes",
+                                          "num_heatmaps")
                     if saved.get(k) is not None})
     size = input_size if input_size is not None else cfg["input_size"]
     classes = num_classes if num_classes is not None else cfg["num_classes"]
     model_kw = {"num_classes": classes, "input_size": size}
+    task = task_for(name)
+    if task == "pose":
+        model_kw["num_heatmaps"] = (num_heatmaps if num_heatmaps is not None
+                                    else cfg["num_heatmaps"])
     module = create_model(name, device=dev, seed=seed, **model_kw)
     if restored is not None:
         module.load_state_dict(restored)
@@ -164,10 +209,13 @@ def load_served(name: str, workdir: str | None = None, *,
         module.load_state_dict(flax_to_torch(name, variables, **model_kw))
     module.eval()
     module.requires_grad_(False)
-    task = task_for(name)
-    if task == "detect":
+    if task == "detect" and name == "centernet":
+        forward, post = _centernet_forward(module, score_thresh), _detect_post
+    elif task == "detect":
         forward = _yolo_forward(module, classes, score_thresh, iou_thresh)
         post = _detect_post
+    elif task == "pose":
+        forward, post = _pose_forward(module), _pose_post
     else:
         forward, post = _classify_forward(module, top_k), _classify_post
     return ServedModel(

@@ -1,11 +1,15 @@
 """Training CLI of the port, the twin of ``train.py`` for the AlexNets,
-Inception V1, the ResNets, Darknet-53 and YOLO v3.
+Inception V1, the ResNets, Darknet-53, YOLO v3, CenterNet and
+Hourglass-104.
 
     python -m deepvision_tpu_torch.train -m alexnet1 [--resume] [--epochs N]
     python -m deepvision_tpu_torch.train -m resnet50 --data-dir DIR \
         [--raw|--no-raw] [--device-aug [--mixup ALPHA]] [--steps-per-epoch N]
     python -m deepvision_tpu_torch.train -m yolov3 [--data-dir DIR \
         [--device-aug] [--steps-per-epoch N]]
+    python -m deepvision_tpu_torch.train -m centernet [--data-dir DIR ...]
+    python -m deepvision_tpu_torch.train -m hourglass104 [--data-dir DIR \
+        [--device-aug]] [--num-joints K]
 
 ``--data-dir`` reads ImageNet TFRecords (``data/imagenet.py``): the
 raw-crop shards when usable (``--raw`` demands them, ``--no-raw``
@@ -18,14 +22,23 @@ augmented. A detection config (``yolov3``) reads detection TFRecords
 the card, ``--steps-per-epoch`` defaulting to ``2501 // batch``, VOC
 2007's trainval over the batch); ``--device-aug`` moves its flip, with
 the boxes, into the step, and its steps encode the label grids and take
-the YOLO loss (``train/steps.yolo_train_step``). Without a data
-directory the run trains on the hermetic synthetic sets
-(``data/synthetic.py``; ``data/detection.synthetic_detection``, at most
-128 px, flip-augmented), as ``train.py`` does without ``--data-dir``. It
+the YOLO loss (``train/steps.yolo_train_step``); ``centernet``'s config
+(``"steps": "centernet"``) takes the CenterNet steps over the same data.
+A pose config (``hourglass104``) reads pose TFRecords (``data/pose.py``:
+``train-*`` and ``val-*``, each person cropped on the card,
+``--steps-per-epoch`` defaulting to ``22245 // batch``, MPII's training
+people over the batch); ``--device-aug`` flips images and keypoints in
+the step, swapping the MPII left and right joints when there are 16;
+``--num-joints`` overrides the joint count. Without a data directory
+the run trains on the hermetic synthetic sets (``data/synthetic.py``;
+``data/detection.synthetic_detection``, at most 128 px, flip-augmented;
+``data/pose.synthetic_pose``, at most 128 px), as ``train.py`` does
+without ``--data-dir``. It
 runs on the card (``--device cuda``, the default, which raises without
 one); ``--device cpu`` runs on the CPU when asked. The model is built
 with the config's ``model_kwargs`` (``resnet50``'s ``s2d_stem``,
-``resnet152``'s ``remat``), as ``train.py`` builds it. The flags are
+``resnet152``'s and ``hourglass104``'s ``remat``), as ``train.py``
+builds it. The flags are
 ``train.py``'s names for what this slice serves, refused where
 ``train.py`` refuses them; the others are not ported and are absent, so
 that no flag is silently ignored.
@@ -64,14 +77,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="override the config's base learning rate")
     p.add_argument("--input-size", type=int, default=None,
                    help="override the config's train-time crop size")
+    p.add_argument("--num-joints", type=int, default=None,
+                   help="override the pose configs' joint count")
     p.add_argument("--precision", default=None, choices=PRECISION_NAMES,
                    help="numerics policy (core/precision.py); default: "
                         "the model config's")
     p.add_argument("--data-dir", default=None,
                    help="TFRecord directory: ImageNet (train-*/"
                         "validation-*, raw-train-* + raw-train.meta.json) "
-                        "or detection (train-*/val-*); default: the "
-                        "synthetic set")
+                        "or detection and pose (train-*/val-*); default: "
+                        "the synthetic set")
     p.add_argument("--raw", dest="use_raw", action="store_true",
                    default=None,
                    help="demand the raw-crop shards (raw-train-*) of "
@@ -104,7 +119,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def check_data_flags(args, cfg: dict) -> None:
     """``train.py``'s refusals of the data flags, with their meaning:
     ``--raw`` needs a ``--data-dir`` ImageNet config, ``--device-aug`` a
-    ``--data-dir`` ImageNet or detection config, and ``--mixup`` also
+    ``--data-dir`` ImageNet, detection or pose config, and ``--mixup`` also
     ``--device-aug`` on ImageNet and a non-negative alpha."""
     imagenet = bool(args.data_dir) and cfg["dataset"] == "imagenet"
     if args.use_raw is not None and not imagenet:
@@ -113,10 +128,10 @@ def check_data_flags(args, cfg: dict) -> None:
             f"(this run: dataset={cfg['dataset']!r}, "
             f"data_dir={args.data_dir!r})")
     if args.device_aug and not (args.data_dir and cfg["dataset"] in
-                                ("imagenet", "detection")):
+                                ("imagenet", "detection", "pose")):
         raise SystemExit(
             "--device-aug splits a record-backed host pipeline: "
-            "--data-dir ImageNet and detection configs only "
+            "--data-dir ImageNet, detection and pose configs only "
             f"(this run: dataset={cfg['dataset']!r}, "
             f"data_dir={args.data_dir!r})")
     if args.mixup and not (args.device_aug and imagenet):
@@ -135,6 +150,7 @@ def main(argv=None) -> int:
 
     from deepvision_tpu_torch.core.precision import get_policy
     from deepvision_tpu_torch.data.device_aug import (
+        MPII_FLIP_PERM,
         DeviceAugment,
         augment_step,
     )
@@ -149,6 +165,11 @@ def main(argv=None) -> int:
     )
     from deepvision_tpu_torch.data.jpeg import ycc_launches
     from deepvision_tpu_torch.data.mnist import batches
+    from deepvision_tpu_torch.data.pose import (
+        make_pose_data,
+        synthetic_pose,
+        synthetic_pose_batches,
+    )
     from deepvision_tpu_torch.data.synthetic import synthetic_classification
     from deepvision_tpu_torch.device import resolve_device, strict_fp32
     from deepvision_tpu_torch.models import create_model
@@ -159,8 +180,12 @@ def main(argv=None) -> int:
     from deepvision_tpu_torch.train.configs import get_config
     from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
     from deepvision_tpu_torch.train.steps import (
+        centernet_eval_step,
+        centernet_train_step,
         classification_eval_step,
         classification_train_step,
+        pose_eval_step,
+        pose_train_step,
         yolo_eval_step,
         yolo_train_step,
     )
@@ -173,6 +198,8 @@ def main(argv=None) -> int:
         cfg["num_classes"] = args.num_classes
     if args.lr:
         cfg["optimizer_params"]["lr"] = args.lr
+    if args.num_joints and "num_heatmaps" in cfg:
+        cfg["num_heatmaps"] = args.num_joints
     if args.input_size:
         cfg["input_size"] = args.input_size
     policy = get_policy(args.precision or cfg["precision"])
@@ -184,7 +211,30 @@ def main(argv=None) -> int:
 
     bs, size = cfg["batch_size"], cfg["input_size"]
     detection = cfg["dataset"] == "detection"
-    if detection and args.data_dir:
+    pose = cfg["dataset"] == "pose"
+    if pose and args.data_dir:
+        train_data, val_data, steps = make_pose_data(
+            args.data_dir, bs, size,
+            steps_per_epoch=args.steps_per_epoch or 22245 // bs,
+            device_aug=args.device_aug)
+    elif pose:
+        n = args.synthetic_size
+        size = cfg["input_size"] = min(size, 128)
+        imgs, kx, ky, v = synthetic_pose(n, size=size,
+                                         num_joints=cfg["num_heatmaps"])
+        split = max(bs, int(n * 0.1))
+        steps = args.steps_per_epoch or (n - split) // bs
+
+        def train_data(epoch):
+            return islice(synthetic_pose_batches(
+                imgs[split:], kx[split:], ky[split:], v[split:], bs,
+                rng=np.random.default_rng(epoch)), steps)
+
+        def val_data():
+            return synthetic_pose_batches(imgs[:split], kx[:split],
+                                          ky[:split], v[:split], bs,
+                                          drop_remainder=False)
+    elif detection and args.data_dir:
         train_data, val_data, steps = make_detection_data(
             args.data_dir, bs, size,
             steps_per_epoch=args.steps_per_epoch or 2501 // bs,
@@ -226,20 +276,32 @@ def main(argv=None) -> int:
                            drop_remainder=False)
 
     kind = "torch" if cfg.get("augment") == "pt" else "imagenet"
-    if detection:
+    if pose:
+        train_step, eval_step = pose_train_step, pose_eval_step
+    elif detection and cfg.get("steps") == "centernet":
+        train_step, eval_step = centernet_train_step, centernet_eval_step
+    elif detection:
         train_step, eval_step = yolo_train_step, yolo_eval_step
     else:
         train_step = partial(classification_train_step, normalize_kind=kind)
         eval_step = partial(classification_eval_step, normalize_kind=kind)
-    if args.device_aug:
+    if args.device_aug and pose:
+        # the left/right swap is the MPII joint order's; a reduced joint
+        # count has no left and right to swap
+        aug = DeviceAugment("pose", flip=True, flip_pairs=(
+            MPII_FLIP_PERM if cfg["num_heatmaps"] == 16 else None))
+    elif args.device_aug:
         aug = (DeviceAugment("detection", flip=True) if detection
                else DeviceAugment(
                    "classification", flip=True,
                    jitter=PT_JITTER if cfg.get("augment") == "pt" else 0.0,
                    mixup=args.mixup))
+    if args.device_aug:
         train_step = augment_step(train_step, aug)
         print(f"[device-aug] {aug} fused into the train step", flush=True)
-    model_kwargs = cfg.get("model_kwargs", {})
+    model_kwargs = dict(cfg.get("model_kwargs", {}))
+    if pose:
+        model_kwargs["num_heatmaps"] = cfg["num_heatmaps"]
     module = create_model(args.model, device=device, seed=0,
                           num_classes=cfg["num_classes"], input_size=size,
                           dtype=policy.compute_dtype, **model_kwargs)
@@ -247,7 +309,9 @@ def main(argv=None) -> int:
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else "")
           + f"  model: {args.model} {size}x{size}x{cfg['channels']} -> "
-          f"{cfg['num_classes']} classes, batch {bs}, {steps} steps an "
+          + (f"{cfg['num_heatmaps']} joints" if pose
+             else f"{cfg['num_classes']} classes")
+          + f", batch {bs}, {steps} steps an "
           f"epoch, precision {policy.name}, model_kwargs {model_kwargs}",
           flush=True)
     trainer = Trainer(

@@ -7,7 +7,8 @@ place of Orbax. Epoch ``e`` lives in ``{directory}/{e}/``:
   buffers, step, loss scale; ``TrainState.state_dict``);
 - ``meta.json``: the epoch, the metric history, the best metric, the
   model's name and geometry (``model``: ``name``, ``input_size``,
-  ``num_classes``) and the ``extra`` dict (the plateau controller's
+  ``num_classes``, and a pose model's ``num_heatmaps``) and the
+  ``extra`` dict (the plateau controller's
   state).
 
 A save writes a temporary directory and renames it into place with
@@ -36,8 +37,15 @@ __all__ = ["CheckpointManager"]
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
-# the config keys a checkpoint keeps to rebuild its model
+# the config keys a checkpoint keeps to rebuild its model, and a pose
+# model's joint count where its config has one
 MODEL_KEYS = ("name", "input_size", "num_classes")
+POSE_KEYS = ("num_heatmaps",)
+
+
+def _model_meta(config: dict) -> dict:
+    return {**{k: config.get(k) for k in MODEL_KEYS},
+            **{k: config[k] for k in POSE_KEYS if k in config}}
 
 
 def _load_state_file(path: Path, device: torch.device | str) -> dict:
@@ -55,7 +63,8 @@ class CheckpointManager:
              best_metric: float | None = None,
              config: dict | None = None) -> Path:
         """Save ``state`` as epoch ``epoch``; ``config`` gives the model's
-        name and geometry (``MODEL_KEYS``)."""
+        name and geometry (``MODEL_KEYS``, and ``POSE_KEYS`` where it
+        has them)."""
         self.directory.mkdir(parents=True, exist_ok=True)
         final = manifest.step_dir(self.directory, epoch)
         tmp = self.directory / f".{epoch}.tmp.{os.getpid()}"
@@ -65,7 +74,7 @@ class CheckpointManager:
         meta = {"epoch": int(epoch),
                 "loggers": loggers.to_json() if loggers else None,
                 "best_metric": best_metric,
-                "model": {k: (config or {}).get(k) for k in MODEL_KEYS},
+                "model": _model_meta(config or {}),
                 "extra": extra or {}}
         (tmp / META_FILE).write_text(json.dumps(meta))
         if final.exists():  # a re-save of the same epoch replaces it

@@ -1,5 +1,5 @@
-"""The port's copy of the AlexNet, Inception V1, ResNet, Darknet-53 and
-YOLO v3 entries of ``train/configs.py``.
+"""The port's copy of the AlexNet, Inception V1, ResNet, Darknet-53, YOLO
+v3, CenterNet and Hourglass-104 entries of ``train/configs.py``.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
 0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
@@ -19,7 +19,12 @@ fields and ``remat: "block"``; as in the JAX ``get_config``, an entry's
 pretraining (SGD 0.1 / 0.9 / 5e-4, a step schedule of 30 epochs at
 0.1, bf16, batch 128, 256 px) and ``yolov3`` the detector's (Adam 0.01,
 plateau on the negated validation loss with patience 10, bf16, batch
-16, 416 px, 20 VOC classes, ``"dataset": "detection"``).
+16, 416 px, 20 VOC classes, ``"dataset": "detection"``),
+``centernet`` its (Adam 1e-3, the same plateau, bf16, batch 16, 256
+px, 80 COCO classes, ``"steps": "centernet"``, which picks the
+CenterNet steps over the detection data) and ``hourglass104`` the pose
+entry (Adam 1e-4, the same plateau, ``bf16_scaled``, ``remat:
+"stack"``, batch 16, 256 px, 16 MPII joints, ``"dataset": "pose"``).
 ``alexnet2_tf`` has no entry in the JAX table
 and stays serving-only here (its pixel convention is ``"tf"``):
 :data:`TRAINABLE` lists the models that train.
@@ -112,6 +117,35 @@ TRAINING_CONFIG: dict[str, dict] = {
         "scheduler": "plateau",
         "scheduler_params": {"factor": 0.1, "mode": "max", "patience": 10},
         "total_epochs": 300,
+    },
+    # ref: deepvision_tpu/train/configs.py "centernet"
+    "centernet": {
+        "precision": "bf16",
+        "batch_size": 16,
+        "input_size": 256,
+        "num_classes": 80,
+        "dataset": "detection",
+        "steps": "centernet",
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 1e-3},
+        "scheduler": "plateau",
+        "scheduler_params": {"factor": 0.1, "mode": "max", "patience": 10},
+        "total_epochs": 100,
+    },
+    # ref: deepvision_tpu/train/configs.py "hourglass104": loss scaling
+    # over bf16, the float32 carrier in the model, and per-stack remat
+    "hourglass104": {
+        "batch_size": 16,
+        "input_size": 256,
+        "num_heatmaps": 16,
+        "dataset": "pose",
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 1e-4},
+        "precision": "bf16_scaled",
+        "remat": "stack",
+        "scheduler": "plateau",
+        "scheduler_params": {"factor": 0.1, "mode": "max", "patience": 10},
+        "total_epochs": 100,
     },
 }
 

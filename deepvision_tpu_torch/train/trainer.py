@@ -139,7 +139,9 @@ class Trainer:
 
         def counted():
             for batch in self.train_data(epoch):
-                counts.append(len(batch["label"]))
+                # a packed batch's image count, else its rows
+                counts.append(getattr(batch, "n_images", None)
+                              or len(batch["image"]))
                 yield batch
 
         tel = FeedTelemetry()

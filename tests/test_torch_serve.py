@@ -218,17 +218,23 @@ DETECTION_MODULES = (
     "ops/nms_cuda.py", "ops/yolo_postprocess.py", "losses/yolo.py",
     "models/yolo.py", "data/detection.py", "eval/__init__.py",
     "eval/detection.py", "eval/__main__.py")
+# the CenterNet and pose slice's modules, likewise
+HOURGLASS_MODULES = (
+    "ops/centernet_encode.py", "ops/centernet_decode.py", "ops/heatmap.py",
+    "losses/centernet.py", "losses/pose.py", "models/centernet.py",
+    "models/hourglass.py", "data/pose.py", "eval/pose.py")
 
 
 def test_the_scans_reach_every_module_and_native_binding():
-    """Both scans walk every ``.py`` under the package (the detection
-    modules among them), and every native source under ``csrc/`` is
+    """Both scans walk every ``.py`` under the package (the detection,
+    CenterNet and pose modules among them), and every native source
+    under ``csrc/`` is
     loaded by a scanned module's ``load_library`` call, so its binding
     is scanned too."""
     package = REPO / "deepvision_tpu_torch"
     scanned = {p.relative_to(package).as_posix() for p in _port_files()
                if package in p.parents}
-    assert set(DETECTION_MODULES) <= scanned
+    assert set(DETECTION_MODULES) | set(HOURGLASS_MODULES) <= scanned
     loaded = set()
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -239,6 +245,17 @@ def test_the_scans_reach_every_module_and_native_binding():
     sources = {p.stem for p in (package / "csrc").iterdir()
                if p.suffix in (".cu", ".cpp")}
     assert "nms" in sources and sources <= loaded, sources - loaded
+
+
+@pytest.mark.parametrize("name,task", [
+    ("alexnet1", "classify"), ("resnet50", "classify"), ("yolov3", "detect"),
+    ("centernet", "detect"), ("hourglass104", "pose")])
+def test_served_task_table(name, task):
+    """Each model serves the JAX package's task for it."""
+    from deepvision_tpu.serve.models import task_for as jax_task_for
+    from deepvision_tpu_torch.serve.models import task_for
+
+    assert task_for(name) == jax_task_for(name) == task
 
 
 def test_no_quiet_cpu_run_without_a_card(monkeypatch):
