@@ -14,10 +14,12 @@ ImageNet TFRecords over the uint8 wire (raw-crop and JPEG shards, the
 JPEGs decoded on the card) with the augmentation in the step,
 ``resnet152`` under its block rematerialization, YOLO v3 (``yolov3``
 on Darknet-53) served, trained from detection TFRecords, evaluated and
-post-processed by the NMS sweep kernel, and the hourglass models,
+post-processed by the NMS sweep kernel, the hourglass models,
 CenterNet (``centernet``) and Hourglass-104 pose (``hourglass104``),
-served, trained from records and evaluated; it holds every kernel on
-them against its plain version.
+served, trained from records and evaluated, and the GANs, DCGAN
+(``dcgan``, its generator served) and CycleGAN (``cyclegan``, trained
+from unpaired records), trained, served and scored; it holds every
+kernel on them against its plain version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
@@ -85,8 +87,8 @@ the seconds it took:
    ``inception1`` and ``resnet50``, whose running statistics must have
    moved and come back bit for bit from a restore, with the LR
    schedule's update count; the four models' CLIs run at once, after 11;
-10. training throughput at the config's batch in bf16 over 8 timed
-   steps (24 for the ResNets) after warm-up, through the device feed
+10. training throughput at the config's batch in bf16 over 4 timed
+   steps (12 for ``resnet50``) after warm-up, through the device feed
    and on a
    device-resident batch, with the peak of allocated memory and the
    model FLOP utilization (convolution and matmul FLOPs from their
@@ -151,10 +153,10 @@ the seconds it took:
    faults; then detection records written on the card (256 train, 64
    val, nvJPEG), the fed and device-resident step at 416 and batch 16 in
    bf16 (images/s, MFU, peak memory, idle), and the training CLI
-   (``--data-dir --device-aug``, 2 epochs, ``--resume`` to 3), the
+   (``--data-dir --device-aug``, 1 epoch, ``--resume`` to 2), the
    serving CLI and the ``eval detection`` CLI from its checkpoint, whose
-   mAP line is printed and not gated. No YOLO path launches an LRN
-   kernel.
+   mAP line is printed and not gated (these CLIs run in phase 18). No
+   YOLO path launches an LRN kernel.
 16. CenterNet and Hourglass-104 (``phase_centernet``, ``phase_pose``,
    after 15), neither of which launches an LRN or NMS kernel: each
    served at 256x256x3 with seeded weights in float32 behind an
@@ -175,17 +177,43 @@ the seconds it took:
    (detection with 80 classes, and pose in the builder's schema), the
    fed and device-resident step at 256 and batch 16 in each config's
    precision (images/s, MFU, peak memory, idle, launches), and the
-   training CLI (``--data-dir --device-aug``, 2 epochs, ``--resume`` to
-   3), the serving CLI and ``eval detection -m centernet`` and ``eval
-   pose`` from its checkpoint (mAP and PCK printed, not gated).
+   training CLI (``--data-dir --device-aug``, 1 epoch, ``--resume`` to
+   2), the serving CLI and ``eval detection -m centernet`` and ``eval
+   pose`` from its checkpoint (mAP and PCK printed, not gated; phase 18).
+17. The GANs (``phase_gan``, after 16), neither of which launches an
+   LRN or NMS kernel: the DCGAN generator served (``dcgan_generator``,
+   seeded weights, float32 with TF32 off) behind an ``InferenceEngine``
+   on buckets (1, 4, 16, 64), 32 queued noise vectors and 4 single ones,
+   the first 8 answers and the singles within 1e-4 of this machine's
+   CPU, with a profile of a bucket-64 batch; a float32 DCGAN step (full
+   width, batch 32) and a CycleGAN step (``n_blocks=2``, 64 px, batch 4)
+   on the card against the CPU from one state with the same noise,
+   dropout masks and pool draws, under the card-vs-CPU rule of 11 and 15
+   (the pools, which hold the fakes in batch order, within 1e-4), with
+   the same two planted faults; a skipped ``bf16_scaled`` CycleGAN step
+   at full width under ``set_sync_debug_mode("error")`` (every net,
+   both Adams' moments and counts, the schedule's count, every BN
+   statistic and both pools unchanged, the scale halved); ``--gan``
+   records written on the card and the fed and device-resident bf16
+   steps of ``cyclegan`` (9 blocks, 256 px, batch 4, the crop and flip in
+   the step) and ``dcgan`` (batch 256): images/s, MFU from the port's
+   modules' FLOPs, idle share, launches and device time a step, peak
+   memory.
+18. The CLI chains of 15-17 at once, one process chain each: ``yolov3``,
+   ``centernet`` and ``hourglass104`` as above; ``train -m dcgan`` (512
+   synthetic digits, 2 steps an epoch) and ``train -m cyclegan
+   --data-dir --device-aug`` (2 steps an epoch at 256 px), 1 epoch each
+   then ``--resume`` to 2, the serving CLI of the DCGAN generator from
+   its checkpoint, and ``eval gan -m dcgan`` and ``-m cyclegan`` (scores
+   printed, not gated).
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
 times under ``shapes``, launches by path under ``launches_by_path``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
 which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
-{...}`` and ``[pose] {...}`` summaries, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+{...}``, ``[pose] {...}`` and ``[gan] {...}`` summaries, the card's name
+and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -293,9 +321,10 @@ N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
 # served answers of a model without LRN held against the CPU's
 CPU_CHECKED = 8
-# timed training steps of the paths before the ResNets' (24 for those),
-# which keeps the whole run near its earlier length
-EARLIER_TIMED_STEPS = 8
+# timed training steps of the paths before the ResNets' (12 for
+# resnet50's), which keeps the whole run near its earlier length
+EARLIER_TIMED_STEPS = 4
+RESNET50_TIMED_STEPS = 12
 # H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate (MFU's peak)
 BF16_DENSE_FLOPS_PER_S = 989e12
 # the plain versions' and library calls' timings, 10-300x the kernels'
@@ -340,6 +369,18 @@ POSE_JOINTS = 16
 POSE_TRAIN, POSE_VAL = 128, 32
 POSE_TIMED_STEPS = 4
 POSE_CLI_STEPS = 2
+# the GANs: DCGAN's noise width and served requests, the card-vs-CPU
+# steps' batches and CycleGAN's reduced depth there, the full-width
+# CycleGAN's size and batch, its records a domain, timed steps, and the
+# CLIs' steps an epoch
+DCGAN_NOISE = 100
+GAN_REQUESTS = 32
+DCGAN_STEP_BATCH = 32
+CYC_STEP_SIZE, CYC_STEP_BLOCKS, CYC_STEP_BATCH = 64, 2, 4
+CYC_SIZE, CYC_BATCH = 256, 4
+CYC_RECORDS = 16
+GAN_TIMED_STEPS = 4
+GAN_CLI_STEPS = 2
 
 
 def _say(*parts) -> None:
@@ -1421,7 +1462,8 @@ def phase_resnets(smi: str, workdir: Path) -> None:
     _timed("resnet50 card-vs-cpu step", phase_card_vs_cpu_step, "resnet50")
     _, trainer = _timed("resnet50 trainer", phase_trainer,
                         workdir / "inproc_resnet50", "resnet50", lrns=0)
-    r = _timed("resnet50 throughput", phase_throughput, trainer, "resnet50")
+    r = _timed("resnet50 throughput", phase_throughput, trainer, "resnet50",
+               steps=RESNET50_TIMED_STEPS)
     trainer = None
     _say(f"[resnet50] train bf16 batch 256: {r['fed']:.1f} images/s fed, "
          f"{r['resident']:.1f} resident; MFU {r['mfu']['feed']:.2%} fed, "
@@ -2455,14 +2497,10 @@ def _yolo_feed_run(d: Path) -> dict:
 def phase_yolo_records(smi: str, workdir: Path) -> dict:
     """The detection path from records: synthetic ``train-*`` (256) and
     ``val-*`` (64) shards of 8 each written on the card (nvJPEG's
-    encoder; 20 classes, sides 300-500), the fed step
-    (:func:`_yolo_feed_run`), then the training CLI ``-m yolov3
-    --data-dir ... --device-aug`` at the config's 416, batch 16 and bf16
-    for 2 epochs of ``YOLO_CLI_STEPS`` steps, ``--resume`` to 3, and from
-    that checkpoint the serving CLI (2 requests) and the ``eval
-    detection`` CLI over the ``val-*`` shards at once; its mAP line is
-    printed, not gated (seeded weights after a few steps). Returns the
-    rates and the NMS launches by path."""
+    encoder; 20 classes, sides 300-500) and the fed step
+    (:func:`_yolo_feed_run`). Returns the rates and the records'
+    directory, whose CLIs (:func:`_yolo_clis`) run with the other
+    models' in :func:`phase_model_clis`."""
     import torch
 
     from deepvision_tpu_torch.data.synthetic_records import (
@@ -2477,7 +2515,17 @@ def phase_yolo_records(smi: str, workdir: Path) -> dict:
          f"{time.perf_counter() - t0:.1f} s")
     rates = _yolo_feed_run(d)
     torch.cuda.empty_cache()
+    return {**rates, "records": d}
 
+
+def _yolo_clis(d: Path, workdir: Path) -> dict:
+    """``yolov3``'s CLIs over its records (:func:`_model_clis`): the
+    training CLI ``--data-dir ... --device-aug`` at the config's 416,
+    batch 16 and bf16 for 1 epoch of ``YOLO_CLI_STEPS`` steps,
+    ``--resume`` to 2, and from that checkpoint the serving CLI (2
+    requests) and the ``eval detection`` CLI over the ``val-*`` shards;
+    the mAP line is printed, not gated. Returns the NMS launches by path
+    and the mAP line."""
     clis = _model_clis(
         "yolov3", d, workdir / "yolo_cli", YOLO_SIZE,
         ["--steps-per-epoch", str(YOLO_CLI_STEPS)], ["--score", "0.05"],
@@ -2491,8 +2539,7 @@ def phase_yolo_records(smi: str, workdir: Path) -> dict:
     assert serve_nms > 0 and eval_nms == 4, (serve_nms, eval_nms)
     _say(f"[yolo-cli] NMS kernel launches serve {serve_nms}, eval "
          f"{eval_nms}")
-    return {**rates, "nms_launches": {"serving_cli": serve_nms,
-                                      "eval_cli": eval_nms},
+    return {"nms_launches": {"serving_cli": serve_nms, "eval_cli": eval_nms},
             "map": line}
 
 
@@ -2624,11 +2671,12 @@ def phase_yolo_card_vs_cpu(n: int = 4, size: int = 128) -> None:
 
 
 def phase_yolo(smi: str, workdir: Path) -> dict:
-    """Every YOLO v3 phase: serving (engine, then the NMS kernel against
-    its plain version and its times), the label grids on the card, the
-    skipped Adam step, the card-vs-CPU step, the record path and its
-    CLIs. Returns the NMS kernel's entry, its launches by path and a
-    summary; every path's LRN launches are 0."""
+    """Every YOLO v3 phase but the CLIs: serving (engine, then the NMS
+    kernel against its plain version and its times), the label grids on
+    the card, the skipped Adam step, the card-vs-CPU step, the record
+    path. Returns the NMS kernel's entry, its launches by path, a summary
+    and the records' directory (for :func:`phase_model_clis`); every
+    path's LRN launches are 0."""
     import torch
 
     served, serve_nms, serve_prof = _timed("yolov3 serve", phase_yolo_serve,
@@ -2648,13 +2696,11 @@ def phase_yolo(smi: str, workdir: Path) -> dict:
             "fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
             "device_ms", "launches")},
         "nms_ms": nms["ms"], "yolo_postprocess_ms":
-            nms["yolo_postprocess_ms"], "map_line": records["map"],
-        "card": smi}
+            nms["yolo_postprocess_ms"], "card": smi}
     return {"nms": {k: v for k, v in nms.items()
                     if k != "yolo_postprocess_ms"},
-            "nms_launches": {"serve_engine": serve_nms,
-                             **records["nms_launches"]},
-            "summary": summary}
+            "nms_launches": {"serve_engine": serve_nms},
+            "summary": summary, "records": records["records"]}
 
 
 # ---------------------------------------------------- CenterNet and pose
@@ -2861,7 +2907,7 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
                 train_args: list[str], serve_args: list[str],
                 eval_args: list[str]) -> dict:
     """The training CLI of ``name`` over the records in ``d`` with
-    ``--device-aug`` for 2 epochs, then ``--resume`` to 3 (every epoch's
+    ``--device-aug`` for 1 epoch, then ``--resume`` to 2 (every epoch's
     train loss finite, no kernel but nvJPEG's ``ycc_to_rgb`` launched);
     then from its newest checkpoint the serving CLI (2 requests of
     ``size`` px) and the eval CLI at once. Returns the epoch lines, the
@@ -2872,13 +2918,13 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
     common = ["-m", name, "--data-dir", str(d), "--device-aug",
               "--workdir", str(wd), *train_args]
     t0 = time.perf_counter()
-    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "2"])
+    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "1"])
     resumed = _cli("deepvision_tpu_torch.train",
-                   [*common, "--epochs", "3", "--resume"])
-    assert "resumed at epoch 2" in resumed.stdout
+                   [*common, "--epochs", "2", "--resume"])
+    assert "resumed at epoch 1" in resumed.stdout
     epochs = [s for s in (first.stdout + resumed.stdout).splitlines()
               if s.startswith("[epoch ") and "] train_loss" in s]
-    assert len(epochs) == 3, epochs
+    assert len(epochs) == 2, epochs
     for line in epochs:
         assert np.isfinite(float(line.split("train_loss=")[1].split()[0]))
         _say(f"[{name}-cli] {line[:240]}")
@@ -2886,7 +2932,7 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
     for counts in train_launches:
         assert not any(v for k, v in counts.items() if k != "ycc_to_rgb"), (
             counts)
-    _say(f"[{name}-cli] train CLI 2 epochs then --resume to 3 in "
+    _say(f"[{name}-cli] train CLI 1 epoch then --resume to 2 in "
          f"{time.perf_counter() - t0:.1f} s; launches {train_launches}")
     xs = (np.random.default_rng(1).uniform(-1, 1, (2, size, size, 3))
           .astype(np.float32))
@@ -2924,7 +2970,7 @@ def phase_centernet_records(smi: str, workdir: Path) -> dict:
     classes, ``CN_TRAIN`` train and ``CN_VAL`` val, 4 shards each, JPEGs
     by nvJPEG), the fed and device-resident bf16 step at 256 and batch
     16 (:func:`_fed_and_resident`). Returns the readings and the
-    records' directory, whose CLIs :func:`phase_hourglass_clis` runs."""
+    records' directory, whose CLIs :func:`phase_model_clis` runs."""
     import torch
 
     from deepvision_tpu_torch.data.detection import make_detection_data
@@ -2998,28 +3044,37 @@ def _pose_clis(d: Path, workdir: Path) -> dict:
     return line
 
 
-def phase_hourglass_clis(workdir: Path, centernet: dict,
-                         pose: dict) -> dict:
-    """The CenterNet and pose CLI chains at once, one thread each (their
-    processes share the card; their checks are their own and their
-    seconds are not read as rates). Adds the mAP and PCK lines to the
+def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
+                     pose: dict, gan: dict) -> None:
+    """The YOLO v3, CenterNet, pose, DCGAN and CycleGAN CLI chains at
+    once, one thread each (their processes share the card; their checks
+    are their own and their seconds are not read as rates). Adds the
+    NMS launches and the mAP, PCK and GAN score lines to the
     summaries."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(5) as pool:
+        yl = pool.submit(_timed, "yolov3 CLIs", _yolo_clis,
+                         yolo.pop("records"), workdir)
         cn = pool.submit(_timed, "centernet CLIs", _centernet_clis,
                          centernet.pop("records"), workdir)
         hg = pool.submit(_timed, "hourglass104 CLIs", _pose_clis,
                          pose.pop("records"), workdir)
+        dc = pool.submit(_timed, "dcgan CLIs", _dcgan_clis, workdir)
+        cy = pool.submit(_timed, "cyclegan CLIs", _cyclegan_clis,
+                         gan.pop("records"), workdir)
+        y = yl.result()
+        yolo["nms_launches"].update(y["nms_launches"])
+        yolo["summary"]["map_line"] = y["map"]
         centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
-    return {"centernet": centernet, "pose": pose}
+        gan["dcgan_eval"], gan["cyclegan_eval"] = dc.result(), cy.result()
 
 
 def phase_centernet(smi: str, workdir: Path) -> dict:
     """Every CenterNet phase but the CLIs: serving, the targets and
     decode on the card, the card-vs-CPU step, the record path. Returns a
     summary and the records' directory (for
-    :func:`phase_hourglass_clis`); no LRN or NMS kernel is launched."""
+    :func:`phase_model_clis`); no LRN or NMS kernel is launched."""
     import torch
 
     serve = _timed("centernet serve", phase_centernet_serve, smi)
@@ -3237,7 +3292,7 @@ def phase_pose_records(smi: str, workdir: Path) -> dict:
     at 256 and batch 16 in the config's ``bf16_scaled`` under ``"stack"``
     remat with the pose flip in the step (:func:`_fed_and_resident`).
     Returns the readings and the records' directory, whose CLIs
-    :func:`phase_hourglass_clis` runs."""
+    :func:`phase_model_clis` runs."""
     import torch
 
     from deepvision_tpu_torch.core.precision import get_policy
@@ -3302,6 +3357,566 @@ def phase_pose(smi: str, workdir: Path) -> dict:
                 "fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
                 "device_ms", "launches")},
             "records": records["records"], "card": smi}
+
+
+# ------------------------------------------------------------------ GANs
+
+
+def _gan_checks(answers, singles, cpu, zs) -> None:
+    """Served DCGAN images against the CPU's of the same noise: each
+    within 1e-4 (float32, TF32 off; the images lie in [-1, 1]); the
+    single requests' answers likewise."""
+    want = cpu.run(zs)["image"]
+    for i, a in enumerate(answers):
+        assert np.abs(np.asarray(a["image"]) - want[i]).max() <= 1e-4, i
+    for i, a in enumerate(singles):
+        assert np.abs(np.asarray(a["image"]) - want[i]).max() <= 1e-4, i
+
+
+def phase_gan_serve(smi: str) -> dict:
+    """``load_served("dcgan_generator")`` with seeded weights, float32
+    (TF32 off), behind an ``InferenceEngine`` on buckets (1, 4, 16, 64):
+    ``GAN_REQUESTS`` seeded noise vectors queued at once (one bucket-64
+    batch) and 4 single ones, the first 8 answers and the singles held
+    against the same module on this machine's CPU (:func:`_gan_checks`);
+    profiler windows over a bucket-64 batch. No LRN or NMS launch."""
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import load_served
+
+    strict_fp32()
+    served = load_served("dcgan_generator", seed=0)
+    assert served.task == "gan" and served.scale == "tanh"
+    assert served.input_shape == (DCGAN_NOISE,)
+    zs = (np.random.default_rng(0).normal(size=(GAN_REQUESTS, DCGAN_NOISE))
+          .astype(np.float32))
+    answers, tel, wall = _serve_against_cpu(served, zs, _gan_checks)
+    assert all(np.asarray(a["image"]).shape == (28, 28, 1) for a in answers)
+    assert tel["batches"] == 5, tel
+    _say(f"[gan-serve] dcgan_generator f32: {len(zs)} queued noise "
+         f"vectors and 4 single ones answered in {wall:.1f} s; the first "
+         f"{CPU_CHECKED} and the single ones within 1e-4 of the CPU's "
+         f"images; batches {tel['batches']}; e2e latency p50 "
+         f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
+         f"{tel['device_time']['p50_ms']} ms")
+    batch = np.zeros((BUCKETS[-1], DCGAN_NOISE), np.float32)
+    batch[:len(zs)] = zs
+    _zero_launch_counts()
+    prof = _profile(lambda: served.run(batch),
+                    f"dcgan_generator bucket-{BUCKETS[-1]} batch f32",
+                    windows=3)
+    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+    return prof
+
+
+def _gan_leaves(state) -> dict:
+    """Every tensor a GAN step updates, by name: each net's parameters
+    and BN statistics, both optimizers' moments and step counts and a
+    scheduled Adam's update count, the pools, the loss scale."""
+    out = {f"{net}.{k}": v.detach().clone()
+           for net, m in state.modules.items()
+           for k, v in m.state_dict().items()}
+    for name, opt in state.optimizers.items():
+        for net in state.roles[name]:
+            for k, p in state.modules[net].named_parameters():
+                for key, v in opt.state[p].items():
+                    out[f"{name}:{key}:{net}.{k}"] = v.detach().clone()
+        if hasattr(opt, "count"):
+            out[f"{name}:count"] = opt.count.clone()
+    for name, pool in state.pools.items():
+        out.update({f"{name}:{k}": v.clone() for k, v in pool.items()})
+    if state.loss_scale is not None:
+        out.update({f"loss_scale:{k}": v.clone() for k, v in
+                    state.loss_scale.state_dict().items()})
+    return out
+
+
+def _gan_step_card_vs_cpu(label: str, make_state, host: dict, draws: dict,
+                          step, lr: float) -> dict:
+    """One float32 step of ``step`` (TF32 off) on the card and on this
+    machine's CPU from the same seeded state (``make_state(device)``, the
+    CPU's state loaded into both) with the same draws, under the rule of
+    :func:`_adam_step_card_vs_cpu`: each leaf within 1e-5 plus three
+    times its floor, the largest gap between a platform's run and its
+    runs on the batch (and the per-image draws) reversed and rolled by 1
+    and 2, for all but 0.1% of its elements, each within 2·lr more; each
+    loss within 1e-4 of its scale plus four times its floor. The pools,
+    which hold the fakes in batch order, are held card against CPU in
+    the batch's own order, within 1e-4. Two faults planted on the card
+    must fail it: the state before the step, and the step at 0.9 times
+    the LR. No LRN kernel launches."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.train.optimizers import set_lr_scale
+
+    strict_fp32()
+    orders = (lambda a: a, lambda a: a[::-1],
+              lambda a: np.roll(a, 1, axis=0),
+              lambda a: np.roll(a, 2, axis=0))
+    base = make_state("cpu")
+    start = copy.deepcopy(base.state_dict())
+
+    def run(device, order, lr_scale=1.0):
+        state = make_state(device)
+        state.load_state_dict(copy.deepcopy(start))
+        for opt in state.optimizers.values():
+            set_lr_scale(opt, lr_scale)
+
+        def moved(v):
+            if isinstance(v, (tuple, list)):
+                return type(v)(moved(x) for x in v)
+            return torch.from_numpy(order(v.numpy()).copy()).to(device)
+
+        batch = {k: torch.from_numpy(order(v).copy()).to(device)
+                 for k, v in host.items()}
+        metrics = step(state, batch, {k: moved(v) for k, v in draws.items()})
+        return ({k: float(v) for k, v in metrics.items()},
+                {k: v.cpu() for k, v in _gan_leaves(state).items()})
+
+    t0 = time.perf_counter()
+    _zero_launch_counts()
+    card = [run("cuda", o) for o in orders]
+    launches = sum(_launch_counts().values())
+    wrong_lr = run("cuda", orders[0], lr_scale=0.9)[1]
+    cpu = [run("cpu", o) for o in orders]
+
+    def gap(a, b):
+        return (a.double() - b.double()).abs()
+
+    pooled = [k for k in card[0][1] if k.startswith("pool_")]
+    for k in pooled:
+        assert float(gap(card[0][1][k], cpu[0][1][k]).max()) <= 1e-4, k
+    leaves = [k for k in card[0][1] if k not in pooled]
+    floors = {k: max(float(gap(r[1][k], runs[0][1][k]).max())
+                     for runs in (card, cpu) for r in runs[1:])
+              for k in leaves}
+    tol = {k: 1e-5 + 3 * f for k, f in floors.items()}
+
+    def verdict(got):
+        bad, most, worst = [], 0, []
+        for k in leaves:
+            g = gap(cpu[0][1][k], got[k])
+            over = int((g > tol[k]).sum())
+            most = max(most, over)
+            worst.append((float(g.max()) / tol[k], k))
+            if over > max(1, g.numel() // 1000) or float(
+                    g.max()) > tol[k] + 2 * lr:
+                bad.append(k)
+        return bad, most, sorted(worst, reverse=True)[:3]
+
+    bad, most, worst = verdict(card[0][1])
+    stale = {k: v.cpu() for k, v in _gan_leaves(base).items()}
+    stale.update({k: torch.zeros_like(v) for k, v in card[0][1].items()
+                  if ":exp_avg" in k})
+    stale.update({k: torch.zeros_like(v) for k, v in card[0][1].items()
+                  if ":step:" in k or k.endswith(":count")})
+    planted = {"state before the step": verdict(stale)[0],
+               "LR x 0.9": verdict(wrong_lr)[0]}
+    losses = {}
+    for k, v in card[0][0].items():
+        floor = max(abs(r[0][k] - rs[0][0][k]) for rs in (card, cpu)
+                    for r in rs[1:])
+        losses[k] = (abs(cpu[0][0][k] - v), 1e-4 * max(1.0, abs(v))
+                     + 4 * floor)
+    n = len(next(iter(host.values())))
+    _say(f"[gan-steps] {label} f32 (TF32 off), batch {n}, one step on "
+         f"{len(orders)} batch orders on each side in "
+         f"{time.perf_counter() - t0:.1f} s: losses (gap, tolerance) "
+         f"{ {k: (f'{g:.2e}', f'{t:.2e}') for k, (g, t) in losses.items()} };"
+         f" {len(leaves)} leaves, {len(bad)} beyond the rule {bad[:3]}, at "
+         f"most {most} elements of a leaf over its floor tolerance, largest "
+         f"gaps over tolerance {[(round(r, 2), k) for r, k in worst]}; "
+         f"{len(pooled)} pool tensors within 1e-4; planted faults: "
+         + ", ".join(f"{k}: {len(v)} leaves beyond"
+                     for k, v in planted.items())
+         + f"; LRN launches {launches}")
+    assert all(np.isfinite(v) for v in card[0][0].values())
+    assert all(g <= t for g, t in losses.values()), losses
+    assert not bad, bad[:10]
+    assert launches == 0
+    assert planted["state before the step"] and planted["LR x 0.9"]
+    return {"leaves": len(leaves), "planted": {k: len(v)
+                                               for k, v in planted.items()}}
+
+
+def phase_gan_steps() -> None:
+    """Float32 steps, card against CPU (:func:`_gan_step_card_vs_cpu`):
+    DCGAN at full width (its config's Adam at 1e-4) at batch
+    ``DCGAN_STEP_BATCH``, and CycleGAN at ``n_blocks=2`` and
+    ``CYC_STEP_SIZE`` px at batch ``CYC_STEP_BATCH`` (the config's two
+    Adams, β1 0.5, under ``linear_decay``, pools of 50), each from one
+    seeded state with the same noise, dropout masks and pool draws."""
+    import torch
+
+    from deepvision_tpu_torch.data.gan import synthetic_unpaired
+    from deepvision_tpu_torch.train import gan
+    from deepvision_tpu_torch.train.schedules import linear_decay
+
+    rng = np.random.default_rng(5)
+    dc_host = {"image": rng.uniform(-1, 1, (DCGAN_STEP_BATCH, 28, 28, 1))
+               .astype(np.float32)}
+    dc_draws = gan.dcgan_draws(torch.Generator().manual_seed(3),
+                               DCGAN_STEP_BATCH, DCGAN_NOISE)
+    _gan_step_card_vs_cpu(
+        "dcgan", lambda dev: gan.create_dcgan_state(device=dev), dc_host,
+        dc_draws, gan.dcgan_train_step, 1e-4)
+    a, b = synthetic_unpaired(CYC_STEP_BATCH, size=CYC_STEP_SIZE, seed=7)
+    cy_draws = gan.cyclegan_draws(torch.Generator().manual_seed(4),
+                                  CYC_STEP_BATCH, gan.POOL_SIZE)
+
+    def make(dev):
+        return gan.create_cyclegan_state(
+            image_size=CYC_STEP_SIZE, lr_schedule=linear_decay(2e-4, 8, 2),
+            n_blocks=CYC_STEP_BLOCKS, device=dev)
+
+    _gan_step_card_vs_cpu("cyclegan n_blocks=2", make, {"a": a, "b": b},
+                          cy_draws, gan.cyclegan_train_step, 2e-4)
+
+
+def phase_gan_skip() -> None:
+    """A ``bf16_scaled`` CycleGAN step at full width (9 blocks, 256 px,
+    batch 4; the config's two Adams under ``linear_decay``, one loss
+    scale over both tapes): a clean step, then one whose B images hold an
+    inf, run under ``torch.cuda.set_sync_debug_mode("error")`` (any host
+    sync raises). The second is skipped: every parameter of the four
+    nets, both Adams' moments and step counts, the schedule's update
+    count, every BN statistic and both pools keep their values, and the
+    loss scale halves."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.train import gan
+    from deepvision_tpu_torch.train.schedules import linear_decay
+
+    policy = get_policy("bf16_scaled")
+    state = gan.create_cyclegan_state(
+        image_size=CYC_SIZE, lr_schedule=linear_decay(2e-4, 200 * 250,
+                                                      100 * 250),
+        policy=policy, dtype=policy.compute_dtype, device="cuda")
+    rng = np.random.default_rng(6)
+    batch = {k: torch.from_numpy(rng.uniform(
+        -1, 1, (CYC_BATCH, CYC_SIZE, CYC_SIZE, 3)).astype(np.float32)).cuda()
+        for k in ("a", "b")}
+    gen = torch.Generator("cuda").manual_seed(0)
+    _zero_launch_counts()
+    first = gan.cyclegan_train_step(state, batch, gen)
+    first_finite = float(first["mp_grads_finite"])
+    before = _gan_leaves(state)
+    scale = float(state.loss_scale.scale)
+    bad = dict(batch, b=batch["b"].clone())
+    bad["b"][0, 5, 5, 0] = float("inf")
+    draws = gan.cyclegan_draws(gen, CYC_BATCH, gan.POOL_SIZE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = gan.cyclegan_train_step(state, bad, draws)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = _gan_leaves(state)
+    scale_keys = [k for k in before if k.startswith("loss_scale:")]
+    moved = [k for k in before if k not in scale_keys
+             and not torch.equal(before[k], after[k])]
+    assert not moved, moved[:5]
+    assert float(m["mp_grads_finite"]) == 0.0
+    assert float(state.loss_scale.scale) == scale / 2
+    assert sum(_launch_counts().values()) == 0
+    kinds = {"parameters and BN statistics": sum(
+        1 for k in before if ":" not in k),
+        "Adam moments and counts": sum(1 for k in before if ":exp_avg" in k
+                                       or ":step:" in k
+                                       or k.endswith(":count")),
+        "pool tensors": sum(1 for k in before if k.startswith("pool_"))}
+    _say(f"[gan-skip] bf16_scaled cyclegan at {CYC_SIZE} px, batch "
+         f"{CYC_BATCH}: a first step (finite {first_finite:g}, total "
+         f"generator loss {float(first['loss_gen_total']):.4f}), then one "
+         f"with an inf in its B images that ran with no host sync (sync "
+         f"debug mode 'error') and was skipped: {kinds} unchanged, loss "
+         f"scale {scale:g} -> {float(state.loss_scale.scale):g}; LRN "
+         f"launches 0")
+
+
+def _gan_rates(label: str, step, train_data, bs: int, flops: float,
+               timed: int, windows: int = 2) -> dict:
+    """``step(batch, generator)`` at batch ``bs`` fed by ``train_data``
+    through the device feed, and on a device-resident batch: images/s
+    (pairs for CycleGAN), MFU from ``flops`` a step, the feed's
+    telemetry, peak memory, and profiler windows (the idle share over
+    two fed steps and over a resident step; the device time and launches
+    of one resident step)."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+
+    keys = KeySeq(1, 6, device="cuda")
+
+    def wait(m):
+        float(next(iter(m.values())))
+
+    feed = DevicePrefetcher(train_data, torch.device("cuda"), depth=2)
+    try:
+        first = next(feed)
+        wait(step(first, next(keys)))
+        resident = {k: v.clone() for k, v in first.items()}
+        wait(step(next(feed), next(keys)))
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            m = step(next(feed), next(keys))
+        wait(m)
+        fed = timed * bs / (time.perf_counter() - t0)
+        tel = feed.telemetry.summary()
+
+        def two_fed_steps():
+            for _ in range(2):
+                step(next(feed), next(keys))
+            torch.cuda.synchronize()
+
+        idle_fed = _idle_share(two_fed_steps, f"{label} two fed steps",
+                               windows)
+    finally:
+        feed.close()
+    for _ in range(2):
+        wait(step(resident, next(keys)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        m = step(resident, next(keys))
+    wait(m)
+    dev = timed * bs / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    mfu = {k: flops * v / bs / BF16_DENSE_FLOPS_PER_S
+           for k, v in (("fed", fed), ("resident", dev))}
+
+    def one_step():
+        step(resident, next(keys))
+        torch.cuda.synchronize()
+
+    prof = _profile(one_step, f"{label} train step batch {bs}",
+                    windows=windows)
+    assert all(np.isfinite(float(v)) for v in m.values()), m
+    _say(f"[gan-train] {label} bf16 batch {bs}: {fed:.1f} images/s "
+         f"through the feed over {timed} steps, {dev:.1f} images/s on a "
+         f"device-resident batch (same step); wire {tel['wire_dtype']}, "
+         f"{tel['image_bytes_per_image']} image bytes an image, h2d_wait "
+         f"{tel['h2d_wait_ms']} ms and host_wait {tel['host_wait_ms']} ms a "
+         f"batch; model FLOPs {flops:.4e} a step (backward twice the "
+         f"forward), MFU {mfu['fed']:.2%} fed and {mfu['resident']:.2%} "
+         f"resident; peak allocated {peak_gb:.2f} GiB; idle share fed "
+         f"{idle_fed}, resident {prof['idle']}; {prof['launches']} launches "
+         f"and {prof['device_ms']} ms of device time a resident step; "
+         f"reduction kernels {prof['reduction_share']}, elementwise "
+         f"{prof['elementwise_share']} of it")
+    return {"fed": fed, "resident": dev, "mfu": mfu, "peak_gb": peak_gb,
+            "idle_fed": idle_fed, "idle": prof["idle"],
+            "device_ms": prof["device_ms"], "launches": prof["launches"],
+            "reduction_share": prof["reduction_share"],
+            "elementwise_share": prof["elementwise_share"],
+            "flops": flops, "wire": tel["wire_dtype"]}
+
+
+def _forward_flops(module, x) -> float:
+    """Model FLOPs of one forward (2 a MAC of every convolution and
+    matmul, from their shapes)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        module(x)
+    return float(counter.get_total_flops())
+
+
+def phase_gan_train(smi: str, workdir: Path) -> dict:
+    """The GANs' training paths at the configs' widths, batches and bf16:
+    ``cyclegan`` (9 blocks, 256 px, batch 4) fed from ``--gan`` synthetic
+    records (``CYC_RECORDS`` a domain at sides 286-400, JPEGs by nvJPEG,
+    written on the card; decoded and resized to the 286 canvas on the
+    card, cropped, flipped and scaled in the step) and on a resident
+    batch; ``dcgan`` (batch 256) fed from the synthetic digits and
+    resident (:func:`_gan_rates`). A CycleGAN step's model FLOPs are
+    three times six generator and six critic forwards an image pair;
+    DCGAN's three times one generator and three critic forwards an
+    image. Returns the readings and the records' directory."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.gan import make_cyclegan_data
+    from deepvision_tpu_torch.data.mnist import synthetic_mnist
+    from deepvision_tpu_torch.data.padding import iter_array_batches
+    from deepvision_tpu_torch.data.synthetic_records import (
+        write_synthetic_gan,
+    )
+    from deepvision_tpu_torch.train import gan
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.schedules import linear_decay
+
+    _zero_launch_counts()
+    d = workdir / "gan_records"
+    t0 = time.perf_counter()
+    counts = write_synthetic_gan(d, train=CYC_RECORDS, val=2, shards=4)
+    _say(f"[gan-records] wrote {counts} on the card (nvJPEG) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    cfg = get_config("cyclegan")
+    policy = get_policy(cfg["precision"])
+    bs = cfg["batch_size"]
+    steps = 1000 // bs
+    state = gan.create_cyclegan_state(
+        image_size=CYC_SIZE, lr_schedule=linear_decay(
+            cfg["optimizer_params"]["lr"], cfg["total_epochs"] * steps,
+            cfg["decay_epochs"] * steps),
+        beta1=cfg["optimizer_params"]["beta1"], policy=policy,
+        dtype=policy.compute_dtype, device="cuda")
+    step = augment_step(gan.cyclegan_train_step, DeviceAugment(
+        "gan", crop=CYC_SIZE, flip=True, normalize="tanh"))
+    train_data = make_cyclegan_data(
+        str(d), bs, CYC_SIZE, steps_per_epoch=2 + 2 * GAN_TIMED_STEPS + 8,
+        device_aug=True)
+    x = torch.zeros(1, CYC_SIZE, CYC_SIZE, 3, device="cuda")
+    g_flops = _forward_flops(state.modules["gen_a2b"], x)
+    d_flops = _forward_flops(state.modules["dis_a"], x)
+    cyc = _gan_rates("cyclegan", partial(step, state), train_data(0), bs,
+                     3 * 6 * (g_flops + d_flops) * bs, GAN_TIMED_STEPS)
+    assert cyc["wire"] == "jpeg", cyc
+    state = step = None
+    torch.cuda.empty_cache()
+
+    cfg = get_config("dcgan")
+    policy = get_policy(cfg["precision"])
+    bs = cfg["batch_size"]
+    imgs, _ = synthetic_mnist(bs * (4 + 2 * GAN_TIMED_STEPS + 8))
+    imgs = (imgs[:, 2:30, 2:30, :] * 2.0 - 1.0).astype(np.float32)
+    state = gan.create_dcgan_state(
+        noise_dim=cfg["noise_dim"], lr=cfg["optimizer_params"]["lr"],
+        policy=policy, dtype=policy.compute_dtype, device="cuda")
+    gx = _forward_flops(state.modules["generator"],
+                        torch.zeros(1, DCGAN_NOISE, device="cuda"))
+    dx = _forward_flops(state.modules["discriminator"],
+                        torch.zeros(1, 28, 28, 1, device="cuda"))
+    dc = _gan_rates("dcgan", partial(gan.dcgan_train_step, state),
+                    iter_array_batches({"image": imgs}, bs,
+                                       rng=np.random.default_rng(0)),
+                    bs, 3 * (gx + 3 * dx) * bs, 2 * GAN_TIMED_STEPS)
+    assert sum(_launch_counts().values()) == 0
+    _say(f"[gan-train] forward FLOPs an image: cyclegan generator "
+         f"{g_flops:.4e} and PatchGAN {d_flops:.4e} at {CYC_SIZE} px; "
+         f"dcgan generator {gx:.4e} and critic {dx:.4e}; LRN launches 0 "
+         f"({smi})")
+    return {"cyclegan_bf16_b4": cyc, "dcgan_bf16_b256": dc,
+            "forward_flops": {"cyclegan_generator": g_flops,
+                              "cyclegan_discriminator": d_flops,
+                              "dcgan_generator": gx,
+                              "dcgan_discriminator": dx},
+            "records": d}
+
+
+def _gan_epochs(out: str) -> list[str]:
+    """The per-epoch lines of a GAN training CLI, each loss finite."""
+    lines = [s for s in out.splitlines()
+             if s.startswith("[epoch ") and " time=" in s]
+    for line in lines:
+        values = dict(kv.split("=") for kv in line.split("] ", 1)[1].split()
+                      if kv.startswith(("loss", "g_loss", "d_loss")))
+        assert values and all(np.isfinite(float(v))
+                              for v in values.values()), line
+    return lines
+
+
+def _gan_chain(name: str, wd: Path, train_args: list[str]) -> list[str]:
+    """``train -m name`` for 1 epoch, then ``--resume`` to 2: each
+    epoch's losses finite, a checkpoint each run, no kernel of the port's
+    launched but nvJPEG's ``ycc_to_rgb`` on records. Returns the epoch
+    lines."""
+    common = ["-m", name, "--workdir", str(wd), *train_args]
+    first = _cli("deepvision_tpu_torch.train", [*common, "--epochs", "1"])
+    resumed = _cli("deepvision_tpu_torch.train",
+                   [*common, "--epochs", "2", "--resume"])
+    assert "resumed at epoch 1" in resumed.stdout, resumed.stdout[-2000:]
+    epochs = _gan_epochs(first.stdout + resumed.stdout)
+    assert len(epochs) == 2, epochs
+    launches = [_cli_launches(p.stderr) for p in (first, resumed)]
+    for counts in launches:  # nvJPEG's colour kernel reads the records
+        assert not any(v for k, v in counts.items() if k != "ycc_to_rgb"), (
+            counts)
+    for line in epochs:
+        _say(f"[{name}-cli] {line[:260]}")
+    _say(f"[{name}-cli] train CLI 1 epoch then --resume to 2; launches "
+         f"{launches}")
+    return epochs
+
+
+def _dcgan_clis(workdir: Path) -> dict:
+    """``train -m dcgan`` at its batch of 256 on 512 synthetic digits (2
+    steps an epoch), the resume, then from its checkpoint the serving
+    CLI (2 noise vectors -> 28x28x1 images in [-1, 1]) and ``eval gan -m
+    dcgan`` (the LeNet-5 judge's Inception-Score ratio, printed, not
+    gated). Returns the eval line."""
+    wd = workdir / "gan_cli"
+    _gan_chain("dcgan", wd, ["--synthetic-size", "512"])
+    zs = np.random.default_rng(2).normal(size=(2, DCGAN_NOISE))
+    lines = "".join(json.dumps({"id": i, "input": zs[i].tolist()}) + "\n"
+                    for i in range(2))
+    serve = _cli("deepvision_tpu_torch.serve",
+                 ["-m", f"dcgan={wd / 'dcgan'}", "--buckets", "1,4"], lines)
+    replies = [json.loads(s) for s in serve.stdout.splitlines()]
+    assert [r["id"] for r in replies] == [0, 1], replies
+    for r in replies:
+        image = np.asarray(r["result"]["image"])
+        assert image.shape == (28, 28, 1) and np.abs(image).max() <= 1.0
+    evaluate = _cli("deepvision_tpu_torch.eval",
+                    ["gan", "-m", "dcgan", "--workdir", str(wd / "dcgan")])
+    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+    assert line["epoch"] == 1 and np.isfinite(line["score"]), line
+    _say(f"[dcgan-cli] serving CLI answered {len(replies)} noise vectors "
+         f"from the checkpoint ({serve.stderr.strip().splitlines()[-1]}); "
+         f"eval CLI: {json.dumps(line)}")
+    return line
+
+
+def _cyclegan_clis(d: Path, workdir: Path) -> dict:
+    """``train -m cyclegan --data-dir d --device-aug`` at the config's
+    256 px, batch 4 and bf16 for ``GAN_CLI_STEPS`` steps an epoch, the
+    resume, then ``eval gan -m cyclegan`` from its checkpoint (the
+    inversion score on 32 held-out synthetic pairs at 64 px, printed,
+    not gated). Returns the eval line."""
+    wd = workdir / "gan_cli"
+    _gan_chain("cyclegan", wd, ["--data-dir", str(d), "--device-aug",
+                                "--steps-per-epoch", str(GAN_CLI_STEPS)])
+    evaluate = _cli("deepvision_tpu_torch.eval",
+                    ["gan", "-m", "cyclegan", "--workdir",
+                     str(wd / "cyclegan"), "--n", "32"])
+    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+    assert line["epoch"] == 1 and np.isfinite(line["score"]), line
+    _say(f"[cyclegan-cli] eval CLI: {json.dumps(line)}")
+    return line
+
+
+def phase_gan(smi: str, workdir: Path) -> dict:
+    """Every GAN phase but the CLIs: the served DCGAN generator, the
+    card-vs-CPU steps, the skipped loss-scaled step, the training paths.
+    Returns a summary and the records' directory (for
+    :func:`phase_model_clis`); no LRN or NMS kernel is launched."""
+    import torch
+
+    serve = _timed("gan serve", phase_gan_serve, smi)
+    _timed("gan steps", phase_gan_steps)
+    torch.cuda.empty_cache()
+    _timed("gan skip", phase_gan_skip)
+    torch.cuda.empty_cache()
+    train = _timed("gan train", phase_gan_train, smi, workdir)
+    torch.cuda.empty_cache()
+    keys = ("fed", "resident", "mfu", "peak_gb", "idle_fed", "idle",
+            "device_ms", "launches", "reduction_share", "elementwise_share")
+    return {"dcgan_generator_serve_bucket64": {k: serve[k] for k in (
+                "device_ms", "launches", "idle")},
+            "cyclegan_train_bf16_b4": {
+                k: train["cyclegan_bf16_b4"][k] for k in keys},
+            "dcgan_train_bf16_b256": {
+                k: train["dcgan_bf16_b256"][k] for k in keys},
+            "forward_flops": train["forward_flops"],
+            "records": train["records"], "card": smi}
 
 
 def _timed(label: str, phase, *args, **kwargs):
@@ -3373,9 +3988,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     yolo = phase_yolo(smi, workdir)
     torch.cuda.empty_cache()
-    hourglass = _timed("hourglass CLIs", phase_hourglass_clis, workdir,
-                       phase_centernet(smi, workdir),
-                       phase_pose(smi, workdir))
+    hourglass = {"centernet": phase_centernet(smi, workdir),
+                 "pose": phase_pose(smi, workdir)}
+    gan = phase_gan(smi, workdir)
+    _timed("model CLIs", phase_model_clis, workdir, yolo,
+           hourglass["centernet"], hourglass["pose"], gan)
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
@@ -3424,6 +4041,7 @@ def main() -> int:
     print(f"[yolo] {json.dumps(yolo['summary'])}")
     for name, summary in hourglass.items():
         print(f"[{name}] {json.dumps(summary)}")
+    print(f"[gan] {json.dumps(gan)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

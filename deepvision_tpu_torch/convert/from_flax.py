@@ -35,7 +35,8 @@ import torch
 from deepvision_tpu_torch.models import get_model
 
 __all__ = ["flax_to_torch", "flax_param_tree_to_torch",
-           "flax_train_state_to_torch", "load_flax_train_state"]
+           "flax_train_state_to_torch", "load_flax_train_state",
+           "flax_gan_state_to_torch", "load_flax_gan_state"]
 
 _LEAF = {"weight": "kernel", "bias": "bias"}
 
@@ -165,5 +166,101 @@ def load_flax_train_state(state, carried: dict) -> None:
         dev = state.loss_scale.scale.device
         state.loss_scale.scale = torch.tensor(float(ls["scale"]),
                                               device=dev)
+        state.loss_scale.good_steps = torch.tensor(
+            int(ls["good_steps"]), dtype=torch.int32, device=dev)
+
+
+def _adam_parts(opt_state) -> tuple:
+    """(Adam's ``ScaleByAdamState``, the ``ScaleByScheduleState`` or
+    None) of an optax ``adam`` state, found by their named fields."""
+    parts = list(opt_state) if isinstance(opt_state, (tuple, list)) \
+        else [opt_state]
+    fields = [set(getattr(p, "_fields", ())) for p in parts]
+    adam = next(p for p, f in zip(parts, fields) if "mu" in f)
+    sched = next((p for p, f in zip(parts, fields) if f == {"count"}), None)
+    return adam, sched
+
+
+def flax_gan_state_to_torch(nets: Mapping[str, str], roles: Mapping[str, tuple],
+                            *, params: Mapping[str, Any],
+                            batch_stats: Mapping[str, Any],
+                            opt_state: Mapping[str, Any], step: int,
+                            pools: Mapping[str, Any] | None = None,
+                            loss_scale: Mapping[str, Any] | None = None,
+                            model_kw: Mapping[str, dict] | None = None
+                            ) -> dict:
+    """A JAX ``GANState``, as numpy, in the port's terms. ``nets`` maps
+    each net's role name to its registry model (``{"gen_a2b":
+    "cyclegan_generator", ...}``), ``roles`` each optimizer to its nets
+    (``train/gan.CYCLEGAN_ROLES``), ``model_kw`` a net to its model
+    keywords; ``params``, ``batch_stats`` and ``opt_state`` are the
+    state's trees by net and by optimizer, ``pools`` its ``extra_vars``.
+    -> ``{"modules": {net: state_dict}, "adam": {optimizer:
+    {"exp_avg": {net: {param: tensor}}, "exp_avg_sq": ..., "step",
+    "count"}}, "pools", "step", "loss_scale"}``."""
+    model_kw = model_kw or {}
+    modules = {}
+    for net, model in nets.items():
+        variables = {"params": params[net]}
+        if batch_stats.get(net):
+            variables["batch_stats"] = batch_stats[net]
+        modules[net] = flax_to_torch(model, variables,
+                                     **model_kw.get(net, {}))
+    adam = {}
+    for opt, names in roles.items():
+        state, sched = _adam_parts(opt_state[opt])
+        moments = {}
+        for key, tree in (("exp_avg", state.mu), ("exp_avg_sq", state.nu)):
+            by_net = {names[0]: tree} if len(names) == 1 else tree
+            moments[key] = {
+                net: flax_param_tree_to_torch(nets[net], by_net[net],
+                                              **model_kw.get(net, {}))
+                for net in names}
+        adam[opt] = {**moments, "step": int(np.asarray(state.count)),
+                     "count": (None if sched is None
+                               else int(np.asarray(sched.count)))}
+    return {
+        "modules": modules, "adam": adam, "step": int(step),
+        "pools": {k: {"images": torch.tensor(np.asarray(v["images"])),
+                      "count": torch.tensor(np.asarray(v["count"]),
+                                            dtype=torch.int32)}
+                  for k, v in (pools or {}).items()},
+        "loss_scale": None if loss_scale is None else {
+            k: np.asarray(loss_scale[k]) for k in ("scale", "good_steps")},
+    }
+
+
+@torch.no_grad()
+def load_flax_gan_state(state, carried: dict) -> None:
+    """Write :func:`flax_gan_state_to_torch`'s output into the port's
+    ``GANState`` on its device: every net with its BN statistics, both
+    Adams' moments and counts (and a scheduled Adam's update count), the
+    pools, the step and the loss scale."""
+    from deepvision_tpu_torch.train.optimizers import set_update_count
+
+    dev = state.device
+    for net, module in state.modules.items():
+        module.load_state_dict(carried["modules"][net])
+    for opt_name, opt in state.optimizers.items():
+        c = carried["adam"][opt_name]
+        for net in state.roles[opt_name]:
+            for name, p in state.modules[net].named_parameters():
+                opt.state[p] = {
+                    "step": torch.tensor(float(c["step"]), device=dev),
+                    "exp_avg": torch.empty_like(p).copy_(
+                        c["exp_avg"][net][name]),
+                    "exp_avg_sq": torch.empty_like(p).copy_(
+                        c["exp_avg_sq"][net][name])}
+        if c["count"] is not None:
+            set_update_count(opt, c["count"])
+    state.pools = {k: {leaf: t.to(dev) for leaf, t in v.items()}
+                   for k, v in carried["pools"].items()}
+    state.step = carried["step"]
+    ls = carried["loss_scale"]
+    if (ls is None) != (state.loss_scale is None):
+        raise ValueError("the carried state and the port's disagree on "
+                         "loss scaling")
+    if ls is not None:
+        state.loss_scale.scale = torch.tensor(float(ls["scale"]), device=dev)
         state.loss_scale.good_steps = torch.tensor(
             int(ls["good_steps"]), dtype=torch.int32, device=dev)

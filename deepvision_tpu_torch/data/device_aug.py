@@ -1,5 +1,5 @@
 """Device-side augmentation inside the train step, the classification,
-detection and pose families of ``deepvision_tpu/data/device_aug.py``.
+detection, pose and GAN families of ``deepvision_tpu/data/device_aug.py``.
 
 The host ships decode-stage uint8 images (``data/imagenet.py`` and
 ``data/detection.py`` with ``device_aug``) and every per-element op runs
@@ -35,7 +35,10 @@ keypoints: :func:`flip_keypoints` mirrors them and swaps the left and
 right joints by a permutation (:data:`MPII_FLIP_PERM` for the 16 MPII
 joints), :func:`crop_keypoints` renormalizes them to a crop window and
 hides a joint that leaves it; the pose reader keeps its person crop on
-the host. The GAN family waits for its models.
+the host. The GAN family augments image batches alone (``{"a", "b"}``
+or ``{"image"}``): each crops, flips and normalizes under its own seed,
+``derive_seed(seed, i)`` for the i-th present of ``a``, ``b`` and
+``image``, as the JAX family folds ``i`` into the key.
 """
 
 from __future__ import annotations
@@ -288,9 +291,11 @@ class DeviceAugment:
     ``normalize`` is given. The ``"detection"`` family moves the batch's
     ``boxes`` and ``label`` with the crop and the flip, the ``"pose"``
     family its ``kx``, ``ky`` and ``v`` (``flip_pairs``: the joint
-    permutation of a flip, or None)."""
+    permutation of a flip, or None). The ``"gan"`` family augments each
+    of the batch's ``a``, ``b`` and ``image`` alone, under its own
+    seed."""
 
-    FAMILIES = ("classification", "detection", "pose")
+    FAMILIES = ("classification", "detection", "pose", "gan")
     # one stream a slot, fixed by the config: toggling an op never
     # re-deals another op's draws
     _SLOTS = ("crop", "flip", "jitter", "mixup")
@@ -300,9 +305,8 @@ class DeviceAugment:
                  flip_pairs=None, jitter: float = 0.0, mixup: float = 0.0,
                  normalize: str | None = None):
         if family not in self.FAMILIES:
-            raise ValueError(
-                f"device augmentation family {family!r} is not ported; the "
-                "GAN family comes with its models")
+            raise ValueError(f"unknown device augmentation family "
+                             f"{family!r}; one of {self.FAMILIES}")
         if mixup < 0:
             raise ValueError(f"mixup alpha must be >= 0, got {mixup}")
         if mixup and family != "classification":
@@ -332,6 +336,12 @@ class DeviceAugment:
 
     def __call__(self, batch: dict, seed: int) -> dict:
         batch = dict(batch)
+        if self.family == "gan":
+            for i, name in enumerate(k for k in ("a", "b", "image")
+                                     if k in batch):
+                batch[name] = self._image_only(batch[name],
+                                               derive_seed(seed, i))
+            return batch
         images = batch["image"]
         dev = images.device
         seeds = self.seeds(seed)
@@ -371,6 +381,26 @@ class DeviceAugment:
             images = maybe_normalize(images, self.normalize)
         batch["image"] = images
         return batch
+
+
+    def _image_only(self, images: torch.Tensor, seed: int) -> torch.Tensor:
+        dev = images.device
+        seeds = self.seeds(seed)
+        if self.crop is not None:
+            b, in_h, in_w = images.shape[:3]
+            images = crop(images, *crop_params(
+                _generator(seeds["crop"], dev), b, in_h, in_w, self.crop),
+                self.crop)
+        if self.flip:
+            images = flip(images, flip_params(_generator(seeds["flip"], dev),
+                                              images.shape[0]))
+        if self.jitter:
+            a = self.jitter
+            images = color_jitter(images, *jitter_params(
+                _generator(seeds["jitter"], dev), images.shape[0], a, a, a))
+        if self.normalize is not None:
+            images = maybe_normalize(images, self.normalize)
+        return images
 
 
 # the stream of the step's generator that augmentation takes

@@ -1,13 +1,15 @@
 """Small synthetic record directories, in the reference builders'
 schemas, for drives and tests of the record readers (``data/imagenet.py``;
 with ``--detection``, ``data/detection.py``; with ``--pose``,
-``data/pose.py``).
+``data/pose.py``; with ``--gan``, ``data/gan.py``).
 
     python -m deepvision_tpu_torch.data.synthetic_records DIR \\
         [--train 64] [--val 16] [--raw 64] [--classes 5] [--device cuda|cpu]
     python -m deepvision_tpu_torch.data.synthetic_records DIR --detection \\
         [--train 64] [--val 16] [--classes 20] [--device cuda|cpu]
     python -m deepvision_tpu_torch.data.synthetic_records DIR --pose \\
+        [--train 64] [--val 16] [--device cuda|cpu]
+    python -m deepvision_tpu_torch.data.synthetic_records DIR --gan \\
         [--train 64] [--val 16] [--device cuda|cpu]
 
 writes ``train-*`` and ``validation-*`` JPEG shards and, with ``--raw``,
@@ -27,7 +29,13 @@ and ``val-*`` shards in the pose builder's schema (``image/encoded``,
 ``image/person/keypoints/{x,y}`` normalized to the image and
 ``image/person/keypoints/v``, 16 joints, the absent ones at (0, 0) with
 v = 0): images of sides 300 to 500, one person a record whose visible
-joints are bright squares in the channel ``joint % 3``. It runs on the card
+joints are bright squares in the channel ``joint % 3``. ``--gan`` writes
+``trainA-*``, ``trainB-*``, ``testA-*`` and ``testB-*`` shards in the
+CycleGAN builder's schema (``image/encoded``, ``image/height``,
+``image/width``, ``image/filename``), ``--train`` and ``--val`` images a
+domain, of sides 286 to 400 (CycleGAN's 256 crop of its 286 canvas):
+domain A a bright square on a mid-grey noisy field, domain B a dark one,
+the unpaired pair of ``data/gan.synthetic_unpaired``. It runs on the card
 (``--device cuda``, the default, which raises without one; JPEGs are
 encoded by nvJPEG), and on the CPU when asked (``--device cpu``; JPEGs
 are encoded by PIL).
@@ -55,7 +63,8 @@ from deepvision_tpu_torch.device import resolve_device
 
 __all__ = ["synthetic_image", "write_synthetic_imagenet",
            "detection_image", "write_synthetic_detection", "pose_image",
-           "write_synthetic_pose", "main"]
+           "write_synthetic_pose", "gan_image", "write_synthetic_gan",
+           "main"]
 
 
 def synthetic_image(rng: np.random.Generator, h: int, w: int, label: int,
@@ -247,6 +256,46 @@ def write_synthetic_pose(out_dir, *, train: int = 64, val: int = 16,
     return {"train": train, "val": val}
 
 
+def gan_image(rng: np.random.Generator, h: int, w: int, domain: str,
+              device: torch.device) -> torch.Tensor:
+    """A uint8 (h, w, 3) image on ``device``: N(128, 12) noise with one
+    square of a quarter to a half of the shorter side, 110 brighter
+    (domain ``"A"``) or darker (``"B"``)."""
+    noise = rng.normal(128, 12, (h, w, 3)).astype(np.float32)
+    image = torch.from_numpy(noise).to(device)
+    side = int(rng.integers(min(h, w) // 4, min(h, w) // 2))
+    y, x = int(rng.integers(0, h - side)), int(rng.integers(0, w - side))
+    image[y:y + side, x:x + side] += 110.0 if domain == "A" else -110.0
+    return image.round().clamp(0, 255).to(torch.uint8)
+
+
+def write_synthetic_gan(out_dir, *, train: int = 64, val: int = 16,
+                        shards: int = 2, sizes=(286, 400), seed: int = 0,
+                        device: torch.device | str = "cuda") -> dict:
+    """Write the CycleGAN splits (``trainA``, ``trainB``, ``testA``,
+    ``testB``), the images made and encoded on ``device`` (``"cuda"``,
+    raising without a card, or ``"cpu"``); returns the counts written."""
+    device = resolve_device(device)
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    counts = {}
+    for split, n in (("train", train), ("test", val)):
+        for domain in ("A", "B"):
+            images = [gan_image(rng, h, w, domain, device)
+                      for h, w in _sizes(rng, n, *sizes)]
+            records = [encode_example({
+                "image/encoded": [blob],
+                "image/height": [int(img.shape[0])],
+                "image/width": [int(img.shape[1])],
+                "image/filename": [f"{split}{domain}_{i:05d}.jpg".encode()]})
+                for i, (blob, img) in enumerate(zip(encode_images(images),
+                                                    images))]
+            _shards(out, f"{split}{domain}", records, shards)
+            counts[f"{split}{domain}"] = n
+    return counts
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m deepvision_tpu_torch.data.synthetic_records",
@@ -260,6 +309,9 @@ def main(argv=None) -> int:
                       help="write detection shards (train-*, val-*)")
     kind.add_argument("--pose", action="store_true",
                       help="write pose shards (train-*, val-*)")
+    kind.add_argument("--gan", action="store_true",
+                      help="write CycleGAN shards (trainA-*, trainB-*, "
+                           "testA-*, testB-*)")
     p.add_argument("--classes", type=int, default=None,
                    help="classes (default 5; 20 with --detection)")
     p.add_argument("--shards", type=int, default=2)
@@ -267,10 +319,14 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     args = p.parse_args(argv)
-    if (args.detection or args.pose) and args.raw:
-        p.error("--raw writes ImageNet raw-crop shards, not detection or "
-                "pose")
-    if args.pose:
+    if (args.detection or args.pose or args.gan) and args.raw:
+        p.error("--raw writes ImageNet raw-crop shards, not detection, "
+                "pose or GAN")
+    if args.gan:
+        counts = write_synthetic_gan(
+            args.out_dir, train=args.train, val=args.val,
+            shards=args.shards, seed=args.seed, device=args.device)
+    elif args.pose:
         counts = write_synthetic_pose(
             args.out_dir, train=args.train, val=args.val,
             shards=args.shards, seed=args.seed, device=args.device)

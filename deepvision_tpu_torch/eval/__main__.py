@@ -1,5 +1,5 @@
 """Offline evaluation CLI of the port, the twin of ``evaluate.py``'s
-``detection`` and ``pose`` subcommands.
+``detection``, ``pose`` and ``gan`` subcommands.
 
     python -m deepvision_tpu_torch.eval detection -m yolov3|centernet \
         --workdir runs/yolov3 --data-dir DIR [--split val] [--names voc] \
@@ -9,6 +9,8 @@
         --workdir runs/hourglass104 --data-dir DIR [--split val] \
         [--num-joints K] [--size 256] [--batch-size 16] [--threshold 0.5] \
         [--norm 0.1] [--epoch E]
+    python -m deepvision_tpu_torch.eval gan -m cyclegan|dcgan \
+        --workdir runs/cyclegan [--size 64] [--n 256] [--epoch E]
 
 Scores the newest verified checkpoint under ``--workdir`` (or
 ``--epoch``'s; seeded fresh weights without a workdir) on the
@@ -30,8 +32,16 @@ shards (each person cropped at the validation margin) or, without a
 data directory, of the synthetic set (32 images, at most 128 px), with
 ``--num-joints`` joints (16 by default): ``{"metric": "PCK@<threshold>",
 "norm", "value", "per_joint"}``, where a joint is correct within
-``threshold · norm`` of the crop. The last stderr line counts the kernel
-launches. It runs on the card (``--device cuda``, the default, which
+``threshold · norm`` of the crop. ``gan`` scores a GAN checkpoint (it
+needs ``--workdir``) on the hermetic synthetic sets, as ``evaluate.py``:
+``-m cyclegan`` translates ``--n`` held-out unpaired images
+(``synthetic_unpaired(seed=113)`` at ``--size``) both ways and prints the
+inversion score (``eval/gan.inversion_score``); ``-m dcgan`` trains a
+LeNet-5 judge (Adam 1e-3, batch 64, 4 epochs on 1536 synthetic digits in
+[-1, 1]), samples ``--n`` images from noise of seed 7 and prints their
+Inception Score over the held-out reals' (``score``), the judge's
+held-out accuracy and the classes the samples cover. Scores are printed,
+not gated. The last stderr line counts the kernel launches. It runs on the card (``--device cuda``, the default, which
 raises without one) and on the CPU when asked.
 """
 
@@ -44,7 +54,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["main", "cmd_detection", "cmd_pose"]
+__all__ = ["main", "cmd_detection", "cmd_pose", "cmd_gan"]
 
 
 def cmd_detection(args) -> dict:
@@ -209,6 +219,108 @@ def cmd_pose(args) -> dict:
     return line
 
 
+def _judge(device, steps_per_epoch: int = 24, epochs: int = 4,
+           bs: int = 64):
+    """LeNet-5 trained on the first 1536 synthetic digits in [-1, 1]
+    (Adam 1e-3, float32) -> (module, held-out images, their labels)."""
+    import torch
+
+    from deepvision_tpu_torch.data.mnist import synthetic_mnist
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.optimizers import make_optimizer
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    imgs, labels = synthetic_mnist(2048, seed=0)
+    imgs = (imgs * 2.0 - 1.0).astype(np.float32)
+    module = create_model("lenet5", device=device, seed=0, num_classes=10)
+    opt, _ = make_optimizer({"optimizer": "adam",
+                             "optimizer_params": {"lr": 1e-3}},
+                            module.parameters())
+    state = TrainState(module, opt)
+    x = torch.from_numpy(imgs).to(device)
+    y = torch.from_numpy(labels).to(device)
+    for _ in range(epochs):
+        for i in range(0, steps_per_epoch * bs, bs):
+            classification_train_step(
+                state, {"image": x[i:i + bs], "label": y[i:i + bs]}, None)
+    module.eval()
+    n = steps_per_epoch * bs
+    return module, x[n:], labels[n:]
+
+
+def cmd_gan(args) -> dict:
+    import torch
+
+    from deepvision_tpu_torch.eval.gan import (
+        embed_samples,
+        inception_score,
+        inversion_score,
+    )
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.checkpoint import CheckpointManager
+
+    device = _device(args)
+    if not args.workdir:
+        raise SystemExit("eval gan scores a checkpoint: pass --workdir")
+    mgr = CheckpointManager(Path(args.workdir) / "ckpt")
+    out = {"model": args.model}
+    if args.model == "cyclegan":
+        from deepvision_tpu_torch.data.gan import synthetic_unpaired
+
+        gens = {}
+        for net in ("gen_a2b", "gen_b2a"):
+            weights, _ = mgr.restore_model(args.epoch, device=device, net=net)
+            gens[net] = create_model("cyclegan_generator", device=device)
+            gens[net].load_state_dict(weights)
+            gens[net].eval()
+        a, b = synthetic_unpaired(args.n, size=args.size, seed=113)
+
+        def translate(net, x, bs=16):
+            with torch.inference_mode():
+                return np.concatenate([
+                    gens[net](torch.from_numpy(x[i:i + bs]).to(device))
+                    .float().cpu().numpy() for i in range(0, len(x), bs)])
+
+        scores = inversion_score(translate("gen_a2b", a),
+                                 translate("gen_b2a", b), a, b)
+        out.update(n=len(a), **{k: round(v, 5 if k != "score" else 4)
+                                for k, v in scores.items()})
+    else:
+        weights, meta = mgr.restore_model(args.epoch, device=device,
+                                          net="generator")
+        gen = create_model("dcgan_generator", device=device,
+                           noise_dim=meta.get("noise_dim") or 100)
+        gen.load_state_dict(weights)
+        gen.eval()
+        judge, held, labels = _judge(device)
+
+        def probs(x):
+            with torch.inference_mode():
+                return torch.softmax(judge(x).float(), -1).cpu().numpy()
+
+        p_real = probs(held)
+        z = torch.randn((args.n, gen.noise_dim), device=device,
+                        generator=torch.Generator(device).manual_seed(7))
+        with torch.inference_mode():
+            samples = gen(z).float().cpu().numpy()
+        p_gen = probs(torch.from_numpy(embed_samples(samples)).to(device))
+        is_gen, is_real = inception_score(p_gen), inception_score(p_real)
+        out.update(n=int(args.n),
+                   judge_holdout_acc=round(
+                       float((p_real.argmax(1) == labels).mean()), 4),
+                   is_generated=round(is_gen, 3), is_real=round(is_real, 3),
+                   class_coverage=int(len(set(p_gen.argmax(1)))),
+                   score=round(is_gen / is_real, 4))
+    out["epoch"] = mgr.restore_meta(args.epoch)["epoch"] \
+        if args.epoch is not None else mgr.latest_epoch()
+    print(json.dumps(out), flush=True)
+    # no kernel of the port's is on the GAN path
+    print(f"[eval] {args.model} on {device}; kernel launches {{}}",
+          file=sys.stderr, flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m deepvision_tpu_torch.eval",
                                 description=__doc__.splitlines()[0])
@@ -252,6 +364,18 @@ def main(argv=None) -> int:
     sp.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu'")
     sp.set_defaults(fn=cmd_pose)
+    sp = sub.add_parser("gan", help="GAN scores on the synthetic sets")
+    sp.add_argument("-m", "--model", default="cyclegan",
+                    choices=["cyclegan", "dcgan"])
+    sp.add_argument("--workdir", default=None)
+    sp.add_argument("--size", type=int, default=64)
+    sp.add_argument("--n", type=int, default=256,
+                    help="held-out images (cyclegan) / samples (dcgan)")
+    sp.add_argument("--epoch", type=int, default=None,
+                    help="saved epoch to score (default: the newest)")
+    sp.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    sp.set_defaults(fn=cmd_gan)
     args = p.parse_args(argv)
     args.fn(args)
     return 0

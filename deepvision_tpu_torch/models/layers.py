@@ -16,6 +16,11 @@ only its output (trap C8).
 
 XLA's ``"SAME"`` padding is asymmetric under a stride (trap C2): the
 pads are spelled out by :func:`same_padding` and applied explicitly.
+flax's ``ConvTranspose(padding="SAME")`` is the same trap over a dilated
+input: :func:`conv_transpose_same` runs it as torch's transposed
+convolution of the spatially flipped kernel with the trailing rows and
+columns cropped, which torch's own ``padding``/``output_padding`` cannot
+express. :class:`InstanceNorm` is flax's, with its eps of 1e-6.
 
 Rematerialization (:func:`remat`) runs a region under
 ``torch.utils.checkpoint`` and recomputes it in the backward. Both
@@ -43,7 +48,8 @@ __all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
            "conv_padding", "same_conv",
            "lecun_normal_", "he_normal_", "MixedBatchNorm", "BatchNorm",
            "ConvBN", "init_weights", "REMAT_POLICIES", "CONV_OUT",
-           "recomputing", "remat"]
+           "recomputing", "remat", "ConvTranspose", "conv_transpose_padding",
+           "conv_transpose_same", "reflect_pad", "InstanceNorm"]
 
 Padding = str | Sequence[tuple[int, int]]
 
@@ -200,6 +206,95 @@ def same_conv(x: torch.Tensor, conv: nn.Conv2d,
     weights cast at use; float32 throughout without a ``dtype``."""
     x = x.to(dtype or torch.float32)
     return conv2d(x, conv, conv_padding(x, conv, "SAME"), dtype)
+
+
+class ConvTranspose(nn.Conv2d):
+    """The parameters of flax's ``nn.ConvTranspose(features, kernel,
+    strides)`` (``transpose_kernel=False``), applied by
+    :func:`conv_transpose_same`. flax keeps the kernel as ``(KH, KW, I,
+    O)`` and applies it unflipped; the weight here is that kernel in the
+    plain convolution's layout ``(O, I, KH, KW)``, so the converter and
+    the initializers treat it as a convolution's (fan-in ``I·KH·KW``,
+    as flax counts it), and :func:`conv_transpose_same` flips it and
+    swaps its axes at use. The stride is the module's ``stride``."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: tuple[int, int], strides: tuple[int, int] = (1, 1),
+                 bias: bool = True):
+        super().__init__(in_features, features, kernel, strides, bias=bias)
+
+
+def conv_transpose_padding(k: int, s: int) -> tuple[int, int]:
+    """``lax``'s ``_conv_transpose_padding`` for ``"SAME"``: the (before,
+    after) zeros around the stride-dilated input, (2, 2) for k=5, s=1,
+    (3, 2) for k=5, s=2 and (2, 1) for k=3, s=2."""
+    total = k + s - 2
+    before = k - 1 if s > k - 1 else -(-total // 2)
+    return before, total - before
+
+
+def conv_transpose_same(x: torch.Tensor, conv: ConvTranspose,
+                        dtype: torch.dtype | None = None) -> torch.Tensor:
+    """flax's ``nn.ConvTranspose(..., padding="SAME")`` over NHWC ``x``:
+    ``s·H`` x ``s·W`` out. flax convolves the stride-dilated input with
+    the unflipped kernel between ``conv_transpose_padding`` zeros; torch's
+    transposed convolution correlates with the flipped kernel, so the
+    kernel is flipped first, pads of ``k - 1 - before`` give ``before``
+    zeros on each side, and the output is cropped (or, where ``after`` >
+    ``before``, extended) at its end by the difference (trap C2). With
+    ``dtype`` the input and weights are cast to it."""
+    pads = [conv_transpose_padding(k, s)
+            for k, s in zip(conv.kernel_size, conv.stride)]
+    weight = _cast(conv.weight, dtype).transpose(0, 1).flip(2, 3)
+    extra = [after - before for before, after in pads]
+    if dtype is not None:
+        x = x.to(dtype)
+    y = F.conv_transpose2d(
+        x.permute(0, 3, 1, 2), weight, _cast(conv.bias, dtype), conv.stride,
+        padding=[k - 1 - before for k, (before, _) in
+                 zip(conv.kernel_size, pads)],
+        output_padding=[max(e, 0) for e in extra])
+    h, w = y.shape[2] + min(extra[0], 0), y.shape[3] + min(extra[1], 0)
+    return y[:, :, :h, :w].permute(0, 2, 3, 1)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``jnp.pad(mode="reflect")`` of H and W of an NHWC tensor by
+    ``pad`` a side (the edge row is not repeated)."""
+    y = F.pad(x.permute(0, 3, 1, 2), (pad, pad, pad, pad), mode="reflect")
+    return y.permute(0, 2, 3, 1)
+
+
+class InstanceNorm(nn.Module):
+    """flax's ``nn.InstanceNorm`` over an NHWC tensor: each sample's
+    channels normalized by their own E[x] and E[x²] - E[x]² (clamped at
+    0) over H and W of the float32 input, then ``(x - mean)·(rsqrt(var +
+    eps)·scale) + bias`` in float32 and the result cast to ``dtype``.
+    eps is flax's 1e-6, not torch's 1e-5: on a channel of low variance
+    the two differ. ``scale`` and ``bias`` are float32 parameters named
+    as flax's; there are no running statistics."""
+
+    def __init__(self, features: int, eps: float = 1e-6, *,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.scale.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        del train  # the same in training and evaluation
+        x = x.float()
+        mean = x.mean((1, 2), keepdim=True)
+        var = torch.clamp((x * x).mean((1, 2), keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return ((x - mean) * mul + self.bias).to(self.dtype)
 
 
 # stddev of a standard normal truncated to (-2, 2), which flax's
@@ -366,7 +461,8 @@ def init_weights(module: nn.Module, generator: torch.Generator,
     :func:`he_normal_`; a layer may declare its own), biases at the
     layer's ``bias_init`` (0 where it declares none), and every
     BatchNorm (either kind)
-    at scale 1, bias 0, mean 0 and var 1. Modules are visited in
+    at scale 1, bias 0, mean 0 and var 1, and every InstanceNorm at scale
+    1 and bias 0. Modules are visited in
     registration order. Works on a module whose storage is
     uninitialised (``to_empty``)."""
     kernel_init = getattr(module, "kernel_init", kernel_init)
@@ -374,7 +470,7 @@ def init_weights(module: nn.Module, generator: torch.Generator,
         kernel_init(module.weight, generator)
         if module.bias is not None:
             module.bias.fill_(getattr(module, "bias_init", 0.0))
-    elif isinstance(module, _BatchNorm):
+    elif isinstance(module, (_BatchNorm, InstanceNorm)):
         module.reset_parameters()
     for child in module.children():
         init_weights(child, generator, kernel_init)

@@ -7,6 +7,9 @@
     {"id": 1, "input": [[[...416x416x3 floats in [-1, 1]...]]]}
     -> {"id": 1, "result": {"boxes": [[x1, y1, x2, y2], ...],
         "scores": [...], "classes": [...]}, "ms": 9.1}
+    python -m deepvision_tpu_torch.serve -m dcgan=runs/dcgan
+    {"id": 1, "input": [...100 noise floats...]}
+    -> {"id": 1, "result": {"image": [[[...28x28x1 in [-1, 1]...]]]}}
 
 One JSON request per line on stdin, one response per line on stdout in
 submission order; start-up chatter goes to stderr. ``-m`` is repeatable.
@@ -18,7 +21,9 @@ alexnet1``, ``-m inception1=runs/inception1`` after training
 ``resnet50``, ``-m yolov3=runs/yolov3`` after training ``yolov3``): then
 the newest verified epoch. ``yolov3`` serves the detect task: ``--score``
 and ``--iou`` are its NMS thresholds, and its boxes are normalized
-corners. The HTTP surface and the fleet mode of ``serve.py`` come
+corners. ``dcgan`` (or ``dcgan_generator``) serves the DCGAN generator
+of a ``train -m dcgan`` checkpoint: the input is the noise, the answer
+the image. The HTTP surface and the fleet mode of ``serve.py`` come
 later.
 """
 

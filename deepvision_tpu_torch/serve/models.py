@@ -14,7 +14,13 @@ decode (``ops/centernet_decode``, its 100 best peaks, valid above
 normalized corner boxes ``(x1, y1, x2, y2)`` with their scores and
 classes. A pose answer is each joint's ``(x, y, conf)`` from the last
 stack's heatmaps (``ops/heatmap.decode_heatmaps``), x and y normalized.
-A model
+The gan task serves the DCGAN generator (``dcgan`` or
+``dcgan_generator``): the input is the noise ``z`` of ``(noise_dim,)``,
+the answer the generated ``(28, 28, 1)`` image in [-1, 1]. A model
+served from a GAN checkpoint takes the generator's weights out of it
+(``CheckpointManager.restore_model(net="generator")``). Each served model
+names its input's pixel convention (``scale``, the JAX
+``input_scale``: ``"tanh"`` for every task but classify). A model
 is built without its training config's ``model_kwargs``, as the JAX
 ``load_served`` builds it: a checkpoint trained under ``resnet50``'s
 ``s2d_stem`` has the same state dict and serves on the plain stem, whose
@@ -43,15 +49,31 @@ from deepvision_tpu_torch.models import create_model
 from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
-__all__ = ["ServedModel", "load_served", "task_for"]
+__all__ = ["ServedModel", "load_served", "task_for", "input_scale"]
 
-# the served task of each model that is not a classifier
-_TASKS = {"yolov3": "detect", "centernet": "detect", "hourglass104": "pose"}
+# the served task of each model that is not a classifier ("gan" serves
+# the DCGAN generator: the input is the noise z, the output an image)
+_TASKS = {"yolov3": "detect", "centernet": "detect", "hourglass104": "pose",
+          "dcgan": "gan", "dcgan_generator": "gan"}
 
 
 def task_for(name: str) -> str:
     """The serving task of registry model ``name``."""
     return _TASKS.get(name, "classify")
+
+
+def input_scale(name: str) -> str:
+    """The pixel convention of registry model ``name``'s inputs, as its
+    training pipeline feeds them: ``"tanh"`` ([-1, 1]) for every task but
+    classify, ``"unit"`` ([0, 1]) for a grayscale classifier
+    (``lenet5``), ``"torch"`` for a config with ``augment: "pt"``, else
+    ``"imagenet"``."""
+    if task_for(name) != "classify":
+        return "tanh"
+    cfg = get_config(name)
+    if cfg.get("channels", 3) == 1:
+        return "unit"
+    return "torch" if cfg.get("augment", "tf") == "pt" else "imagenet"
 
 
 @dataclasses.dataclass
@@ -69,6 +91,7 @@ class ServedModel:
     device: torch.device
     forward: Callable[[torch.Tensor], dict]
     input_dtype: Any = np.float32
+    scale: str = "imagenet"
 
     def run(self, batch: np.ndarray) -> dict[str, np.ndarray]:
         """Host batch -> host outputs: one H2D copy, the forward, one
@@ -154,6 +177,43 @@ def _pose_post(host: dict, i: int) -> dict:
          np.asarray(host["conf"][i])], axis=-1).tolist()}
 
 
+def _gan_post(host: dict, i: int) -> dict:
+    return {"image": np.asarray(host["image"][i]).tolist()}
+
+
+def _load_gan_served(name: str, workdir: str | None, epoch: int | None,
+                     variables, seed: int, dev: torch.device) -> ServedModel:
+    """The DCGAN generator as a served model: input z, output image."""
+    cfg = get_config("dcgan")
+    noise_dim = cfg["noise_dim"]
+    restored = None
+    if workdir is not None:
+        restored, saved = CheckpointManager(
+            Path(workdir) / "ckpt").restore_model(epoch, device=dev,
+                                                  net="generator")
+        noise_dim = saved.get("noise_dim") or noise_dim
+    elif epoch is not None:
+        raise FileNotFoundError(
+            f"requested epoch {epoch} of {name!r} but no checkpoint "
+            "directory (workdir) was given")
+    module = create_model("dcgan_generator", device=dev, seed=seed,
+                          noise_dim=noise_dim)
+    if restored is not None:
+        module.load_state_dict(restored)
+    elif variables is not None:
+        module.load_state_dict(flax_to_torch("dcgan_generator", variables,
+                                             noise_dim=noise_dim))
+    module.eval()
+    module.requires_grad_(False)
+
+    def forward(z: torch.Tensor) -> dict[str, torch.Tensor]:
+        return {"image": module(z)}
+
+    return ServedModel(name=name, task="gan", module=module,
+                       input_shape=(noise_dim,), postprocess=_gan_post,
+                       device=dev, forward=forward, scale="tanh")
+
+
 def _detect_post(host: dict, i: int) -> dict:
     keep = np.asarray(host["valid"][i]).astype(bool)
     return {"boxes": np.asarray(host["boxes"][i])[keep].tolist(),
@@ -174,7 +234,8 @@ def load_served(name: str, workdir: str | None = None, *,
     (default ``"cuda"``, which raises without a card), for its task
     (:func:`task_for`): classify answers the ``top_k`` classes, detect
     the boxes that ``score_thresh`` (and for ``yolov3`` ``iou_thresh``)
-    keep, pose the ``num_heatmaps`` joints.
+    keep, pose the ``num_heatmaps`` joints, gan (``dcgan``,
+    ``dcgan_generator``) the DCGAN generator's image for a noise ``z``.
 
     Weights, in this order: the newest verified port checkpoint (or
     ``epoch``'s, which must verify) under
@@ -185,8 +246,13 @@ def load_served(name: str, workdir: str | None = None, *,
     dicts (``params``, and ``batch_stats`` for a model with BN), carried
     across by ``convert.from_flax.flax_to_torch``; else
     fresh weights, drawn from a ``torch.Generator`` seeded with
-    ``seed``. A ``workdir`` without a verified checkpoint raises."""
+    ``seed``. A ``workdir`` without a verified checkpoint raises, and so
+    does an ``epoch`` without a ``workdir``: an explicit epoch is never
+    served on fresh weights."""
     dev = resolve_device(device)
+    task = task_for(name)
+    if task == "gan":
+        return _load_gan_served(name, workdir, epoch, variables, seed, dev)
     cfg = get_config(name)
     restored = None
     if workdir is not None:
@@ -198,7 +264,6 @@ def load_served(name: str, workdir: str | None = None, *,
     size = input_size if input_size is not None else cfg["input_size"]
     classes = num_classes if num_classes is not None else cfg["num_classes"]
     model_kw = {"num_classes": classes, "input_size": size}
-    task = task_for(name)
     if task == "pose":
         model_kw["num_heatmaps"] = (num_heatmaps if num_heatmaps is not None
                                     else cfg["num_heatmaps"])
@@ -221,4 +286,4 @@ def load_served(name: str, workdir: str | None = None, *,
     return ServedModel(
         name=name, task=task, module=module,
         input_shape=(size, size, cfg["channels"]), postprocess=post,
-        device=dev, forward=forward)
+        device=dev, forward=forward, scale=input_scale(name))

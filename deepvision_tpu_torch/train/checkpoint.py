@@ -4,10 +4,13 @@ The twin of ``deepvision_tpu/train/checkpoint.py`` with ``torch.save`` in
 place of Orbax. Epoch ``e`` lives in ``{directory}/{e}/``:
 
 - ``state.pt``: the train state (model, optimizer with its momentum
-  buffers, step, loss scale; ``TrainState.state_dict``);
+  buffers, step, loss scale; ``TrainState.state_dict``), or a GAN's
+  (every net, both optimizers, the pools, step, loss scale;
+  ``train/gan.GANState.state_dict``);
 - ``meta.json``: the epoch, the metric history, the best metric, the
   model's name and geometry (``model``: ``name``, ``input_size``,
-  ``num_classes``, and a pose model's ``num_heatmaps``) and the
+  ``num_classes``, a pose model's ``num_heatmaps`` and a GAN's
+  ``noise_dim``) and the
   ``extra`` dict (the plateau controller's
   state).
 
@@ -16,7 +19,8 @@ A save writes a temporary directory and renames it into place with
 (``train/manifest.py``), then keeps the newest ``max_to_keep`` epochs.
 :meth:`CheckpointManager.restore` verifies the manifest first and raises
 on a mismatch; :meth:`CheckpointManager.restore_model` gives serving the
-newest verified epoch's weights and geometry. (Quarantine with fallback
+newest verified epoch's weights and geometry, of one net (``net``) of a
+GAN's checkpoint. (Quarantine with fallback
 to an older epoch comes with the resilience slice.)
 """
 
@@ -41,11 +45,13 @@ META_FILE = "meta.json"
 # model's joint count where its config has one
 MODEL_KEYS = ("name", "input_size", "num_classes")
 POSE_KEYS = ("num_heatmaps",)
+# a GAN's noise width where its config has one
+GAN_KEYS = ("noise_dim",)
 
 
 def _model_meta(config: dict) -> dict:
     return {**{k: config.get(k) for k in MODEL_KEYS},
-            **{k: config[k] for k in POSE_KEYS if k in config}}
+            **{k: config[k] for k in POSE_KEYS + GAN_KEYS if k in config}}
 
 
 def _load_state_file(path: Path, device: torch.device | str) -> dict:
@@ -121,20 +127,24 @@ class CheckpointManager:
         return meta
 
     def restore(self, state: TrainState, epoch: int | None = None) -> dict:
-        """Load the newest (or the given) verified epoch into ``state``;
-        returns its meta. Raises if the manifest does not verify."""
+        """Load the newest (or the given) verified epoch into ``state`` (a
+        ``TrainState`` or a ``GANState``); returns its meta. Raises if the
+        manifest does not verify."""
         epoch = self._resolve(epoch)
-        device = next(state.module.parameters()).device
+        device = (state.device if hasattr(state, "device")
+                  else next(state.module.parameters()).device)
         state.load_state_dict(_load_state_file(
             manifest.step_dir(self.directory, epoch) / STATE_FILE, device))
         return self.restore_meta(epoch)
 
     def restore_model(self, epoch: int | None = None,
-                      device: torch.device | str = "cpu"
-                      ) -> tuple[dict, dict]:
+                      device: torch.device | str = "cpu",
+                      net: str | None = None) -> tuple[dict, dict]:
         """The model's state dict (on ``device``) and its ``model`` meta
         (``MODEL_KEYS``) from the given epoch, which must verify, or else
-        from the newest epoch that verifies."""
+        from the newest epoch that verifies. A GAN's checkpoint holds
+        several nets: ``net`` names the one (``"generator"``,
+        ``"gen_a2b"``, ...)."""
         if epoch is None:
             epoch = manifest.newest_verified_epoch(self.directory)
             if epoch is None:
@@ -144,5 +154,13 @@ class CheckpointManager:
             epoch = self._resolve(epoch)
         sdir = manifest.step_dir(self.directory, epoch)
         meta = json.loads((sdir / META_FILE).read_text())
-        return (_load_state_file(sdir / STATE_FILE, device)["model"],
-                meta["model"])
+        saved = _load_state_file(sdir / STATE_FILE, device)
+        if "modules" in saved:
+            if net not in saved["modules"]:
+                raise KeyError(f"{sdir} holds the nets "
+                               f"{sorted(saved['modules'])}; name one of "
+                               f"them (net={net!r})")
+            return saved["modules"][net], meta["model"]
+        if net is not None:
+            raise KeyError(f"{sdir} holds one model, not nets ({net!r})")
+        return saved["model"], meta["model"]

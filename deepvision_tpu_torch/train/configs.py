@@ -1,5 +1,6 @@
-"""The port's copy of the AlexNet, Inception V1, ResNet, Darknet-53, YOLO
-v3, CenterNet and Hourglass-104 entries of ``train/configs.py``.
+"""The port's copy of the LeNet-5, AlexNet, Inception V1, ResNet,
+Darknet-53, YOLO v3, DCGAN, CycleGAN, CenterNet and Hourglass-104 entries
+of ``train/configs.py``.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
 0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
@@ -25,6 +26,13 @@ px, 80 COCO classes, ``"steps": "centernet"``, which picks the
 CenterNet steps over the detection data) and ``hourglass104`` the pose
 entry (Adam 1e-4, the same plateau, ``bf16_scaled``, ``remat:
 "stack"``, batch 16, 256 px, 16 MPII joints, ``"dataset": "pose"``).
+``lenet5`` carries MNIST's (Adam 1e-3, plateau, float32, batch 64, 32x32x1,
+10 classes, ``"dataset": "mnist"``), ``dcgan`` DCGAN's (two Adams at
+1e-4, bf16, batch 256, 28x28x1, noise 100, a checkpoint every 2 epochs,
+50 epochs, ``"dataset": "gan_mnist"``) and ``cyclegan`` CycleGAN's (two
+Adams at 2e-4 with β1 0.5 under ``linear_decay`` to 0 from epoch
+``decay_epochs`` = 100 to 200, bf16, batch 4, 256 px, a checkpoint every
+epoch, ``"dataset": "gan_unpaired"``).
 ``alexnet2_tf`` has no entry in the JAX table
 and stays serving-only here (its pixel convention is ``"tf"``):
 :data:`TRAINABLE` lists the models that train.
@@ -64,6 +72,20 @@ _RESNET_TRAINING = {
 }
 
 TRAINING_CONFIG: dict[str, dict] = {
+    # ref: deepvision_tpu/train/configs.py "lenet5"
+    "lenet5": {
+        "precision": "f32",
+        "batch_size": 64,
+        "input_size": 32,
+        "channels": 1,
+        "num_classes": 10,
+        "dataset": "mnist",
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 1e-3},
+        "scheduler": "plateau",
+        "scheduler_params": {"factor": 0.1, "mode": "max"},
+        "total_epochs": 50,
+    },
     # ref: deepvision_tpu/train/configs.py "alexnet1"
     "alexnet1": copy.deepcopy(_ALEXNET_TRAINING),
     # ref: deepvision_tpu/train/configs.py "alexnet2"
@@ -117,6 +139,31 @@ TRAINING_CONFIG: dict[str, dict] = {
         "scheduler": "plateau",
         "scheduler_params": {"factor": 0.1, "mode": "max", "patience": 10},
         "total_epochs": 300,
+    },
+    # ref: deepvision_tpu/train/configs.py "dcgan"
+    "dcgan": {
+        "precision": "bf16",
+        "batch_size": 256,
+        "input_size": 28,
+        "channels": 1,
+        "dataset": "gan_mnist",
+        "noise_dim": 100,
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 1e-4},
+        "save_every": 2,
+        "total_epochs": 50,
+    },
+    # ref: deepvision_tpu/train/configs.py "cyclegan"
+    "cyclegan": {
+        "precision": "bf16",
+        "batch_size": 4,
+        "input_size": 256,
+        "dataset": "gan_unpaired",
+        "optimizer": "adam",
+        "optimizer_params": {"lr": 2e-4, "beta1": 0.5},
+        "decay_epochs": 100,
+        "save_every": 1,
+        "total_epochs": 200,
     },
     # ref: deepvision_tpu/train/configs.py "centernet"
     "centernet": {

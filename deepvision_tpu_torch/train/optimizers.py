@@ -12,8 +12,7 @@ lr_scale``) without rebuilding the optimizer, as the JAX package writes
 (``step``, ``inception_poly``; ``train/schedules.py``) gets a
 :class:`ScheduledSGD`, which evaluates the schedule on the device at
 each update from an update count that a skipped step does not advance,
-as optax's count inside the optimizer state. ``linear_decay`` comes with
-CycleGAN, whose config also needs Adam.
+as optax's count inside the optimizer state.
 
 ``adam`` is optax's ``adam(lr, b1, b2, eps)`` (no weight decay), which
 ``torch.optim.Adam`` computes alike: both divide the bias-corrected first
@@ -21,7 +20,11 @@ moment by the square root of the bias-corrected second plus eps. It is
 built with its step count on the parameters' device (``capturable`` on
 the card, trap C10), so that the train state's select of the optimizer
 state never mixes a host tensor with a device one, and it follows a
-plateau through :func:`set_lr_scale` as SGD does.
+plateau through :func:`set_lr_scale` as SGD does. Under a step-count
+schedule (``linear_decay``, CycleGAN's; ``step``; ``inception_poly``)
+it is a :class:`ScheduledAdam`: optax's ``adam(schedule, b1, b2, eps)``
+term for term, the learning rate evaluated on the device from an update
+count that a skipped step does not advance.
 
 ``rmsprop`` raises (trap C7): optax's ``scale_by_rms`` adds eps inside
 the square root, torch's ``RMSprop`` outside it, and with the eps=1.0 of
@@ -37,7 +40,7 @@ import torch
 from deepvision_tpu_torch.train import schedules
 
 __all__ = ["make_optimizer", "set_lr_scale", "set_update_count",
-           "ScheduledSGD"]
+           "ScheduledSGD", "ScheduledAdam", "make_schedule"]
 
 
 class ScheduledSGD(torch.optim.SGD):
@@ -100,6 +103,102 @@ class ScheduledSGD(torch.optim.SGD):
         self.count.copy_(count)
 
 
+class ScheduledAdam(torch.optim.Adam):
+    """optax's ``adam(schedule, b1, b2, eps)``, ``scale_by_adam`` then
+    ``scale_by_learning_rate``, as its update computes it: ``mu = (1 -
+    b1)·g + b1·mu``, ``nu = (1 - b2)·g² + b2·nu``, the update ``mu / (1 -
+    b1^t) / (sqrt(nu / (1 - b2^t)) + eps)`` at the t-th update, times
+    ``-schedule(count) · lr_scale`` with ``count`` the updates made before
+    (``ScaleByScheduleState.count``). State: ``exp_avg`` (mu),
+    ``exp_avg_sq`` (nu) and ``step`` (t, float32) a parameter, as
+    ``torch.optim.Adam`` names them, and ``self.count``, one float32
+    tensor on the parameters' device that ``state_dict`` carries. Every
+    tensor lives on the device, so no update waits for the host
+    (capturable, trap C10), and the train state's select keeps them all
+    on a skipped step."""
+
+    def __init__(self, params, schedule: schedules.Schedule, *, lr: float,
+                 betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        params = list(params)
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         capturable=params[0].is_cuda)
+        self.schedule = schedule
+        self.count = torch.zeros((), dtype=torch.float32,
+                                 device=params[0].device)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ScheduledAdam.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32,
+                                             device=p.device)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+            states = [self.state[p] for p in params]
+            grads = [p.grad for p in params]
+            mus = [st["exp_avg"] for st in states]
+            nus = [st["exp_avg_sq"] for st in states]
+            steps = [st["step"] for st in states]
+            torch._foreach_add_(steps, 1.0)
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, torch._foreach_mul(grads, 1.0 - b1))
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1.0 - b2))
+            # the bias corrections 1 - b^t, one 0-d tensor a parameter
+            bc1 = torch._foreach_neg(torch._foreach_pow(b1, steps))
+            torch._foreach_add_(bc1, 1.0)
+            bc2 = torch._foreach_neg(torch._foreach_pow(b2, steps))
+            torch._foreach_add_(bc2, 1.0)
+            denom = torch._foreach_sqrt(torch._foreach_div(nus, bc2))
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
+            lr = self.schedule(self.count) * group["lr_scale"]
+            torch._foreach_sub_(params, torch._foreach_mul(updates, lr))
+        self.count.add_(1.0)
+        return None
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "count": self.count.clone()}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+        self.count.copy_(count)
+
+
+def make_schedule(name: str, base_lr: float, sched_p: dict,
+                  steps_per_epoch: int | None) -> schedules.Schedule:
+    """The step-count schedule ``name`` (``step``, ``inception_poly``,
+    ``linear_decay``) of a config; the first two count epochs in
+    ``steps_per_epoch`` updates, ``linear_decay`` takes ``total_steps``
+    and ``decay_start`` from ``sched_p``, as the JAX factory does."""
+    if name == "linear_decay":
+        return schedules.linear_decay(base_lr, sched_p["total_steps"],
+                                      sched_p["decay_start"])
+    if not steps_per_epoch:
+        raise ValueError(
+            f"scheduler {name!r} counts epochs in steps: pass "
+            "steps_per_epoch")
+    if name == "step":
+        return schedules.step_decay(base_lr, steps_per_epoch,
+                                    sched_p["step_size"], sched_p["gamma"])
+    return schedules.inception_poly(base_lr, steps_per_epoch)
+
+
+_COUNTED = ("step", "inception_poly", "linear_decay")
+
+
 def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
                    steps_per_epoch: int | None = None):
     """-> ``(optimizer, plateau_controller | None)`` from a
@@ -117,36 +216,33 @@ def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
     sched_name = cfg.get("scheduler")
     sched_p = cfg.get("scheduler_params", {})
     if opt == "adam":
-        if sched_name not in (None, "constant", "plateau"):
-            raise NotImplementedError(
-                f"scheduler {sched_name!r} with adam is not wired into the "
-                "port's optimizer yet: plateau and constant are")
+        betas = (p.get("beta1", 0.9), p.get("beta2", 0.999))
         params = list(params)
-        optimizer = torch.optim.Adam(
-            params, lr=base_lr, betas=(p.get("beta1", 0.9),
-                                       p.get("beta2", 0.999)),
-            eps=p.get("eps", 1e-8), capturable=params[0].is_cuda)
+        if sched_name in _COUNTED:
+            optimizer = ScheduledAdam(
+                params, make_schedule(sched_name, base_lr, sched_p,
+                                      steps_per_epoch),
+                lr=base_lr, betas=betas, eps=p.get("eps", 1e-8))
+        elif sched_name in (None, "constant", "plateau"):
+            optimizer = torch.optim.Adam(
+                params, lr=base_lr, betas=betas, eps=p.get("eps", 1e-8),
+                capturable=params[0].is_cuda)
+        else:
+            raise NotImplementedError(
+                f"scheduler {sched_name!r} is not wired into the port's "
+                f"optimizer yet: plateau, constant and {_COUNTED} are")
         return _with_plateau(optimizer, base_lr, sched_name, sched_p)
     sgd = {"lr": base_lr, "momentum": p.get("momentum", 0.0),
            "weight_decay": p.get("weight_decay", 0.0)}
-    if sched_name in ("step", "inception_poly"):
-        if not steps_per_epoch:
-            raise ValueError(
-                f"scheduler {sched_name!r} counts epochs in steps: pass "
-                "steps_per_epoch")
-        if sched_name == "step":
-            schedule = schedules.step_decay(
-                base_lr, steps_per_epoch, sched_p["step_size"],
-                sched_p["gamma"])
-        else:
-            schedule = schedules.inception_poly(base_lr, steps_per_epoch)
-        optimizer = ScheduledSGD(params, schedule, **sgd)
+    if sched_name in _COUNTED:
+        optimizer = ScheduledSGD(params, make_schedule(
+            sched_name, base_lr, sched_p, steps_per_epoch), **sgd)
     elif sched_name in (None, "constant", "plateau"):
         optimizer = torch.optim.SGD(params, dampening=0.0, **sgd)
     else:
         raise NotImplementedError(
             f"scheduler {sched_name!r} is not wired into the port's optimizer "
-            "yet: plateau, constant, step and inception_poly are")
+            f"yet: plateau, constant and {_COUNTED} are")
     return _with_plateau(optimizer, base_lr, sched_name, sched_p)
 
 
@@ -172,11 +268,12 @@ def set_lr_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
 
 
 @torch.no_grad()
-def set_update_count(optimizer: ScheduledSGD, count: int) -> None:
-    """Set a :class:`ScheduledSGD`'s update count (a carried JAX state's
-    schedule count)."""
-    if not isinstance(optimizer, ScheduledSGD):
+def set_update_count(optimizer: ScheduledSGD | ScheduledAdam,
+                     count: int) -> None:
+    """Set a :class:`ScheduledSGD`'s or :class:`ScheduledAdam`'s update
+    count (a carried JAX state's schedule count)."""
+    if not isinstance(optimizer, (ScheduledSGD, ScheduledAdam)):
         raise TypeError(
-            f"only a ScheduledSGD keeps an update count, not "
+            f"only a scheduled optimizer keeps an update count, not "
             f"{type(optimizer).__name__}")
     optimizer.count.fill_(float(count))

@@ -26,7 +26,33 @@ from torch import nn
 
 from deepvision_tpu_torch.core.precision import DynamicLossScale, all_finite
 
-__all__ = ["TrainState"]
+__all__ = ["TrainState", "guarded_step"]
+
+
+@torch.no_grad()
+def guarded_step(optimizer: torch.optim.Optimizer,
+                 params: list[torch.Tensor], finite: torch.Tensor) -> None:
+    """``optimizer.step()``, then where ``finite`` (a 0-d bool tensor on
+    the device) is false the pre-step values back in place: ``params``
+    (those with a gradient), every tensor of their optimizer state, and a
+    step-count schedule's update count (``optimizer.count``). A
+    ``torch.where`` on the device: no host sync."""
+    before_p = [p.detach().clone() for p in params]
+    before_s = [{k: v.clone() for k, v in optimizer.state[p].items()
+                 if torch.is_tensor(v)} for p in params]
+    # a step-count schedule's update count (ScheduledSGD, ScheduledAdam)
+    count = getattr(optimizer, "count", None)
+    before_count = None if count is None else count.clone()
+    optimizer.step()
+    for p, old, old_state in zip(params, before_p, before_s):
+        p.copy_(torch.where(finite, p, old))
+        for key, value in optimizer.state[p].items():
+            if torch.is_tensor(value):
+                # a buffer the step created holds zeros before it
+                prev = old_state.get(key, torch.zeros_like(value))
+                value.copy_(torch.where(finite, value, prev))
+    if count is not None:
+        count.copy_(torch.where(finite, count, before_count))
 
 
 class TrainState:
@@ -76,22 +102,7 @@ class TrainState:
         # state into NaN before the select (inf * 0)
         for g in grads:
             g.masked_fill_(~finite, 0.0)
-        before_p = [p.detach().clone() for p in params]
-        before_s = [{k: v.clone() for k, v in self.optimizer.state[p].items()
-                     if torch.is_tensor(v)} for p in params]
-        # a step-count schedule's update count (ScheduledSGD)
-        count = getattr(self.optimizer, "count", None)
-        before_count = None if count is None else count.clone()
-        self.optimizer.step()
-        for p, old, old_state in zip(params, before_p, before_s):
-            p.copy_(torch.where(finite, p, old))
-            for key, value in self.optimizer.state[p].items():
-                if torch.is_tensor(value):
-                    # a buffer the step created holds zeros before it
-                    prev = old_state.get(key, torch.zeros_like(value))
-                    value.copy_(torch.where(finite, value, prev))
-        if count is not None:
-            count.copy_(torch.where(finite, count, before_count))
+        guarded_step(self.optimizer, params, finite)
         for b, old in zip(self.module.buffers(), batch_stats or ()):
             b.copy_(torch.where(finite, b, old))
 

@@ -263,8 +263,8 @@ def test_detection_family_flips_images_and_boxes_together():
     cx = out["boxes"][:, 0, 0]
     torch.testing.assert_close(cx, torch.where(flipped, 0.875, 0.125))
     assert not out["boxes"][:, 1:].any()
-    with pytest.raises(ValueError, match="GAN family"):
-        device_aug.DeviceAugment("gan")
+    with pytest.raises(ValueError, match="unknown device augmentation"):
+        device_aug.DeviceAugment("segmentation")
 
 
 def test_synthetic_detection_matches_jax():

@@ -128,8 +128,8 @@ def test_mixup_params_reproducible_from_the_seed():
     assert lam.dtype == torch.float32 and lam.ndim == 0
     assert float(lam) == pytest.approx(
         np.random.default_rng(5).beta(0.2, 0.2), rel=1e-6)
-    with pytest.raises(ValueError, match="GAN family"):
-        device_aug.DeviceAugment("gan")
+    with pytest.raises(ValueError, match="classification-only"):
+        device_aug.DeviceAugment("gan", mixup=0.2)
     with pytest.raises(ValueError, match="mixup"):
         device_aug.DeviceAugment(mixup=-0.1)
 

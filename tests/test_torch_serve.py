@@ -223,18 +223,23 @@ HOURGLASS_MODULES = (
     "ops/centernet_encode.py", "ops/centernet_decode.py", "ops/heatmap.py",
     "losses/centernet.py", "losses/pose.py", "models/centernet.py",
     "models/hourglass.py", "data/pose.py", "eval/pose.py")
+# the GAN slice's modules, likewise
+GAN_MODULES = (
+    "models/gan.py", "models/lenet.py", "train/gan.py", "data/gan.py",
+    "data/mnist.py", "eval/gan.py")
 
 
 def test_the_scans_reach_every_module_and_native_binding():
     """Both scans walk every ``.py`` under the package (the detection,
-    CenterNet and pose modules among them), and every native source
+    CenterNet, pose and GAN modules among them), and every native source
     under ``csrc/`` is
     loaded by a scanned module's ``load_library`` call, so its binding
     is scanned too."""
     package = REPO / "deepvision_tpu_torch"
     scanned = {p.relative_to(package).as_posix() for p in _port_files()
                if package in p.parents}
-    assert set(DETECTION_MODULES) | set(HOURGLASS_MODULES) <= scanned
+    assert (set(DETECTION_MODULES) | set(HOURGLASS_MODULES)
+            | set(GAN_MODULES)) <= scanned
     loaded = set()
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -249,13 +254,17 @@ def test_the_scans_reach_every_module_and_native_binding():
 
 @pytest.mark.parametrize("name,task", [
     ("alexnet1", "classify"), ("resnet50", "classify"), ("yolov3", "detect"),
-    ("centernet", "detect"), ("hourglass104", "pose")])
+    ("centernet", "detect"), ("hourglass104", "pose"), ("dcgan", "gan"),
+    ("dcgan_generator", "gan"), ("lenet5", "classify")])
 def test_served_task_table(name, task):
-    """Each model serves the JAX package's task for it."""
+    """Each model serves the JAX package's task for it, with the JAX
+    package's input pixel convention."""
+    from deepvision_tpu.serve.models import input_scale as jax_input_scale
     from deepvision_tpu.serve.models import task_for as jax_task_for
-    from deepvision_tpu_torch.serve.models import task_for
+    from deepvision_tpu_torch.serve.models import input_scale, task_for
 
     assert task_for(name) == jax_task_for(name) == task
+    assert input_scale(name) == jax_input_scale(name)
 
 
 def test_no_quiet_cpu_run_without_a_card(monkeypatch):

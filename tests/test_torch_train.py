@@ -189,8 +189,8 @@ def test_constant_lr_matches_optax_through_the_train_state():
 
 
 @pytest.mark.parametrize("opt,scheduler,match", [
-    ("rmsprop", None, "C7"), ("adam", "step", "scheduler 'step' with adam"),
-    ("sgd", "linear_decay", "scheduler 'linear_decay'")])
+    ("rmsprop", None, "C7"), ("adam", "cosine", "scheduler 'cosine'"),
+    ("sgd", "cosine", "scheduler 'cosine'")])
 def test_unported_optimizers_and_schedulers_raise(opt, scheduler, match):
     cfg = {"optimizer": opt, "optimizer_params": {"lr": 0.1},
            "scheduler": scheduler}
@@ -650,17 +650,18 @@ def test_dropout_needs_a_generator_and_follows_it():
 
 
 def test_config_carries_the_jax_training_fields():
-    assert TRAINABLE == ("alexnet1", "alexnet2", "centernet", "darknet53",
-                         "hourglass104", "inception1", "inception1_ref",
-                         "resnet152", "resnet34", "resnet50", "resnet50v2",
-                         "yolov3")
+    assert TRAINABLE == ("alexnet1", "alexnet2", "centernet", "cyclegan",
+                         "darknet53", "dcgan", "hourglass104", "inception1",
+                         "inception1_ref", "lenet5", "resnet152", "resnet34",
+                         "resnet50", "resnet50v2", "yolov3")
     for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
                     "channels", "num_classes", "dataset", "optimizer",
                     "optimizer_params", "scheduler", "scheduler_params",
                     "total_epochs", "name", "model_kwargs", "remat",
-                    "steps", "num_heatmaps"):
+                    "steps", "num_heatmaps", "noise_dim", "decay_epochs",
+                    "save_every"):
             assert ours.get(key) == theirs.get(key), (name, key)
     assert get_config("resnet50")["model_kwargs"] == {"s2d_stem": True}
     assert "augment" not in get_config("resnet50v2")
