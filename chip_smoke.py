@@ -18,8 +18,11 @@ post-processed by the NMS sweep kernel, the hourglass models,
 CenterNet (``centernet``) and Hourglass-104 pose (``hourglass104``),
 served, trained from records and evaluated, and the GANs, DCGAN
 (``dcgan``, its generator served) and CycleGAN (``cyclegan``, trained
-from unpaired records), trained, served and scored; it holds every
-kernel on them against its plain version.
+from unpaired records), trained, served and scored, and the last five
+classifiers, VGG-16 and -19, MobileNet V1 (RMSprop, depthwise
+convolutions), ShuffleNet V1 (grouped convolutions, SAME stride-2 pads)
+and Inception V3 at 299; it holds every kernel on them against its plain
+version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
@@ -44,7 +47,7 @@ the seconds it took:
    pointer off 16 bytes (the forward's x, the backward's g) is refused
    with no launch counted;
 4. times, with CUDA events (``deepvision_tpu_torch/timing.py``: median of
-   100 runs after 10 of warm-up, 20 after 3 for the plain versions and
+   100 runs after 10 of warm-up, 5 after 1 for the plain versions and
    library calls, the stream held busy while the host
    queues them), of each kernel, its plain version and the library call
    (``F.local_response_norm``, and for the backward only the autograd
@@ -65,7 +68,7 @@ the seconds it took:
    reduction and elementwise kernels' shares, the top kernels, the idle
    share;
 6. the serving CLI, ``python -m deepvision_tpu_torch.serve``, answering
-   like the engine (AlexNet V1);
+   like the engine (AlexNet V1; it runs beside the training CLIs of 9);
 7. a train step on the card, kernel vs plain: AlexNet V1, later
    ``inception1_ref`` (aux heads on at 0.3), at full width, batch 128,
    seeded weights, float32 with TF32 off, dropout off, 3 steps with the
@@ -88,7 +91,7 @@ the seconds it took:
    moved and come back bit for bit from a restore, with the LR
    schedule's update count; the four models' CLIs run at once, after 11;
 10. training throughput at the config's batch in bf16 over 4 timed
-   steps (12 for ``resnet50``) after warm-up, through the device feed
+   steps after warm-up, through the device feed
    and on a
    device-resident batch, with the peak of allocated memory and the
    model FLOP utilization (convolution and matmul FLOPs from their
@@ -155,7 +158,7 @@ the seconds it took:
    bf16 (images/s, MFU, peak memory, idle), and the training CLI
    (``--data-dir --device-aug``, 1 epoch, ``--resume`` to 2), the
    serving CLI and the ``eval detection`` CLI from its checkpoint, whose
-   mAP line is printed and not gated (these CLIs run in phase 18). No
+   mAP line is printed and not gated (these CLIs run in phase 19). No
    YOLO path launches an LRN kernel.
 16. CenterNet and Hourglass-104 (``phase_centernet``, ``phase_pose``,
    after 15), neither of which launches an LRN or NMS kernel: each
@@ -179,7 +182,7 @@ the seconds it took:
    precision (images/s, MFU, peak memory, idle, launches), and the
    training CLI (``--data-dir --device-aug``, 1 epoch, ``--resume`` to
    2), the serving CLI and ``eval detection -m centernet`` and ``eval
-   pose`` from its checkpoint (mAP and PCK printed, not gated; phase 18).
+   pose`` from its checkpoint (mAP and PCK printed, not gated; phase 19).
 17. The GANs (``phase_gan``, after 16), neither of which launches an
    LRN or NMS kernel: the DCGAN generator served (``dcgan_generator``,
    seeded weights, float32 with TF32 off) behind an ``InferenceEngine``
@@ -199,20 +202,40 @@ the seconds it took:
    the step) and ``dcgan`` (batch 256): images/s, MFU from the port's
    modules' FLOPs, idle share, launches and device time a step, peak
    memory.
-18. The CLI chains of 15-17 at once, one process chain each: ``yolov3``,
+18. The five classifiers (``phase_classifiers``, after 17), none of
+   which launches an LRN or NMS kernel: ``vgg16``, ``vgg19``,
+   ``mobilenet1``, ``shufflenet1`` (224 px) and ``inception3`` (299 px),
+   1000 classes, seeded weights (BN statistics set from one batch of
+   the requests, as a trained model's), each served in float32 (TF32 off)
+   behind an ``InferenceEngine`` on buckets (1, 4, 16, 64), 64 queued
+   requests and 4 single ones, the first 4 answers' top-5 and logits
+   within 1e-4 of this machine's CPU (logits 1e-4 of their scale), with
+   a profile of the bucket-64 batch; each Trainer's bf16 step at the
+   config's batch (128, 64, 128, 256, 128) on a device-resident batch, 2
+   warm-up steps and 4 timed (images/s, MFU, peak memory), with a
+   profile of one step (device time, launches, the top 5 kernels, idle
+   share); the float32 steps of ``mobilenet1`` and ``shufflenet1`` at
+   batch 8, card against CPU under the rule and planted faults of 11; a
+   skipped ``bf16_scaled`` ``mobilenet1`` step under
+   ``set_sync_debug_mode("error")`` (parameters, BN statistics, RMSprop's
+   ``nu`` and update count unchanged bit for bit, the scale halved).
+19. The CLI chains of 15-18 at once, one process chain each: ``yolov3``,
    ``centernet`` and ``hourglass104`` as above; ``train -m dcgan`` (512
    synthetic digits, 2 steps an epoch) and ``train -m cyclegan
    --data-dir --device-aug`` (2 steps an epoch at 256 px), 1 epoch each
    then ``--resume`` to 2, the serving CLI of the DCGAN generator from
    its checkpoint, and ``eval gan -m dcgan`` and ``-m cyclegan`` (scores
-   printed, not gated).
+   printed, not gated); ``train -m mobilenet1`` as the training CLIs of
+   9 (2 epochs, ``--resume`` to 3, the update count and BN statistics
+   restored bit for bit) and its serving CLI from the checkpoint.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
 times under ``shapes``, launches by path under ``launches_by_path``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
 which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
-{...}``, ``[pose] {...}`` and ``[gan] {...}`` summaries, the card's name
+{...}``, ``[pose] {...}``, ``[gan] {...}`` and ``[classifiers] {...}``
+summaries, the card's name
 and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -321,16 +344,16 @@ N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
 # served answers of a model without LRN held against the CPU's
 CPU_CHECKED = 8
-# timed training steps of the paths before the ResNets' (12 for
-# resnet50's), which keeps the whole run near its earlier length
+# timed training steps of the paths before the records', resnet50's
+# included
 EARLIER_TIMED_STEPS = 4
-RESNET50_TIMED_STEPS = 12
 # H100 SXM, NVIDIA's data sheet: dense bf16 tensor-core rate (MFU's peak)
 BF16_DENSE_FLOPS_PER_S = 989e12
 # the plain versions' and library calls' timings, 10-300x the kernels'
-# own: the median of 20 after 3 (the kernels keep 100 after 10), which
-# keeps the whole run under half its limit
-YARDSTICK = {"iters": 20, "warmup": 3}
+# own: the median of 5 after 1 (the kernels keep 100 after 10). Each
+# costs about three times its calls (the stream is held for twice their
+# host time first); at 20 after 3 they took 65 of the 72 s of phase 4
+YARDSTICK = {"iters": 5, "warmup": 1}
 # the record path: batches of training records written, validation JPEGs
 # (one full batch and a padded one), timed fed steps
 RECORD_BATCHES = 2
@@ -362,12 +385,12 @@ CN_REQUESTS = 32
 CN_SCORE = 0.05
 CN_BATCH = 16
 CN_TRAIN, CN_VAL = 128, 32
-CN_TIMED_STEPS = 4
+CN_TIMED_STEPS = 2
 CN_CLI_STEPS = 2
 POSE_SIZE = 256
 POSE_JOINTS = 16
 POSE_TRAIN, POSE_VAL = 128, 32
-POSE_TIMED_STEPS = 4
+POSE_TIMED_STEPS = 2
 POSE_CLI_STEPS = 2
 # the GANs: DCGAN's noise width and served requests, the card-vs-CPU
 # steps' batches and CycleGAN's reduced depth there, the full-width
@@ -381,6 +404,15 @@ CYC_SIZE, CYC_BATCH = 256, 4
 CYC_RECORDS = 16
 GAN_TIMED_STEPS = 4
 GAN_CLI_STEPS = 2
+# the five classifiers of slice 11 at their configs' geometry: served
+# answers held against the CPU, the batch that sets their BN statistics,
+# the timed bf16 steps after warm-up, the card-vs-CPU steps' batch
+CLASSIFIERS = ("vgg16", "vgg19", "mobilenet1", "shufflenet1", "inception3")
+CLS_CPU_CHECKED = 4
+CLS_CALIBRATION = 16
+CLS_TOL = 1e-4
+CLS_WARMUP, CLS_TIMED_STEPS = 2, 4
+CLS_STEP_BATCH = 8
 
 
 def _say(*parts) -> None:
@@ -820,41 +852,49 @@ def _launch_counts() -> dict[str, int]:
             **local_response_norm_backward_cuda.launches_by_kernel}
 
 
-def _profile(run, label: str, top: int = 10, windows: int = 5,
+def _device_events(prof) -> list[tuple[str, float, float]]:
+    """``(name, start us, end us)`` of every kernel and copy the card ran
+    in ``prof``'s window, read from the profiler's raw results. Its
+    Python event tree (``events()``, ``key_averages()``) took most of
+    each window's seconds, 6-8 s for a step of 47,000 launches. User
+    annotations (``Optimizer.step#SGD.step``) are ranges on the device's
+    timeline over kernels counted themselves, and are left out."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and not e.is_user_annotation()]
+
+
+def _profile(run, label: str, top: int = 10, windows: int = 3,
              before: str | None = None, share_of: str = "lrn") -> dict:
     """``torch.profiler`` windows over ``run()``, which does its work and
-    waits for the card. One window traces the host and the card: the
-    device time by kernel name, the launches, the LRN kernels' share of
-    the device time and that of the reduction and elementwise kernels
-    (BatchNorm's statistics and apply are both), and for each kernel
-    whose name holds ``before``, the kernel the card ran just before it
-    and whether that was a copy. Then :func:`_idle_share` over
-    ``windows`` card-only windows. Returns ``device_ms``, ``launches``,
-    ``reduction_share``, ``elementwise_share``, ``kernel_share`` (that of
-    the kernels whose names hold ``share_of``) and ``idle`` (the median
-    share; None where the profiler recorded no device time)."""
+    waits for the card. One window traces the card (nothing here reads
+    the host's operations): the device time by kernel name, the
+    launches, the LRN kernels' share of the device time and that of the
+    reduction and elementwise kernels (BatchNorm's statistics and apply
+    are both), and for each kernel whose name holds ``before``, the
+    kernel the card ran just before it and whether that was a copy. Then
+    :func:`_idle_share` over ``windows`` card-only windows. Returns
+    ``device_ms``, ``launches``, ``reduction_share``,
+    ``elementwise_share``, ``kernel_share`` (that of the kernels whose
+    names hold ``share_of``) and ``idle`` (the median share; None where
+    the profiler recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-
-    def device_us(evt) -> float:
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(evt, attr):
-                return float(getattr(evt, attr))
-        return 0.0
-
-    # user annotations (``Optimizer.step#SGD.step``) are ranges on the
-    # device's timeline over kernels that are counted themselves
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type == cuda and device_us(e) > 0
-                 and not getattr(e, "is_user_annotation", False)]
-    total_us = sum(device_us(e) for e in on_device)
+    events = _device_events(prof)
+    by_name: dict[str, list] = {}
+    for name, start, end in events:
+        entry = by_name.setdefault(name, [0.0, 0])
+        entry[0] += end - start
+        entry[1] += 1
+    total_us = sum(us for us, _ in by_name.values())
     if total_us == 0:
         _say(f"[profile] {label}: device time by kernel not measured (the "
              "profiler recorded no device time)")
@@ -863,38 +903,34 @@ def _profile(run, label: str, top: int = 10, windows: int = 5,
                 "kernel_share": None}
 
     def share(word: str) -> float:
-        return sum(device_us(e) for e in on_device
-                   if word in e.key.lower()) / total_us
+        return sum(us for name, (us, _) in by_name.items()
+                   if word in name.lower()) / total_us
 
     kernel = share(share_of)
-    out = {"device_ms": total_us / 1e3,
-           "launches": sum(e.count for e in on_device),
+    out = {"device_ms": total_us / 1e3, "launches": len(events),
            "reduction_share": share("reduce"),
            "elementwise_share": share("elementwise"), "idle": None,
            "kernel_share": kernel}
-    _say(f"[profile] {label} (host and card traced): "
+    _say(f"[profile] {label} (card traced): "
          f"device time {total_us / 1e3:.3f} ms in {out['launches']} "
-         f"launches of {len(on_device)} kernels/copies; "
+         f"launches of {len(by_name)} kernels/copies; "
          f"{share_of.upper()} {kernel * total_us / 1e3:.4f} ms = "
          f"{kernel:.2%} of device time; "
          f"reduction kernels {out['reduction_share']:.2%}, elementwise "
          f"kernels {out['elementwise_share']:.2%}")
-    ranked = sorted(on_device, key=device_us, reverse=True)
+    ranked = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     # the top kernels, and every LRN kernel and copy wherever it ranks
-    for e in ranked[:top] + [e for e in ranked[top:] if any(
-            word in e.key.lower()
-            for word in (share_of, "copy", "memcpy"))]:
-        _say(f"[profile]   {device_us(e) / 1e3:9.4f} ms "
-             f"{device_us(e) / total_us:6.2%} x{e.count} {e.key[:110]}")
+    for name, (us, count) in ranked[:top] + [kv for kv in ranked[top:] if any(
+            word in kv[0].lower() for word in (share_of, "copy", "memcpy"))]:
+        _say(f"[profile]   {us / 1e3:9.4f} ms {us / total_us:6.2%} "
+             f"x{count} {name[:110]}")
     if before:
-        timeline = sorted((e for e in prof.events() if e.device_type == cuda
-                           and not getattr(e, "is_user_annotation", False)),
-                          key=lambda e: e.time_range.start)
-        for i, e in enumerate(timeline):
-            if before in e.name:
-                prev = timeline[i - 1].name if i else "nothing"
+        timeline = sorted(events, key=lambda e: e[1])
+        for i, (name, _, _) in enumerate(timeline):
+            if before in name:
+                prev = timeline[i - 1][0] if i else "nothing"
                 copy = "copy" in prev.lower()
-                _say(f"[profile] before {e.name[:60]}: "
+                _say(f"[profile] before {name[:60]}: "
                      f"{'a copy' if copy else 'no copy'} ({prev[:100]})")
 
     out["idle"] = _idle_share(run, label, windows)
@@ -910,7 +946,6 @@ def _idle_share(run, label: str, windows: int) -> float | None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     idle = []
     for w in range(windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -918,20 +953,17 @@ def _idle_share(run, label: str, windows: int) -> float | None:
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        events = [e for e in prof.events() if e.device_type == cuda
-                  and not getattr(e, "is_user_annotation", False)]
+        events = _device_events(prof)
         busy_us, end = 0.0, float("-inf")
-        for a, b in sorted((e.time_range.start, e.time_range.end)
-                           for e in events):  # union of device intervals
-            if b > end:
+        for _, a, b in sorted(events, key=lambda e: e[1]):
+            if b > end:  # the union of the device's intervals
                 busy_us += b - max(a, end)
                 end = b
         if busy_us == 0:
             _say(f"[profile] card-only window {w}: idle share not measured "
                  "(the profiler recorded no device time)")
             return None
-        h2d_us = sum(e.time_range.end - e.time_range.start for e in events
-                     if "HtoD" in e.name)
+        h2d_us = sum(b - a for name, a, b in events if "HtoD" in name)
         idle.append(1 - busy_us / wall_us)
         _say(f"[profile] card-only window {w}: host wall "
              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
@@ -967,10 +999,11 @@ def phase_cli(results, xs, n: int = 4) -> None:
          f"{proc.stderr.strip().splitlines()[-1]}")
 
 
-def _train_batch(n: int, classes: int = 1000, seed: int = 0) -> dict:
-    """A seeded host batch of ``n`` 224x224x3 images and labels."""
+def _train_batch(n: int, classes: int = 1000, seed: int = 0,
+                 size: int = 224) -> dict:
+    """A seeded host batch of ``n`` size x size x 3 images and labels."""
     rng = np.random.default_rng(seed)
-    return {"image": rng.normal(0, 1, (n, 224, 224, 3)).astype(np.float32),
+    return {"image": rng.normal(0, 1, (n, size, size, 3)).astype(np.float32),
             "label": rng.integers(0, classes, n).astype(np.int32)}
 
 
@@ -1339,14 +1372,14 @@ def phase_train_cli(workdir: Path, name: str = "alexnet1",
                 if model_kwargs else ""))
 
 
-def _model_flops_per_image(module) -> float:
-    """Model FLOPs of one forward of one 224x224x3 image: 2 a MAC of
-    every convolution and matmul, counted from their shapes by
+def _model_flops_per_image(module, size: int = 224) -> float:
+    """Model FLOPs of one forward of one size x size x 3 image: 2 a MAC
+    of every convolution and matmul, counted from their shapes by
     ``torch.utils.flop_counter``."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    x = torch.zeros(1, 224, 224, 3, device="cuda")
+    x = torch.zeros(1, size, size, 3, device="cuda")
     with torch.no_grad(), FlopCounterMode(display=False) as counter:
         module(x)
     return float(counter.get_total_flops())
@@ -1463,7 +1496,7 @@ def phase_resnets(smi: str, workdir: Path) -> None:
     _, trainer = _timed("resnet50 trainer", phase_trainer,
                         workdir / "inproc_resnet50", "resnet50", lrns=0)
     r = _timed("resnet50 throughput", phase_throughput, trainer, "resnet50",
-               steps=RESNET50_TIMED_STEPS)
+               steps=EARLIER_TIMED_STEPS)
     trainer = None
     _say(f"[resnet50] train bf16 batch 256: {r['fed']:.1f} images/s fed, "
          f"{r['resident']:.1f} resident; MFU {r['mfu']['feed']:.2%} fed, "
@@ -1479,17 +1512,21 @@ def phase_resnets(smi: str, workdir: Path) -> None:
         _timed(f"{name} served batch", phase_served_batch, name)
 
 
-def phase_train_clis(workdir: Path, runs: dict[str, int]) -> None:
-    """:func:`phase_train_cli` of each model (name -> LRNs a forward), the
-    models at once, one thread each (their processes share the card):
-    the runs' checks are their own, and their seconds are not read as
-    rates."""
+def phase_train_clis(workdir: Path, runs: dict[str, int],
+                     served: tuple) -> None:
+    """:func:`phase_train_cli` of each model (name -> LRNs a forward) and
+    the serving CLI (:func:`phase_cli` of ``served``, AlexNet V1's
+    answers and inputs), at once, one thread each (their processes share
+    the card): the runs' checks are their own, and their seconds are not
+    read as rates."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(runs)) as pool:
+    with ThreadPoolExecutor(len(runs) + 1) as pool:
         futures = [pool.submit(_timed, f"{name} train CLI", phase_train_cli,
                                workdir, name, lrns=lrns)
                    for name, lrns in runs.items()]
+        futures.append(pool.submit(_timed, "serving CLI", phase_cli,
+                                   *served))
         for future in futures:
             future.result()
 
@@ -1735,7 +1772,7 @@ def _feed_run(trainer, d: Path, label: str, use_raw, device_aug: bool,
     from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
     from deepvision_tpu_torch.train.steps import classification_train_step
 
-    warm, timed, windows = 2, RECORD_TIMED_STEPS, 3
+    warm, timed, windows = 2, RECORD_TIMED_STEPS, 2
     total = warm + timed + 2 * (1 + windows)
     train_data, _, _ = make_imagenet_data(
         str(d), 256, 224, augment="pt", use_raw=use_raw,
@@ -2392,7 +2429,7 @@ def _fed_and_resident(label: str, module, step, train_data, bs: int,
     cropped and resized there): images/s through the feed and on a
     device-resident batch, the feed's telemetry, MFU, peak memory and
     profiler windows (idle share: ``windows`` card-only ones over two fed
-    steps, two more over a resident step)."""
+    steps, as many over a resident step)."""
     import torch
 
     from deepvision_tpu_torch.core.prng import KeySeq
@@ -2444,7 +2481,7 @@ def _fed_and_resident(label: str, module, step, train_data, bs: int,
         torch.cuda.synchronize()
 
     prof = _profile(one_step, f"{label} train step batch {bs}",
-                    share_of=share_of, windows=windows + 2)
+                    share_of=share_of, windows=windows)
     assert np.isfinite(m["loss"].item())
     assert tel["wire_dtype"] == "jpeg", tel
     _say(f"[{label}-records] {label} batch {bs} at {size}: {fed:.1f} "
@@ -3046,14 +3083,14 @@ def _pose_clis(d: Path, workdir: Path) -> dict:
 
 def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
                      pose: dict, gan: dict) -> None:
-    """The YOLO v3, CenterNet, pose, DCGAN and CycleGAN CLI chains at
-    once, one thread each (their processes share the card; their checks
-    are their own and their seconds are not read as rates). Adds the
-    NMS launches and the mAP, PCK and GAN score lines to the
+    """The YOLO v3, CenterNet, pose, DCGAN, CycleGAN and MobileNet V1 CLI
+    chains at once, one thread each (their processes share the card;
+    their checks are their own and their seconds are not read as rates).
+    Adds the NMS launches and the mAP, PCK and GAN score lines to the
     summaries."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         yl = pool.submit(_timed, "yolov3 CLIs", _yolo_clis,
                          yolo.pop("records"), workdir)
         cn = pool.submit(_timed, "centernet CLIs", _centernet_clis,
@@ -3063,11 +3100,13 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
         dc = pool.submit(_timed, "dcgan CLIs", _dcgan_clis, workdir)
         cy = pool.submit(_timed, "cyclegan CLIs", _cyclegan_clis,
                          gan.pop("records"), workdir)
+        mb = pool.submit(_timed, "mobilenet1 CLIs", _mobilenet_clis, workdir)
         y = yl.result()
         yolo["nms_launches"].update(y["nms_launches"])
         yolo["summary"]["map_line"] = y["map"]
         centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
         gan["dcgan_eval"], gan["cyclegan_eval"] = dc.result(), cy.result()
+        mb.result()
 
 
 def phase_centernet(smi: str, workdir: Path) -> dict:
@@ -3919,6 +3958,290 @@ def phase_gan(smi: str, workdir: Path) -> dict:
             "records": train["records"], "card": smi}
 
 
+# ---------------------------------------------------- the five classifiers
+
+
+def _classify_check(served, n: int, tol: float):
+    """A check for :func:`_serve_against_cpu`: the first ``n`` of
+    ``served``'s answers' top-5 classes and probabilities, and the logits
+    of the same images, against the CPU's run of the same weights; a
+    class may differ only where the CPU gives it the same probability
+    within ``tol`` (a tie). Returns the check and the dict it fills with
+    the largest gaps."""
+    import torch
+
+    gaps = {}
+
+    def check(answers, singles, cpu, xs):
+        del singles
+        with torch.inference_mode():
+            logits_cpu = cpu.module(torch.from_numpy(xs[:n]))
+            logits_card = served.module(
+                torch.from_numpy(xs[:n]).cuda()).cpu()
+        probs = torch.softmax(logits_cpu, -1)
+        top_p, top_c = torch.topk(probs, 5, dim=-1)
+        _check_against(answers[:n], top_p.numpy(), top_c.numpy(),
+                       probs.numpy(), atol=tol)
+        gaps["logits"] = float((logits_card - logits_cpu).abs().max())
+        gaps["logit_scale"] = float(logits_cpu.abs().max())
+        gaps["probs"] = max(float(np.abs(np.asarray(a["probs"])
+                                         - top_p[i].numpy()).max())
+                            for i, a in enumerate(answers[:n]))
+        assert gaps["logits"] <= tol * max(1.0, gaps["logit_scale"]), gaps
+
+    return check, gaps
+
+
+def _calibrate_bn(module, xs: np.ndarray) -> None:
+    """Every BatchNorm's running statistics set to those of a batch of
+    ``xs`` (one training-mode forward at momentum 0, dropout off), as a
+    trained model's would be: fresh statistics (mean 0, var 1) shrink
+    MobileNet's activations through its depthwise layers to logits of
+    1e-19 and blow Inception V3's up to hundreds, where a comparison of
+    answers says little."""
+    import torch
+
+    from deepvision_tpu_torch.models.layers import MixedBatchNorm
+
+    norms = [m for m in module.modules() if isinstance(m, MixedBatchNorm)]
+    if not norms:
+        return
+    saved = [m.momentum for m in norms]
+    rates = {m: m.dropout_rate for m in module.modules()
+             if hasattr(m, "dropout_rate")}
+    try:
+        for m in norms:
+            m.momentum = 0.0
+        for m in rates:
+            m.dropout_rate = 0.0
+        with torch.no_grad():
+            module(torch.from_numpy(xs[:CLS_CALIBRATION]).cuda(), train=True)
+    finally:
+        for m, momentum in zip(norms, saved):
+            m.momentum = momentum
+        for m, rate in rates.items():
+            m.dropout_rate = rate
+
+
+def _classifier_serve(smi: str, name: str) -> dict:
+    """``name`` served in float32 (TF32 off) at its config's geometry,
+    1000 classes, seeded weights (BN statistics from
+    :func:`_calibrate_bn`), behind an ``InferenceEngine`` on
+    ``BUCKETS``: 64 queued requests (one bucket-64 batch) and 4 single
+    ones, the first ``CLS_CPU_CHECKED`` answers and their logits held
+    against the same weights on this machine's CPU, no LRN or NMS
+    launch; then profiler windows over one bucket-64 batch."""
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import load_served
+
+    strict_fp32()
+    t0 = time.perf_counter()
+    served = load_served(name, seed=0)
+    xs = (np.random.default_rng(0)
+          .normal(0, 1, (BUCKETS[-1], *served.input_shape))
+          .astype(np.float32))
+    _calibrate_bn(served.module, xs)
+    check, gaps = _classify_check(served, CLS_CPU_CHECKED, CLS_TOL)
+    _, tel, wall = _serve_against_cpu(served, xs, check)
+    _say(f"[{name}-serve] {served.input_shape} -> 1000 classes, largest "
+         f"|logit| {gaps['logit_scale']:.3g}, "
+         f"{sum(p.numel() for p in served.module.parameters())} parameters,"
+         f" input scale {served.scale}: {len(xs)} queued requests and 4 "
+         f"single ones in {wall:.1f} s (load, warm-up and the CPU's run "
+         f"{time.perf_counter() - t0:.1f} s in all); e2e p50 "
+         f"{tel['e2e_latency']['p50_ms']} ms; the first {CLS_CPU_CHECKED} "
+         f"answers' top-5 and logits match the CPU's (probs within "
+         f"{CLS_TOL}: largest gap {gaps['probs']:.2e}; logits within "
+         f"{CLS_TOL} x max(1, |logit|) = "
+         f"{CLS_TOL * max(1.0, gaps['logit_scale']):.2e}: largest gap "
+         f"{gaps['logits']:.2e}); LRN and NMS launches 0 ({smi})")
+    batch = xs[:BUCKETS[-1]]
+    _zero_launch_counts()
+    prof = _profile(lambda: served.run(batch),
+                    f"{name} bucket-{len(batch)} batch", top=5, windows=3)
+    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+    return {"device_ms": prof["device_ms"], "launches": prof["launches"],
+            "idle": prof["idle"], "logit_gap": gaps["logits"]}
+
+
+def _classifier_train(smi: str, name: str, workdir: Path) -> dict:
+    """The bf16 step of ``name``'s Trainer at its config's batch and
+    geometry (``trainer.state`` and the classification step it runs),
+    on one device-resident synthetic batch: ``CLS_WARMUP`` steps, then
+    ``CLS_TIMED_STEPS`` timed ones (images/s, MFU from the model's
+    FLOPs, peak allocated memory, no LRN launch), then profiler windows
+    over one step (device time, launches, the top 5 kernels, idle
+    share)."""
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.steps import classification_train_step
+    from deepvision_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config(name)
+    bs, size = cfg["batch_size"], cfg["input_size"]
+    kind = "torch" if cfg.get("augment") == "pt" else "imagenet"
+    module = create_model(name, device=torch.device("cuda"), seed=0,
+                          dtype=torch.bfloat16,
+                          **cfg.get("model_kwargs", {}))
+    trainer = Trainer(module, cfg, lambda e: iter(()), lambda: iter(()),
+                      workdir=workdir / "inproc_classifiers",
+                      steps_per_epoch=1000)
+    state = trainer.state
+    keys = KeySeq(1, 7, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(bs, size=size).items()}
+
+    def step():
+        return classification_train_step(state, batch, next(keys), kind)
+
+    for _ in range(CLS_WARMUP):
+        step()["loss"].item()
+    _zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(CLS_TIMED_STEPS):
+        m = step()
+    loss = m["loss"].item()
+    rate = CLS_TIMED_STEPS * bs / (time.perf_counter() - t0)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    assert np.isfinite(loss) and sum(_launch_counts().values()) == 0
+    flops = 3 * bs * _model_flops_per_image(module, size)
+    mfu = flops * rate / bs / BF16_DENSE_FLOPS_PER_S
+    _say(f"[{name}-train] bf16 batch {bs} at {size} ({cfg['optimizer']}, "
+         f"{cfg['scheduler']} schedule): {rate:.1f} images/s on a "
+         f"device-resident batch over {CLS_TIMED_STEPS} steps after "
+         f"{CLS_WARMUP}; loss {loss:.4f}; peak allocated {peak_gb:.2f} GiB;"
+         f" model FLOPs {flops:.4e} a step, MFU {mfu:.2%}; LRN launches 0 "
+         f"({smi})")
+
+    def one_step():
+        step()
+        torch.cuda.synchronize()
+
+    prof = _profile(one_step, f"{name} train step bf16 batch {bs}", top=5,
+                    windows=3)
+    return {"images_s": rate, "peak_gb": peak_gb, "mfu": mfu,
+            "flops": flops, "device_ms": prof["device_ms"],
+            "launches": prof["launches"], "idle": prof["idle"],
+            "reduction_share": prof["reduction_share"],
+            "elementwise_share": prof["elementwise_share"]}
+
+
+def phase_rmsprop_skip() -> None:
+    """``mobilenet1`` (full width, 224 px, batch 2) under ``bf16_scaled``
+    with its RMSprop built by ``make_optimizer`` (``nu`` and the update
+    count on the card): one clean step, then one whose images hold an
+    inf, run under ``torch.cuda.set_sync_debug_mode("error")`` (any host
+    sync raises). The step is skipped: every parameter, BN statistic,
+    ``nu`` and the update count keep their values bit for bit, and the
+    loss scale halves."""
+    import torch
+
+    from deepvision_tpu_torch.core.precision import get_policy
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.optimizers import (
+        ScheduledRMSprop,
+        make_optimizer,
+    )
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_train_step
+
+    policy = get_policy("bf16_scaled")
+    module = create_model("mobilenet1", device=torch.device("cuda"), seed=0,
+                          dtype=policy.compute_dtype)
+    opt, _ = make_optimizer(get_config("mobilenet1"), module.parameters(),
+                            1000)
+    assert isinstance(opt, ScheduledRMSprop) and opt.count.is_cuda
+    state = TrainState(module, opt, loss_scale=policy.make_loss_scale())
+    keys = KeySeq(1, 3, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in _train_batch(2, seed=4).items()}
+    classification_train_step(state, batch, next(keys), "torch")[
+        "loss"].item()
+
+    def snapshot():
+        return {**{k: v.clone() for k, v in module.state_dict().items()},
+                **{f"nu:{n}": opt.state[p]["nu"].clone()
+                   for n, p in module.named_parameters()},
+                "count": opt.count.clone()}
+
+    before, scale = snapshot(), float(state.loss_scale.scale)
+    bad = dict(batch, image=batch["image"].clone())
+    bad["image"][0, 5, 5, 0] = float("inf")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        m = classification_train_step(state, bad, next(keys), "torch")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    after = snapshot()
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    assert not moved, moved[:5]
+    assert float(m["mp_grads_finite"]) == 0.0
+    assert float(state.loss_scale.scale) == scale / 2
+    assert float(after["count"]) == 1.0
+    _say(f"[rmsprop] a bf16_scaled mobilenet1 step with an inf in its "
+         f"images ran with no host sync (sync debug mode 'error'); "
+         f"skipped: {len(before)} tensors (parameters, BN statistics, "
+         f"RMSprop's nu and update count, on the card) unchanged bit for "
+         f"bit, loss scale {scale:g} -> {float(state.loss_scale.scale):g}")
+
+
+def _mobilenet_clis(workdir: Path) -> None:
+    """:func:`phase_train_cli` of ``mobilenet1`` (RMSprop and the step
+    schedule, whose update count the restore must give back), then the
+    serving CLI answering 2 requests from its newest checkpoint."""
+    wd = workdir / "classifier_cli"
+    phase_train_cli(wd, "mobilenet1", lrns=0)
+    xs = _train_batch(2, seed=1)["image"]
+    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
+                    for i in range(2))
+    serve = _cli("deepvision_tpu_torch.serve",
+                 ["-m", f"mobilenet1={wd / 'mobilenet1'}", "--buckets",
+                  "1,4"], lines)
+    replies = [json.loads(s) for s in serve.stdout.splitlines()]
+    assert [r["id"] for r in replies] == [0, 1], replies
+    for r in replies:
+        assert len(r["result"]["classes"]) == 5
+        assert np.all(np.isfinite(r["result"]["probs"])), r
+    _say(f"[mobilenet1-cli] serving CLI answered {len(replies)} requests "
+         f"from the checkpoint ({serve.stderr.strip().splitlines()[-1]})")
+
+
+def phase_classifiers(smi: str, workdir: Path) -> dict:
+    """VGG-16 and -19, MobileNet V1, ShuffleNet V1 and Inception V3 at
+    their configs' geometry (224 px; 299 for ``inception3``), none of
+    which reaches an LRN or NMS kernel: each served (float32, bucket 64,
+    held against the CPU) and its Trainer's bf16 step timed; the float32
+    step of ``mobilenet1`` (RMSprop, depthwise convolutions) and
+    ``shufflenet1`` (grouped convolutions, SAME stride-2 pads) on the
+    card against the CPU under the rule and planted faults of
+    :func:`phase_card_vs_cpu_step`; the skipped RMSprop step. Returns a
+    summary by model (the CLI chain runs in :func:`phase_model_clis`)."""
+    import torch
+
+    summary = {}
+    for name in CLASSIFIERS:
+        serve = _timed(f"{name} serve", _classifier_serve, smi, name)
+        torch.cuda.empty_cache()
+        train = _timed(f"{name} train", _classifier_train, smi, name,
+                       workdir)
+        torch.cuda.empty_cache()
+        summary[name] = {"serve_bucket64": serve, "train_bf16": train}
+    for name in ("mobilenet1", "shufflenet1"):
+        _timed(f"{name} card-vs-cpu step", phase_card_vs_cpu_step, name,
+               n=CLS_STEP_BATCH)
+    _timed("rmsprop skip", phase_rmsprop_skip)
+    torch.cuda.empty_cache()
+    summary["card"] = smi
+    return summary
+
+
 def _timed(label: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, with the seconds it took printed."""
     t0 = time.perf_counter()
@@ -3952,7 +4275,6 @@ def main() -> int:
     paths = {}
     paths["serve_f32"], results, xs = _timed("alexnet1 serve", phase_serve,
                                              smi)
-    _timed("serving CLI", phase_cli, results, xs)
     paths["train_step_f32"] = _timed("alexnet1 train step",
                                      phase_train_step)
     paths["trainer_bf16"], trainer = _timed("alexnet1 trainer",
@@ -3981,7 +4303,9 @@ def main() -> int:
     phase_resnets(smi, workdir)
     torch.cuda.empty_cache()
     _timed("train CLIs", phase_train_clis, workdir / "cli", {
-        "alexnet1": 2, "inception1_ref": 2, "inception1": 0, "resnet50": 0})
+        "alexnet1": 2, "inception1_ref": 2, "inception1": 0, "resnet50": 0},
+        (results, xs))
+    results = xs = None
     records = _timed("records", phase_records, smi, workdir)
     torch.cuda.empty_cache()
     _timed("resnet152", phase_resnet152, smi, workdir)
@@ -3991,6 +4315,7 @@ def main() -> int:
     hourglass = {"centernet": phase_centernet(smi, workdir),
                  "pose": phase_pose(smi, workdir)}
     gan = phase_gan(smi, workdir)
+    classifiers = phase_classifiers(smi, workdir)
     _timed("model CLIs", phase_model_clis, workdir, yolo,
            hourglass["centernet"], hourglass["pose"], gan)
     shutil.rmtree(workdir, ignore_errors=True)
@@ -4042,6 +4367,7 @@ def main() -> int:
     for name, summary in hourglass.items():
         print(f"[{name}] {json.dumps(summary)}")
     print(f"[gan] {json.dumps(gan)}")
+    print(f"[classifiers] {json.dumps(classifiers)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

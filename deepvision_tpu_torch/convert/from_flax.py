@@ -18,11 +18,15 @@ port expects and the tree lacks, a leaf the tree has and the port does
 not use, or a shape that does not match raises ``ValueError``.
 
 :func:`flax_train_state_to_torch` carries a JAX ``TrainState`` mid
-training (params, BN ``batch_stats``, the SGD momentum ``trace``, the
-step, the LR schedule's update count, the plateau's ``lr_scale`` and the
-loss scale, as numpy) and :func:`load_flax_train_state` writes it into
-the port's train state, so that a step can start from the same point on
-both sides.
+training (params, BN ``batch_stats``, the SGD momentum ``trace`` or
+RMSprop's second moment ``nu``, the step, the LR schedule's update
+count, the plateau's ``lr_scale`` and the loss scale, as numpy) and
+:func:`load_flax_train_state` writes it into the port's train state, so
+that a step can start from the same point on both sides.
+:func:`rmsprop_parts` finds ``nu`` and the count in an optax
+``rmsprop`` state by their field names. A grouped or depthwise kernel
+takes the same transpose as any conv kernel: flax's ``(KH, KW, I/g,
+O)`` is the port's ``(O, I/g, KH, KW)``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from deepvision_tpu_torch.models import get_model
 
 __all__ = ["flax_to_torch", "flax_param_tree_to_torch",
            "flax_train_state_to_torch", "load_flax_train_state",
+           "rmsprop_parts",
            "flax_gan_state_to_torch", "load_flax_gan_state"]
 
 _LEAF = {"weight": "kernel", "bias": "bias"}
@@ -110,27 +115,33 @@ def flax_param_tree_to_torch(model_name: str, tree: Mapping[str, Any],
 
 
 def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
-                              trace: Mapping[str, Any], step: int,
+                              step: int,
+                              trace: Mapping[str, Any] | None = None,
+                              nu: Mapping[str, Any] | None = None,
                               batch_stats: Mapping[str, Any] | None = None,
                               count: int | None = None,
                               lr_scale: float = 1.0,
                               loss_scale: Mapping[str, Any] | None = None,
                               **model_kw) -> dict:
     """A JAX train state, as numpy, in the port's terms:
-    ``{"model": state_dict, "momentum": {param name: buffer}, "step",
-    "count", "lr_scale", "loss_scale"}``. ``params`` and ``trace`` are
-    the flax parameter tree and optax's momentum trace of the same
-    structure, ``batch_stats`` the BN statistics (for a model with BN);
-    ``count`` is the update count of a step-count LR schedule (optax's
+    ``{"model": state_dict, "momentum" or "nu": {param name: tensor},
+    "step", "count", "lr_scale", "loss_scale"}``. ``params`` is the flax
+    parameter tree and one of ``trace`` (optax's SGD momentum trace) and
+    ``nu`` (RMSprop's ``ScaleByRmsState.nu``) a tree of the same
+    structure, which takes the parameters' layout change;
+    ``batch_stats`` the BN statistics (for a model with BN); ``count`` is
+    the update count of a step-count LR schedule (optax's
     ``ScaleByScheduleState``; None without one); ``loss_scale`` holds
-    ``scale`` and ``good_steps`` (None without scaling). The trace takes
-    the parameters' layout change."""
+    ``scale`` and ``good_steps`` (None without scaling)."""
+    if (trace is None) == (nu is None):
+        raise ValueError("pass one of trace (SGD) and nu (RMSprop)")
     variables = {"params": params}
     if batch_stats:
         variables["batch_stats"] = batch_stats
+    slot, tree = ("momentum", trace) if nu is None else ("nu", nu)
     return {
         "model": flax_to_torch(model_name, variables, **model_kw),
-        "momentum": flax_param_tree_to_torch(model_name, trace, **model_kw),
+        slot: flax_param_tree_to_torch(model_name, tree, **model_kw),
         "step": int(step),
         "count": None if count is None else int(count),
         "lr_scale": float(lr_scale),
@@ -143,17 +154,19 @@ def flax_train_state_to_torch(model_name: str, *, params: Mapping[str, Any],
 def load_flax_train_state(state, carried: dict) -> None:
     """Write :func:`flax_train_state_to_torch`'s output into the port's
     ``TrainState`` (its module with its BN statistics, SGD momentum
-    buffers, step, schedule count, LR scale and loss scale), on the
-    state's device."""
+    buffers or RMSprop's ``nu``, step, schedule count, LR scale and loss
+    scale), on the state's device."""
     from deepvision_tpu_torch.train.optimizers import (
         set_lr_scale,
         set_update_count,
     )
 
     state.module.load_state_dict(carried["model"])
+    slot = "nu" if "nu" in carried else "momentum"
+    key = "nu" if slot == "nu" else "momentum_buffer"
     for name, p in state.module.named_parameters():
-        state.optimizer.state[p]["momentum_buffer"] = (
-            torch.empty_like(p).copy_(carried["momentum"][name]))
+        state.optimizer.state[p][key] = (
+            torch.empty_like(p).copy_(carried[slot][name]))
     state.step = carried["step"]
     if carried["count"] is not None:
         set_update_count(state.optimizer, carried["count"])
@@ -170,15 +183,41 @@ def load_flax_train_state(state, carried: dict) -> None:
             int(ls["good_steps"]), dtype=torch.int32, device=dev)
 
 
+def _named_parts(opt_state) -> list:
+    """The named-tuple states inside an optax state, chains and
+    ``inject_hyperparams``' inner state flattened."""
+    if hasattr(opt_state, "inner_state"):
+        return _named_parts(opt_state.inner_state)
+    if hasattr(opt_state, "_fields"):
+        return [opt_state]
+    if isinstance(opt_state, (tuple, list)):
+        return [p for part in opt_state for p in _named_parts(part)]
+    return []
+
+
+def _find_parts(opt_state, main) -> tuple:
+    """(the part whose fields satisfy ``main``, the
+    ``ScaleByScheduleState`` or None) of an optax state."""
+    parts = _named_parts(opt_state)
+    fields = [set(p._fields) for p in parts]
+    found = next(p for p, f in zip(parts, fields) if main(f))
+    sched = next((p for p, f in zip(parts, fields) if f == {"count"}), None)
+    return found, sched
+
+
 def _adam_parts(opt_state) -> tuple:
     """(Adam's ``ScaleByAdamState``, the ``ScaleByScheduleState`` or
     None) of an optax ``adam`` state, found by their named fields."""
-    parts = list(opt_state) if isinstance(opt_state, (tuple, list)) \
-        else [opt_state]
-    fields = [set(getattr(p, "_fields", ())) for p in parts]
-    adam = next(p for p, f in zip(parts, fields) if "mu" in f)
-    sched = next((p for p, f in zip(parts, fields) if f == {"count"}), None)
-    return adam, sched
+    return _find_parts(opt_state, lambda f: "mu" in f)
+
+
+def rmsprop_parts(opt_state) -> tuple:
+    """(RMSprop's ``nu`` tree, the schedule's update count or None) of an
+    optax ``rmsprop`` state (its chain with ``add_decayed_weights``
+    included), found by their named fields: ``ScaleByRmsState.nu`` and
+    ``ScaleByScheduleState.count``."""
+    rms, sched = _find_parts(opt_state, lambda f: f == {"nu"})
+    return rms.nu, None if sched is None else int(np.asarray(sched.count))
 
 
 def flax_gan_state_to_torch(nets: Mapping[str, str], roles: Mapping[str, tuple],

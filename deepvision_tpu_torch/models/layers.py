@@ -46,7 +46,8 @@ from torch.utils import checkpoint as torch_checkpoint
 __all__ = ["conv2d", "dense", "dropout", "max_pool", "avg_pool",
            "global_avg_pool", "upsample2x", "same_padding", "make_conv",
            "conv_padding", "same_conv",
-           "lecun_normal_", "he_normal_", "MixedBatchNorm", "BatchNorm",
+           "lecun_normal_", "he_normal_", "xavier_uniform_", "normal_",
+           "MixedBatchNorm", "BatchNorm",
            "ConvBN", "init_weights", "REMAT_POLICIES", "CONV_OUT",
            "recomputing", "remat", "ConvTranspose", "conv_transpose_padding",
            "conv_transpose_same", "reflect_pad", "InstanceNorm"]
@@ -84,7 +85,8 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, padding: Padding = "VALID",
     if pads is not None:
         x = F.pad(x, pads)
     y = F.conv2d(x.permute(0, 3, 1, 2), _cast(conv.weight, dtype),
-                 _cast(conv.bias, dtype), conv.stride, conv.padding)
+                 _cast(conv.bias, dtype), conv.stride, conv.padding,
+                 groups=conv.groups)
     return y.permute(0, 2, 3, 1)
 
 
@@ -131,7 +133,8 @@ def avg_pool(x: torch.Tensor, window: tuple[int, int] = (2, 2),
              padding: Padding = "VALID") -> torch.Tensor:
     """flax's ``nn.avg_pool`` over H and W of an NHWC tensor: each
     window's sum over the window's full size, explicit pads counted as
-    zeros."""
+    zeros (flax's ``count_include_pad=True``; XLA's SAME pads of a
+    stride-2 pool are asymmetric, and callers spell them out)."""
     pads = _explicit_pads(padding)
     if pads is not None:
         x = F.pad(x, pads)
@@ -170,11 +173,14 @@ def same_padding(in_hw: Sequence[int], window: Sequence[int],
 
 def make_conv(in_features: int, features: int, kernel: tuple[int, int],
               strides: tuple[int, int] = (1, 1), padding: Padding = "SAME",
-              bias: bool = True) -> nn.Conv2d:
+              bias: bool = True, groups: int = 1) -> nn.Conv2d:
     """The ``nn.Conv2d`` of flax's ``nn.Conv(features, kernel, strides,
-    padding)``. Symmetric pads (explicit ones, or a stride-1 ``"SAME"``
-    over an odd kernel) are the convolution's own; any other padding is
-    applied by :func:`conv2d` with what :func:`conv_padding` gives."""
+    padding, feature_group_count=groups)``: a grouped kernel is ``(O,
+    I/groups, KH, KW)`` against flax's ``(KH, KW, I/groups, O)``, so the
+    converter's transpose carries it as any other. Symmetric pads
+    (explicit ones, or a stride-1 ``"SAME"`` over an odd kernel) are the
+    convolution's own; any other padding is applied by :func:`conv2d`
+    with what :func:`conv_padding` gives."""
     own = 0
     if padding == "SAME":
         if all(s == 1 and k % 2 for k, s in zip(kernel, strides)):
@@ -182,7 +188,7 @@ def make_conv(in_features: int, features: int, kernel: tuple[int, int],
     elif not isinstance(padding, str) and all(lo == hi for lo, hi in padding):
         own = [lo for lo, _ in padding]
     return nn.Conv2d(in_features, features, kernel, strides, padding=own,
-                     bias=bias)
+                     bias=bias, groups=groups)
 
 
 def conv_padding(x: torch.Tensor, conv: nn.Conv2d,
@@ -328,6 +334,27 @@ def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
     _truncated_normal_(weight, 2.0 / fan_out, generator)
 
 
+def xavier_uniform_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``xavier_uniform`` (``variance_scaling(1.0, "fan_avg",
+    "uniform")``): uniform on ``±sqrt(3 / fan_avg)``, ``fan_avg`` the
+    mean of fan_in and fan_out as :func:`lecun_normal_` and
+    :func:`he_normal_` count them."""
+    fan_in = weight[0].numel()
+    fan_out = weight.shape[0] * weight[0, 0].numel()
+    limit = math.sqrt(3.0 / ((fan_in + fan_out) / 2))
+    nn.init.uniform_(weight, -limit, limit, generator=generator)
+
+
+def normal_(stddev: float):
+    """flax's ``normal(stddev)``: a kernel init drawing N(0, stddev²),
+    untruncated."""
+
+    def init(weight: torch.Tensor, generator: torch.Generator) -> None:
+        nn.init.normal_(weight, 0.0, stddev, generator=generator)
+
+    return init
+
+
 class _BatchNorm(nn.Module):
     """What both BatchNorms share: ``scale`` and ``bias``, float32
     parameters, and ``mean`` and ``var``, float32 buffers, named as
@@ -424,8 +451,9 @@ class BatchNorm(_BatchNorm):
 
 
 class ConvBN(nn.Module):
-    """The JAX ``ConvBN``: a convolution without bias (``conv``), then
-    :class:`MixedBatchNorm` (``bn``, momentum 0.9, eps 1e-5), then
+    """The JAX ``ConvBN``: a convolution without bias (``conv``, over
+    ``groups`` channel groups: ``in_features`` for a depthwise one),
+    then :class:`MixedBatchNorm` (``bn``, momentum 0.9, eps 1e-5), then
     ``act`` (ReLU; None for none), in the compute ``dtype``. Fresh
     kernels are ``he_normal``."""
 
@@ -435,10 +463,10 @@ class ConvBN(nn.Module):
                  kernel: tuple[int, int] = (3, 3),
                  strides: tuple[int, int] = (1, 1),
                  padding: Padding = "SAME", act=torch.relu,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__()
         self.conv = make_conv(in_features, features, kernel, strides,
-                              padding, bias=False)
+                              padding, bias=False, groups=groups)
         self.bn = MixedBatchNorm(features)
         self.padding = padding
         self.act = act

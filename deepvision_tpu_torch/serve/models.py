@@ -1,10 +1,11 @@
 """Served models: one load + post-process path for the engine and the CLI.
 
 The twin of ``deepvision_tpu/serve/models.py`` for the classify task
-(the AlexNets, Inception V1 in both variants, ``resnet34``,
-``resnet50``, ``resnet152``, ``resnet50v2`` and ``darknet53``; a model
-with aux heads returns only its main logits in eval, as the JAX forward
-keeps only them), the detect task of ``yolov3`` and ``centernet``, and
+(``lenet5``, the AlexNets, ``vgg16`` and ``vgg19``, Inception V1 in both
+variants and Inception V3, ``resnet34``, ``resnet50``, ``resnet152``,
+``resnet50v2``, ``mobilenet1``, ``shufflenet1`` and ``darknet53``; a
+model with aux heads returns only its main logits in eval, as the JAX
+forward keeps only them), the detect task of ``yolov3`` and ``centernet``, and
 the pose task of ``hourglass104``. ``yolov3``'s raw grids go through
 ``ops/yolo_postprocess`` (decode, then batched greedy NMS with
 ``score_thresh`` and ``iou_thresh``, the sweep on the CUDA kernel for a

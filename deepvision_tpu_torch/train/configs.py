@@ -1,6 +1,7 @@
-"""The port's copy of the LeNet-5, AlexNet, Inception V1, ResNet,
-Darknet-53, YOLO v3, DCGAN, CycleGAN, CenterNet and Hourglass-104 entries
-of ``train/configs.py``.
+"""The port's copy of the LeNet-5, AlexNet, VGG, Inception V1 and V3,
+ResNet, MobileNet V1, ShuffleNet V1, Darknet-53, YOLO v3, DCGAN,
+CycleGAN, CenterNet and Hourglass-104 entries of ``train/configs.py``:
+every entry of the JAX table.
 
 ``alexnet1`` and ``alexnet2`` carry the JAX table's training fields (SGD
 0.01 / 0.9 / 5e-4, plateau on validation top-1, bf16, batch 128),
@@ -33,6 +34,14 @@ entry (Adam 1e-4, the same plateau, ``bf16_scaled``, ``remat:
 Adams at 2e-4 with β1 0.5 under ``linear_decay`` to 0 from epoch
 ``decay_epochs`` = 100 to 200, bf16, batch 4, 256 px, a checkpoint every
 epoch, ``"dataset": "gan_unpaired"``).
+``vgg16`` and ``vgg19`` carry theirs (SGD 0.01 / 0.9 / 5e-4, a step
+schedule of 10 epochs at 0.5, bf16, batch 128 and 64), ``mobilenet1``
+MobileNet's (RMSprop 0.045 with alpha 0.9 and eps 1.0, a step schedule
+of 2 epochs at 0.94, bf16, batch 128), ``shufflenet1`` ShuffleNet's (SGD
+0.1 / 0.9 / 4e-5, a step schedule of 30 epochs at 0.1, bf16, batch 256)
+and ``inception3`` Inception V3's (MobileNet's RMSprop and schedule,
+bf16, batch 128, 299 px, no ``augment``: it normalizes as
+``"imagenet"``).
 ``alexnet2_tf`` has no entry in the JAX table
 and stays serving-only here (its pixel convention is ``"tf"``):
 :data:`TRAINABLE` lists the models that train.
@@ -92,6 +101,32 @@ TRAINING_CONFIG: dict[str, dict] = {
     "alexnet2": copy.deepcopy(_ALEXNET_TRAINING),
     "alexnet2_tf": {"input_size": 224, "channels": 3, "num_classes": 1000,
                     "augment": "tf"},
+    # ref: deepvision_tpu/train/configs.py "vgg16"
+    "vgg16": {
+        "precision": "bf16",
+        "augment": "pt",
+        "batch_size": 128,
+        "input_size": 224,
+        "optimizer": "sgd",
+        "optimizer_params": {"lr": 0.01, "momentum": 0.9,
+                             "weight_decay": 5e-4},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 10, "gamma": 0.5},
+        "total_epochs": 200,
+    },
+    # ref: deepvision_tpu/train/configs.py "vgg19"
+    "vgg19": {
+        "precision": "bf16",
+        "augment": "pt",
+        "batch_size": 64,
+        "input_size": 224,
+        "optimizer": "sgd",
+        "optimizer_params": {"lr": 0.01, "momentum": 0.9,
+                             "weight_decay": 5e-4},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 10, "gamma": 0.5},
+        "total_epochs": 200,
+    },
     # ref: deepvision_tpu/train/configs.py "inception1"
     "inception1": {
         "precision": "bf16",
@@ -115,6 +150,43 @@ TRAINING_CONFIG: dict[str, dict] = {
     # ref: deepvision_tpu/train/configs.py "resnet50v2"
     "resnet50v2": {k: copy.deepcopy(v) for k, v in _RESNET_TRAINING.items()
                    if k not in ("augment", "model_kwargs")},
+    # ref: deepvision_tpu/train/configs.py "mobilenet1": optax's
+    # RMSprop (eps inside the square root, trap C7)
+    "mobilenet1": {
+        "precision": "bf16",
+        "augment": "pt",
+        "batch_size": 128,
+        "input_size": 224,
+        "optimizer": "rmsprop",
+        "optimizer_params": {"lr": 0.045, "alpha": 0.9, "eps": 1.0},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 2, "gamma": 0.94},
+        "total_epochs": 200,
+    },
+    # ref: deepvision_tpu/train/configs.py "shufflenet1"
+    "shufflenet1": {
+        "precision": "bf16",
+        "augment": "pt",
+        "batch_size": 256,
+        "input_size": 224,
+        "optimizer": "sgd",
+        "optimizer_params": {"lr": 0.1, "momentum": 0.9,
+                             "weight_decay": 4e-5},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 30, "gamma": 0.1},
+        "total_epochs": 120,
+    },
+    # ref: deepvision_tpu/train/configs.py "inception3"
+    "inception3": {
+        "precision": "bf16",
+        "batch_size": 128,
+        "input_size": 299,
+        "optimizer": "rmsprop",
+        "optimizer_params": {"lr": 0.045, "alpha": 0.9, "eps": 1.0},
+        "scheduler": "step",
+        "scheduler_params": {"step_size": 2, "gamma": 0.94},
+        "total_epochs": 200,
+    },
     # ref: deepvision_tpu/train/configs.py "darknet53"
     "darknet53": {
         "precision": "bf16",

@@ -26,9 +26,13 @@ it is a :class:`ScheduledAdam`: optax's ``adam(schedule, b1, b2, eps)``
 term for term, the learning rate evaluated on the device from an update
 count that a skipped step does not advance.
 
-``rmsprop`` raises (trap C7): optax's ``scale_by_rms`` adds eps inside
-the square root, torch's ``RMSprop`` outside it, and with the eps=1.0 of
-MobileNet's and Inception V3's configs the two differ.
+``rmsprop`` is optax's ``rmsprop(lr, decay, eps)`` (after
+``add_decayed_weights`` where the config sets ``weight_decay``), a
+:class:`ScheduledRMSprop` under every scheduler. It is not
+``torch.optim.RMSprop`` (trap C7): optax's ``scale_by_rms`` adds eps
+inside the square root, ``g / sqrt(nu + eps)``, torch's outside it,
+``g / (sqrt(nu) + eps)``, and with the eps=1.0 of MobileNet's and
+Inception V3's configs the two differ in the leading term.
 """
 
 from __future__ import annotations
@@ -40,10 +44,28 @@ import torch
 from deepvision_tpu_torch.train import schedules
 
 __all__ = ["make_optimizer", "set_lr_scale", "set_update_count",
-           "ScheduledSGD", "ScheduledAdam", "make_schedule"]
+           "ScheduledSGD", "ScheduledAdam", "ScheduledRMSprop",
+           "make_schedule"]
 
 
-class ScheduledSGD(torch.optim.SGD):
+class _Counted:
+    """An optimizer's update count, ``self.count`` (one float32 tensor on
+    the parameters' device, exact to 2^24 updates), carried by
+    ``state_dict`` under ``"count"``."""
+
+    count: torch.Tensor
+
+    def state_dict(self) -> dict:
+        return {**super().state_dict(), "count": self.count.clone()}
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        state_dict = dict(state_dict)
+        count = state_dict.pop("count")
+        super().load_state_dict(state_dict)
+        self.count.copy_(count)
+
+
+class ScheduledSGD(_Counted, torch.optim.SGD):
     """``torch.optim.SGD`` (L2 before momentum, no dampening) whose
     learning rate at each update is ``schedule(count) · lr_scale``, with
     ``count`` the updates made before it (optax's
@@ -93,17 +115,8 @@ class ScheduledSGD(torch.optim.SGD):
         self.count.add_(1.0)
         return None
 
-    def state_dict(self) -> dict:
-        return {**super().state_dict(), "count": self.count.clone()}
 
-    def load_state_dict(self, state_dict: dict) -> None:
-        state_dict = dict(state_dict)
-        count = state_dict.pop("count")
-        super().load_state_dict(state_dict)
-        self.count.copy_(count)
-
-
-class ScheduledAdam(torch.optim.Adam):
+class ScheduledAdam(_Counted, torch.optim.Adam):
     """optax's ``adam(schedule, b1, b2, eps)``, ``scale_by_adam`` then
     ``scale_by_learning_rate``, as its update computes it: ``mu = (1 -
     b1)·g + b1·mu``, ``nu = (1 - b2)·g² + b2·nu``, the update ``mu / (1 -
@@ -167,14 +180,57 @@ class ScheduledAdam(torch.optim.Adam):
         self.count.add_(1.0)
         return None
 
-    def state_dict(self) -> dict:
-        return {**super().state_dict(), "count": self.count.clone()}
 
-    def load_state_dict(self, state_dict: dict) -> None:
-        state_dict = dict(state_dict)
-        count = state_dict.pop("count")
-        super().load_state_dict(state_dict)
-        self.count.copy_(count)
+class ScheduledRMSprop(_Counted, torch.optim.Optimizer):
+    """optax's ``rmsprop(schedule, decay=alpha, eps)``, ``scale_by_rms``
+    then ``scale_by_learning_rate``, with optax's
+    ``add_decayed_weights(weight_decay)`` before it where the decay is
+    nonzero: ``g = grad + weight_decay·p``, ``nu = (1 - alpha)·g² +
+    alpha·nu`` (``nu`` from 0, optax's ``initial_scale``), and the update
+    ``g · rsqrt(nu + eps)`` times ``-schedule(count) · lr_scale``, with
+    ``count`` the updates made before (``ScaleByScheduleState.count``).
+    eps sits inside the square root, where ``torch.optim.RMSprop`` adds
+    it outside (trap C7). State: ``nu`` a parameter and ``self.count``,
+    all on the parameters' device, so that no update waits for the host
+    and the train state's select keeps them on a skipped step."""
+
+    def __init__(self, params, schedule: schedules.Schedule, *, lr: float,
+                 alpha: float = 0.9, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        params = list(params)
+        super().__init__(params, {"lr": lr, "alpha": alpha, "eps": eps,
+                                  "weight_decay": weight_decay})
+        self.schedule = schedule
+        self.count = torch.zeros((), dtype=torch.float32,
+                                 device=params[0].device)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ScheduledRMSprop.step takes no closure")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                if not self.state[p]:
+                    self.state[p]["nu"] = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
+            nus = [self.state[p]["nu"] for p in params]
+            decay = group["alpha"]
+            torch._foreach_mul_(nus, decay)
+            torch._foreach_add_(nus, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1.0 - decay))
+            scaling = torch._foreach_rsqrt(torch._foreach_add(
+                nus, group["eps"]))
+            updates = torch._foreach_mul(scaling, grads)
+            lr = self.schedule(self.count) * group["lr_scale"]
+            torch._foreach_sub_(params, torch._foreach_mul(updates, lr))
+        self.count.add_(1.0)
+        return None
 
 
 def make_schedule(name: str, base_lr: float, sched_p: dict,
@@ -207,14 +263,22 @@ def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
     opt = cfg["optimizer"]
     p = dict(cfg.get("optimizer_params", {}))
     base_lr = p.pop("lr")
-    if opt not in ("sgd", "adam"):
-        raise NotImplementedError(
-            f"optimizer {opt!r} is not ported: sgd and adam are. rmsprop "
-            "waits on trap C7 (optax's scale_by_rms puts eps inside the "
-            "square root, torch's RMSprop outside; with eps=1.0 they "
-            "differ)")
+    if opt not in ("sgd", "adam", "rmsprop"):
+        raise ValueError(f"unknown optimizer {opt!r}")
     sched_name = cfg.get("scheduler")
     sched_p = cfg.get("scheduler_params", {})
+    if sched_name not in (*_COUNTED, None, "constant", "plateau"):
+        raise NotImplementedError(
+            f"scheduler {sched_name!r} is not wired into the port's "
+            f"optimizer yet: plateau, constant and {_COUNTED} are")
+    if opt == "rmsprop":
+        schedule = (make_schedule(sched_name, base_lr, sched_p,
+                                  steps_per_epoch)
+                    if sched_name in _COUNTED else lambda count: base_lr)
+        optimizer = ScheduledRMSprop(
+            params, schedule, lr=base_lr, alpha=p.get("alpha", 0.9),
+            eps=p.get("eps", 1e-8), weight_decay=p.get("weight_decay", 0.0))
+        return _with_plateau(optimizer, base_lr, sched_name, sched_p)
     if opt == "adam":
         betas = (p.get("beta1", 0.9), p.get("beta2", 0.999))
         params = list(params)
@@ -223,26 +287,18 @@ def make_optimizer(cfg: dict, params: Iterable[torch.nn.Parameter],
                 params, make_schedule(sched_name, base_lr, sched_p,
                                       steps_per_epoch),
                 lr=base_lr, betas=betas, eps=p.get("eps", 1e-8))
-        elif sched_name in (None, "constant", "plateau"):
+        else:
             optimizer = torch.optim.Adam(
                 params, lr=base_lr, betas=betas, eps=p.get("eps", 1e-8),
                 capturable=params[0].is_cuda)
-        else:
-            raise NotImplementedError(
-                f"scheduler {sched_name!r} is not wired into the port's "
-                f"optimizer yet: plateau, constant and {_COUNTED} are")
         return _with_plateau(optimizer, base_lr, sched_name, sched_p)
     sgd = {"lr": base_lr, "momentum": p.get("momentum", 0.0),
            "weight_decay": p.get("weight_decay", 0.0)}
     if sched_name in _COUNTED:
         optimizer = ScheduledSGD(params, make_schedule(
             sched_name, base_lr, sched_p, steps_per_epoch), **sgd)
-    elif sched_name in (None, "constant", "plateau"):
-        optimizer = torch.optim.SGD(params, dampening=0.0, **sgd)
     else:
-        raise NotImplementedError(
-            f"scheduler {sched_name!r} is not wired into the port's optimizer "
-            f"yet: plateau, constant and {_COUNTED} are")
+        optimizer = torch.optim.SGD(params, dampening=0.0, **sgd)
     return _with_plateau(optimizer, base_lr, sched_name, sched_p)
 
 
@@ -268,11 +324,10 @@ def set_lr_scale(optimizer: torch.optim.Optimizer, scale: float) -> None:
 
 
 @torch.no_grad()
-def set_update_count(optimizer: ScheduledSGD | ScheduledAdam,
-                     count: int) -> None:
-    """Set a :class:`ScheduledSGD`'s or :class:`ScheduledAdam`'s update
-    count (a carried JAX state's schedule count)."""
-    if not isinstance(optimizer, (ScheduledSGD, ScheduledAdam)):
+def set_update_count(optimizer: _Counted, count: int) -> None:
+    """Set a scheduled optimizer's update count (a carried JAX state's
+    schedule count)."""
+    if not isinstance(optimizer, _Counted):
         raise TypeError(
             f"only a scheduled optimizer keeps an update count, not "
             f"{type(optimizer).__name__}")

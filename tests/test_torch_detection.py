@@ -17,6 +17,7 @@ width on the CPU: training (synthetic, then resumed; from records with
 
 import io
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +41,11 @@ from deepvision_tpu_torch.eval.__main__ import main as eval_main
 from deepvision_tpu_torch.serve.__main__ import main as serve_main
 from deepvision_tpu_torch.serve.models import load_served
 from deepvision_tpu_torch.train.__main__ import main as train_main
-from deepvision_tpu_torch.train.optimizers import make_optimizer, set_lr_scale
+from deepvision_tpu_torch.train.optimizers import (
+    ScheduledRMSprop,
+    make_optimizer,
+    set_lr_scale,
+)
 from tests.torch_threads import (  # noqa: F401  (autouse)
     share_cores_among_workers,
 )
@@ -289,7 +294,8 @@ def test_synthetic_detection_matches_jax():
 def test_adam_matches_optax_under_the_plateau_scale():
     """``yolov3``'s Adam (0.01) against optax's ``adam`` inside
     ``inject_hyperparams`` over the LR scale, 4 steps with the scale
-    cut to 0.1 after two; rmsprop is refused for trap C7."""
+    cut to 0.1 after two; rmsprop builds optax's RMSprop, not
+    ``torch.optim.RMSprop`` (trap C7)."""
     rng = np.random.default_rng(0)
     shapes = [(5, 3), (7,), (2, 2, 3)]
     params = [rng.normal(0, 1, s).astype(np.float32) for s in shapes]
@@ -316,9 +322,10 @@ def test_adam_matches_optax_under_the_plateau_scale():
     for p, j in zip(tp, jp):
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(j),
                                    atol=1e-6, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="trap C7"):
-        make_optimizer({"optimizer": "rmsprop",
-                        "optimizer_params": {"lr": 0.1}}, tp)
+    rms, _ = make_optimizer({"optimizer": "rmsprop",
+                             "optimizer_params": {"lr": 0.1}}, tp)
+    assert isinstance(rms, ScheduledRMSprop)
+    assert not isinstance(rms, torch.optim.RMSprop)
 
 
 # --------------------------------------------------------------- mAP
@@ -416,6 +423,9 @@ def test_cli_trains_yolov3_resumes_serves_and_evaluates(tmp_path, capsys):
     assert isinstance(line["nms_candidates_max"], int)
     assert line["nms_exact"] == (line["nms_candidates_max"] <= 512)
     assert "'nms_sweep': 0" in out.err
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_cli_trains_yolov3_from_records_with_device_aug(records, tmp_path,
@@ -445,6 +455,9 @@ def test_cli_trains_yolov3_from_records_with_device_aug(records, tmp_path,
     line = _last_json(capsys.readouterr().out)
     assert line["images"] == 5 and set(line["per_class"]) <= {
         "aeroplane", "bicycle", "bird"}
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):

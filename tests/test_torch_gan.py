@@ -36,6 +36,7 @@ flax's weights carried by ``convert.from_flax``:
 import gzip
 import io
 import json
+import shutil
 import struct
 
 import flax.linen as nn
@@ -719,6 +720,9 @@ def test_checkpoint_and_resume_equal_an_uninterrupted_run(tmp_path, kind):
                                else "fc.weight"],
                        want[f"{net}.{'head' if kind == 'cyclegan' else 'fc'}"
                             ".weight"])
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def gan_data_batches(arrays, bs, epoch):
@@ -929,6 +933,9 @@ def test_cyclegan_cli_from_records_with_device_aug(tmp_path, capsys):
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["epoch"] == 1 and line["n"] == 4
     assert np.isfinite(line["score"]) and line["mse_baseline"] > 0
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_gan_registry_and_fresh_init():

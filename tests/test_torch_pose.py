@@ -30,6 +30,7 @@ evaluates PCK.
 import contextlib
 import io
 import json
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -766,6 +767,9 @@ def test_cli_trains_from_records_resumes_serves_and_evaluates(
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["metric"] == "PCK@0.5" and 0.0 <= line["value"] <= 1.0
     assert len(line["per_joint"]) == JOINTS
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_cli_trains_on_the_synthetic_set_with_few_joints(tmp_path, capsys):
@@ -786,6 +790,9 @@ def test_cli_trains_on_the_synthetic_set_with_few_joints(tmp_path, capsys):
                       "--device", "cpu"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert len(line["per_joint"]) == 3
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -16,6 +16,7 @@ bf16-twin band (``CLS_LOSS_RTOL``) with identical top-1 decisions.
 import contextlib
 import dataclasses
 import re
+import shutil
 
 import flax
 import flax.linen as flax_nn
@@ -189,7 +190,8 @@ def test_constant_lr_matches_optax_through_the_train_state():
 
 
 @pytest.mark.parametrize("opt,scheduler,match", [
-    ("rmsprop", None, "C7"), ("adam", "cosine", "scheduler 'cosine'"),
+    ("rmsprop", "cosine", "scheduler 'cosine'"),
+    ("adam", "cosine", "scheduler 'cosine'"),
     ("sgd", "cosine", "scheduler 'cosine'")])
 def test_unported_optimizers_and_schedulers_raise(opt, scheduler, match):
     cfg = {"optimizer": opt, "optimizer_params": {"lr": 0.1},
@@ -652,8 +654,10 @@ def test_dropout_needs_a_generator_and_follows_it():
 def test_config_carries_the_jax_training_fields():
     assert TRAINABLE == ("alexnet1", "alexnet2", "centernet", "cyclegan",
                          "darknet53", "dcgan", "hourglass104", "inception1",
-                         "inception1_ref", "lenet5", "resnet152", "resnet34",
-                         "resnet50", "resnet50v2", "yolov3")
+                         "inception1_ref", "inception3", "lenet5",
+                         "mobilenet1", "resnet152", "resnet34", "resnet50",
+                         "resnet50v2", "shufflenet1", "vgg16", "vgg19",
+                         "yolov3")
     for name in TRAINABLE:
         ours, theirs = get_config(name), jax_get_config(name)
         for key in ("precision", "augment", "batch_size", "input_size",
@@ -1171,6 +1175,9 @@ def test_cli_trains_resnet50_from_raw_records(record_dir, tmp_path, capsys,
     state = torch.load(tmp_path / "resnet50" / "ckpt" / "1" / "state.pt",
                        weights_only=True)
     assert state["step"] == 4
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_cli_trains_from_jpeg_records(record_dir, tmp_path, capsys):
@@ -1185,6 +1192,9 @@ def test_cli_trains_from_jpeg_records(record_dir, tmp_path, capsys):
     assert "[feed] epoch 0: wire jpeg" in captured.out
     assert "raw-frame fast path" not in captured.out
     assert "'ycc_to_rgb': 0, 'nms_sweep': 0}" in captured.err.splitlines()[-1]
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.mark.parametrize("flags,needs_dir,message", [

@@ -8,6 +8,7 @@ against the JAX ``Trainer`` over one epoch of 3 steps from the same
 weights, dropout off on both sides, float32, validation to 1e-4.
 """
 
+import shutil
 import threading
 from functools import partial
 
@@ -171,6 +172,9 @@ def test_checkpoint_keeps_three_and_refuses_a_tampered_file(tmp_path):
     mgr.restore(t.state, 3)  # an intact epoch still restores
     with pytest.raises(FileNotFoundError):
         CheckpointManager(tmp_path / "none").restore(t.state)
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_restore_model_takes_the_newest_verified_epoch(tmp_path):
@@ -213,6 +217,9 @@ def test_resume_equals_the_uninterrupted_run_bit_for_bit(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     # the history carried over: the pre-train and both epochs
     assert resumed.loggers.data["val_loss"]["epochs"] == [-1, 0, 1]
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 # ------------------------------------------------------ CLI, serving
@@ -249,6 +256,9 @@ def test_cli_trains_resumes_and_serves_from_its_checkpoint(tmp_path,
                                want.max(-1).values.numpy(), rtol=1e-6)
     np.testing.assert_array_equal(got["classes"][:, 0],
                                   want.argmax(-1).numpy())
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_served_logits_equal_the_trainers_module(tmp_path):
@@ -261,6 +271,9 @@ def test_served_logits_equal_the_trainers_module(tmp_path):
     with torch.inference_mode():
         torch.testing.assert_close(served.module(x), t.state.module(x),
                                    rtol=0, atol=0)
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_cli_trains_inception1_ref_and_resumes_mid_schedule(tmp_path,
@@ -376,6 +389,9 @@ def test_cli_trains_resnet50_under_its_model_kwargs(tmp_path, capsys,
     CheckpointManager(workdir / "ckpt").restore(TrainState(fresh, opt), 2)
     for name, tensor in fresh.state_dict().items():
         assert torch.equal(tensor, state["model"][name]), name
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def test_cli_defaults_to_the_card(monkeypatch, tmp_path):
@@ -435,3 +451,6 @@ def test_trainer_matches_the_jax_trainer(tmp_path, mesh1):
                                    atol=1e-4, err_msg=key)
     np.testing.assert_allclose(got.data["train_loss"]["value"],
                                want.data["train_loss"]["value"], rtol=1e-4)
+    # its checkpoints (pytest keeps the temp directories of its last
+    # three runs)
+    shutil.rmtree(tmp_path, ignore_errors=True)
