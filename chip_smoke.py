@@ -21,8 +21,9 @@ served, trained from records and evaluated, and the GANs, DCGAN
 from unpaired records), trained, served and scored, and the last five
 classifiers, VGG-16 and -19, MobileNet V1 (RMSprop, depthwise
 convolutions), ShuffleNet V1 (grouped convolutions, SAME stride-2 pads)
-and Inception V3 at 299; it holds every kernel on them against its plain
-version.
+and Inception V3 at 299, and the resilient training run (recovery, fault
+injection, the sentinel, preemption, the spawned loader, tracing); it
+holds every kernel on them against its plain version.
 Phases, each of which raises on failure (nothing is caught) and prints
 the seconds it took:
 
@@ -228,6 +229,29 @@ the seconds it took:
    printed, not gated); ``train -m mobilenet1`` as the training CLIs of
    9 (2 epochs, ``--resume`` to 3, the update count and BN statistics
    restored bit for bit) and its serving CLI from the checkpoint.
+20. The resilient run (``phase_resilience``, beside 19's chains):
+   ``alexnet1`` at full width (224 px, 1000 classes, batch 128, bf16)
+   through three training CLIs at once. Chaos: 2 epochs over 13's JPEG
+   shards with
+   ``--device-aug --loader-workers 2``, ``--recover --faults
+   CHAOS_FAULTS`` (a garbled checkpoint, two transient reads, a NaN
+   batch, a SIGKILLed loader worker), ``--sentinel --async-checkpoint
+   --keep-best --stall-timeout``, ``--trace`` and ``--profile-steps``:
+   the ``[recovery]`` line's one rollback, one checkpoint fallback and
+   two data retries, one worker respawned, both LRN kernels launched on
+   its steps (rolled back and resumed ones included; the ``kernels``
+   line counts them under ``chaos_cli_bf16``), the spans' coverage of
+   its epochs at least 95% and the profiler window's trace holding the
+   card's kernels. SDC: ``--sentinel --recover --faults
+   sdc_grad@SDC_STEP:SDC_SCALE`` trips the sentinel and rolls back.
+   Preemption: SIGTERM after the first step line (exit 143, a mid-epoch
+   save), then ``--resume`` goes on at the next step and ends at the
+   uninterrupted twin's step count with its losses within 5%.
+21. The loader (``phase_loader``, last, alone on the card):
+   ``resnet50``'s bf16 step at batch 256
+   fed from the JPEG shards by one reader process and by four spawned
+   ones: the seconds to the first batch, images/s over the next steps,
+   the waits and the path of the workers' batches, beside the card.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -235,8 +259,8 @@ times under ``shapes``, launches by path under ``launches_by_path``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
 which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
 {...}``, ``[pose] {...}``, ``[gan] {...}`` and ``[classifiers] {...}``
-summaries, the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``.
+summaries, the ``[resilience] {...}`` and ``[loader] {...}`` lines, the
+card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -247,6 +271,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -413,6 +438,18 @@ CLS_CALIBRATION = 16
 CLS_TOL = 1e-4
 CLS_WARMUP, CLS_TIMED_STEPS = 2, 4
 CLS_STEP_BATCH = 8
+# the resilient run (phase_resilience): steps an epoch of the chaos CLI
+# (2 epochs), its schedule (occurrences: train batch 5 is epoch 1's
+# second, the first checkpoint save, the feed's pulls 5 and 6 are epoch
+# 1's first, the loader's first turn, before worker 0 has made a batch: a
+# later turn may find the worker's share of a 4-step epoch already
+# queued, and nothing to respawn for), and the SDC drill's run step and
+# scale
+RES_STEPS = 4
+CHAOS_FAULTS = "nan@5,ckpt@0,io@5x2,wkill@0"
+SDC_STEP = 12
+SDC_SCALE = 4
+LOADER_STEPS = 6
 
 
 def _say(*parts) -> None:
@@ -1957,7 +1994,8 @@ def phase_records(smi: str, workdir: Path) -> dict:
     _say(f"[records-cli] the three CLIs trained, validated over the JPEG "
          f"shards, checkpointed and resumed ({time.perf_counter() - t0:.1f} s,"
          f" run at once on the one card); ycc_to_rgb launches {launches}")
-    return {"reader": rates, "runs": runs, "ycc_launches": launches}
+    return {"reader": rates, "runs": runs, "ycc_launches": launches,
+            "dir": d}
 
 
 def phase_remat_memory(batch: int = 128, steps: int = 5) -> dict:
@@ -4242,6 +4280,288 @@ def phase_classifiers(smi: str, workdir: Path) -> dict:
     return summary
 
 
+def _log_text(path: Path) -> str:
+    return path.read_text(errors="replace") if path.exists() else ""
+
+
+def _cli_proc(args: list[str], log: Path) -> subprocess.Popen:
+    """The training CLI in its own process, its stdout and stderr into
+    ``log``.out and ``log``.err (no pipe to fill while others run)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "deepvision_tpu_torch.train", *args],
+        stdout=open(f"{log}.out", "w"), stderr=open(f"{log}.err", "w"),
+        text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)})
+
+
+def _finished(proc: subprocess.Popen, log: Path, code: int = 0
+              ) -> tuple[str, str]:
+    proc.wait(timeout=900)
+    out, err = _log_text(Path(f"{log}.out")), _log_text(Path(f"{log}.err"))
+    assert proc.returncode == code, (log.name, proc.returncode,
+                                     out[-3000:], err[-3000:])
+    return out, err
+
+
+def _epoch_metrics(out: str, epoch: int) -> dict:
+    """The ``[epoch N] k=v ...`` line of a training CLI as floats."""
+    line = re.search(rf"^\[epoch {epoch}\] (.*)$", out, re.M).group(1)
+    return {k: float(v) for k, v in
+            (kv.split("=", 1) for kv in line.split() if "=" in kv)}
+
+
+def _saved_step(ckpt: Path, epoch: int) -> int:
+    import torch
+
+    return int(torch.load(ckpt / str(epoch) / "state.pt", map_location="cpu",
+                          weights_only=True)["step"])
+
+
+def phase_resilience(smi: str, workdir: Path, d: Path) -> dict:
+    """The resilient run of ``alexnet1`` at full width (224 px, 1000
+    classes, batch 128, bf16), three CLIs at once on the one card:
+
+    - chaos: 2 epochs over the JPEG shards ``d`` with ``--device-aug
+      --loader-workers 2``, ``--recover --faults CHAOS_FAULTS`` (the
+      epoch-0 checkpoint garbled, two transient reads and then a NaN
+      batch in epoch 1, so that the rollback quarantines the only
+      checkpoint and restores the initial state; a loader worker
+      SIGKILLed),
+      ``--sentinel --async-checkpoint --keep-best --stall-timeout`` and
+      ``--trace`` with ``--profile-steps``: the ``[recovery]`` line says
+      one rollback, one checkpoint fallback and two data retries, one
+      loader worker was respawned, the LRN kernels launched on the
+      rolled-back and resumed steps, the trace's ``fetch``, ``step``,
+      ``eval`` and ``checkpoint`` spans cover at least 95% of its
+      epochs, and the profiler window wrote a trace with the card's
+      kernels;
+    - SDC: synthetic data, ``--sentinel --recover --faults
+      sdc_grad@SDC_STEP:SDC_SCALE``: the sentinel trips on the corrupted
+      weights and the run rolls back;
+    - preempt: SIGTERM after the first step line, exit 143 with a
+      mid-epoch save, then ``--resume``: the same epoch goes on at the
+      next step and the run ends at the uninterrupted twin's (run at
+      once) step count, its losses finite and within 5% of the twin's
+      (bit-identity of a resume is the CPU tests'; cuDNN's backward is
+      not deterministic here).
+
+    Returns the chaos CLI's kernel launches and a summary."""
+    from deepvision_tpu_torch.obs.trace import summarize_chrome
+
+    root = workdir / "resilience"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    trace = root / "chaos_trace.json"
+    chaos_args = [
+        "-m", "alexnet1", "--data-dir", str(d), "--no-raw", "--device-aug",
+        "--loader-workers", "2", "--steps-per-epoch", str(RES_STEPS),
+        "--epochs", "2", "--recover", "--faults", CHAOS_FAULTS, "--sentinel",
+        "--async-checkpoint", "--keep-best", "--stall-timeout", "300",
+        "--trace", str(trace), "--profile-steps", "5:6",
+        "--workdir", str(root / "chaos")]
+    bs = 128
+    synth = ["-m", "alexnet1", "--synthetic-size",
+             str((RES_STEPS * 2 + 1) * bs), "--steps-per-epoch",
+             str(RES_STEPS * 2)]
+    sdc_args = [*synth, "--epochs", "2", "--sentinel", "--sentinel-warmup",
+                "4", "--recover", "--faults",
+                f"sdc_grad@{SDC_STEP}:{SDC_SCALE}",
+                "--workdir", str(root / "sdc")]
+    pre_args = [*synth, "--epochs", "2", "--workdir", str(root / "preempt")]
+    t0 = time.perf_counter()
+    procs = {"chaos": _cli_proc(chaos_args, root / "chaos"),
+             "sdc": _cli_proc(sdc_args, root / "sdc"),
+             "straight": _cli_proc([*synth, "--epochs", "2", "--workdir",
+                                    str(root / "straight")],
+                                   root / "straight")}
+    # the preempted run: SIGTERM once its first step line is out
+    cut = subprocess.Popen(
+        [sys.executable, "-m", "deepvision_tpu_torch.train", *pre_args],
+        stdout=subprocess.PIPE, stderr=open(root / "cut.err", "w"),
+        text=True, cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT)})
+    lines = []
+    for line in cut.stdout:
+        lines.append(line)
+        if line.startswith("[epoch 0 batch 0]"):
+            cut.send_signal(signal.SIGTERM)  # printed once a run
+    cut.wait(timeout=600)
+    cut_out = "".join(lines)
+    assert cut.returncode == 143, (cut.returncode, cut_out[-3000:],
+                                   _log_text(root / "cut.err")[-3000:])
+    k = int(re.search(r"^\[preempted\] saved epoch 0 step (\d+) to ",
+                      cut_out, re.M).group(1))
+    assert 0 < k < RES_STEPS * 2, k
+    resumed = _run_cli([*pre_args, "--resume"])
+    assert f"resumed at epoch 0 step {k}" in resumed.stdout, \
+        resumed.stdout[-2000:]
+    first = _epoch_metrics(resumed.stdout, 0)
+    assert first["train_from_step"] == k, first
+    straight_out, _ = _finished(procs["straight"], root / "straight")
+    want, got = _epoch_metrics(straight_out, 1), _epoch_metrics(
+        resumed.stdout, 1)
+    steps = (_saved_step(root / "preempt" / "alexnet1" / "ckpt", 1),
+             _saved_step(root / "straight" / "alexnet1" / "ckpt", 1))
+    assert steps == (2 * 2 * RES_STEPS,) * 2, steps
+    for key in ("train_loss", "val_loss"):
+        assert np.isfinite(got[key]), got
+        assert abs(got[key] - want[key]) <= 0.05 * abs(want[key]), (
+            key, got[key], want[key])
+    assert not (root / "preempt" / "alexnet1" / "ckpt_preempt").exists()
+    _say(f"[preempt] SIGTERM after the first step line: saved epoch 0 step "
+         f"{k}, exit 143; --resume went on at step {k} (train_from_step "
+         f"{first['train_from_step']:.0f}) and ended at step {steps[0]} "
+         f"like the uninterrupted twin: train_loss {got['train_loss']:.4f} "
+         f"vs {want['train_loss']:.4f}, val_loss {got['val_loss']:.4f} vs "
+         f"{want['val_loss']:.4f}")
+
+    sdc_out, _ = _finished(procs["sdc"], root / "sdc")
+    assert (f"[fault] sdc_grad corrupted local state at run step "
+            f"{SDC_STEP}") in sdc_out, sdc_out[-3000:]
+    trip = re.search(r"^\[rollback\] (sentinel \S+ tripped \(\|z\|=\S+\) "
+                     r"at epoch \d+ step \d+): restored (.+?); resuming",
+                     sdc_out, re.M)
+    assert trip, sdc_out[-3000:]
+    assert "[recovery] rollbacks=1 " in sdc_out, sdc_out[-2000:]
+    _say(f"[sdc] sdc_grad@{SDC_STEP}:{SDC_SCALE} scaled the largest weight; "
+         f"{trip.group(1)}, restored {trip.group(2)}; "
+         + re.search(r"^\[recovery\] rollbacks.*$", sdc_out, re.M).group(0))
+
+    chaos_out, chaos_err = _finished(procs["chaos"], root / "chaos")
+    _say(f"[chaos] three CLIs at once in {time.perf_counter() - t0:.1f} s")
+    for line in chaos_out.splitlines():
+        if line.startswith(("[fault]", "[rollback]", "[ckpt-integrity]",
+                            "[data-retry]", "[loader]", "[feed]",
+                            "[recovery]", "[faults]", "[obs]")):
+            _say(f"[chaos]   {line[:300]}")
+    assert ("[recovery] rollbacks=1 ckpt_fallbacks=1 data_retries=2"
+            in chaos_out), chaos_out[-3000:]
+    restarts = re.findall(r"^\[loader\] worker \d died .* \(restart 1/2\)$",
+                          chaos_out, re.M)
+    assert len(restarts) == 1, chaos_out[-3000:]
+    # the garbled epoch-0 checkpoint quarantined, none older: the
+    # rollback's last resort, the initial state
+    assert re.search(r"^\[rollback\] NaN/Inf detected at epoch 1 step 1: "
+                     r".*restored initial state \(no verifiable checkpoint "
+                     r"yet\); resuming epoch 1 at step 2", chaos_out, re.M), \
+        chaos_out[-3000:]
+    paths = re.findall(r"loader workers moved (\d+) batches through shared "
+                       r"memory and (\d+) pickled", chaos_out)
+    assert paths and all(int(a) > 0 for a, _ in paths), paths
+    launches = _cli_launches(chaos_err)
+    for kernel in ("lrn_forward_bf16", "lrn_backward_bf16"):
+        assert launches[kernel] > 0, launches
+    summary = summarize_chrome(json.loads(trace.read_text()))
+    spans = summary["spans"]
+    for name in ("fetch", "step", "eval", "checkpoint"):
+        assert name in spans, sorted(spans)
+    assert summary["coverage"] >= 0.95, summary
+    prof = root / "chaos" / "alexnet1" / "profile" / "steps_5_6.pt.trace.json"
+    kernels = [e for e in json.loads(prof.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert kernels, prof
+    _say(f"[chaos] trace: coverage {summary['coverage']:.4f} of "
+         f"{summary['wall_ms']:.0f} ms of epochs; "
+         + ", ".join(f"{n} {spans[n]['count']}x {spans[n]['total_ms']:.0f} ms"
+                     for n in ("fetch", "step", "drain", "eval",
+                               "checkpoint") if n in spans)
+         + f"; profiler window steps 5..6: {len(kernels)} kernel events "
+         f"in {prof.name}; kernel launches {launches}; {smi}")
+    return {"launches": launches,
+            "summary": {"chaos_coverage": summary["coverage"],
+                        "chaos_loader_batches": [[int(a), int(b)]
+                                                 for a, b in paths],
+                        "preempt_step": k, "sdc_trip": trip.group(1),
+                        "card": smi}}
+
+
+def phase_loader(smi: str, workdir: Path, d: Path) -> dict:
+    """``resnet50`` in bf16 at batch 256 (its Trainer's step, with the
+    augmentation of ``--device-aug``), fed from the JPEG shards ``d`` by
+    one reader process (``loader_workers=1``) and then by four spawned
+    ones: the seconds to the first batch (the workers' start-up), then
+    images/s over ``LOADER_STEPS`` steps after 2, the host and feed
+    waits a batch, and the path the loader's batches took. Printed
+    beside the card; no gain is claimed or gated."""
+    from functools import partial
+
+    import torch
+
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.device_aug import (
+        DeviceAugment,
+        augment_step,
+    )
+    from deepvision_tpu_torch.data.imagenet import PT_JITTER, make_imagenet_data
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.obs.metrics import default_registry
+    from deepvision_tpu_torch.train.configs import get_config
+    from deepvision_tpu_torch.train.steps import classification_train_step
+    from deepvision_tpu_torch.train.trainer import Trainer
+
+    cfg = get_config("resnet50")
+    module = create_model("resnet50", device=torch.device("cuda"), seed=0,
+                          dtype=torch.bfloat16, **cfg["model_kwargs"])
+    trainer = Trainer(module, cfg, lambda e: iter(()), lambda: iter(()),
+                      workdir=workdir / "loader", log_every=0,
+                      steps_per_epoch=1)
+    step = augment_step(
+        partial(classification_train_step, normalize_kind="torch"),
+        DeviceAugment("classification", flip=True, jitter=PT_JITTER))
+    keys = KeySeq(1, 9, device="cuda")
+    # the step's first calls (cuDNN's autotuning, the allocator) on a
+    # resident batch, so that neither reader's run pays them
+    resident = {"image": torch.randint(0, 256, (256, 224, 224, 3),
+                                       dtype=torch.uint8, device="cuda"),
+                "label": torch.randint(0, 1000, (256,), device="cuda")}
+    for _ in range(3):
+        step(trainer.state, resident, next(keys))["loss"].item()
+    reg = default_registry()
+    out = {}
+    for workers in (1, 4):
+        paths0 = {k: reg.value_of(f"loader_{k}_batches")
+                  for k in ("shm", "pickle")}
+        train_data, _, _ = make_imagenet_data(
+            str(d), 256, 224, augment="pt", use_raw=False, device_aug=True,
+            steps_per_epoch=2 + LOADER_STEPS, loader_workers=workers)
+        t0 = time.perf_counter()
+        feed = DevicePrefetcher(train_data(0), torch.device("cuda"),
+                                depth=2)
+        try:
+            batch = next(feed)
+            startup = time.perf_counter() - t0
+            step(trainer.state, batch, next(keys))
+            step(trainer.state, next(feed), next(keys))["loss"].item()
+            tel0 = feed.telemetry.summary()
+            t0 = time.perf_counter()
+            for _ in range(LOADER_STEPS):
+                m = step(trainer.state, next(feed), next(keys))
+            assert np.isfinite(m["loss"].item())
+            rate = LOADER_STEPS * 256 / (time.perf_counter() - t0)
+            tel = feed.telemetry
+        finally:
+            feed.close()
+        n = tel.batches
+        host_wait = tel.host_wait_s * 1e3 / n
+        h2d_wait = (tel.h2d_wait_s * 1e3 - tel0["h2d_wait_ms"] * 2) / (n - 2)
+        moved = {k: int(reg.value_of(f"loader_{k}_batches") - v)
+                 for k, v in paths0.items()}
+        if workers > 1:
+            assert moved["shm"] > 0, moved
+        via = (f"{moved['shm']} batches through shared memory, "
+               f"{moved['pickle']} pickled" if workers > 1
+               else "one reader process, no loader")
+        out[workers] = {"images_s": rate, "first_batch_s": startup,
+                        "host_wait_ms": host_wait, "h2d_wait_ms": h2d_wait,
+                        "path": via}
+        _say(f"[loader] resnet50 bf16 batch 256, JPEG shards, "
+             f"{workers} reader process{'es' if workers > 1 else ''}: "
+             f"first batch after {startup:.2f} s, then {rate:.1f} images/s "
+             f"over {LOADER_STEPS} steps; host_wait {host_wait:.1f} ms a "
+             f"batch (first batch included), h2d_wait {h2d_wait:.1f} ms a "
+             f"timed batch; {via}; {smi}")
+    return out
+
+
 def _timed(label: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, with the seconds it took printed."""
     t0 = time.perf_counter()
@@ -4310,14 +4630,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     _timed("resnet152", phase_resnet152, smi, workdir)
     torch.cuda.empty_cache()
+
     yolo = phase_yolo(smi, workdir)
     torch.cuda.empty_cache()
     hourglass = {"centernet": phase_centernet(smi, workdir),
                  "pose": phase_pose(smi, workdir)}
     gan = phase_gan(smi, workdir)
     classifiers = phase_classifiers(smi, workdir)
-    _timed("model CLIs", phase_model_clis, workdir, yolo,
-           hourglass["centernet"], hourglass["pose"], gan)
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the resilience drills beside the model CLI chains: both only wait on
+    # their own processes, and none of their numbers is a timing
+    with ThreadPoolExecutor(1) as pool:
+        drills = pool.submit(_timed, "resilience", phase_resilience, smi,
+                             workdir, records["dir"])
+        _timed("model CLIs", phase_model_clis, workdir, yolo,
+               hourglass["centernet"], hourglass["pose"], gan)
+        resilience = drills.result()
+    paths["chaos_cli_bf16"] = resilience["launches"]
+    loader = _timed("loader", phase_loader, smi, workdir, records["dir"])
     shutil.rmtree(workdir, ignore_errors=True)
 
     kernels = []
@@ -4338,7 +4669,8 @@ def main() -> int:
         })
     # the JPEG path's colour kernel, launched by the record CLIs, each
     # counting from 0 in its own process (it stands for no TPU kernel)
-    by_path = records["ycc_launches"]
+    by_path = {**records["ycc_launches"],
+               "chaos_cli": resilience["launches"]["ycc_to_rgb"]}
     kernels.append({**jpeg["kernel"], "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "note": "not a TPU kernel: the chroma upsampling and "
@@ -4368,6 +4700,8 @@ def main() -> int:
         print(f"[{name}] {json.dumps(summary)}")
     print(f"[gan] {json.dumps(gan)}")
     print(f"[classifiers] {json.dumps(classifiers)}")
+    print(f"[resilience] {json.dumps(resilience['summary'])}")
+    print(f"[loader] {json.dumps(loader)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,12 @@ class KeySeq:
         self.device = torch.device(device)
         self._drawn = 0
 
+    def skip(self, n: int) -> "KeySeq":
+        """Advance past ``n`` draws (a mid-epoch resume replays the
+        draws the interrupted run consumed)."""
+        self._drawn += int(n)
+        return self
+
     def __next__(self) -> torch.Generator:
         seq = np.random.SeedSequence(self.seed,
                                      spawn_key=(*self.path, self._drawn))

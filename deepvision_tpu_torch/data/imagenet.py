@@ -27,6 +27,14 @@ numpy's and torch's, never tf's (trap C6): an epoch's order is
 deterministic, seeded by the epoch (files shuffled, then a shuffle buffer
 of records), but not tf's order. Files are sharded across processes by
 ``torch.distributed``'s rank and world size when it is initialized.
+
+``loader_workers`` > 1 spreads the training reader over that many
+spawned processes (``data/loader.py``): worker ``w`` of ``n`` reads file
+shard ``base_index·n + w`` of ``base_shards·n`` (:class:`TrainShardFactory`,
+the twin of the JAX ``_TrainShardFactory``), and the batches merge
+round-robin. A JPEG batch crosses as its arrays
+(``PackedJpegBatch.to_wire``) and is decoded on the card by the parent's
+device feed.
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ from deepvision_tpu_torch.data.tfrecord import decode_example, read_records
 __all__ = ["PT_JITTER", "parse_raw_crop", "parse_jpeg_record",
            "host_augment", "shuffled_records", "process_shard",
            "raw_train_batches", "raw_eval_batches", "jpeg_train_batches",
-           "val_batches", "make_imagenet_data"]
+           "val_batches", "TrainShardFactory", "make_imagenet_data"]
 
 # the PT configs' ColorJitter(0.2, 0.2, 0.2) (ref:
 # ResNet/pytorch/train.py:319)
@@ -251,11 +259,66 @@ def val_batches(files, batch_size: int, size: int, *, augment: str = "tf",
                      pad_to=local))
 
 
+class TrainShardFactory:
+    """Picklable per-worker training reader for ``data/loader.py``:
+    worker ``w`` of ``n`` reads the composed file shard ``base_index·n +
+    w`` of ``base_shards·n``, forever (the parent's limit is the epoch).
+    It carries only plain values, so that spawn can ship it, and yields
+    host batches of numpy arrays: the raw reader's uint8 crops, or the
+    JPEG reader's packed batches as :meth:`PackedJpegBatch.to_wire`
+    dicts."""
+
+    def __init__(self, *, kind: str, files: list[str], batch_size: int,
+                 size: int, augment: str, seed: int, device_aug: bool,
+                 base_shards: int, base_index: int, shuffle_buffer: int):
+        self.kind = kind  # "jpeg" | "raw"
+        self.files = [str(f) for f in files]
+        self.batch_size = batch_size
+        self.size = size
+        self.augment = augment
+        self.seed = seed
+        self.device_aug = device_aug
+        self.base_shards = base_shards
+        self.base_index = base_index
+        self.shuffle_buffer = shuffle_buffer
+
+    def __call__(self, worker_id: int, num_workers: int):
+        reader = raw_train_batches if self.kind == "raw" \
+            else jpeg_train_batches
+        batches = reader(
+            [Path(f) for f in self.files], self.batch_size, self.size,
+            seed=self.seed, steps=None, augment=self.augment,
+            device_aug=self.device_aug,
+            rank=self.base_index * num_workers + worker_id,
+            world=self.base_shards * num_workers,
+            shuffle_buffer=self.shuffle_buffer)
+        if self.kind == "raw":
+            return batches
+        return (b.to_wire() for b in batches)
+
+
+def _merged(factory: TrainShardFactory, workers: int, steps: int,
+            **loader_kw):
+    """The first ``steps`` batches of ``workers`` spawned readers, the
+    JPEG ones back as :class:`PackedJpegBatch`; the pool closes on every
+    exit."""
+    from deepvision_tpu_torch.data.loader import mp_batches
+
+    batches = mp_batches(factory, workers, steps, **loader_kw)
+    try:
+        for b in batches:
+            yield b if factory.kind == "raw" else PackedJpegBatch.from_wire(b)
+    finally:
+        batches.close()
+
+
 def make_imagenet_data(
     data_dir: str, batch_size: int, size: int = 224, *,
     train_images: int = 1_281_167, augment: str = "tf",
     use_raw: bool | None = None, steps_per_epoch: int | None = None,
     device_aug: bool = False, shuffle_buffer: int = 10_000,
+    loader_workers: int = 1, max_worker_restarts: int = 0,
+    fault_injector=None,
 ):
     """-> (train_data(epoch) -> iterator, val_data() -> iterator,
     steps_per_epoch), the JAX ``make_imagenet_data`` for one loader
@@ -267,7 +330,14 @@ def make_imagenet_data(
     stored``, else ``train-*`` JPEG: ``use_raw`` True demands the raw
     shards (raising without usable ones), False never reads them, None
     takes them when usable, with a notice. ``device_aug``: the host stage
-    is the crop only, and the step must run ``DeviceAugment``."""
+    is the crop only, and the step must run ``DeviceAugment``.
+    ``loader_workers`` > 1 reads the training batches in that many
+    spawned processes, spawned anew each epoch; ``max_worker_restarts``
+    and ``fault_injector`` (its ``worker_kill`` site) pass to the loader's
+    bounded respawn."""
+    if loader_workers < 1:
+        raise ValueError(f"need at least 1 loader worker, got "
+                         f"{loader_workers}")
     d = Path(data_dir)
     steps = steps_per_epoch or train_images // batch_size
     rank, world = process_shard()
@@ -308,6 +378,15 @@ def make_imagenet_data(
     reader = raw_train_batches if have_raw else jpeg_train_batches
 
     def train_data(epoch: int):
+        if loader_workers > 1:
+            factory = TrainShardFactory(
+                kind="raw" if have_raw else "jpeg", files=train_files,
+                batch_size=local_bs, size=size, augment=augment,
+                seed=epoch, device_aug=device_aug, base_shards=world,
+                base_index=rank, shuffle_buffer=shuffle_buffer)
+            return _merged(factory, loader_workers, steps,
+                           max_restarts=max_worker_restarts,
+                           fault_injector=fault_injector)
         return reader(train_files, local_bs, size, seed=epoch, steps=steps,
                       augment=augment, device_aug=device_aug, rank=rank,
                       world=world, shuffle_buffer=shuffle_buffer)

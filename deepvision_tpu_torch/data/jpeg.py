@@ -434,6 +434,10 @@ class JpegPlan:
     pad_to: int | None = None
 
 
+# the plan's per-image arrays, which cross a process boundary as arrays
+_PLAN_ARRAYS = ("crop_u", "flips", "jitter")
+
+
 class PackedJpegBatch(dict):
     """A batch of JPEGs as it crosses to the device: ``jpeg`` (packed
     bytes), ``offsets`` and ``label`` arrays, and the :class:`JpegPlan`
@@ -453,6 +457,31 @@ class PackedJpegBatch(dict):
     @property
     def n_images(self) -> int:
         return len(self["offsets"]) - 1
+
+    def to_wire(self) -> dict:
+        """The batch as a plain dict for a process boundary
+        (``data/loader.py``): its arrays, the plan's arrays, and the
+        plan's scalars under ``"plan"``."""
+        plan = self.plan
+        out = {"jpeg": self["jpeg"], "offsets": self["offsets"],
+               "label": self["label"],
+               "plan": {"size": plan.size, "resize_min": plan.resize_min,
+                        "normalize": plan.normalize, "pad_to": plan.pad_to}}
+        for key in _PLAN_ARRAYS:
+            value = getattr(plan, key)
+            if value is not None:
+                out[key] = np.asarray(value)
+        return out
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "PackedJpegBatch":
+        """The inverse of :meth:`to_wire`."""
+        out = cls.__new__(cls)
+        dict.__init__(out, jpeg=d["jpeg"], offsets=d["offsets"],
+                      label=d["label"])
+        out.plan = JpegPlan(**d["plan"],
+                            **{k: d[k] for k in _PLAN_ARRAYS if k in d})
+        return out
 
     @property
     def image_bytes(self) -> int:

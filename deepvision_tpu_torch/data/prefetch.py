@@ -12,6 +12,14 @@ keeps up to ``depth`` of them queued ahead of the consumer:
 - **clean shutdown**: :meth:`DevicePrefetcher.close` stops and joins the
   producer.
 
+With a ``retry_policy`` (``resilience.RecoveryPolicy``) a transient
+``OSError`` of the upstream pull is retried with bounded exponential
+backoff (each retry counted in ``retry_counters.data_retries``), and
+``fault_injector`` consults its ``data_io`` site before each pull, as
+``deepvision_tpu/data/prefetch.py`` does. The producer's pull and copy
+and the consumer's wait are the ``host_next``, ``shard`` and ``fetch``
+spans of ``obs/trace.py``.
+
 On a CUDA device the producer copies each host array into a ring of
 pinned host buffers and issues ``non_blocking`` copies on a side stream;
 an event recorded after them is what the consumer's stream waits on, and
@@ -37,6 +45,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+
+from deepvision_tpu_torch.obs.trace import span
 
 __all__ = ["DevicePrefetcher", "FeedTelemetry"]
 
@@ -159,9 +169,14 @@ class DevicePrefetcher:
     ready batches are kept queued ahead of the consumer."""
 
     def __init__(self, batches: Iterable[dict], device: torch.device, *,
-                 depth: int = 2, telemetry: FeedTelemetry | None = None):
+                 depth: int = 2, telemetry: FeedTelemetry | None = None,
+                 fault_injector=None, retry_policy=None,
+                 retry_counters=None):
         if depth < 1:
             raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._injector = fault_injector
+        self._retry_policy = retry_policy
+        self._retry_counters = retry_counters
         self.device = torch.device(device)
         self.telemetry = telemetry if telemetry is not None \
             else FeedTelemetry()
@@ -187,19 +202,65 @@ class DevicePrefetcher:
             while not self._stop.is_set():
                 t0 = time.perf_counter()
                 try:
-                    batch = next(self._src)
+                    with span("host_next", cat="feed"):
+                        batch = self._next_batch()
                 except StopIteration:
                     self._put((_DONE, None))
                     return
                 t1 = time.perf_counter()
                 tel.host_wait_s += t1 - t0
                 tel.record_wire(batch)
-                item = self._to_device(batch)
+                with span("shard", cat="feed"):
+                    item = self._to_device(batch)
                 tel.shard_s += time.perf_counter() - t1
                 if not self._put((_BATCH, item)):
                     return  # closed while waiting for queue space
         except BaseException as e:  # re-raised at the consumer's next pull
             self._put((_ERROR, e))
+
+    def _next_batch(self):
+        """One upstream pull, with the ``data_io`` consult first (an
+        injected failure consumes no batch, so a retry keeps the order)
+        and the bounded retry of a transient ``OSError``."""
+        policy = self._retry_policy
+        attempt = 0
+        pull_errored = False  # did an OSError come from next() itself?
+        last_err: OSError | None = None
+
+        def admit_retry(e: OSError) -> None:
+            nonlocal attempt, last_err
+            if policy is None or attempt >= policy.max_data_retries:
+                raise e
+            last_err = e
+            if self._retry_counters is not None:
+                self._retry_counters.inc("data_retries")
+            delay = policy.backoff(attempt)
+            attempt += 1
+            print(f"[data-retry] transient batch read error ({e}); "
+                  f"retry {attempt}/{policy.max_data_retries} "
+                  f"in {delay:.2f}s", flush=True)
+            # close() must not wait out the backoff
+            if self._stop.wait(delay):
+                raise e
+
+        while True:
+            try:
+                if self._injector is not None:
+                    self._injector.check_io()
+            except OSError as e:
+                admit_retry(e)  # the source is untouched: always sound
+                continue
+            try:
+                return next(self._src)
+            except StopIteration:
+                if pull_errored:
+                    # a generator that raised is closed: its "end" would
+                    # silently cut the epoch short
+                    raise last_err
+                raise
+            except OSError as e:
+                pull_errored = True
+                admit_retry(e)
 
     def _to_device(self, batch: dict):
         if _packed(batch):
@@ -237,7 +298,8 @@ class DevicePrefetcher:
         t0 = time.perf_counter()
         if self._last_yield is not None:
             self.telemetry.step_s += t0 - self._last_yield
-        kind, payload = self._q.get()
+        with span("fetch", cat="feed"):  # blocked on the queue
+            kind, payload = self._q.get()
         self.telemetry.h2d_wait_s += time.perf_counter() - t0
         if kind is not _BATCH:
             self._finished = True

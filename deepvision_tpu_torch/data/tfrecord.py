@@ -119,23 +119,32 @@ def _masked_crc(data) -> int:
 # --------------------------------------------------------------------------
 
 
+def frame_record(rec: bytes) -> bytes:
+    """One record in TFRecord framing: length, its CRC, payload, its
+    CRC."""
+    header = struct.pack("<Q", len(rec))
+    return (header + struct.pack("<I", _masked_crc(header)) + rec
+            + struct.pack("<I", _masked_crc(rec)))
+
+
 def write_records(path: str | Path, records) -> None:
     with open(path, "wb") as f:
         for rec in records:
-            header = struct.pack("<Q", len(rec))
-            f.write(header)
-            f.write(struct.pack("<I", _masked_crc(header)))
-            f.write(rec)
-            f.write(struct.pack("<I", _masked_crc(rec)))
+            f.write(frame_record(rec))
 
 
-def read_records(path: str | Path, *, verify: bool = True
-                 ) -> Iterator[bytes]:
+def read_records(path: str | Path, *, verify: bool = True,
+                 fault_injector=None) -> Iterator[bytes]:
     """The records of one TFRecord file, in order. ``verify`` checks the
-    length's and the payload's CRC of every record."""
+    length's and the payload's CRC of every record. ``fault_injector``
+    (``resilience.FaultInjector``) consults its ``data_io`` site before
+    every record read, as the JAX reader does (the retry belongs to the
+    consumer: a generator that raised cannot resume)."""
     with open(path, "rb") as f:
         offset = 0
         while True:
+            if fault_injector is not None:
+                fault_injector.check_io(what=f"record read ({path})")
             header = f.read(8)
             if not header:
                 return

@@ -56,10 +56,30 @@ runs on the card (``--device cuda``, the default, which raises without
 one); ``--device cpu`` runs on the CPU when asked. The model is built
 with the config's ``model_kwargs`` (``resnet50``'s ``s2d_stem``,
 ``resnet152``'s and ``hourglass104``'s ``remat``), as ``train.py``
-builds it. The flags are
-``train.py``'s names for what this slice serves, refused where
-``train.py`` refuses them; the others are not ported and are absent, so
-that no flag is silently ignored.
+builds it.
+
+The resilient run, with ``train.py``'s flags, defaults and refusals:
+``--recover`` (NaN rollback to the newest verified checkpoint, transient
+read retries, a verified resume; ``--max-rollbacks``, ``--lr-rewarm``),
+``--check-numerics`` (the per-step finite flag), ``--faults`` and
+``--fault-seed`` (``resilience/faults.py``'s schedule), ``--sentinel``
+(``--sentinel-z``, ``--sentinel-warmup``, ``--audit-every``),
+``--async-checkpoint``, ``--keep-best``, ``--no-ckpt-integrity``,
+``--data-echo``, ``--stall-timeout`` and ``--stall-abort`` (exit 75),
+``--rss-limit-gb`` (a preemption save past the limit), ``--trace`` (spans
+exported as a Chrome trace on every exit; ``python -m
+deepvision_tpu_torch.obs`` summarizes it), ``--profile-steps`` and
+``--profile-dir`` (a ``torch.profiler`` window), ``--loader-workers`` and
+``--max-worker-restarts`` (spawned ImageNet readers,
+``data/loader.py``), ``--output-bucket`` and ``--output-dir``
+(``train/publish.py``). SIGTERM saves a mid-epoch checkpoint and exits
+143; ``--resume`` continues at the next step; a sentinel trip without
+``--recover`` exits 76. The GAN loop takes ``--async-checkpoint``, the
+stall and RSS watchdogs, ``--check-numerics`` and SIGTERM (at an epoch's
+end), and refuses ``--recover``, ``--faults``, ``--sentinel`` and the
+profiler window, as ``train.py`` does. The flags the port does not serve
+(``--zero1``, the cluster's) are absent, so that no flag is silently
+ignored.
 """
 
 from __future__ import annotations
@@ -132,6 +152,81 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "of the step (data/prefetch.py)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
+    p.add_argument("--output-bucket", default=None,
+                   help="GCS bucket to publish the final checkpoint to")
+    p.add_argument("--output-dir", default=None,
+                   help="GCS object prefix within --output-bucket")
+    p.add_argument("--check-numerics", action="store_true",
+                   help="read the step's finite flag every step and raise "
+                        "on NaN/Inf (one host sync a step)")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write the epoch checkpoints in the background "
+                        "from a host copy of the state")
+    p.add_argument("--keep-best", action="store_true",
+                   help="retain the best checkpoints by the plateau metric "
+                        "instead of the most recent")
+    p.add_argument("--stall-timeout", type=float, default=0.0,
+                   help="seconds without a completed step before the stall "
+                        "watchdog fires (0 = off); armed by the first step")
+    p.add_argument("--stall-abort", action="store_true",
+                   help="on stall, exit 75 (EX_TEMPFAIL) so a supervisor "
+                        "restarts into --resume")
+    p.add_argument("--rss-limit-gb", type=float, default=0.0,
+                   help="self-preempt (mid-epoch save + exit 143) when the "
+                        "host RSS crosses this many GB (0 = off)")
+    p.add_argument("--recover", action="store_true",
+                   help="self-healing: the NaN/Inf tripwire rolls back to "
+                        "the last verified checkpoint and skips the batch "
+                        "window (implies --check-numerics), transient data "
+                        "reads retry with backoff, and resume quarantines "
+                        "corrupt checkpoints and falls back")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="consecutive NaN rollbacks before --recover aborts")
+    p.add_argument("--lr-rewarm", type=float, default=None,
+                   help="multiply the LR scale by this factor on every "
+                        "rollback; default: keep the LR")
+    p.add_argument("--faults", default=None,
+                   help="deterministic fault schedule "
+                        "(resilience/faults.py grammar, e.g. "
+                        "'nan@14,ckpt@1,io@8x2')")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed for probabilistic (~) fault specs")
+    p.add_argument("--sentinel", action="store_true",
+                   help="silent-failure defense: update/param norms and the "
+                        "loss computed in the step and z-scored on the "
+                        "drain cadence; checkpoint manifests carry the "
+                        "state fingerprint")
+    p.add_argument("--audit-every", type=int, default=16,
+                   help="run-step cadence of the state fingerprint audit; "
+                        "requires --sentinel")
+    p.add_argument("--sentinel-z", type=float, default=8.0,
+                   help="z-score threshold of the sentinel detector")
+    p.add_argument("--sentinel-warmup", type=int, default=16,
+                   help="observations per sentinel series before the "
+                        "z-test arms")
+    p.add_argument("--no-ckpt-integrity", action="store_true",
+                   help="skip the per-save checksum manifest")
+    p.add_argument("--data-echo", type=int, default=1,
+                   help="optimizer steps per transferred batch (data "
+                        "echoing, arXiv:1907.05550)")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="span tracing, exported here as a Chrome trace "
+                        "on exit (summarize: python -m "
+                        "deepvision_tpu_torch.obs PATH)")
+    p.add_argument("--profile-steps", default=None, metavar="A:B",
+                   help="a torch.profiler window over global steps A..B "
+                        "(transferred-batch indices, 0-based)")
+    p.add_argument("--profile-dir", default=None,
+                   help="where --profile-steps writes its trace (default: "
+                        "WORKDIR/MODEL/profile)")
+    p.add_argument("--loader-workers", type=int, default=1,
+                   help="spread the ImageNet record reader over N spawned "
+                        "processes (data/loader.py); ImageNet record runs "
+                        "only")
+    p.add_argument("--max-worker-restarts", type=int, default=2,
+                   help="respawn a dead loader worker at its shard "
+                        "position up to this many consecutive times; 0 = "
+                        "fail on the first death")
     args = p.parse_args(argv)
     if args.prefetch_depth < 1:
         p.error(f"--prefetch-depth must be >= 1, got {args.prefetch_depth}")
@@ -143,8 +238,10 @@ def check_data_flags(args, cfg: dict) -> None:
     ``--raw`` needs a ``--data-dir`` ImageNet config, ``--device-aug`` a
     ``--data-dir`` ImageNet, detection, pose or CycleGAN config,
     ``--mixup`` also ``--device-aug`` on ImageNet and a non-negative
-    alpha, and ``--label-smooth`` the DCGAN config and a value in [0,
-    1)."""
+    alpha, ``--label-smooth`` the DCGAN config and a value in [0, 1),
+    ``--loader-workers`` above 1 a ``--data-dir`` ImageNet config, and
+    the GAN configs refuse the Trainer's recovery, faults, sentinel and
+    profiler flags."""
     imagenet = bool(args.data_dir) and cfg["dataset"] == "imagenet"
     if args.use_raw is not None and not imagenet:
         raise SystemExit(
@@ -173,6 +270,94 @@ def check_data_flags(args, cfg: dict) -> None:
             f"(this run: {args.model!r})")
     if args.mixup < 0:
         raise SystemExit(f"--mixup must be >= 0, got {args.mixup}")
+    if args.stall_timeout < 0:
+        raise SystemExit(
+            f"--stall-timeout must be >= 0, got {args.stall_timeout}")
+    if args.lr_rewarm is not None and not args.recover:
+        raise SystemExit("--lr-rewarm only applies with --recover "
+                         "(it scales the LR on each rollback)")
+    if args.loader_workers < 1:
+        raise SystemExit(
+            f"--loader-workers must be >= 1, got {args.loader_workers}")
+    if args.max_worker_restarts < 0:
+        raise SystemExit(f"--max-worker-restarts must be >= 0, got "
+                         f"{args.max_worker_restarts}")
+    if args.loader_workers > 1 and not imagenet:
+        raise SystemExit(
+            "--loader-workers parallelizes the record decode stage — "
+            "--data-dir ImageNet configs only (this run: "
+            f"dataset={cfg['dataset']!r}, data_dir={args.data_dir!r})")
+    if cfg["dataset"].startswith("gan"):
+        if args.recover or args.faults or args.sentinel:
+            raise SystemExit(
+                "--recover/--faults/--sentinel ride the Trainer "
+                "rollback/drain loop; the GAN fit_gan path has no "
+                f"hook yet (this run: {args.model!r})")
+        if args.profile_steps or args.profile_dir:
+            raise SystemExit(
+                "--profile-steps/--profile-dir ride the Trainer step "
+                "counter; the GAN fit_gan path has no profiler hook "
+                f"yet (this run: {args.model!r}; --trace works)")
+
+
+def _resilience(args):
+    """(recovery policy, fault injector, sentinel monitor) of the flags,
+    each None when off; built before the data factories, whose loader
+    consults the injector."""
+    recovery = injector = sentinel = None
+    if args.recover:
+        from deepvision_tpu_torch.resilience import RecoveryPolicy
+
+        recovery = RecoveryPolicy(max_rollbacks=args.max_rollbacks,
+                                  lr_rewarm=args.lr_rewarm)
+    if args.faults:
+        from deepvision_tpu_torch.resilience import FaultInjector
+
+        injector = FaultInjector(args.faults, seed=args.fault_seed)
+        print(f"fault injection armed: {args.faults!r}", flush=True)
+    if args.sentinel:
+        from deepvision_tpu_torch.resilience.sentinel import SentinelMonitor
+
+        sentinel = SentinelMonitor(
+            z_threshold=args.sentinel_z, warmup=args.sentinel_warmup,
+            audit_every=args.audit_every)
+        print("[sentinel] armed: in-step invariants + EWMA z-score "
+              f"(z={args.sentinel_z:g}, warmup={args.sentinel_warmup})"
+              f", state audits every {args.audit_every} steps",
+              flush=True)
+    return recovery, injector, sentinel
+
+
+def _maybe_enable_trace(args) -> None:
+    if not args.trace:
+        return
+    from deepvision_tpu_torch.obs.trace import get_tracer
+
+    get_tracer().enable()
+    print(f"[obs] span tracing on -> {args.trace}", flush=True)
+
+
+def _maybe_export_trace(args) -> None:
+    if not args.trace:
+        return
+    from deepvision_tpu_torch.obs.trace import get_tracer
+
+    n = get_tracer().export(args.trace)
+    print(f"[obs] wrote {n} spans to {args.trace} (load in "
+          "chrome://tracing or Perfetto; summarize with python -m "
+          "deepvision_tpu_torch.obs)", flush=True)
+
+
+def _maybe_publish(args, ckpt_dir: Path) -> None:
+    """Publish the newest retained epoch to GCS when asked."""
+    if not (args.output_bucket and args.output_dir):
+        return
+    from deepvision_tpu_torch.train.publish import publish_to_gcs
+
+    epochs = sorted((p for p in Path(ckpt_dir).iterdir()
+                     if p.name.isdigit()), key=lambda p: int(p.name))
+    publish_to_gcs(epochs[-1] if epochs else ckpt_dir, args.output_bucket,
+                   args.output_dir)
 
 
 def main(argv=None) -> int:
@@ -239,8 +424,13 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         strict_fp32()  # float32 math in full float32, as on the CPU
 
+    _maybe_enable_trace(args)
     if cfg["dataset"].startswith("gan"):
-        return run_gan(args, cfg, policy, device)
+        try:
+            return run_gan(args, cfg, policy, device)
+        finally:
+            _maybe_export_trace(args)
+    recovery, injector, sentinel = _resilience(args)
     bs, size = cfg["batch_size"], cfg["input_size"]
     detection = cfg["dataset"] == "detection"
     pose = cfg["dataset"] == "pose"
@@ -314,7 +504,9 @@ def main(argv=None) -> int:
         train_data, val_data, steps = make_imagenet_data(
             args.data_dir, bs, size, augment=cfg.get("augment", "tf"),
             use_raw=args.use_raw, steps_per_epoch=args.steps_per_epoch,
-            device_aug=args.device_aug)
+            device_aug=args.device_aug, loader_workers=args.loader_workers,
+            max_worker_restarts=args.max_worker_restarts,
+            fault_injector=injector)
     else:
         imgs, labels, split = synthetic_classification(
             args.synthetic_size, size, cfg["channels"], cfg["num_classes"],
@@ -371,11 +563,38 @@ def main(argv=None) -> int:
     trainer = Trainer(
         module, cfg, train_data, val_data, device=device,
         workdir=args.workdir, prefetch_depth=args.prefetch_depth,
-        steps_per_epoch=steps, train_step=train_step, eval_step=eval_step)
+        steps_per_epoch=steps, train_step=train_step, eval_step=eval_step,
+        check_numerics=args.check_numerics,
+        async_checkpoint=args.async_checkpoint, keep_best=args.keep_best,
+        data_echo=args.data_echo, stall_timeout=args.stall_timeout or None,
+        stall_abort=args.stall_abort, rss_limit_gb=args.rss_limit_gb or None,
+        recovery=recovery, fault_injector=injector, sentinel=sentinel,
+        ckpt_integrity=not args.no_ckpt_integrity,
+        profile_steps=args.profile_steps, profile_dir=args.profile_dir)
     if args.resume or args.checkpoint is not None:
         trainer.resume(args.checkpoint)
-        print(f"resumed at epoch {trainer.start_epoch}", flush=True)
-    trainer.fit(args.epochs)
+        print(f"resumed at epoch {trainer.start_epoch}"
+              + (f" step {trainer.start_step}" if trainer.start_step
+                 else ""), flush=True)
+    # SIGTERM -> a mid-epoch checkpoint and exit 143; --resume goes on
+    trainer.install_preemption_handler()
+    from deepvision_tpu_torch.resilience.sentinel import SentinelTrip
+
+    try:
+        trainer.fit(args.epochs)
+    except SentinelTrip as e:
+        # a silent-corruption verdict: 76 tells a supervisor it was
+        # neither a crash nor a preemption
+        print(f"[sentinel] FATAL: {e}", flush=True)
+        raise SystemExit(76) from e
+    finally:
+        _maybe_export_trace(args)  # a cut run's trace is worth reading
+    if trainer.preempted:
+        print(f"[train] {args.model}: preempted; checkpoints "
+              f"{trainer.ckpt.saved_epochs()} under {trainer.ckpt.directory};"
+              f" kernel launches {_launches()}", file=sys.stderr, flush=True)
+        raise SystemExit(143)
+    _maybe_publish(args, trainer.ckpt.directory)
     print(f"[train] {args.model}: epochs {trainer.start_epoch}.."
           f"{(args.epochs or cfg['total_epochs']) - 1} done, checkpoints "
           f"{trainer.ckpt.saved_epochs()} under {trainer.ckpt.directory}; "
@@ -482,13 +701,35 @@ def run_gan(args, cfg: dict, policy, device) -> int:
           f"{bs}, {steps} steps an epoch, precision {policy.name}",
           flush=True)
     workdir = Path(args.workdir) / cfg["name"]
+    from deepvision_tpu_torch.train.trainer import (
+        StallWatchdog,
+        make_preempt_flag,
+        make_rss_limit_flag,
+    )
+
+    # SIGTERM -> a save at the epoch's end and exit 143; the RSS limit
+    # rides the same poll
+    preempted = make_preempt_flag()
+    if args.rss_limit_gb:
+        rss_exceeded = make_rss_limit_flag(args.rss_limit_gb)
+        sigterm = preempted
+
+        def preempted():
+            return sigterm() or rss_exceeded()
+    watchdog = (StallWatchdog(args.stall_timeout, abort=args.stall_abort)
+                if args.stall_timeout else None)
     gan.fit_gan(state, step, train_data, epochs=epochs, workdir=workdir,
                 save_every=cfg.get("save_every", 2),
                 resume=args.resume or args.checkpoint is not None,
                 resume_epoch=args.checkpoint,
-                prefetch_depth=args.prefetch_depth, config=cfg)
+                prefetch_depth=args.prefetch_depth, config=cfg,
+                async_checkpoint=args.async_checkpoint, preempt=preempted,
+                watchdog=watchdog, check_numerics=args.check_numerics)
     from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 
+    if preempted():
+        raise SystemExit(143)
+    _maybe_publish(args, workdir / "ckpt")
     saved = CheckpointManager(workdir / "ckpt").saved_epochs()
     print(f"[train] {args.model}: epochs up to {epochs - 1} done, "
           f"checkpoints {saved} under {workdir / 'ckpt'}; kernel launches "

@@ -28,11 +28,16 @@ the image pool and the epoch loop, the twin of
   images from the statistics phase 1 left. Gradients are taken with
   ``torch.autograd.grad`` for the phase's own parameters, never
   accumulated into another net's ``.grad``.
-- :func:`fit_gan`: the epoch loop with what the port's Trainer has: a
-  checkpoint every ``save_every`` epochs (and the last) keeping 3,
+- :func:`fit_gan`: the epoch loop of ``deepvision_tpu/train/gan.py``: a
+  checkpoint every ``save_every`` epochs (and the last) keeping 3
+  (``async_checkpoint``: written in the background from a host copy),
   resume, the epoch's stream ``KeySeq(1234, epoch)`` (the JAX loop folds
   the epoch into ``key(1234)``), metrics fetched every ``log_every``
-  steps and at the epoch's end, the prefetch feed and its telemetry.
+  steps and at the epoch's end (every 32 at most under a ``watchdog``,
+  which beats per fetched step), the prefetch feed and its telemetry,
+  the ``epoch``, ``step``, ``drain`` and ``checkpoint`` spans,
+  TensorBoard scalars, and ``preempt``, polled at every epoch's end: a
+  save off the cadence, then a stop.
 
 Every draw (noise, masks, pool coins and indices) is made on the
 device by a ``torch.Generator`` in a function that returns it, and the
@@ -477,25 +482,30 @@ def fit_gan(state: GANState, train_step: Callable, train_data, *,
             epochs: int, workdir: str | Path = "runs/gan",
             save_every: int = 2, log_every: int = 50, resume: bool = False,
             resume_epoch: int | None = None, prefetch_depth: int = 2,
-            config: dict | None = None):
+            config: dict | None = None, async_checkpoint: bool = False,
+            preempt: Callable[[], bool] | None = None, watchdog=None,
+            check_numerics: bool = False):
     """The GAN epoch loop: ``train_step(state, device_batch, generator)``
     over ``train_data(epoch)`` (host batches, through the device feed),
     one generator a step from the epoch's stream ``KeySeq(1234, epoch)``;
     a checkpoint under ``{workdir}/ckpt`` every ``save_every`` epochs and
     at the last, keeping 3, with ``config``'s model geometry; ``resume``
     restores the newest (or ``resume_epoch``'s) verified checkpoint and
-    goes on at the next epoch. Returns the metric history."""
-    from deepvision_tpu_torch.core.prng import KeySeq
-    from deepvision_tpu_torch.data.prefetch import (
-        DevicePrefetcher,
-        FeedTelemetry,
-    )
+    goes on at the next epoch. ``preempt``: a zero-argument callable
+    polled at each epoch's end; when true the loop saves (off the
+    cadence) and stops. ``watchdog``: a ``trainer.StallWatchdog``,
+    started here, beaten per fetched step and stopped on exit.
+    ``check_numerics``: read the step's losses on the host each step and
+    raise ``NumericDivergence`` on a non-finite one (the JAX loop's
+    checkify step raises). Returns the metric history."""
     from deepvision_tpu_torch.train.checkpoint import CheckpointManager
-    from deepvision_tpu_torch.train.loggers import Loggers
+    from deepvision_tpu_torch.train.loggers import Loggers, TensorBoardWriter
 
     if prefetch_depth < 1:
         raise ValueError(f"prefetch_depth must be >= 1, got {prefetch_depth}")
-    mgr = CheckpointManager(Path(workdir) / "ckpt")
+    mgr = CheckpointManager(Path(workdir) / "ckpt",
+                            async_save=async_checkpoint)
+    tb = TensorBoardWriter(Path(workdir) / "tb")
     loggers = Loggers()
     start = 0
     if resume and mgr.latest_epoch() is not None:
@@ -504,6 +514,33 @@ def fit_gan(state: GANState, train_step: Callable, train_data, *,
         if meta.get("loggers"):
             loggers = meta["loggers"]
         print(f"resumed at epoch {start}", flush=True)
+    if watchdog is not None:
+        watchdog.start()
+    try:
+        return _gan_epochs(state, train_step, train_data, start, epochs,
+                           mgr, loggers, tb, save_every, log_every,
+                           prefetch_depth, config, preempt, watchdog,
+                           check_numerics)
+    finally:
+        # an exception must still stop the watchdog (its abort would
+        # mask the traceback) and let a staged save commit
+        tb.close()
+        mgr.wait_until_finished()
+        if watchdog is not None:
+            watchdog.stop()
+
+
+def _gan_epochs(state, train_step, train_data, start, epochs, mgr, loggers,
+                tb, save_every, log_every, prefetch_depth, config, preempt,
+                watchdog, check_numerics):
+    from deepvision_tpu_torch.core.prng import KeySeq
+    from deepvision_tpu_torch.data.prefetch import (
+        DevicePrefetcher,
+        FeedTelemetry,
+    )
+    from deepvision_tpu_torch.obs.trace import span
+    from deepvision_tpu_torch.train.loggers import input_wait_metrics
+
     device = state.device
     for epoch in range(start, epochs):
         keys = KeySeq(_BASE_SEED, epoch, device=device)
@@ -514,37 +551,58 @@ def fit_gan(state: GANState, train_step: Callable, train_data, *,
         def drain():
             if not pending:
                 return
-            names = list(pending[0])
-            values = torch.stack([torch.stack([m[k].float() for k in names])
-                                  for m in pending]).tolist()
-            fetched.extend(dict(zip(names, row)) for row in values)
-            pending.clear()
+            with span("drain", cat="train"):
+                names = list(pending[0])
+                values = torch.stack([
+                    torch.stack([m[k].float() for k in names])
+                    for m in pending]).tolist()
+                fetched.extend(dict(zip(names, row)) for row in values)
+                if watchdog is not None:
+                    for _ in values:
+                        watchdog.beat()
+                pending.clear()
 
         tel = FeedTelemetry()
         t0 = time.perf_counter()
-        feed = DevicePrefetcher(train_data(epoch), device,
-                                depth=prefetch_depth, telemetry=tel)
-        try:
-            for i, batch in enumerate(feed):
-                images += len(next(iter(batch.values())))
-                pending.append(train_step(state, batch, next(keys)))
-                if log_every and i % log_every == 0:
-                    drain()
-                    print(f"[epoch {epoch} batch {i}] " + " ".join(
-                        f"{k}={v:.4f}"
-                        for k, v in sorted(fetched[-1].items())), flush=True)
-        finally:
-            feed.close()
-        drain()  # waits for the epoch's last step
+        with span("epoch", cat="train", args={"epoch": int(epoch)}):
+            feed = DevicePrefetcher(train_data(epoch), device,
+                                    depth=prefetch_depth, telemetry=tel)
+            try:
+                for i, batch in enumerate(feed):
+                    images += len(next(iter(batch.values())))
+                    with span("step", cat="train"):
+                        metrics = train_step(state, batch, next(keys))
+                        if check_numerics and not bool(torch.stack([
+                                v.isfinite().all() for k, v in metrics.items()
+                                if "loss" in k]).all()):
+                            from deepvision_tpu_torch.resilience.recovery \
+                                import NumericDivergence
+
+                            raise NumericDivergence(
+                                epoch, i, "non-finite GAN loss")
+                        pending.append(metrics)
+                    if watchdog is not None \
+                            and i % min(32, log_every or 32) == 0:
+                        drain()
+                    if log_every and i % log_every == 0:
+                        drain()
+                        print(f"[epoch {epoch} batch {i}] " + " ".join(
+                            f"{k}={v:.4f}"
+                            for k, v in sorted(fetched[-1].items())),
+                            flush=True)
+            finally:
+                feed.close()
+            drain()  # waits for the epoch's last step
         dt = time.perf_counter() - t0
         summary = tel.summary()
         metrics = {k: float(np.mean([m[k] for m in fetched]))
                    for k in (fetched[0] if fetched else {})}
-        metrics.update({f"input_{k}": float(summary[k]) for k in (
-            "host_wait_ms", "shard_ms", "h2d_wait_ms", "step_ms",
-            "wait_frac", "h2d_bytes_per_image", "image_bytes_per_image")})
+        metrics.update(input_wait_metrics(summary))
         metrics["examples_per_sec"] = images / dt
         loggers.log_metrics(epoch, metrics)
+        for k, v in metrics.items():
+            tb.scalar(k, v, epoch)
+        tb.flush()
         print(f"[feed] epoch {epoch}: wire {summary['wire_dtype']}, "
               f"{summary['h2d_bytes_per_image']} bytes an image crossed, "
               f"h2d_wait {summary['h2d_wait_ms']} ms and host_wait "
@@ -552,6 +610,11 @@ def fit_gan(state: GANState, train_step: Callable, train_data, *,
         print(f"[epoch {epoch}] " + " ".join(
             f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
             + f" time={dt:.1f}s", flush=True)
-        if (epoch + 1) % save_every == 0 or epoch == epochs - 1:
-            mgr.save(epoch, state, loggers=loggers, config=config)
+        stop = preempt is not None and preempt()
+        if (epoch + 1) % save_every == 0 or epoch == epochs - 1 or stop:
+            with span("checkpoint", cat="train"):
+                mgr.save(epoch, state, loggers=loggers, config=config)
+        if stop:
+            print(f"[preempted] after completed epoch {epoch}", flush=True)
+            break
     return loggers

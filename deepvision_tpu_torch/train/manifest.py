@@ -17,7 +17,8 @@ import os
 from pathlib import Path
 
 __all__ = ["MANIFEST_VERSION", "manifest_path", "step_dir", "write_manifest",
-           "verify_manifest", "fs_epochs", "newest_verified_epoch"]
+           "read_manifest", "verify_manifest", "fs_epochs",
+           "newest_verified_epoch"]
 
 MANIFEST_VERSION = 1
 
@@ -37,8 +38,11 @@ def step_dir(root: str | Path, epoch: int) -> Path:
     return Path(root) / str(epoch)
 
 
-def write_manifest(root: str | Path, epoch: int) -> None:
-    """Hash the committed epoch directory into its sidecar."""
+def write_manifest(root: str | Path, epoch: int,
+                   extra: dict | None = None) -> None:
+    """Hash the committed epoch directory into its sidecar; ``extra``
+    merges more fields into it (the save-time ``state_fingerprint`` of
+    ``resilience/sentinel.py``)."""
     root = Path(root)
     sdir = step_dir(root, epoch)
     if not sdir.exists():
@@ -49,11 +53,20 @@ def write_manifest(root: str | Path, epoch: int) -> None:
         for p in sorted(sdir.rglob("*")) if p.is_file()
     }
     manifest = {"version": MANIFEST_VERSION, "epoch": int(epoch),
-                "files": files}
+                "files": files, **(extra or {})}
     target = manifest_path(root, epoch)
     tmp = target.with_suffix(f".json.tmp.{os.getpid()}.{next(_tmp_seq)}")
     tmp.write_text(json.dumps(manifest))
     os.replace(tmp, target)
+
+
+def read_manifest(root: str | Path, epoch: int) -> dict | None:
+    """The committed sidecar as a dict (None when absent or
+    unreadable)."""
+    try:
+        return json.loads(manifest_path(root, epoch).read_text())
+    except (OSError, ValueError):
+        return None
 
 
 def verify_manifest(root: str | Path, epoch: int) -> tuple[bool, str]:
