@@ -130,10 +130,11 @@ the seconds it took:
    batch 256 fed by the reader for ``--raw --device-aug --mixup 0.2``,
    ``--raw`` and ``--no-raw --device-aug`` beside the same step on a
    device-resident batch, with the feed's bytes an image and waits and
-   the idle share, validation over the JPEG shards; then the training CLI
-   of each, one epoch with validation and a checkpoint and a resume, the
-   three at once, each CLI's ``ycc_to_rgb`` launches read from its own
-   last line (the kernels line's count for that kernel);
+   the idle share, validation over the JPEG shards (before 9's training
+   CLIs); beside those CLIs the training CLI of each, one epoch with
+   validation and a checkpoint and a resume, the three at once, each
+   CLI's ``ycc_to_rgb`` launches read from its own last line (the
+   kernels line's count for that kernel);
 14. ``resnet152`` under ``remat="block"``: the Trainer at batch 256 in
    bf16, images/s with MFU and peak memory, peak memory and step time
    at batch 128 under no remat, ``"block"`` and ``"conv"``, a float32
@@ -228,7 +229,14 @@ the seconds it took:
    its checkpoint, and ``eval gan -m dcgan`` and ``-m cyclegan`` (scores
    printed, not gated); ``train -m mobilenet1`` as the training CLIs of
    9 (2 epochs, ``--resume`` to 3, the update count and BN statistics
-   restored bit for bit) and its serving CLI from the checkpoint.
+   restored bit for bit) and its serving CLI from the checkpoint. Each
+   chain but ``centernet``'s ends in a ``predict`` CLI from its
+   checkpoint, on a JPEG encoded by nvJPEG or a PNG written by the
+   port's writer (``detect -m yolov3`` at 416, ``pose`` at 256,
+   ``dcgan -n 16``, ``cyclegan`` at 256, ``classify -m mobilenet1``),
+   whose answer must be ``load_served(...).run``'s (or ``gen_a2b``'s) on
+   the same decoded tensor in this process: top-k equal, boxes, joints
+   and pixels within 1e-4.
 20. The resilient run (``phase_resilience``, beside 19's chains):
    ``alexnet1`` at full width (224 px, 1000 classes, batch 128, bf16)
    through three training CLIs at once. Chaos: 2 epochs over 13's JPEG
@@ -252,6 +260,32 @@ the seconds it took:
    fed from the JPEG shards by one reader process and by four spawned
    ones: the seconds to the first batch, images/s over the next steps,
    the waits and the path of the workers' batches, beside the card.
+22. The dataset builders on this machine, which has no PIL or
+   TensorFlow (``phase_builders``, after 12, alone): a flattened
+   ImageNet tree of 256 + 192 JPEGs encoded by nvJPEG, with one
+   grayscale JPEG (written without PIL, ``_gray_jpeg``) and one PNG under
+   a ``.JPEG`` name, a bounding-box XML tree and its CSV, a VOC tree and
+   an MPII JSON; the ImageNet train shards by this process (the two odd
+   files re-encoded at quality 95 by the encoder that wrote the trees at
+   90) and the validation shards by a spawned pool of 2, records/s each;
+   both splits read back by the port's readers in one decode each (258
+   and 192 images) with their labels and sizes, the odd files RGB JPEGs
+   within 2 steps of their pixels on average; then, beside 9's training
+   CLIs (``phase_builder_shards``), the VOC, MPII and raw-crop shards at
+   once (pools of 2; nvJPEG and the resize on the card for the raw
+   crops), every record read back with its label and size.
+23. ``eval classification`` (after 22's second half, beside 9's
+   training CLIs) of ``resnet50`` at 224, batch 64, float32 (TF32 off)
+   over 22's validation shards, on seeded weights saved as a port
+   checkpoint: its top-1 and top-5 equal to a direct loop of
+   ``classification_eval_step`` over the same batches.
+24. The converters (beside 19's chains): a seeded reference-layout
+   ``resnet50`` and ``inception1_ref`` (``tests/torch_reference_nets.py``)
+   saved with ``torch.save``, converted by ``python -m
+   deepvision_tpu_torch.convert`` and classified by ``predict
+   classify``: the top-5 the source module's on the card, the converted
+   module's logits within 1e-4 of the source's; the ``inception1_ref``
+   CLI's ``lrn_forward_f32`` launches counted in the ``kernels`` line.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -259,8 +293,10 @@ times under ``shapes``, launches by path under ``launches_by_path``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
 which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
 {...}``, ``[pose] {...}``, ``[gan] {...}`` and ``[classifiers] {...}``
-summaries, the ``[resilience] {...}`` and ``[loader] {...}`` lines, the
-card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+summaries, the ``[resilience] {...}``, ``[loader] {...}`` and
+``[offline] {...}`` (22-24 and the predict CLIs: records/s, seconds)
+lines, the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -305,6 +341,10 @@ NVJPEG_MAX_LSB = 8.0
 NVJPEG_MEAN_LSB = 1.5
 NVJPEG_ACCURATE_MAX_LSB = 4.0
 NVJPEG_ACCURATE_MEAN_LSB = 0.1
+# batch sizes that alternate over the decoder (_nvjpeg_mixed): around
+# gpu_hybrid's switch to Huffman decode on the card (over 100), 1, and
+# the builders' readback batches (258, 192)
+NVJPEG_MIXED_BATCHES = (1, 258, 3, 192, 101, 7, 100, 64, 256, 2)
 # not a TPU kernel: the colour stage of the JAX reader's tf.io.decode_jpeg
 YCC_REPLACES = "deepvision_tpu/data/imagenet.py:138"
 # the LRN models' training batch (their configs'), where the kernels'
@@ -377,7 +417,8 @@ BF16_DENSE_FLOPS_PER_S = 989e12
 # the plain versions' and library calls' timings, 10-300x the kernels'
 # own: the median of 5 after 1 (the kernels keep 100 after 10). Each
 # costs about three times its calls (the stream is held for twice their
-# host time first); at 20 after 3 they took 65 of the 72 s of phase 4
+# host time first, taken from one call after the warm-up); at 20 after 3
+# they took 65 of the 72 s of phase 4
 YARDSTICK = {"iters": 5, "warmup": 1}
 # the record path: batches of training records written, validation JPEGs
 # (one full batch and a padded one), timed fed steps
@@ -450,6 +491,16 @@ CHAOS_FAULTS = "nan@5,ckpt@0,io@5x2,wkill@0"
 SDC_STEP = 12
 SDC_SCALE = 4
 LOADER_STEPS = 6
+# the offline tools: the builders' trees, eval classification
+OFFLINE_TRAIN = 256  # the ImageNet tree's RGB JPEGs (train)
+OFFLINE_VAL = 192  # its validation JPEGs: 3 batches of EVAL_BATCH
+OFFLINE_CLASSES = 10  # the first synsets of the ImageNet list
+OFFLINE_SMALL = 8  # the VOC and MPII trees' images
+OFFLINE_STORED = 256  # the raw-crop shards' shorter side
+EVAL_BATCH = 64
+PREDICT_TOL = 1e-4
+# a re-encoded file (quality 95, by nvJPEG) against its source pixels
+REENCODE_MEAN_LSB = 2.0
 
 
 def _say(*parts) -> None:
@@ -679,6 +730,7 @@ def phase_times() -> dict[str, dict]:
         shapes = {fwd: [], bwd: []}
         xs = gs = None
         for lrn, shape, size, k in TIMED_LRNS:
+            t_row = time.perf_counter()
             if xs is None or xs[0].shape != shape:  # same shape: same inputs
                 xs = gs = None  # free the last shape's buffers first
                 torch.cuda.empty_cache()
@@ -752,6 +804,8 @@ def phase_times() -> dict[str, dict]:
                 if (lrn, shape, size, k) in ALEXNET_V1_LRNS:
                     for key in keys:
                         tot[kernel][key] += row[key]
+            _say(f"[time] {lrn} {dtype}: {time.perf_counter() - t_row:.2f} s "
+                 "of the phase (inputs, both kernels, plain, library)")
         for kernel in (fwd, bwd):
             by_name = {r["lrn"]: r for r in shapes[kernel]}
             ratio = (by_name["inception1_lrn2"]["ms"]
@@ -1756,12 +1810,68 @@ def phase_nvjpeg() -> dict:
          f"gpu_hybrid decoder: decode {rates['decode']:.1f} images/s, decode with the train "
          f"stage (resize, crop 224, flip, jitter, uint8) "
          f"{rates['decode+stage']:.1f} images/s (median of 3, host wall)")
+    _nvjpeg_mixed(nv, big)
     line = {"name": "ycc_to_rgb", "route": "cuda", "source": NVJPEG_SOURCE,
             "replaces": YCC_REPLACES, "max_abs_err": float(err), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
             "library_ms": None}
     return {**worst, **{f"{k}_images_s": v for k, v in rates.items()},
             "kernel": line}
+
+
+def _nvjpeg_mixed(nv, big: list[bytes]) -> None:
+    """The process's one encoder at quality 90, 95 and 90 again (the
+    builders' re-encode is 95, the records' 90): the two 90s give the
+    same bytes, the 95 more. Then the 256 JPEGs of ``big``, those
+    re-encodes and a grayscale JPEG, decoded in batches whose sizes
+    alternate (``NVJPEG_MIXED_BATCHES``, each one re-initializing the
+    batched decode), every image within the decode's bounds
+    (``NVJPEG_MAX_LSB``, ``NVJPEG_MEAN_LSB``) of its decode in one batch
+    of all."""
+    import torch
+
+    from deepvision_tpu_torch.data import jpeg
+
+    srcs = jpeg.decode_images(*jpeg.pack(big[:4]), nv.device)
+    runs = [[nv.encode(x, q) for x in srcs] for q in (90, 95, 90)]
+    assert runs[0] == runs[2], "quality 90 after 95 gave other bytes"
+    assert all(len(b95) > len(b90) for b90, b95 in zip(*runs[:2])), (
+        [len(b) for b in runs[0]], [len(b) for b in runs[1]])
+    gray = np.repeat(np.repeat(np.arange(0, 240, 8, dtype=np.uint8)
+                               .reshape(5, 6), 8, 0), 8, 1)
+    blobs = [*big, *runs[1], _gray_jpeg(gray)]
+    want = jpeg.decode_images(*jpeg.pack(blobs), nv.device)
+    # each size in turn, over the list from where the last batch ended
+    # (wrapping round): every image decoded three or four times
+    got, order, at = [], [], 0
+    for n in NVJPEG_MIXED_BATCHES:
+        idx = [(at + i) % len(blobs) for i in range(n)]
+        got += jpeg.decode_images(*jpeg.pack([blobs[i] for i in idx]),
+                                  nv.device)
+        order += idx
+        at += n
+    torch.cuda.synchronize()
+    assert len(set(order)) == len(blobs), len(set(order))
+    pairs = [(got[j], want[i]) for j, i in enumerate(order)]
+    assert all(g.shape == w.shape for g, w in pairs)
+    gaps = [(g.int() - w.int()).abs() for g, w in pairs]
+    top = max(d.max().item() for d in gaps)
+    mean = (sum(d.sum().item() for d in gaps)
+            / sum(d.numel() for d in gaps))
+    # gpu_hybrid decodes a batch over 100 on the card and a smaller one
+    # through the host's Huffman decode, whose pixels differ by a step or
+    # two; a mix-up of images or planes is tens of steps off
+    assert top <= NVJPEG_MAX_LSB and mean <= NVJPEG_MEAN_LSB, (top, mean)
+    # a DC-only file of 8x8-constant blocks: its levels within a step
+    assert np.abs(want[-1][..., 0].cpu().numpy().astype(int)
+                  - gray).max() <= 1
+    _say(f"[nvjpeg] one encoder at quality 90, 95, 90: the 90s the same "
+         f"bytes, the 95s {sum(map(len, runs[1]))} bytes against "
+         f"{sum(map(len, runs[0]))}; {len(blobs)} JPEGs (4 of them those "
+         f"95s, one grayscale) decoded in batches of "
+         f"{list(NVJPEG_MIXED_BATCHES)}: against "
+         f"their decode in one batch of {len(blobs)} max {top} steps, mean "
+         f"{mean:.4f} (bounds {NVJPEG_MAX_LSB}, {NVJPEG_MEAN_LSB})")
 
 
 def _reader_rates(d: Path) -> dict:
@@ -1888,13 +1998,9 @@ def phase_records(smi: str, workdir: Path) -> dict:
     encoded by nvJPEG, sides 300-500), the host reader's records/s, then
     in this process the step fed by the reader for ``--raw --device-aug
     --mixup 0.2``, ``--raw`` and ``--no-raw --device-aug`` beside the same
-    step on a device-resident batch, and validation over the JPEG shards;
-    then the training CLI of each, 1 epoch with validation and a
-    checkpoint, and a resume to epoch 2, the three at once. Each CLI
-    launched ``ycc_to_rgb`` once for each JPEG batch it decoded: the
-    validation batches of each validation (before training and after
-    each epoch) and, reading the JPEG shards, each training batch.
-    Returns the CLIs' launches of it by run as ``ycc_launches``."""
+    step on a device-resident batch, and validation over the JPEG shards
+    (their training CLIs run later, :func:`_records_clis`). Returns the
+    reader's rates, the runs and the shards' directory."""
     import torch
 
     from deepvision_tpu_torch.data.jpeg import nvjpeg
@@ -1902,7 +2008,6 @@ def phase_records(smi: str, workdir: Path) -> dict:
         write_synthetic_imagenet,
     )
     from deepvision_tpu_torch.models import create_model
-    from deepvision_tpu_torch.train import manifest
     from deepvision_tpu_torch.train.configs import get_config
     from deepvision_tpu_torch.train.trainer import Trainer
 
@@ -1945,6 +2050,18 @@ def phase_records(smi: str, workdir: Path) -> dict:
     assert nv.ycc_launches > 0
     trainer = module = None
     torch.cuda.empty_cache()
+    return {"reader": rates, "runs": runs, "dir": d}
+
+
+def _records_clis(d: Path, workdir: Path) -> dict:
+    """The training CLI over :func:`phase_records`' shards for each of its
+    three reader configurations, 1 epoch with validation and a
+    checkpoint, and a resume to epoch 2, the three at once (run beside
+    the training CLIs). Each CLI launched ``ycc_to_rgb`` once for each
+    JPEG batch it decoded: the validation batches of each validation
+    (before training and after each epoch) and, reading the JPEG shards,
+    each training batch. Returns those launches by run."""
+    from deepvision_tpu_torch.train import manifest
 
     steps = 2
     common = ["-m", "resnet50", "--data-dir", str(d), "--steps-per-epoch",
@@ -1994,8 +2111,7 @@ def phase_records(smi: str, workdir: Path) -> dict:
     _say(f"[records-cli] the three CLIs trained, validated over the JPEG "
          f"shards, checkpointed and resumed ({time.perf_counter() - t0:.1f} s,"
          f" run at once on the one card); ycc_to_rgb launches {launches}")
-    return {"reader": rates, "runs": runs, "ycc_launches": launches,
-            "dir": d}
+    return launches
 
 
 def phase_remat_memory(batch: int = 128, steps: int = 5) -> dict:
@@ -2593,18 +2709,19 @@ def phase_yolo_records(smi: str, workdir: Path) -> dict:
     return {**rates, "records": d}
 
 
-def _yolo_clis(d: Path, workdir: Path) -> dict:
+def _yolo_clis(d: Path, workdir: Path, images: dict) -> dict:
     """``yolov3``'s CLIs over its records (:func:`_model_clis`): the
     training CLI ``--data-dir ... --device-aug`` at the config's 416,
     batch 16 and bf16 for 1 epoch of ``YOLO_CLI_STEPS`` steps,
     ``--resume`` to 2, and from that checkpoint the serving CLI (2
     requests) and the ``eval detection`` CLI over the ``val-*`` shards;
-    the mAP line is printed, not gated. Returns the NMS launches by path
+    the mAP line is printed, not gated; beside those ``predict detect``
+    on a JPEG (:func:`_predict_detect`). Returns the NMS launches by path
     and the mAP line."""
     clis = _model_clis(
         "yolov3", d, workdir / "yolo_cli", YOLO_SIZE,
         ["--steps-per-epoch", str(YOLO_CLI_STEPS)], ["--score", "0.05"],
-        ["detection"])
+        ["detection"], partial(_predict_detect, image=images["jpeg"]))
     line = clis["eval"]
     assert all(set(r["result"]) == {"boxes", "scores", "classes"}
                for r in clis["replies"])
@@ -2614,8 +2731,34 @@ def _yolo_clis(d: Path, workdir: Path) -> dict:
     assert serve_nms > 0 and eval_nms == 4, (serve_nms, eval_nms)
     _say(f"[yolo-cli] NMS kernel launches serve {serve_nms}, eval "
          f"{eval_nms}")
-    return {"nms_launches": {"serving_cli": serve_nms, "eval_cli": eval_nms},
+    return {"nms_launches": {"serving_cli": serve_nms, "eval_cli": eval_nms,
+                             "predict_cli": clis["beside"]},
             "map": line}
+
+
+def _predict_detect(wd: Path, image: str) -> int:
+    """``predict detect -m yolov3`` from the chain's checkpoint at 416:
+    its boxes, scores and classes those of ``load_served(...).run`` on
+    the same decoded tensor (boxes and scores within ``PREDICT_TOL``).
+    Returns its NMS launches (one)."""
+    t0 = time.perf_counter()
+    p = _predict_served(
+        "yolov3", wd, image,
+        ["detect", "-m", "yolov3", "--workdir", str(wd), image, "--size",
+         str(YOLO_SIZE), "-o", str(wd / "detections.png")], "tanh",
+        YOLO_SIZE, input_size=YOLO_SIZE, num_classes=YOLO_CLASSES)
+    got, want = p["got"], p["want"]
+    assert got["classes"] == want["classes"], (got, want)
+    for k in ("boxes", "scores"):
+        np.testing.assert_allclose(np.asarray(got[k], np.float64),
+                                   np.asarray(want[k], np.float64),
+                                   atol=PREDICT_TOL, err_msg=k)
+    nms = p["launches"]["nms_sweep"]
+    assert nms == 1 and p["launches"]["ycc_to_rgb"] == 1, p["launches"]
+    _record_predict("yolov3_detect", p["launches"], time.perf_counter() - t0)
+    _say(f"[yolo-cli] predict detect: {len(got['boxes'])} boxes, equal to "
+         f"load_served's; launches {p['launches']}")
+    return nms
 
 
 def _adam_step_card_vs_cpu(label: str, cfg: dict, base, host: dict,
@@ -2980,14 +3123,15 @@ def phase_centernet_step(size: int = 128) -> None:
 
 def _model_clis(name: str, d: Path, wd: Path, size: int,
                 train_args: list[str], serve_args: list[str],
-                eval_args: list[str]) -> dict:
+                eval_args: list[str], beside=None) -> dict:
     """The training CLI of ``name`` over the records in ``d`` with
     ``--device-aug`` for 1 epoch, then ``--resume`` to 2 (every epoch's
     train loss finite, no kernel but nvJPEG's ``ycc_to_rgb`` launched);
     then from its newest checkpoint the serving CLI (2 requests of
-    ``size`` px) and the eval CLI at once. Returns the epoch lines, the
-    replies, the eval line and the kernel launches each CLI counted
-    (None where it prints none)."""
+    ``size`` px) and the eval CLI at once, with ``beside(wd / name)``
+    (a predict CLI and its check) if given. Returns the epoch lines, the
+    replies, the eval line, the kernel launches each CLI counted (None
+    where it prints none) and ``beside``'s result."""
     from concurrent.futures import ThreadPoolExecutor
 
     common = ["-m", name, "--data-dir", str(d), "--device-aug",
@@ -3014,14 +3158,16 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
     lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
                     for i in range(2))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
                             ["-m", f"{name}={wd / name}", "--buckets", "1,4",
                              *serve_args], lines)
         evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
                                [*eval_args, "--workdir", str(wd / name),
                                 "--data-dir", str(d), "--batch-size", "16"])
+        extra = pool.submit(beside, wd / name) if beside else None
         serve, evaluate = serve.result(), evaluate.result()
+        extra = extra.result() if extra else None
     replies = [json.loads(s) for s in serve.stdout.splitlines()]
     assert [r["id"] for r in replies] == [0, 1], replies
     line = json.loads(evaluate.stdout.strip().splitlines()[-1])
@@ -3037,7 +3183,7 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
     return {"epochs": epochs, "replies": replies, "eval": line,
             "train_launches": train_launches,
             "serve_launches": launches(serve),
-            "eval_launches": launches(evaluate)}
+            "eval_launches": launches(evaluate), "beside": extra}
 
 
 def phase_centernet_records(smi: str, workdir: Path) -> dict:
@@ -3104,13 +3250,15 @@ def _centernet_clis(d: Path, workdir: Path) -> dict:
     return line
 
 
-def _pose_clis(d: Path, workdir: Path) -> dict:
+def _pose_clis(d: Path, workdir: Path, images: dict) -> dict:
     """``hourglass104``'s CLIs over its records (:func:`_model_clis`):
-    16 joints an answer, ``eval pose`` over the ``val-*`` shards."""
+    16 joints an answer, ``eval pose`` over the ``val-*`` shards, and
+    beside them ``predict pose`` on a PNG (:func:`_predict_pose`)."""
     clis = _model_clis(
         "hourglass104", d, workdir / "pose_cli", POSE_SIZE,
         ["--steps-per-epoch", str(POSE_CLI_STEPS)], [],
-        ["pose", "--size", str(POSE_SIZE)])
+        ["pose", "--size", str(POSE_SIZE)],
+        partial(_predict_pose, image=images["png"]))
     line = clis["eval"]
     assert all(len(r["result"]["joints"]) == POSE_JOINTS
                for r in clis["replies"])
@@ -3119,26 +3267,46 @@ def _pose_clis(d: Path, workdir: Path) -> dict:
     return line
 
 
+def _predict_pose(wd: Path, image: str) -> None:
+    """``predict pose`` at 256 px on a PNG from ``wd``'s checkpoint: its
+    joints those of ``load_served(...).run`` on the same decoded tensor
+    (within ``PREDICT_TOL``, and relatively so for the confidences)."""
+    t0 = time.perf_counter()
+    p = _predict_served(
+        "hourglass104", wd, image,
+        ["pose", "-m", "hourglass104", "--workdir", str(wd), image,
+         "--size", str(POSE_SIZE), "-o", str(wd / "pose.png")], "tanh",
+        POSE_SIZE, input_size=POSE_SIZE, num_heatmaps=POSE_JOINTS)
+    np.testing.assert_allclose(p["got"]["joints"], p["want"]["joints"],
+                               atol=PREDICT_TOL, rtol=PREDICT_TOL)
+    _record_predict("hourglass104_pose", p["launches"],
+                    time.perf_counter() - t0)
+    _say(f"[pose-cli] predict pose on a PNG: {POSE_JOINTS} joints equal to "
+         f"load_served's; launches {p['launches']}")
+
+
 def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
-                     pose: dict, gan: dict) -> None:
+                     pose: dict, gan: dict, images: dict) -> None:
     """The YOLO v3, CenterNet, pose, DCGAN, CycleGAN and MobileNet V1 CLI
     chains at once, one thread each (their processes share the card;
-    their checks are their own and their seconds are not read as rates).
-    Adds the NMS launches and the mAP, PCK and GAN score lines to the
+    their checks are their own and their seconds are not read as rates),
+    each but CenterNet's ending in a ``predict`` CLI on ``images``. Adds
+    the NMS launches and the mAP, PCK and GAN score lines to the
     summaries."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(6) as pool:
         yl = pool.submit(_timed, "yolov3 CLIs", _yolo_clis,
-                         yolo.pop("records"), workdir)
+                         yolo.pop("records"), workdir, images)
         cn = pool.submit(_timed, "centernet CLIs", _centernet_clis,
                          centernet.pop("records"), workdir)
         hg = pool.submit(_timed, "hourglass104 CLIs", _pose_clis,
-                         pose.pop("records"), workdir)
+                         pose.pop("records"), workdir, images)
         dc = pool.submit(_timed, "dcgan CLIs", _dcgan_clis, workdir)
         cy = pool.submit(_timed, "cyclegan CLIs", _cyclegan_clis,
-                         gan.pop("records"), workdir)
-        mb = pool.submit(_timed, "mobilenet1 CLIs", _mobilenet_clis, workdir)
+                         gan.pop("records"), workdir, images)
+        mb = pool.submit(_timed, "mobilenet1 CLIs", _mobilenet_clis, workdir,
+                         images)
         y = yl.result()
         yolo["nms_launches"].update(y["nms_launches"])
         yolo["summary"]["map_line"] = y["map"]
@@ -3927,23 +4095,32 @@ def _gan_chain(name: str, wd: Path, train_args: list[str]) -> list[str]:
 def _dcgan_clis(workdir: Path) -> dict:
     """``train -m dcgan`` at its batch of 256 on 512 synthetic digits (2
     steps an epoch), the resume, then from its checkpoint the serving
-    CLI (2 noise vectors -> 28x28x1 images in [-1, 1]) and ``eval gan -m
+    CLI (2 noise vectors -> 28x28x1 images in [-1, 1]), ``eval gan -m
     dcgan`` (the LeNet-5 judge's Inception-Score ratio, printed, not
-    gated). Returns the eval line."""
+    gated) and ``predict dcgan`` (:func:`_predict_dcgan`) at once.
+    Returns the eval line."""
+    from concurrent.futures import ThreadPoolExecutor
+
     wd = workdir / "gan_cli"
     _gan_chain("dcgan", wd, ["--synthetic-size", "512"])
     zs = np.random.default_rng(2).normal(size=(2, DCGAN_NOISE))
     lines = "".join(json.dumps({"id": i, "input": zs[i].tolist()}) + "\n"
                     for i in range(2))
-    serve = _cli("deepvision_tpu_torch.serve",
-                 ["-m", f"dcgan={wd / 'dcgan'}", "--buckets", "1,4"], lines)
+    with ThreadPoolExecutor(3) as pool:
+        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
+                            ["-m", f"dcgan={wd / 'dcgan'}", "--buckets",
+                             "1,4"], lines)
+        evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
+                               ["gan", "-m", "dcgan", "--workdir",
+                                str(wd / "dcgan")])
+        predicted = pool.submit(_predict_dcgan, wd / "dcgan")
+        serve, evaluate = serve.result(), evaluate.result()
+        predicted.result()
     replies = [json.loads(s) for s in serve.stdout.splitlines()]
     assert [r["id"] for r in replies] == [0, 1], replies
     for r in replies:
         image = np.asarray(r["result"]["image"])
         assert image.shape == (28, 28, 1) and np.abs(image).max() <= 1.0
-    evaluate = _cli("deepvision_tpu_torch.eval",
-                    ["gan", "-m", "dcgan", "--workdir", str(wd / "dcgan")])
     line = json.loads(evaluate.stdout.strip().splitlines()[-1])
     assert line["epoch"] == 1 and np.isfinite(line["score"]), line
     _say(f"[dcgan-cli] serving CLI answered {len(replies)} noise vectors "
@@ -3952,22 +4129,76 @@ def _dcgan_clis(workdir: Path) -> dict:
     return line
 
 
-def _cyclegan_clis(d: Path, workdir: Path) -> dict:
+def _predict_dcgan(wd: Path) -> None:
+    """``predict dcgan -n 16 --seed 0`` from the chain's checkpoint: its
+    grid that of ``load_served(...).run`` on the same noise (torch's
+    generator on the card, seed 0) within ``PREDICT_TOL``."""
+    import torch
+
+    from deepvision_tpu_torch import predict
+    from deepvision_tpu_torch.serve.models import load_served
+
+    t0 = time.perf_counter()
+    got, launches = _predict(["dcgan", "--workdir", str(wd), "-n", "16",
+                              "-o", str(wd / "samples.png")],
+                             wd / "dcgan_predict.json")
+    dev = torch.device("cuda")
+    served = load_served("dcgan", str(wd), device=dev)
+    z = predict.sample_noise(16, served.input_shape[0], 0, dev)
+    want = predict.dcgan_grid(served.run(z)["image"])
+    np.testing.assert_allclose(np.asarray(got), want, atol=PREDICT_TOL)
+    _record_predict("dcgan", launches, time.perf_counter() - t0)
+    _say(f"[dcgan-cli] predict dcgan: a {want.shape} grid equal to "
+         f"load_served's on the same noise; launches {launches}")
+
+
+def _cyclegan_clis(d: Path, workdir: Path, images: dict) -> dict:
     """``train -m cyclegan --data-dir d --device-aug`` at the config's
     256 px, batch 4 and bf16 for ``GAN_CLI_STEPS`` steps an epoch, the
     resume, then ``eval gan -m cyclegan`` from its checkpoint (the
     inversion score on 32 held-out synthetic pairs at 64 px, printed,
-    not gated). Returns the eval line."""
+    not gated) and ``predict cyclegan`` (:func:`_predict_cyclegan`) at
+    once. Returns the eval line."""
+    from concurrent.futures import ThreadPoolExecutor
+
     wd = workdir / "gan_cli"
     _gan_chain("cyclegan", wd, ["--data-dir", str(d), "--device-aug",
                                 "--steps-per-epoch", str(GAN_CLI_STEPS)])
-    evaluate = _cli("deepvision_tpu_torch.eval",
-                    ["gan", "-m", "cyclegan", "--workdir",
-                     str(wd / "cyclegan"), "--n", "32"])
+    with ThreadPoolExecutor(2) as pool:
+        evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
+                               ["gan", "-m", "cyclegan", "--workdir",
+                                str(wd / "cyclegan"), "--n", "32"])
+        predicted = pool.submit(_predict_cyclegan, wd / "cyclegan",
+                                images["png"])
+        evaluate = evaluate.result()
+        predicted.result()
     line = json.loads(evaluate.stdout.strip().splitlines()[-1])
     assert line["epoch"] == 1 and np.isfinite(line["score"]), line
     _say(f"[cyclegan-cli] eval CLI: {json.dumps(line)}")
     return line
+
+
+def _predict_cyclegan(wd: Path, image: str) -> None:
+    """``predict cyclegan`` at 256 px on a PNG from the chain's
+    checkpoint: its image that of ``gen_a2b`` run here on the same
+    decoded tensor, within ``PREDICT_TOL``."""
+    import torch
+
+    from deepvision_tpu_torch import predict
+
+    t0 = time.perf_counter()
+    got, launches = _predict(["cyclegan", "--workdir", str(wd), image,
+                              "--size", "256", "-o", str(wd / "a2b.png")],
+                             wd / "cyclegan_predict.json")
+    dev = torch.device("cuda")
+    module = predict.cyclegan_generator(str(wd), "a2b", dev)
+    x = predict.load_image(image, 256, scale="tanh", device=dev)
+    with torch.inference_mode():
+        want = module(torch.from_numpy(x).to(dev)).float().cpu().numpy()[0]
+    np.testing.assert_allclose(np.asarray(got), want, atol=PREDICT_TOL)
+    _record_predict("cyclegan", launches, time.perf_counter() - t0)
+    _say(f"[cyclegan-cli] predict cyclegan: {want.shape} equal to gen_a2b's "
+         f"on the same decoded PNG; launches {launches}")
 
 
 def phase_gan(smi: str, workdir: Path) -> dict:
@@ -4230,18 +4461,26 @@ def phase_rmsprop_skip() -> None:
          f"bit, loss scale {scale:g} -> {float(state.loss_scale.scale):g}")
 
 
-def _mobilenet_clis(workdir: Path) -> None:
+def _mobilenet_clis(workdir: Path, images: dict) -> None:
     """:func:`phase_train_cli` of ``mobilenet1`` (RMSprop and the step
     schedule, whose update count the restore must give back), then the
-    serving CLI answering 2 requests from its newest checkpoint."""
+    serving CLI answering 2 requests from its newest checkpoint and
+    ``predict classify`` on a JPEG (:func:`_predict_classify`) at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
     wd = workdir / "classifier_cli"
     phase_train_cli(wd, "mobilenet1", lrns=0)
     xs = _train_batch(2, seed=1)["image"]
     lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
                     for i in range(2))
-    serve = _cli("deepvision_tpu_torch.serve",
-                 ["-m", f"mobilenet1={wd / 'mobilenet1'}", "--buckets",
-                  "1,4"], lines)
+    with ThreadPoolExecutor(2) as pool:
+        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
+                            ["-m", f"mobilenet1={wd / 'mobilenet1'}",
+                             "--buckets", "1,4"], lines)
+        predicted = pool.submit(_predict_classify, wd / "mobilenet1",
+                                images["jpeg"])
+        serve = serve.result()
+        predicted.result()
     replies = [json.loads(s) for s in serve.stdout.splitlines()]
     assert [r["id"] for r in replies] == [0, 1], replies
     for r in replies:
@@ -4249,6 +4488,23 @@ def _mobilenet_clis(workdir: Path) -> None:
         assert np.all(np.isfinite(r["result"]["probs"])), r
     _say(f"[mobilenet1-cli] serving CLI answered {len(replies)} requests "
          f"from the checkpoint ({serve.stderr.strip().splitlines()[-1]})")
+
+
+def _predict_classify(wd: Path, image: str) -> None:
+    """``predict classify -m mobilenet1`` on a JPEG from ``wd``'s
+    checkpoint: its top-5 those of ``load_served(...).run`` on the same
+    decoded tensor (probabilities within ``PREDICT_TOL``)."""
+    t0 = time.perf_counter()
+    p = _predict_served("mobilenet1", wd, image,
+                        ["classify", "-m", "mobilenet1", "--workdir",
+                         str(wd), image], "torch", 224)
+    _same_topk(p["got"][0], p["want"], "mobilenet1")
+    assert p["launches"]["ycc_to_rgb"] == 1, p["launches"]
+    _record_predict("mobilenet1_classify", p["launches"],
+                    time.perf_counter() - t0)
+    _say(f"[mobilenet1-cli] predict classify on a JPEG: top-5 "
+         f"{p['got'][0]['classes']} equal to load_served's; launches "
+         f"{p['launches']}")
 
 
 def phase_classifiers(smi: str, workdir: Path) -> dict:
@@ -4562,6 +4818,518 @@ def phase_loader(smi: str, workdir: Path, d: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ offline tools
+
+
+def _gray_jpeg(pixels: np.ndarray) -> bytes:
+    """A baseline 1-component (grayscale) JPEG of uint8 ``pixels`` (H, W),
+    written without PIL: each 8x8 block is coded by its DC term alone
+    (quantizer 8, the standard luminance DC table, an AC table holding
+    only end-of-block), so it decodes to the blocks' means."""
+    import struct
+
+    h, w = pixels.shape
+    ph, pw = -(-h // 8) * 8, -(-w // 8) * 8
+    x = np.pad(pixels.astype(np.float64), ((0, ph - h), (0, pw - w)),
+               mode="edge")
+    means = x.reshape(ph // 8, 8, pw // 8, 8).mean(axis=(1, 3))
+    # the DC term is 8 x the level-shifted mean, over the quantizer 8
+    dc = np.round(means - 128.0).astype(int).reshape(-1)
+    bits = [0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]
+    codes, code, k = {}, 0, 0  # canonical Huffman codes of categories
+    for length, n in enumerate(bits, start=1):
+        for _ in range(n):
+            codes[k] = (code, length)
+            code, k = code + 1, k + 1
+        code <<= 1
+    out, acc, nbits = bytearray(), 0, 0
+
+    def put(value, length):
+        nonlocal acc, nbits
+        acc, nbits = (acc << length) | value, nbits + length
+        while nbits >= 8:
+            byte = (acc >> (nbits - 8)) & 0xFF
+            out.append(byte)
+            if byte == 0xFF:
+                out.append(0)
+            nbits -= 8
+
+    prev = 0
+    for value in dc:
+        diff, prev = value - prev, value
+        cat = int(abs(diff)).bit_length()
+        put(*codes[cat])
+        if cat:
+            put(diff if diff > 0 else diff + (1 << cat) - 1, cat)
+        put(0, 1)  # end of block: the AC table's one code
+    if nbits:
+        put((1 << (8 - nbits)) - 1, 8 - nbits)
+
+    def seg(marker, body):
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    quant = bytes([0, 8] + [1] * 63)
+    return (b"\xff\xd8"
+            + seg(0xDB, quant)
+            + seg(0xC0, struct.pack(">BHHBBBB", 8, h, w, 1, 1, 0x11, 0))
+            + seg(0xC4, bytes([0x00, *bits, *range(12)]))
+            + seg(0xC4, bytes([0x10, 1] + [0] * 15 + [0]))
+            + seg(0xDA, bytes([1, 1, 0x00, 0, 63, 0]))
+            + bytes(out) + b"\xff\xd9")
+
+
+def _nv_jpegs(images) -> list[bytes]:
+    """uint8 (H, W, 3) tensors on the card -> JPEG bytes by nvJPEG."""
+    from deepvision_tpu_torch.data.jpeg import encode_images
+
+    return encode_images(images)
+
+
+def _offline_trees(root: Path) -> dict:
+    """The builders' inputs, every image made on the card and encoded by
+    nvJPEG (no PIL here): a flattened ImageNet tree (``OFFLINE_TRAIN``
+    JPEGs, one grayscale JPEG and one PNG under a ``.JPEG`` name, written
+    by ``_gray_jpeg`` and the port's PNG writer) and a validation tree
+    (``OFFLINE_VAL``), a synsets file, a bounding-box XML tree for the
+    first 16 train files, a VOC tree and an MPII JSON of
+    ``OFFLINE_SMALL`` images each. Returns the paths and each file's
+    source (label, height, width), and the odd files' pixels."""
+    import torch
+
+    from deepvision_tpu_torch.data.image_io import encode_png
+    from deepvision_tpu_torch.data.metadata import imagenet_synsets
+    from deepvision_tpu_torch.data.synthetic_records import synthetic_image
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(14)
+    root.mkdir(parents=True)
+    wnids = [w for w, _ in imagenet_synsets()[:OFFLINE_CLASSES]]
+    (root / "synsets.txt").write_text("\n".join(wnids) + "\n")
+    sources, odd = {}, {}
+    for split, n in (("train", OFFLINE_TRAIN), ("val", OFFLINE_VAL)):
+        d = root / split
+        d.mkdir(parents=True)
+        dims = [(int(rng.integers(224, 320)), int(rng.integers(224, 320)))
+                for _ in range(n)]
+        labels = rng.integers(0, OFFLINE_CLASSES, n)
+        blobs = _nv_jpegs([synthetic_image(rng, h, w, int(c), dev)
+                           for (h, w), c in zip(dims, labels)])
+        for i, (blob, (h, w), c) in enumerate(zip(blobs, dims, labels)):
+            name = f"{wnids[c]}_{split}{i:04d}.JPEG"
+            (d / name).write_bytes(blob)
+            sources[name] = (int(c) + 1, h, w)
+    # 8x8-block-constant, so that _gray_jpeg's DC-only coding is exact
+    gray = synthetic_image(rng, 232, 248, 1, dev).float().mean(-1)
+    gray = torch.nn.functional.avg_pool2d(gray[None, None], 8)[0, 0]
+    gray = gray.round().repeat_interleave(8, 0).repeat_interleave(8, 1)
+    gray = gray.to(torch.uint8).cpu().numpy()
+    # a smooth field (no noise), as a photo, whose re-encode stays close
+    low = torch.from_numpy(rng.uniform(0, 255, (1, 3, 8, 8))).float()
+    png = torch.nn.functional.interpolate(low, size=(240, 262),
+                                          mode="bilinear")[0]
+    png = png.permute(1, 2, 0).round().to(torch.uint8).numpy()
+    for name, blob, pixels in ((f"{wnids[1]}_gray.JPEG", _gray_jpeg(gray),
+                                np.repeat(gray[..., None], 3, -1)),
+                               (f"{wnids[2]}_png.JPEG", encode_png(png),
+                                png)):
+        (root / "train" / name).write_bytes(blob)
+        sources[name] = (wnids.index(name.split("_")[0]) + 1,
+                         *pixels.shape[:2])
+        odd[name] = pixels
+    for name in sorted(os.listdir(root / "train"))[:16]:
+        syn = name.split("_")[0]
+        (root / "bbox" / syn).mkdir(parents=True, exist_ok=True)
+        _, h, w = sources[name]
+        (root / "bbox" / syn / f"{Path(name).stem}.xml").write_text(
+            f"<annotation><filename>{Path(name).stem}</filename><size>"
+            f"<width>{w}</width><height>{h}</height></size><object>"
+            f"<bndbox><xmin>10</xmin><ymin>20</ymin><xmax>{w - 30}</xmax>"
+            f"<ymax>{h - 9}</ymax></bndbox></object></annotation>")
+    voc = root / "voc"
+    for sub in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        (voc / sub).mkdir(parents=True)
+    mpii, anns = root / "mpii", []
+    mpii.mkdir()
+    imgs = _nv_jpegs([synthetic_image(rng, 240, 320, i, dev)
+                      for i in range(2 * OFFLINE_SMALL)])
+    names = [f"{i:06d}" for i in range(OFFLINE_SMALL)]
+    for i, name in enumerate(names):
+        (voc / "JPEGImages" / f"{name}.jpg").write_bytes(imgs[i])
+        (voc / "Annotations" / f"{name}.xml").write_text(
+            f"<annotation><filename>{name}.jpg</filename><size><width>320"
+            "</width><height>240</height></size><object><name>dog</name>"
+            f"<bndbox><xmin>{10 + i}</xmin><ymin>20</ymin><xmax>200</xmax>"
+            "<ymax>230</ymax></bndbox></object></annotation>")
+        (mpii / f"p{i}.jpg").write_bytes(imgs[OFFLINE_SMALL + i])
+        anns.append({"image": f"p{i}.jpg", "center": [160.0, 120.0],
+                     "scale": 1.5,
+                     "joints": [{"id": j, "x": 20.0 + 15 * j + i,
+                                 "y": 30.0 + 10 * j, "visible": 1}
+                                for j in range(16)]})
+    (voc / "ImageSets/Main/train.txt").write_text("\n".join(names) + "\n")
+    (root / "mpii.json").write_text(json.dumps(anns))
+    return {"sources": sources, "odd": odd, "wnids": wnids}
+
+
+
+def _records(d: Path, prefix: str) -> list:
+    from deepvision_tpu_torch.data.tfrecord import read_records
+
+    files = sorted(d.glob(f"{prefix}-*"))
+    assert files, (d, prefix)
+    return [rec for f in files for rec in read_records(f)]
+
+
+def _check_imagenet_records(d: Path, split: str, trees: dict) -> int:
+    """Every record of ``split`` read back by the port's reader: label,
+    size and file name those of its source file, an RGB JPEG that nvJPEG
+    decodes at that size (the whole split one batch), the bbox CSV's
+    boxes on its 16 train files; the grayscale and PNG files within
+    ``REENCODE_MEAN_LSB`` of their pixels. Returns the records read."""
+    import torch
+
+    from deepvision_tpu_torch.data.image_io import jpeg_header
+    from deepvision_tpu_torch.data.jpeg import decode_images, pack
+    from deepvision_tpu_torch.data.tfrecord import decode_example
+
+    feats = [decode_example(r) for r in _records(d, split)]
+    blobs = [f["image/encoded"][0] for f in feats]
+    images = decode_images(*pack(blobs), torch.device("cuda"))
+    boxed = sum("image/object/bbox/xmin" in f for f in feats)
+    assert boxed == (16 if split == "train" else 0), (split, boxed)
+    for f, blob, image in zip(feats, blobs, images):
+        name = f["image/filename"][0].decode()
+        label, h, w = trees["sources"][name]
+        assert f["image/class/label"][0] == label, name
+        assert (f["image/height"][0], f["image/width"][0]) == (h, w), name
+        assert jpeg_header(blob)["components"] == 3, name
+        assert tuple(image.shape) == (h, w, 3), (name, image.shape)
+        if name in trees["odd"]:
+            gap = (image.int() - torch.from_numpy(trees["odd"][name])
+                   .to(image.device).int()).abs().float()
+            _say(f"[builders] {name}: re-encoded to an RGB JPEG by nvJPEG, "
+                 f"decoded {gap.mean().item():.3f} steps off its source on "
+                 f"average (max {gap.max().item():.0f})")
+            assert gap.mean().item() <= REENCODE_MEAN_LSB, name
+    return len(feats)
+
+
+def _timed_build(fn, *args, **kwargs) -> tuple[int, float]:
+    """A builder's call -> (records written, its seconds)."""
+    t0 = time.perf_counter()
+    n = fn(*args, **kwargs)
+    return n, time.perf_counter() - t0
+
+
+def phase_builders(smi: str, workdir: Path) -> dict:
+    """The dataset builders on this machine, which has no PIL or
+    TensorFlow (alone on the machine, for their rates): the trees of
+    :func:`_offline_trees`, the bbox CSV, the ImageNet train shards, the
+    bbox CSV's boxes and the two odd files among them, by this process
+    (the odd files re-encoded at quality 95 by the nvJPEG encoder that
+    encoded the trees at 90), and the validation shards (every file an
+    RGB JPEG whose bytes are kept) by a spawned pool of 2; records/s of
+    each; then both splits read back (:func:`_check_imagenet_records`,
+    batches of 258 and 192 on the decoder). Returns the trees, the
+    records' directory and the rates (:func:`phase_builder_shards` builds
+    the rest)."""
+    from deepvision_tpu_torch.data.builders import imagenet, imagenet_bbox
+
+    root = workdir / "offline"
+    t0 = time.perf_counter()
+    trees = _offline_trees(root)
+    n_train = OFFLINE_TRAIN + 2
+    _say(f"[builders] trees of {n_train} + {OFFLINE_VAL} ImageNet files, "
+         f"{OFFLINE_SMALL} VOC and MPII images encoded on the card in "
+         f"{time.perf_counter() - t0:.1f} s")
+    synsets, rec = root / "synsets.txt", root / "records"
+    assert imagenet_bbox.process_bounding_boxes(root / "bbox",
+                                                root / "bbox.csv") == 16
+    rates = {}
+    for split, tree, workers, n_want in (("train", "train", 1, n_train),
+                                         ("validation", "val", 2,
+                                          OFFLINE_VAL)):
+        n, secs = _timed_build(
+            imagenet.build_imagenet_tfrecords, root / tree, synsets, rec,
+            split, bbox_csv=root / "bbox.csv", num_shards=4,
+            num_workers=workers)
+        assert n == n_want, (split, n)
+        rates[f"imagenet_{split}_records_s_{workers}_worker"] = n / secs
+        _say(f"[builders] ImageNet {split}: {n} records, {workers} "
+             f"worker(s), {secs:.3f} s, {n / secs:.1f} records/s ({smi})")
+    read = {s: _check_imagenet_records(rec, s, trees)
+            for s in ("train", "validation")}
+    assert read == {"train": n_train, "validation": OFFLINE_VAL}, read
+    return {"root": root, "trees": trees, "dir": rec, "rates": rates}
+
+
+def phase_builder_shards(built: dict) -> None:
+    """The rest of the builders (run beside the training CLIs; no rate is
+    read): the VOC, MPII and raw-crop builds at once, each by a spawned
+    pool of 2 (the raw crops decoded and resized on the card in the
+    workers), then every record read back by the port's readers with its
+    label and size."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from deepvision_tpu_torch.data.builders import (
+        detection,
+        pose,
+        raw_crops,
+    )
+    from deepvision_tpu_torch.data.detection import parse_detection_record
+    from deepvision_tpu_torch.data.imagenet import parse_raw_crop
+    from deepvision_tpu_torch.data.pose import parse_pose_record
+
+    root, trees, rec = built["root"], built["trees"], built["dir"]
+    n_train = OFFLINE_TRAIN + 2
+    pool2 = {"num_shards": 2, "num_workers": 2}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        builds = {
+            "raw": pool.submit(_timed_build, raw_crops.build_raw_crops, rec,
+                               root / "raw", stored=OFFLINE_STORED, **pool2),
+            "voc": pool.submit(_timed_build, detection.build_voc_tfrecords,
+                               root / "voc", root / "voc_rec", **pool2),
+            "mpii": pool.submit(_timed_build, pose.build_mpii_tfrecords,
+                                root / "mpii", root / "mpii.json",
+                                root / "mpii_rec", **pool2)}
+        counts = {k: f.result()[0] for k, f in builds.items()}
+    assert counts == {"raw": n_train, "voc": OFFLINE_SMALL,
+                      "mpii": OFFLINE_SMALL}, counts
+    n_raw = counts["raw"]
+    _say(f"[builders] VOC, MPII and raw-crop shards (nvJPEG decode and "
+         f"resize on the card) at once, each by 2 spawned workers: "
+         f"{counts} in {time.perf_counter() - t0:.2f} s")
+    labels = {}
+    for r in _records(root / "raw", "raw-train"):
+        frame, label = parse_raw_crop(r)
+        assert min(frame.shape[:2]) == OFFLINE_STORED, frame.shape
+        labels[label] = labels.get(label, 0) + 1
+    want = {}
+    for name, (label, _, _) in trees["sources"].items():
+        if "_val" not in name:
+            want[label - 1] = want.get(label - 1, 0) + 1
+    assert labels == want, (labels, want)
+    for r in _records(root / "voc_rec", "train"):
+        _, boxes, cls = parse_detection_record(r)
+        assert cls.tolist() == [11] and boxes.shape == (1, 4), (cls, boxes)
+        assert abs(boxes[0, 2] - 200 / 320) < 1e-6, boxes
+    for r in _records(root / "mpii_rec", "train"):
+        _, kx, ky, v, scale = parse_pose_record(r)
+        assert len(kx) == 16 and v.tolist() == [1] * 16 and scale == 1.5
+        assert abs(ky[0] - 30 / 240) < 1e-6, ky
+    _say(f"[builders] read back by the port's readers: {n_train} train and "
+         f"{OFFLINE_VAL} validation records, {n_raw} raw crops (shorter side {OFFLINE_STORED}), "
+         f"{OFFLINE_SMALL} VOC and {OFFLINE_SMALL} MPII records; no file "
+         "skipped")
+
+
+def phase_eval_classification(smi: str, d: Path, workdir: Path) -> dict:
+    """``python -m deepvision_tpu_torch.eval classification`` for
+    ``resnet50`` at 224 and batch 64, float32 with TF32 off, over the
+    built validation shards (decoded by nvJPEG), on seeded weights saved
+    as a port checkpoint; its top-1 and top-5 must equal a direct loop of
+    ``classification_eval_step`` over the same batches. Returns the
+    seconds of both."""
+    import torch
+
+    from deepvision_tpu_torch.convert.__main__ import save_as_checkpoint
+    from deepvision_tpu_torch.data.imagenet import val_batches
+    from deepvision_tpu_torch.data.prefetch import DevicePrefetcher
+    from deepvision_tpu_torch.models import create_model
+    from deepvision_tpu_torch.serve.models import restore_state
+    from deepvision_tpu_torch.train.state import TrainState
+    from deepvision_tpu_torch.train.steps import classification_eval_step
+
+    dev = torch.device("cuda")
+    wd = workdir / "eval_classification"
+    module = create_model("resnet50", device=dev, seed=0)
+    save_as_checkpoint(module.state_dict(), "resnet50", str(wd),
+                       num_classes=1000, input_size=224, device=dev)
+    t0 = time.perf_counter()
+    proc = _cli("deepvision_tpu_torch.eval",
+                ["classification", "-m", "resnet50", "--workdir",
+                 str(wd / "resnet50"), "--data-dir", str(d), "--batch-size",
+                 str(EVAL_BATCH)])
+    cli_s = time.perf_counter() - t0
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    module, _ = restore_state("resnet50", str(wd / "resnet50"), device=dev)
+    state = TrainState(module, None)
+    sums = dict.fromkeys(("loss_sum", "count", "top1", "top5"), 0.0)
+    t0 = time.perf_counter()
+    feed = DevicePrefetcher(val_batches(sorted(d.glob("validation-*")),
+                                        EVAL_BATCH, 224, augment="pt"), dev)
+    for batch in feed:
+        with torch.inference_mode():
+            out = classification_eval_step(state, batch, "torch")
+        for k in sums:
+            sums[k] += float(out[k])
+    feed.close()
+    loop_s = time.perf_counter() - t0
+    n = sums["count"]
+    assert line["images"] == int(n) == OFFLINE_VAL, (line, n)
+    for k in ("top1", "top5"):
+        assert line[f"val_{k}"] == round(sums[k] / n, 4), (k, line, sums)
+    loss = sums["loss_sum"] / n  # printed to 4 decimals; float32 sums
+    assert abs(line["val_loss"] - loss) <= 1e-4 * max(1.0, abs(loss)), (
+        line, sums)
+    _say(f"[eval-classification] resnet50 at 224, batch {EVAL_BATCH}, "
+         f"float32: {json.dumps(line)}; the CLI {cli_s:.1f} s (process, "
+         f"restore, {OFFLINE_VAL} images), the direct loop of "
+         f"classification_eval_step {loop_s:.2f} s; equal ({smi})")
+    shutil.rmtree(wd, ignore_errors=True)
+    return {"line": line, "cli_s": cli_s, "loop_s": loop_s}
+
+
+def _predict_images(workdir: Path) -> dict:
+    """The predict CLIs' inputs: a JPEG encoded by nvJPEG (decoded by
+    nvJPEG again, ``ycc_to_rgb`` launched) and a PNG written by the
+    port's PNG writer (read by its PNG reader)."""
+    import torch
+
+    from deepvision_tpu_torch.data.image_io import encode_png
+    from deepvision_tpu_torch.data.synthetic_records import synthetic_image
+
+    d = workdir / "predict_inputs"
+    d.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(41)
+    dev = torch.device("cuda")
+    (d / "photo.jpg").write_bytes(
+        _nv_jpegs([synthetic_image(rng, 300, 260, 3, dev)])[0])
+    (d / "photo.png").write_bytes(
+        encode_png(synthetic_image(rng, 280, 310, 4, dev).cpu().numpy()))
+    return {"jpeg": str(d / "photo.jpg"), "png": str(d / "photo.png")}
+
+
+def _predict(args: list[str], out: Path) -> tuple[object, dict]:
+    """``python -m deepvision_tpu_torch.predict <args> --json out`` ->
+    (its answers, the kernel launches it counted)."""
+    proc = _cli("deepvision_tpu_torch.predict", [*args, "--json", str(out)])
+    return json.loads(out.read_text()), _cli_launches(proc.stderr)
+
+
+def _same_topk(got: dict, want: dict, label: str) -> None:
+    assert got["classes"] == want["classes"], (label, got, want)
+    np.testing.assert_allclose(got["probs"], want["probs"], atol=PREDICT_TOL,
+                               err_msg=label)
+
+
+def _predict_served(name: str, wd: Path, image: str, args: list[str],
+                    scale: str, size: int, **load_kw) -> dict:
+    """The predict CLI's answer for ``name`` from ``wd``'s checkpoint and
+    ``load_served(...).run`` on the same decoded tensor in this process
+    (``predict.load_image`` on the card). Returns both and the CLI's
+    launches."""
+    import torch
+
+    from deepvision_tpu_torch import predict
+    from deepvision_tpu_torch.serve.models import load_served
+
+    got, launches = _predict(args, wd / f"{name}_predict.json")
+    served = load_served(name, str(wd), device=torch.device("cuda"),
+                         **load_kw)
+    x = predict.load_image(image, size, scale=scale, device="cuda")
+    want = served.postprocess(served.run(x), 0)
+    return {"got": got, "want": want, "launches": launches}
+
+
+def _reference_nets():
+    """``tests/torch_reference_nets.py``, loaded from its file (a
+    ``tests`` package installed on the machine would shadow the
+    checkout's)."""
+    import importlib.util
+
+    path = ROOT / "tests" / "torch_reference_nets.py"
+    spec = importlib.util.spec_from_file_location("torch_reference_nets",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _converted(name: str, workdir: Path, image: str) -> dict:
+    """A seeded reference-layout ``name`` (``tests/torch_reference_nets``,
+    BN statistics away from 0 and 1) saved with ``torch.save``, converted
+    by ``python -m deepvision_tpu_torch.convert`` (on the card, the
+    default), then ``predict classify`` on its checkpoint: its top-5
+    equal the source module's on the card, the probabilities within
+    ``PREDICT_TOL``; the converted module's logits (``load_served``)
+    within ``PREDICT_TOL`` of the source's. Returns the CLI's launches."""
+    import torch
+
+    from deepvision_tpu_torch import predict
+    from deepvision_tpu_torch.serve.models import input_scale, load_served
+
+    nets = _reference_nets()
+    dev = torch.device("cuda")
+    wd = workdir / "converted"
+    wd.mkdir(parents=True, exist_ok=True)
+    torch.manual_seed(0)
+    source = (nets.TorchResNet50(1000) if name == "resnet50"
+              else nets.TorchInceptionV1(1000))
+    g = torch.Generator().manual_seed(1)
+    for mod in source.modules():
+        if isinstance(mod, torch.nn.BatchNorm2d):
+            mod.running_mean.normal_(0, 0.05, generator=g)
+            mod.running_var.uniform_(0.8, 1.2, generator=g)
+    pt = wd / f"{name}.pt"
+    torch.save({"epoch": 0, "model": source.state_dict()}, pt)
+    t0 = time.perf_counter()
+    _cli("deepvision_tpu_torch.convert", [str(pt), "-m", name, "-o",
+                                          str(wd)])
+    convert_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, launches = _predict(["classify", "-m", name, "--workdir",
+                              str(wd / name), image], wd / f"{name}.json")
+    predict_s = time.perf_counter() - t0
+    x = predict.load_image(image, 224, scale=input_scale(name), device=dev)
+    source = source.to(dev).eval()
+    served = load_served(name, str(wd / name), device=dev)
+    with torch.inference_mode():
+        xs = torch.from_numpy(x).to(dev)
+        want_logits = source(xs.permute(0, 3, 1, 2)).float()
+        got_logits = served.module(xs).float()
+    gap = (got_logits - want_logits).abs().max().item()
+    probs = torch.softmax(want_logits, -1)[0].cpu()
+    top = torch.argsort(-probs, stable=True)[:5]
+    _same_topk(got[0], {"classes": top.tolist(),
+                        "probs": probs[top].tolist()}, name)
+    assert gap <= PREDICT_TOL, (name, gap)
+    _say(f"[convert] {name}: reference .pt -> port checkpoint in "
+         f"{convert_s:.1f} s; predict classify's top-5 {top.tolist()} equal "
+         f"the source module's on the card, logits {gap:.2e} apart; "
+         f"launches {launches}")
+    shutil.rmtree(wd / name, ignore_errors=True)
+    return {"launches": launches, "convert_s": convert_s,
+            "predict_s": predict_s}
+
+
+def phase_converters(smi: str, workdir: Path, images: dict) -> dict:
+    """:func:`_converted` for ``resnet50`` and ``inception1_ref`` (whose
+    stem LRNs launch ``lrn_forward_f32``) at once. Returns each one's
+    predict launches and seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(2) as pool:
+        runs = {name: pool.submit(_converted, name, workdir, images["jpeg"])
+                for name in ("resnet50", "inception1_ref")}
+        out = {name: run.result() for name, run in runs.items()}
+    launches = {name: r["launches"] for name, r in out.items()}
+    assert launches["inception1_ref"]["lrn_forward_f32"] == 2, launches
+    assert launches["resnet50"]["lrn_forward_f32"] == 0, launches
+    assert all(n["ycc_to_rgb"] == 1 for n in launches.values()), launches
+    return out
+
+
+# the predict CLIs appended to the model CLI chains: their kernel
+# launches and seconds, by chain
+PREDICT_RUNS: dict[str, dict] = {}
+
+
+def _record_predict(label: str, launches: dict, seconds: float) -> None:
+    PREDICT_RUNS[label] = {"launches": launches, "s": seconds}
+
+
 def _timed(label: str, phase, *args, **kwargs):
     """``phase(*args, **kwargs)``, with the seconds it took printed."""
     t0 = time.perf_counter()
@@ -4591,6 +5359,14 @@ def main() -> int:
     times = _timed("times", phase_times)
     crc = _timed("crc", phase_crc, workdir)
     jpeg = _timed("nvjpeg", phase_nvjpeg)
+    from concurrent.futures import ThreadPoolExecutor
+
+    # the offline tools' timed builders alone (their records/s); the other
+    # builds, the predict inputs and the offline phases come later
+    t_offline = time.perf_counter()
+    built = _timed("builders", phase_builders, smi, workdir)
+    images = _predict_images(workdir)
+    offline_s = time.perf_counter() - t_offline
     # each main path's LRN launches, counted from 0 just before it
     paths = {}
     paths["serve_f32"], results, xs = _timed("alexnet1 serve", phase_serve,
@@ -4622,12 +5398,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnets(smi, workdir)
     torch.cuda.empty_cache()
-    _timed("train CLIs", phase_train_clis, workdir / "cli", {
-        "alexnet1": 2, "inception1_ref": 2, "inception1": 0, "resnet50": 0},
-        (results, xs))
-    results = xs = None
     records = _timed("records", phase_records, smi, workdir)
     torch.cuda.empty_cache()
+    # the record CLIs, the other builds and eval classification beside the
+    # training CLIs: all only wait on their own processes (no rate is read)
+    with ThreadPoolExecutor(2) as pool:
+        record_clis = pool.submit(_timed, "record CLIs", _records_clis,
+                                  records["dir"], workdir)
+        evaluation = pool.submit(
+            lambda: (_timed("builder shards", phase_builder_shards, built),
+                     _timed("eval classification",
+                            phase_eval_classification, smi, built["dir"],
+                            workdir))[1])
+        _timed("train CLIs", phase_train_clis, workdir / "cli", {
+            "alexnet1": 2, "inception1_ref": 2, "inception1": 0,
+            "resnet50": 0}, (results, xs))
+        records["ycc_launches"] = record_clis.result()
+        evaluation = evaluation.result()
+    results = xs = None
     _timed("resnet152", phase_resnet152, smi, workdir)
     torch.cuda.empty_cache()
 
@@ -4637,17 +5425,29 @@ def main() -> int:
                  "pose": phase_pose(smi, workdir)}
     gan = phase_gan(smi, workdir)
     classifiers = phase_classifiers(smi, workdir)
-    from concurrent.futures import ThreadPoolExecutor
 
-    # the resilience drills beside the model CLI chains: both only wait on
-    # their own processes, and none of their numbers is a timing
-    with ThreadPoolExecutor(1) as pool:
+    # the resilience drills and the converters beside the model CLI chains:
+    # all only wait on their own processes, and none of their numbers is a
+    # rate
+    with ThreadPoolExecutor(2) as pool:
         drills = pool.submit(_timed, "resilience", phase_resilience, smi,
                              workdir, records["dir"])
+        converted = pool.submit(_timed, "converters", phase_converters, smi,
+                                workdir, images)
         _timed("model CLIs", phase_model_clis, workdir, yolo,
-               hourglass["centernet"], hourglass["pose"], gan)
+               hourglass["centernet"], hourglass["pose"], gan, images)
         resilience = drills.result()
+        converted = converted.result()
     paths["chaos_cli_bf16"] = resilience["launches"]
+    for name, run in converted.items():
+        paths[f"predict_converted_{name}_f32"] = run.pop("launches")
+    offline = {"builders_records_s": built["rates"],
+               "builders_s": offline_s,
+               "eval_classification_s": {
+                   k: evaluation[k] for k in ("cli_s", "loop_s")},
+               "converters_s": converted,
+               "predict_in_chains_s": {k: v["s"]
+                                       for k, v in PREDICT_RUNS.items()}}
     loader = _timed("loader", phase_loader, smi, workdir, records["dir"])
     shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4670,7 +5470,13 @@ def main() -> int:
     # the JPEG path's colour kernel, launched by the record CLIs, each
     # counting from 0 in its own process (it stands for no TPU kernel)
     by_path = {**records["ycc_launches"],
-               "chaos_cli": resilience["launches"]["ycc_to_rgb"]}
+               "chaos_cli": resilience["launches"]["ycc_to_rgb"],
+               **{f"predict_{k}": v["launches"]["ycc_to_rgb"]
+                  for k, v in PREDICT_RUNS.items()
+                  if v["launches"]["ycc_to_rgb"]},
+               **{f"predict_converted_{k}": paths[
+                   f"predict_converted_{k}_f32"]["ycc_to_rgb"]
+                  for k in converted}}
     kernels.append({**jpeg["kernel"], "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
                     "note": "not a TPU kernel: the chroma upsampling and "
@@ -4702,6 +5508,7 @@ def main() -> int:
     print(f"[classifiers] {json.dumps(classifiers)}")
     print(f"[resilience] {json.dumps(resilience['summary'])}")
     print(f"[loader] {json.dumps(loader)}")
+    print(f"[offline] {json.dumps(offline)}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,15 @@ hand-written CUDA kernels here, forward (``csrc/lrn.cu``) and backward
 ``torch.autograd.Function`` of ``ops/lrn.py``.
 """
 
-from deepvision_tpu_torch.device import resolve_device, strict_fp32
-
 __all__ = ["resolve_device", "strict_fp32"]
+
+
+def __getattr__(name: str):
+    # ``device`` (and with it torch) is imported on first use, so that a
+    # module that needs no torch, such as a dataset builder's spawned
+    # worker keeping a JPEG's bytes, starts without it
+    if name in __all__:
+        from deepvision_tpu_torch import device
+
+        return getattr(device, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

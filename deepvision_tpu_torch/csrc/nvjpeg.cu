@@ -148,16 +148,16 @@ int dv_nvjpeg_decode_batched(void* p, int n, int format,
   return 0;
 }
 
-// An encoder (nvJPEG's default backend) at ``quality``, 4:2:0 chroma.
-int dv_nvjpeg_encoder_create(int quality, void** out) {
+// An encoder (nvJPEG's default backend), 4:2:0 chroma; its quality is set
+// on each encode. One a card: a second library handle in the process is
+// not needed for another quality.
+int dv_nvjpeg_encoder_create(void** out) {
   auto* e = new Encoder();
   nvjpegStatus_t s = nvjpegCreateSimple(&e->handle);
   if (s == NVJPEG_STATUS_SUCCESS)
     s = nvjpegEncoderStateCreate(e->handle, &e->state, nullptr);
   if (s == NVJPEG_STATUS_SUCCESS)
     s = nvjpegEncoderParamsCreate(e->handle, &e->params, nullptr);
-  if (s == NVJPEG_STATUS_SUCCESS)
-    s = nvjpegEncoderParamsSetQuality(e->params, quality, nullptr);
   if (s == NVJPEG_STATUS_SUCCESS)
     s = nvjpegEncoderParamsSetSamplingFactors(e->params, NVJPEG_CSS_420,
                                               nullptr);
@@ -173,15 +173,16 @@ int dv_nvjpeg_encoder_create(int quality, void** out) {
 }
 
 // Encode one interleaved RGB uint8 image (device pointer ``rgb``, row
-// pitch width * 3) on ``stream``; the JPEG goes to the host buffer ``out``
-// of ``capacity`` bytes and its length to *length. A buffer too small
-// returns -1 with the length needed in *length (encode again into a
-// larger one).
-int dv_nvjpeg_encode(void* p, const uint8_t* rgb, int height, int width,
-                     uint8_t* out, size_t capacity, size_t* length,
-                     void* stream_ptr) {
+// pitch width * 3) at ``quality`` on ``stream``; the JPEG goes to the host
+// buffer ``out`` of ``capacity`` bytes and its length to *length. A buffer
+// too small returns -1 with the length needed in *length (encode again
+// into a larger one).
+int dv_nvjpeg_encode(void* p, int quality, const uint8_t* rgb, int height,
+                     int width, uint8_t* out, size_t capacity,
+                     size_t* length, void* stream_ptr) {
   auto* e = static_cast<Encoder*>(p);
   auto stream = static_cast<cudaStream_t>(stream_ptr);
+  DV_NVJPEG(nvjpegEncoderParamsSetQuality(e->params, quality, stream));
   nvjpegImage_t img = {};
   img.channel[0] = const_cast<unsigned char*>(rgb);
   img.pitch[0] = static_cast<size_t>(width) * 3;

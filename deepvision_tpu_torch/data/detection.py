@@ -42,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from deepvision_tpu_torch.data.image_io import wire_uint8
+from deepvision_tpu_torch.data.image_io import jpeg_header, wire_uint8
 from deepvision_tpu_torch.data.imagenet import (
     _chunks,
     process_shard,
@@ -75,27 +75,12 @@ def parse_detection_record(record) -> tuple[bytes, np.ndarray, np.ndarray]:
 
 
 def jpeg_size(blob) -> tuple[int, int]:
-    """``(height, width)`` from a JPEG's start-of-frame header."""
-    data = bytes(blob)
-    if data[:2] != b"\xff\xd8":
+    """``(height, width)`` from a JPEG's start-of-frame header
+    (``data/image_io.jpeg_header``)."""
+    header = jpeg_header(bytes(blob))
+    if header is None:
         raise ValueError("not a JPEG: no start-of-image marker")
-    i = 2
-    while i + 4 <= len(data):
-        if data[i] != 0xFF:
-            raise ValueError(f"corrupt JPEG: no marker at byte {i}")
-        marker = data[i + 1]
-        if marker == 0xFF:  # fill byte
-            i += 1
-            continue
-        i += 2
-        if marker == 0x01 or 0xD0 <= marker <= 0xD8:  # no length field
-            continue
-        length = (data[i] << 8) | data[i + 1]
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            return ((data[i + 3] << 8) | data[i + 4],
-                    (data[i + 5] << 8) | data[i + 6])
-        i += length
-    raise ValueError("corrupt JPEG: no start-of-frame header")
+    return header["height"], header["width"]
 
 
 def flip_corners(corners: np.ndarray) -> np.ndarray:

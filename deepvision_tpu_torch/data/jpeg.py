@@ -99,7 +99,7 @@ _NVJPEG_ERRORS = {
 # for batches over 100 (the hardware backend is refused on sm_90 with
 # ARCH_MISMATCH)
 _GPU_HYBRID = 2
-# the encoder's quality (nvJPEG on the card, PIL on the CPU)
+# the records' encoder quality (nvJPEG on the card, PIL on the CPU)
 QUALITY = 90
 # nvjpegOutputFormat_t
 _YUV = 1
@@ -127,9 +127,10 @@ def _check(status: int, what: str) -> None:
 class NvJpeg:
     """nvJPEG on one card: batched decode into uint8 RGB tensors (planes
     from nvJPEG, RGB from the ``ycc_to_rgb`` kernel), header sizes, and
-    an encoder. The decoder is nvJPEG's ``gpu_hybrid`` backend, or the
-    constructor raises with nvJPEG's status: there is no fallback to the
-    default backend, whose Huffman decode runs on one host thread.
+    one encoder, whose quality is set on each call. The decoder is
+    nvJPEG's ``gpu_hybrid`` backend, or the constructor raises with
+    nvJPEG's status: there is no fallback to the default backend, whose
+    Huffman decode runs on one host thread.
     Counts the batches and images it decoded and the kernel's launches
     (:attr:`ycc_launches`)."""
 
@@ -143,8 +144,9 @@ class NvJpeg:
             "dv_nvjpeg_create": [i32, ctypes.POINTER(vp)],
             "dv_nvjpeg_info": [vp, vp, ctypes.c_size_t, vp],
             "dv_nvjpeg_decode_batched": [vp, i32, i32, vp, vp, vp, vp, vp],
-            "dv_nvjpeg_encoder_create": [i32, ctypes.POINTER(vp)],
-            "dv_nvjpeg_encode": [vp, vp, i32, i32, vp, ctypes.c_size_t,
+            "dv_nvjpeg_encoder_create": [ctypes.POINTER(vp)],
+            "dv_nvjpeg_encode": [vp, i32, vp, i32, i32, vp,
+                                 ctypes.c_size_t,
                                  ctypes.POINTER(ctypes.c_size_t), vp],
             "dv_ycc_to_rgb": [vp, vp, vp, vp, vp, i32, i32, vp],
             "dv_ycc_image_bytes": [],
@@ -162,8 +164,8 @@ class NvJpeg:
                                         ctypes.byref(self._decoder)),
                    "gpu_hybrid decoder create")
             self._encoder = vp()
-            _check(lib.dv_nvjpeg_encoder_create(
-                QUALITY, ctypes.byref(self._encoder)), "encoder create")
+            _check(lib.dv_nvjpeg_encoder_create(ctypes.byref(self._encoder)),
+                   "encoder create")
 
     def info(self, blob) -> tuple[int, ...]:
         """(height, width, components, chroma subsampling, chroma height,
@@ -257,9 +259,9 @@ class NvJpeg:
             self._decoder, n, fmt, packed.ctypes.data, offsets.ctypes.data,
             ptrs.ctypes.data, pitches.ctypes.data, stream), "decode")
 
-    def encode(self, image: torch.Tensor) -> bytes:
+    def encode(self, image: torch.Tensor, quality: int = QUALITY) -> bytes:
         """One uint8 (H, W, 3) RGB tensor on the card -> JPEG bytes
-        (4:2:0, at ``QUALITY``)."""
+        (4:2:0, at ``quality``)."""
         image = image.contiguous()
         h, w = image.shape[:2]
         cap = ctypes.c_size_t(0)
@@ -268,8 +270,8 @@ class NvJpeg:
             buf = np.empty(h * w * 3 + 4096, np.uint8)
             while True:
                 status = self.lib.dv_nvjpeg_encode(
-                    self._encoder, image.data_ptr(), h, w, buf.ctypes.data,
-                    len(buf), ctypes.byref(cap), stream)
+                    self._encoder, int(quality), image.data_ptr(), h, w,
+                    buf.ctypes.data, len(buf), ctypes.byref(cap), stream)
                 if status != -1:
                     break
                 buf = np.empty(cap.value, np.uint8)

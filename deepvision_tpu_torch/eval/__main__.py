@@ -1,6 +1,10 @@
 """Offline evaluation CLI of the port, the twin of ``evaluate.py``'s
-``detection``, ``pose`` and ``gan`` subcommands.
+``classification``, ``detection``, ``pose`` and ``gan`` subcommands.
 
+    python -m deepvision_tpu_torch.eval classification -m resnet50 \
+        --workdir runs/resnet50 [--data-dir DIR] [--batch-size 64] \
+        [--num-classes N] [--input-size S] [--epoch E] \
+        [--synthetic-size 2048] [--train-batch-size B]
     python -m deepvision_tpu_torch.eval detection -m yolov3|centernet \
         --workdir runs/yolov3 --data-dir DIR [--split val] [--names voc] \
         [--num-classes N] [--size 416] [--batch-size 16] [--score 0.05] \
@@ -32,8 +36,12 @@ shards (each person cropped at the validation margin) or, without a
 data directory, of the synthetic set (32 images, at most 128 px), with
 ``--num-joints`` joints (16 by default): ``{"metric": "PCK@<threshold>",
 "norm", "value", "per_joint"}``, where a joint is correct within
-``threshold · norm`` of the crop. ``gan`` scores a GAN checkpoint (it
-needs ``--workdir``) on the hermetic synthetic sets, as ``evaluate.py``:
+``threshold · norm`` of the crop. ``classification`` prints
+``evaluate.py``'s ``{"metric": "classification_eval", "images",
+"val_loss", "val_top1", "val_top5"}`` over the ``validation-*`` shards,
+the MNIST test files or the synthetic held-out slice
+(``eval/classification.py``). ``gan`` scores a GAN checkpoint (it needs
+``--workdir``) on the hermetic synthetic sets, as ``evaluate.py``:
 ``-m cyclegan`` translates ``--n`` held-out unpaired images
 (``synthetic_unpaired(seed=113)`` at ``--size``) both ways and prints the
 inversion score (``eval/gan.inversion_score``); ``-m dcgan`` trains a
@@ -54,7 +62,11 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["main", "cmd_detection", "cmd_pose", "cmd_gan"]
+from deepvision_tpu_torch.eval import classification
+from deepvision_tpu_torch.eval.classification import cmd_classification
+
+__all__ = ["main", "cmd_classification", "cmd_detection", "cmd_pose",
+           "cmd_gan"]
 
 
 def cmd_detection(args) -> dict:
@@ -325,6 +337,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m deepvision_tpu_torch.eval",
                                 description=__doc__.splitlines()[0])
     sub = p.add_subparsers(dest="command", required=True)
+    classification.add_parser(sub)
     sp = sub.add_parser("detection", help="detection mAP")
     sp.add_argument("-m", "--model", default="yolov3",
                     choices=["yolov3", "centernet"])

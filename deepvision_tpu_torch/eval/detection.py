@@ -8,27 +8,17 @@ positive), and the precision/recall curve becomes AP by the VOC2007
 11-point rule or the area under the curve (VOC2010+). A non-finite box
 (an untrained head's exp overflow) overlaps nothing.
 
-:func:`class_names` reads the port's own copies of the VOC (20) and
-MSCOCO (80) name lists (``data/assets/``).
+:func:`class_names` is ``data/metadata.class_names`` (the port's own
+copies of the VOC (20) and MSCOCO (80) name lists).
 """
 
 from __future__ import annotations
 
-from functools import lru_cache
-from pathlib import Path
-
 import numpy as np
 
+from deepvision_tpu_torch.data.metadata import class_names
+
 __all__ = ["average_precision", "evaluate_map", "class_names"]
-
-ASSETS = Path(__file__).resolve().parents[1] / "data" / "assets"
-
-
-@lru_cache(maxsize=None)
-def class_names(dataset: str) -> list[str]:
-    """Detection class names: ``voc`` (20) or ``mscoco`` (80)."""
-    path = ASSETS / f"{'voc' if dataset == 'voc' else 'mscoco'}_names.txt"
-    return path.read_text().splitlines()
 
 
 def _box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:

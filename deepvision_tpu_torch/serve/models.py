@@ -50,7 +50,8 @@ from deepvision_tpu_torch.models import create_model
 from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
-__all__ = ["ServedModel", "load_served", "task_for", "input_scale"]
+__all__ = ["ServedModel", "load_served", "restore_state", "model_geometry",
+           "task_for", "input_scale"]
 
 # the served task of each model that is not a classifier ("gan" serves
 # the DCGAN generator: the input is the noise z, the output an image)
@@ -222,6 +223,71 @@ def _detect_post(host: dict, i: int) -> dict:
             "classes": np.asarray(host["classes"][i])[keep].tolist()}
 
 
+def model_geometry(name: str) -> tuple[int, int]:
+    """(input size, channels) of registry model ``name``'s training
+    config; (224, 3) for a model without one (the JAX
+    ``model_geometry``)."""
+    try:
+        cfg = get_config(name)
+    except KeyError:
+        return 224, 3
+    return cfg["input_size"], cfg["channels"]
+
+
+def restore_state(name: str, workdir: str | None = None,
+                  epoch: int | None = None, *,
+                  device: str | torch.device | None = None, seed: int = 0,
+                  variables: Mapping[str, Any] | None = None,
+                  input_size: int | None = None,
+                  num_classes: int | None = None,
+                  num_heatmaps: int | None = None) -> tuple[nn.Module, dict]:
+    """Registry model ``name`` built on ``device`` (default ``"cuda"``,
+    which raises without a card) in eval mode with its weights, the one
+    restore path of :func:`load_served`, ``predict`` and ``eval``. ->
+    (module, its geometry: ``input_size``, ``num_classes``,
+    ``channels`` and a pose model's ``num_heatmaps``).
+
+    Weights, in this order: the newest verified port checkpoint (or
+    ``epoch``'s, which must verify) under ``{workdir}/ckpt`` (the
+    trainer's ``{workdir}/{model}/ckpt`` with ``workdir`` naming the
+    model's directory), with its geometry unless ``input_size``,
+    ``num_classes`` or ``num_heatmaps`` say otherwise; else
+    ``variables``, the JAX package's flax variables as nested numpy
+    dicts, carried across by ``convert.from_flax.flax_to_torch``; else
+    fresh weights from a ``torch.Generator`` seeded with ``seed``. A
+    ``workdir`` without a verified checkpoint raises, and so does an
+    ``epoch`` without a ``workdir``: an explicit epoch is never served
+    on fresh weights."""
+    dev = resolve_device(device)
+    cfg = get_config(name)
+    restored = None
+    if workdir is not None:
+        restored, saved = CheckpointManager(
+            Path(workdir) / "ckpt").restore_model(epoch, device=dev)
+        cfg.update({k: saved[k] for k in ("input_size", "num_classes",
+                                          "num_heatmaps")
+                    if saved.get(k) is not None})
+    elif epoch is not None:
+        raise FileNotFoundError(
+            f"requested epoch {epoch} of {name!r} but no checkpoint "
+            "directory (workdir) was given")
+    model_kw = {"num_classes": (num_classes if num_classes is not None
+                                else cfg["num_classes"]),
+                "input_size": (input_size if input_size is not None
+                               else cfg["input_size"])}
+    if task_for(name) == "pose":
+        model_kw["num_heatmaps"] = (num_heatmaps if num_heatmaps is not None
+                                    else cfg["num_heatmaps"])
+    module = create_model(name, device=dev, seed=seed, **model_kw)
+    if restored is not None:
+        module.load_state_dict(restored)
+    elif variables is not None:
+        module.load_state_dict(flax_to_torch(name, variables, **model_kw))
+    module.eval()
+    module.requires_grad_(False)
+    return module, {**model_kw, "channels": cfg["channels"]}
+
+
 def load_served(name: str, workdir: str | None = None, *,
                 epoch: int | None = None,
                 variables: Mapping[str, Any] | None = None, seed: int = 0,
@@ -237,44 +303,16 @@ def load_served(name: str, workdir: str | None = None, *,
     the boxes that ``score_thresh`` (and for ``yolov3`` ``iou_thresh``)
     keep, pose the ``num_heatmaps`` joints, gan (``dcgan``,
     ``dcgan_generator``) the DCGAN generator's image for a noise ``z``.
-
-    Weights, in this order: the newest verified port checkpoint (or
-    ``epoch``'s, which must verify) under
-    ``{workdir}/ckpt`` (the trainer's ``{workdir}/{model}/ckpt`` with
-    ``workdir`` naming the model's directory, as the JAX package's); its
-    geometry unless ``input_size``/``num_classes`` say otherwise; else
-    ``variables``, the JAX package's flax variables as nested numpy
-    dicts (``params``, and ``batch_stats`` for a model with BN), carried
-    across by ``convert.from_flax.flax_to_torch``; else
-    fresh weights, drawn from a ``torch.Generator`` seeded with
-    ``seed``. A ``workdir`` without a verified checkpoint raises, and so
-    does an ``epoch`` without a ``workdir``: an explicit epoch is never
-    served on fresh weights."""
+    The weights and geometry are :func:`restore_state`'s."""
     dev = resolve_device(device)
     task = task_for(name)
     if task == "gan":
         return _load_gan_served(name, workdir, epoch, variables, seed, dev)
-    cfg = get_config(name)
-    restored = None
-    if workdir is not None:
-        restored, saved = CheckpointManager(
-            Path(workdir) / "ckpt").restore_model(epoch, device=dev)
-        cfg.update({k: saved[k] for k in ("input_size", "num_classes",
-                                          "num_heatmaps")
-                    if saved.get(k) is not None})
-    size = input_size if input_size is not None else cfg["input_size"]
-    classes = num_classes if num_classes is not None else cfg["num_classes"]
-    model_kw = {"num_classes": classes, "input_size": size}
-    if task == "pose":
-        model_kw["num_heatmaps"] = (num_heatmaps if num_heatmaps is not None
-                                    else cfg["num_heatmaps"])
-    module = create_model(name, device=dev, seed=seed, **model_kw)
-    if restored is not None:
-        module.load_state_dict(restored)
-    elif variables is not None:
-        module.load_state_dict(flax_to_torch(name, variables, **model_kw))
-    module.eval()
-    module.requires_grad_(False)
+    module, geo = restore_state(name, workdir, epoch, device=dev, seed=seed,
+                                variables=variables, input_size=input_size,
+                                num_classes=num_classes,
+                                num_heatmaps=num_heatmaps)
+    classes, size = geo["num_classes"], geo["input_size"]
     if task == "detect" and name == "centernet":
         forward, post = _centernet_forward(module, score_thresh), _detect_post
     elif task == "detect":
@@ -286,5 +324,5 @@ def load_served(name: str, workdir: str | None = None, *,
         forward, post = _classify_forward(module, top_k), _classify_post
     return ServedModel(
         name=name, task=task, module=module,
-        input_shape=(size, size, cfg["channels"]), postprocess=post,
+        input_shape=(size, size, geo["channels"]), postprocess=post,
         device=dev, forward=forward, scale=input_scale(name))

@@ -57,12 +57,15 @@ def time_ms(fn, inputs, iters: int = 100, warmup: int = 10) -> float:
     stay alive until their input comes round again, so that distinct
     inputs also mean distinct outputs."""
     outs = [None] * len(inputs)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for i in range(warmup):
         outs[i % len(inputs)] = fn(inputs[i % len(inputs)])
+    # the hold is sized from one call after the warm-up: a first call that
+    # loads modules or builds state would otherwise stretch it to seconds
     torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / warmup
+    t0 = time.perf_counter()
+    outs[0] = fn(inputs[0])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     _hold_device(2 * iters * host_ms + 1)

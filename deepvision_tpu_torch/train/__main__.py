@@ -604,17 +604,9 @@ def main(argv=None) -> int:
 
 def _launches() -> dict:
     """Every kernel of the port's, launched by this process so far."""
-    from deepvision_tpu_torch.data.jpeg import ycc_launches
-    from deepvision_tpu_torch.ops.lrn_cuda import (
-        local_response_norm_backward_cuda,
-        local_response_norm_cuda,
-    )
-    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+    from deepvision_tpu_torch.ops import kernel_launches
 
-    return {**local_response_norm_cuda.launches_by_kernel,
-            **local_response_norm_backward_cuda.launches_by_kernel,
-            "ycc_to_rgb": ycc_launches(),
-            "nms_sweep": nms_sweep_cuda.launches}
+    return kernel_launches()
 
 
 def run_gan(args, cfg: dict, policy, device) -> int:
