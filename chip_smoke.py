@@ -62,14 +62,31 @@ the seconds it took:
    write), ``torch.add(x, g)`` for the backward (two reads, one write);
 5. serve: ``load_served`` of AlexNet V1, later of ``inception1_ref``, at
    224x224x3 and 1000 classes with seeded weights, an
-   ``InferenceEngine`` on buckets (1, 4, 16, 64), 96 seeded requests
-   held against the same module run with the plain LRN (probabilities
-   within 1e-4), 2 LRN launches per batch; ``torch.profiler`` windows
-   over one bucket-64 batch: device time, launches, the LRN's and the
-   reduction and elementwise kernels' shares, the top kernels, the idle
-   share;
+   ``InferenceEngine`` on buckets (1, 4, 16, 64) whose runners are CUDA
+   graphs, one a bucket, captured at its warm-up (the runner cache
+   frozen after it), 96 seeded requests held against the same module
+   run with the plain LRN (probabilities within 1e-4), 2 LRN launches
+   per batch (a replay); then two different bucket-16 batches, a
+   bucket-4 one and two bucket-1 ones, each answered bit for bit as the
+   eager forward (``ServedModel.run``) answers the same batch at the
+   same bucket, the two of one bucket differently; the warm-up's
+   seconds, the cache's misses before and after the traffic (equal) and
+   hits, the graph pool's bytes, each bucket's kernel launches a replay
+   and the memory reserved after the engine's close; the eager answers
+   are computed before the launch counts are zeroed, so that the counts
+   read after the traffic are the engine's alone. Then ``torch.profiler``
+   windows over one bucket-64 batch on a graph captured after the close
+   (AlexNet V1 also eager, the forward before the graphs), whose traced
+   replay must run the port's kernels exactly as often as the launches
+   that each replay credits to the counts: device time, launches, the
+   LRN's and the reduction and elementwise kernels' shares, the top
+   kernels, the idle share, the host wall a call; every other served
+   phase below holds its engine's answers to the eager forward and
+   reports its graphs the same way;
 6. the serving CLI, ``python -m deepvision_tpu_torch.serve``, answering
-   like the engine (AlexNet V1; it runs beside the training CLIs of 9);
+   like the engine (AlexNet V1; it runs beside the training CLIs of 9),
+   its last line counting the LRN kernel's true launches (each
+   capture's eager forward, two a replay);
 7. a train step on the card, kernel vs plain: AlexNet V1, later
    ``inception1_ref`` (aux heads on at 0.3), at full width, batch 128,
    seeded weights, float32 with TF32 off, dropout off, 3 steps with the
@@ -114,7 +131,8 @@ the seconds it took:
    the training CLI (9), whose model carries the config's
    ``s2d_stem`` (flax's stock BN on the stem) while the served one is
    built without it; then ``resnet34`` and ``resnet50v2`` trained for
-   one epoch (8) and served one bucket-64 batch.
+   one epoch (8) and served one bucket-64 batch by its CUDA graph
+   (``compile_for(64)``), bit for bit the eager forward's.
 
 12. the native pieces of the ImageNet reader (after phase 4): the
    compiled CRC32C against its plain twin on buffers of 0-64 bytes at
@@ -225,11 +243,17 @@ the seconds it took:
    ``centernet`` and ``hourglass104`` as above; ``train -m dcgan`` (512
    synthetic digits, 2 steps an epoch) and ``train -m cyclegan
    --data-dir --device-aug`` (2 steps an epoch at 256 px), 1 epoch each
-   then ``--resume`` to 2, the serving CLI of the DCGAN generator from
-   its checkpoint, and ``eval gan -m dcgan`` and ``-m cyclegan`` (scores
-   printed, not gated); ``train -m mobilenet1`` as the training CLIs of
-   9 (2 epochs, ``--resume`` to 3, the update count and BN statistics
-   restored bit for bit) and its serving CLI from the checkpoint. Each
+   then ``--resume`` to 2, and ``eval gan -m dcgan`` and ``-m cyclegan``
+   (scores printed, not gated); ``train -m mobilenet1`` as the training
+   CLIs of 9 (2 epochs, ``--resume`` to 3, the update count and BN
+   statistics restored bit for bit). The serving CLIs of ``yolov3``,
+   ``hourglass104``, the DCGAN generator and ``mobilenet1`` are one
+   process over the four chains' checkpoints (``-m`` repeated), started
+   once the four chains have trained (each offers its checkpoint through
+   a future, :func:`_chain`, and goes on to its eval and predict CLIs),
+   ``centernet``'s (the longest chain) its own once it has trained, 2
+   requests a model; their runners show one NMS launch a replay
+   for ``yolov3`` and none for the others. Each
    chain but ``centernet``'s ends in a ``predict`` CLI from its
    checkpoint, on a JPEG encoded by nvJPEG or a PNG written by the
    port's writer (``detect -m yolov3`` at 416, ``pose`` at 256,
@@ -287,16 +311,32 @@ the seconds it took:
    module's logits within 1e-4 of the source's; the ``inception1_ref``
    CLI's ``lrn_forward_f32`` launches counted in the ``kernels`` line.
 
+25. The HTTP server (``phase_http``, beside 19's chains): ``python
+   -m deepvision_tpu_torch.serve -m alexnet1 -m yolov3 --http 0
+   --port-file F --faults crash@2 --buckets 1,4`` as a process, seeded
+   weights; requests one at a time over HTTP (JSON lists and base64):
+   the ``alexnet1`` answers bit for bit the in-process engine's of 5 at
+   bucket 1, the ``yolov3`` ones those of 15's engine (boxes and scores
+   within 1e-4), the crashed third batch 500, ``/healthz`` 503 with
+   ``Retry-After`` during the supervisor's backoff and then 200, 400
+   and 404 where due, ``/stats`` with one crash, one restart and the
+   cache's 4 misses frozen, ``/metrics`` with the crash counter and the
+   device memory gauges, exit 0 on SIGINT, and its last line's true
+   launches of the LRN and NMS kernels.
+
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
-times under ``shapes``, launches by path under ``launches_by_path``, the
+times under ``shapes``, launches by path under ``launches_by_path`` and
+a served model's launches a graph replay under ``launches_per_replay``, the
 JPEG path's ``ycc_to_rgb`` and the YOLO post-process's ``nms_sweep_f32``,
 which stand for no TPU kernel), the ``[yolo] {...}``, ``[centernet]
 {...}``, ``[pose] {...}``, ``[gan] {...}`` and ``[classifiers] {...}``
 summaries, the ``[resilience] {...}``, ``[loader] {...}`` and
 ``[offline] {...}`` (22-24 and the predict CLIs: records/s, seconds)
-lines, the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+lines, the ``[graphs] {...}`` line (each engine-served model's warm-up,
+cache, pool bytes, launches a replay and profile, and 25's readings),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -304,6 +344,7 @@ from __future__ import annotations
 import ast
 import copy
 import json
+import math
 import os
 import re
 import shutil
@@ -314,6 +355,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -407,6 +449,8 @@ PARITY_CASES = [
 ]
 N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
+HTTP_FAULTS = "crash@2"  # the HTTP server's third batch crashes
+HTTP_BACKOFF_S = 2.0  # the supervisor's first backoff there
 # served answers of a model without LRN held against the CPU's
 CPU_CHECKED = 8
 # timed training steps of the paths before the records', resnet50's
@@ -838,13 +882,165 @@ def _check_against(results, ref_probs, ref_classes, full_probs,
                 f"plain-LRN run has {ref_classes[i, j]} (gap {gap:.2e})")
 
 
-def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
-                ) -> tuple[dict[str, int], list, np.ndarray]:
+def _bucket(n: int) -> int:
+    """The engine's bucket for a batch of ``n`` rows on ``BUCKETS``."""
+    return next(b for b in BUCKETS if b >= n)
+
+
+def _same_bits(got, want) -> bool:
+    """Answers equal bit for bit: the shortest round-trip text of every
+    float (NaN and infinities included) is the same."""
+    return json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+
+
+def _eager_answers(served, batches) -> list:
+    """``served``'s answers to each host batch of ``batches`` from the
+    eager forward (``ServedModel.run``) of the batch padded to the
+    engine's bucket: what :func:`_graph_rounds` holds the engine to. Its
+    kernel launches are a comparison's, not the served path's, so it
+    runs before the counts are zeroed for the engine's traffic."""
+    out = []
+    for xs in batches:
+        padded = np.zeros((_bucket(len(xs)), *served.input_shape),
+                          np.float32)
+        padded[:len(xs)] = xs
+        host = served.run(padded)
+        out.append([served.postprocess(host, i) for i in range(len(xs))])
+    return out
+
+
+def _queued(eng, xs, model: str | None = None) -> list:
+    """``xs`` queued on the paused engine at once, so that they make one
+    batch (at most the largest bucket); their answers."""
+    eng.pause()
+    futures = [eng.submit(x, model=model) for x in xs]
+    eng.resume()
+    return [f.result(timeout=600) for f in futures]
+
+
+def _graph_rounds(eng, served, batches, eager: list) -> list:
+    """Each host batch of ``batches`` queued on ``eng`` in turn, one
+    batch each: its answers, from the CUDA graph of its bucket, equal bit
+    for bit to ``eager``'s (:func:`_eager_answers` of the same batches,
+    run before). Two batches of one size in a row (the same graph
+    replayed on new inputs) must give different answers: a replay that
+    missed the copy into the graph's static input would repeat the
+    previous batch's. Only the engine launches anything here. Returns
+    the answers."""
+    out = []
+    for xs, want in zip(batches, eager, strict=True):
+        got = _queued(eng, xs)
+        assert _same_bits(got, want), (
+            f"{served.name}: the CUDA graph of bucket {_bucket(len(xs))} "
+            "answered other bits than the eager forward")
+        if out and _bucket(len(out[-1])) == _bucket(len(xs)):
+            assert not _same_bits(got, out[-1]), (
+                f"{served.name}: two different batches at bucket "
+                f"{_bucket(len(xs))} got the same answers")
+        out.append(got)
+    return out
+
+
+def _graph_report(label: str, eng, name: str, misses: int) -> dict:
+    """The engine's runners of ``name`` after its traffic: the warm-up's
+    seconds (the captures), the cache's misses before and after the
+    traffic (equal: no request built a runner) and hits, the graph
+    pool's bytes and the port's kernels that one replay launches, by
+    bucket."""
+    stats = eng.stats()
+    cache, runners = stats["cache"], stats["runners"][name]
+    assert runners["kind"] == "cuda_graph", runners
+    assert cache["misses"] == misses == cache["entries"], (misses, cache)
+    per_replay = {b: r["launches"] for b, r in runners["buckets"].items()}
+    _say(f"[graphs] {label}: warm-up {eng.warmup_s} s (an eager forward "
+         f"and a CUDA graph capture for each of buckets {BUCKETS}); cache "
+         f"misses {misses} before the traffic and {cache['misses']} after,"
+         f" hits {cache['hits']}; the graph pool reserves "
+         f"{runners['pool_bytes'] / 2**20:.1f} MiB; kernel launches a "
+         f"replay by bucket {per_replay}")
+    return {"warmup_s": eng.warmup_s, "misses": cache["misses"],
+            "hits": cache["hits"], "pool_bytes": runners["pool_bytes"],
+            "launches_per_replay": per_replay}
+
+
+def _closed(label: str) -> int:
+    """The memory the allocator reserves after an engine's close (its
+    graphs and pool dropped, the cache emptied), printed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    _say(f"[graphs] {label}: engine closed; memory reserved "
+         f"{reserved / 2**20:.1f} MiB")
+    return reserved
+
+
+# each kernel counter's name (``ops.kernel_launches``) -> a part of the
+# name that the profiler gives its kernel on the card
+DEVICE_KERNELS = {"lrn_forward_f32": "lrn_forward_kernel<float,",
+                  "lrn_forward_bf16": "lrn_forward_kernel<__nv_bfloat16,",
+                  "lrn_backward_f32": "lrn_backward_kernel<float,",
+                  "lrn_backward_bf16": "lrn_backward_kernel<__nv_bfloat16,",
+                  "nms_sweep": "nms_sweep_kernel("}
+
+
+def _profile_served(runner, served, batch, label: str, eager: bool = False,
+                    **kw) -> dict:
+    """Profiler windows over a CUDA graph runner on ``batch`` (with the
+    host wall a call: the median of the card-only windows); with
+    ``eager`` the same for ``ServedModel.run``, the forward before the
+    graphs. The traced window holds one replay, which must have run each
+    of the port's kernels as many times as the runner's ``launches``
+    (what each replay credits to the counts) and no other."""
+    ran: dict[str, int] = {}
+    prof = _profile(lambda: runner(batch), f"{label} (CUDA graph)",
+                    counts=ran, **kw)
+    assert ran, (f"{label}: the profiler recorded no device time, so a "
+                 "replay's kernels cannot be held to its credited launches")
+    traced = {name: sum(n for k, n in ran.items() if part in k)
+              for name, part in DEVICE_KERNELS.items()}
+    assert {k: n for k, n in traced.items() if n} == runner.launches, (
+        label, traced, runner.launches)
+    _say(f"[graphs] {label}: the traced replay ran {runner.launches or 'none'}"
+         " of the port's kernels, as its credited launches say")
+    if eager:
+        before = _profile(lambda: served.run(batch), f"{label} (eager)",
+                          **kw)
+        prof["eager"] = {k: before[k] for k in ("device_ms", "launches",
+                                                "idle", "host_ms")}
+        _say(f"[graphs] {label}: host wall a call {prof['host_ms']} ms on "
+             f"the CUDA graph, {before['host_ms']} ms eager; device time "
+             f"{prof['device_ms']} ms against {before['device_ms']} ms "
+             "eager")
+    return prof
+
+
+def _profile_largest(served, batch, graphs: dict, **kw) -> dict:
+    """:func:`_profile_served` (``kw``: its keywords) over a new CUDA
+    graph runner of the largest bucket, captured after the engine that
+    ``graphs`` reports on has closed: no dispatcher replays a graph
+    beside it. Its kernels a replay must be those of the engine's runner
+    of that bucket."""
+    runner = served.compile_for(BUCKETS[-1])
+    engine_runner = graphs["launches_per_replay"][str(BUCKETS[-1])]
+    assert runner.launches == engine_runner, (runner.launches,
+                                              engine_runner)
+    return _profile_served(runner, served, batch, **kw)
+
+
+def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2,
+                eager: bool = False) -> tuple[dict[str, int], list,
+                                              np.ndarray, dict]:
     """Serving ``name`` in float32, a main path, with ``lrns`` LRNs a
-    forward; returns the LRN launches it made by kernel, the answers and
-    the inputs. The answers are held against the same module run with
-    the plain LRN on the card, or, for a model without LRN, against the
-    same weights run on this machine's CPU (the first 8 requests)."""
+    forward, on the engine's CUDA graphs; returns the LRN launches it made
+    by kernel, the answers, the inputs and the graphs' report. The
+    answers are held against the same module run with the plain LRN on
+    the card, or, for a model without LRN, against the same weights run
+    on this machine's CPU (the first 8 requests); then two different
+    bucket-16 batches, a bucket-4 one and two bucket-1 ones, each bit for
+    bit the eager forward's (the graphs' report keeps the bucket-1
+    answers under ``bucket1``). Profiler windows over a bucket-64 batch, and with
+    ``eager`` over the eager forward's too."""
     import torch
 
     from deepvision_tpu_torch.ops.lrn import local_response_norm_reference
@@ -853,7 +1049,8 @@ def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
     t0 = time.perf_counter()
     served = load_served(name, seed=0)
     engine = InferenceEngine([served], buckets=BUCKETS,
-                             batch_window_s=0.002)
+                             batch_window_s=0.002, freeze_cache=True)
+    misses = engine.stats()["cache"]["misses"]
     _say(f"[serve] {name} {served.input_shape} -> 1000 classes on "
          f"{served.device}, {sum(p.numel() for p in served.module.parameters())}"
          f" parameters; load + warm-up {time.perf_counter() - t0:.2f} s; "
@@ -861,6 +1058,8 @@ def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
     xs = (np.random.default_rng(0)
           .normal(0, 1, (N_REQUESTS, *served.input_shape))
           .astype(np.float32))
+    batches = [xs[:16], xs[16:32], xs[32:35], xs[35:36], xs[36:37]]
+    eager_answers = _eager_answers(served, batches)
     _zero_launch_counts()
     try:
         t0 = time.perf_counter()
@@ -869,16 +1068,27 @@ def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
         wall = time.perf_counter() - t0
         by_kernel = _launch_counts()
         snap = engine.telemetry.snapshot()
+        rounds = _graph_rounds(engine, served, batches, eager_answers)
+        graphs = _graph_report(name, engine, name, misses)
+        graphs["bucket1"] = {35: rounds[3][0], 36: rounds[4][0]}
     finally:
         engine.close()
+    graphs["reserved_after_close"] = _closed(name)
+    graphs["profile"] = _profile_largest(
+        served, xs[:BUCKETS[-1]], graphs,
+        label=f"{name} bucket-{BUCKETS[-1]} batch", eager=eager)
     batches = snap["batches"]
     launches = sum(by_kernel.values())
     assert snap["completed"] == N_REQUESTS and snap["failed"] == 0, snap
     assert launches == lrns * batches, (launches, batches)
     assert by_kernel["lrn_forward_f32"] == launches, by_kernel
+    for per in graphs["launches_per_replay"].values():
+        assert per == ({"lrn_forward_f32": lrns} if lrns else {}), per
     _say(f"[serve] {name}: {N_REQUESTS} requests in {batches} batches "
          f"(pad overhead {snap['pad_overhead_frac']}); LRN launches "
-         f"{launches} = {lrns} per batch; {by_kernel}")
+         f"{launches} = {lrns} per batch (replay); {by_kernel}; two "
+         f"bucket-16 batches, a bucket-4 one and two bucket-1 ones equal "
+         f"bit for bit to the eager forward")
     _say(f"[serve] {name}: {N_REQUESTS / wall:.1f} images/s, e2e p50 "
          f"{snap['e2e_latency']['p50_ms']} ms p95 "
          f"{snap['e2e_latency']['p95_ms']} ms, device time per batch p50 "
@@ -902,10 +1112,7 @@ def phase_serve(smi: str, name: str = "alexnet1", lrns: int = 2
                    probs.cpu().numpy(), atol=1e-4)
     _say(f"[serve] {name}: the first {n} answers match {what} of the same "
          "weights (probs within 1e-4)")
-    batch = xs[:BUCKETS[-1]]
-    served.run(batch)  # warm: the engine already ran this bucket
-    _profile(lambda: served.run(batch), f"{name} bucket-{len(batch)} batch")
-    return by_kernel, results, xs
+    return by_kernel, results, xs, graphs
 
 
 def _zero_launch_counts() -> None:
@@ -959,7 +1166,8 @@ def _device_events(prof) -> list[tuple[str, float, float]]:
 
 
 def _profile(run, label: str, top: int = 10, windows: int = 3,
-             before: str | None = None, share_of: str = "lrn") -> dict:
+             before: str | None = None, share_of: str = "lrn",
+             counts: dict | None = None) -> dict:
     """``torch.profiler`` windows over ``run()``, which does its work and
     waits for the card. One window traces the card (nothing here reads
     the host's operations): the device time by kernel name, the
@@ -971,7 +1179,9 @@ def _profile(run, label: str, top: int = 10, windows: int = 3,
     ``device_ms``, ``launches``, ``reduction_share``,
     ``elementwise_share``, ``kernel_share`` (that of the kernels whose
     names hold ``share_of``) and ``idle`` (the median share; None where
-    the profiler recorded no device time)."""
+    the profiler recorded no device time) and ``host_ms`` (the median
+    host wall of a card-only window); fills ``counts``, if given, with
+    the traced window's launches by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -991,7 +1201,7 @@ def _profile(run, label: str, top: int = 10, windows: int = 3,
              "profiler recorded no device time)")
         return {"device_ms": None, "launches": None, "idle": None,
                 "reduction_share": None, "elementwise_share": None,
-                "kernel_share": None}
+                "kernel_share": None, "host_ms": None}
 
     def share(word: str) -> float:
         return sum(us for name, (us, _) in by_name.items()
@@ -1002,6 +1212,8 @@ def _profile(run, label: str, top: int = 10, windows: int = 3,
            "reduction_share": share("reduce"),
            "elementwise_share": share("elementwise"), "idle": None,
            "kernel_share": kernel}
+    if counts is not None:
+        counts.update((name, n) for name, (_, n) in by_name.items())
     _say(f"[profile] {label} (card traced): "
          f"device time {total_us / 1e3:.3f} ms in {out['launches']} "
          f"launches of {len(by_name)} kernels/copies; "
@@ -1024,11 +1236,14 @@ def _profile(run, label: str, top: int = 10, windows: int = 3,
                 _say(f"[profile] before {name[:60]}: "
                      f"{'a copy' if copy else 'no copy'} ({prev[:100]})")
 
-    out["idle"] = _idle_share(run, label, windows)
+    walls: list[float] = []
+    out["idle"] = _idle_share(run, label, windows, walls)
+    out["host_ms"] = statistics.median(walls) if walls else None
     return out
 
 
-def _idle_share(run, label: str, windows: int) -> float | None:
+def _idle_share(run, label: str, windows: int,
+                walls: list | None = None) -> float | None:
     """``windows`` ``torch.profiler`` windows over ``run()`` that trace
     the card alone, so that no tracing of host operations lengthens the
     host's wall time: the device's idle share of it, 1 - busy / wall,
@@ -1056,6 +1271,8 @@ def _idle_share(run, label: str, windows: int) -> float | None:
             return None
         h2d_us = sum(b - a for name, a, b in events if "HtoD" in name)
         idle.append(1 - busy_us / wall_us)
+        if walls is not None:
+            walls.append(wall_us / 1e3)
         _say(f"[profile] card-only window {w}: host wall "
              f"{wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
              f"(H2D copy {h2d_us / 1e3:.3f} ms), idle share {idle[-1]:.1%}")
@@ -1085,9 +1302,172 @@ def phase_cli(results, xs, n: int = 4) -> None:
         assert r["result"]["classes"][0] == want["classes"][0], (r, want)
         np.testing.assert_allclose(r["result"]["probs"], want["probs"],
                                    atol=1e-4)
+    # true launches: the eager forward of each bucket's capture, then two
+    # a replay; at least one batch ran
+    lrn = _cli_launches(proc.stderr)["lrn_forward_f32"]
+    assert lrn >= 2 * 2 + 2 and lrn % 2 == 0, proc.stderr[-2000:]
     _say(f"[cli] python -m deepvision_tpu_torch.serve answered {n} "
          f"requests like the engine in {time.perf_counter() - t0:.1f} s; "
          f"{proc.stderr.strip().splitlines()[-1]}")
+
+
+def _http(port: int, method: str, path: str, body=None):
+    """One request to the HTTP server on ``port``: (status, Retry-After,
+    the body's bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+    finally:
+        conn.close()
+
+
+def _b64_request(model: str, x: np.ndarray) -> dict:
+    """A ``/v1/predict`` body in the binary wire format."""
+    import base64
+
+    return {"model": model, "input_b64": base64.b64encode(
+        np.ascontiguousarray(x, np.float32).tobytes()).decode(),
+        "shape": list(x.shape)}
+
+
+def phase_http(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
+               yolo_xs: np.ndarray, yolo: list) -> dict:
+    """The HTTP server as a user starts it: ``python -m
+    deepvision_tpu_torch.serve -m alexnet1 -m yolov3 --http 0 --port-file
+    F --faults HTTP_FAULTS`` (seeded weights, ``--buckets 1,4`` as the
+    other serving CLIs here, the supervisor's first backoff
+    ``HTTP_BACKOFF_S``). Requests one at a time: ``alexnet1`` as JSON
+    lists, ``yolov3`` as base64; the third batch crashes the dispatcher
+    and answers 500, ``/healthz`` then answers 503 with ``Retry-After``
+    until the supervisor restarts it, then 200, and both models answer
+    again; a bad input 400, an unknown path 404. The ``alexnet1``
+    answers to ``alexnet_xs`` equal bit for bit the in-process engine's
+    at bucket 1 (``alexnet``), the ``yolov3`` ones to ``yolo_xs`` those
+    of the in-process engine (``yolo``; :func:`_http_yolo_check`);
+    ``/stats`` shows one crash, one
+    restart and no miss after the warm-up, ``/metrics`` the crash
+    counter and the device memory gauges; SIGINT ends the process with
+    0, and its last line counts the kernels' true launches (the eager
+    forward of each capture, then one replay a batch; the crashed batch
+    replayed nothing). Returns the readings."""
+    port_file, log = workdir / "http.port", workdir / "http.log"
+    port_file.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m",
+           "alexnet1", "-m", "yolov3", "--http", "0", "--port-file",
+           str(port_file), "--faults", HTTP_FAULTS, "--buckets", "1,4",
+           "--restart-backoff-s", str(HTTP_BACKOFF_S)]
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
+                                stderr=err,
+                                env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        while not port_file.exists():
+            assert proc.poll() is None, _log_text(log)[-4000:]
+            assert time.perf_counter() - t0 < 600, _log_text(log)[-4000:]
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        port = int(port_file.read_text())
+        healthy = _http(port, "GET", "/healthz")
+        got = {"a0": _http(port, "POST", "/v1/predict",
+                           {"model": "alexnet1",
+                            "input": alexnet_xs[0].tolist()}),
+               "y0": _http(port, "POST", "/v1/predict",
+                           _b64_request("yolov3", yolo_xs[0]))}
+        crashed = _http(port, "POST", "/v1/predict",
+                        _b64_request("alexnet1", alexnet_xs[1]))
+        recovering = _http(port, "GET", "/healthz")
+        t_crash = time.perf_counter()
+        while _http(port, "GET", "/healthz")[0] != 200:
+            assert time.perf_counter() - t_crash < 60
+            time.sleep(0.05)
+        healed_s = time.perf_counter() - t_crash
+        got["a1"] = _http(port, "POST", "/v1/predict",
+                          _b64_request("alexnet1", alexnet_xs[1]))
+        got["y1"] = _http(port, "POST", "/v1/predict",
+                          _b64_request("yolov3", yolo_xs[1]))
+        bad = _http(port, "POST", "/v1/predict",
+                    {"model": "alexnet1", "input": [1.0]})
+        missing = _http(port, "GET", "/v2/nothing")
+        stats = json.loads(_http(port, "GET", "/stats")[2])
+        metrics = _http(port, "GET", "/metrics")
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    text = _log_text(log)
+    assert rc == 0, text[-4000:]
+    assert healthy[0] == 200, healthy
+    for key, (code, _, body) in got.items():
+        assert code == 200, (key, code, body[:2000])
+    answers = {k: json.loads(v[2])["result"] for k, v in got.items()}
+    assert _same_bits([answers["a0"], answers["a1"]], alexnet), (
+        "the HTTP server's alexnet1 answers differ from the in-process "
+        "engine's at bucket 1")
+    _http_yolo_check([answers["y0"], answers["y1"]], yolo)
+    assert crashed[0] == 500, crashed
+    assert b"dispatcher crashed" in crashed[2], crashed
+    assert recovering[0] == 503 and recovering[1] is not None, recovering
+    assert json.loads(recovering[2])["status"] == "recovering", recovering
+    assert 1 <= int(recovering[1]) <= math.ceil(HTTP_BACKOFF_S), recovering
+    assert bad[0] == 400 and missing[0] == 404, (bad, missing)
+    tel, cache = stats["telemetry"], stats["cache"]
+    assert (tel["dispatcher_crashes"], tel["dispatcher_restarts"]) == (1, 1)
+    assert (tel["completed"], tel["failed"], tel["batches"]) == (4, 1, 4), tel
+    assert cache["misses"] == cache["entries"] == 4 and cache["frozen"], cache
+    runners = stats["runners"]
+    for name, per in (("alexnet1", {"lrn_forward_f32": 2}),
+                      ("yolov3", {"nms_sweep": 1})):
+        assert runners[name]["kind"] == "cuda_graph", runners
+        assert all(b["launches"] == per
+                   for b in runners[name]["buckets"].values()), runners
+    assert metrics[0] == 200
+    assert b"serve_dispatcher_crashes_total 1" in metrics[2], metrics[2][:2000]
+    assert b"mem_bytes_in_use_dev0" in metrics[2], metrics[2][:2000]
+    last = text.strip().splitlines()[-1]
+    launches = _cli_launches(text)
+    # 2 buckets' captures' eager forwards, then the 2 answered batches
+    assert launches["lrn_forward_f32"] == 2 * (2 + 2), last
+    assert launches["nms_sweep"] == 2 + 2, last
+    pools = {n: r["pool_bytes"] for n, r in runners.items()}
+    _say(f"[http] the server took {start_s:.1f} s to its port (import, "
+         f"load, warm-up {stats['warmup_s']} s); alexnet1 answers bit for "
+         f"bit the in-process engine's; the crashed batch answered 500, "
+         f"/healthz 503 with Retry-After {recovering[1]} s, then 200 after "
+         f"{healed_s:.2f} s; 400 and 404 where due; /stats: crashes "
+         f"{tel['dispatcher_crashes']}, restarts "
+         f"{tel['dispatcher_restarts']}, cache misses {cache['misses']} "
+         f"of {cache['entries']} runners (frozen), hits {cache['hits']}; "
+         f"graph pools {pools} bytes; exit 0 on SIGINT in "
+         f"{time.perf_counter() - t0:.1f} s in all; {last}")
+    return {"start_s": start_s, "healed_s": healed_s, "pool_bytes": pools,
+            "launches": {"lrn_forward_f32": launches["lrn_forward_f32"],
+                         "nms_sweep": launches["nms_sweep"]}}
+
+
+def _http_yolo_check(http: list, engine: list) -> None:
+    """The HTTP server's ``yolov3`` answers against the in-process
+    engine's at bucket 1 for the same inputs: the same classes and as
+    many boxes, boxes and scores within 1e-4 (the in-process engine
+    captured its graphs under cuDNN's deterministic algorithms, the
+    server under its default ones)."""
+    for got, want in zip(http, engine):
+        assert got["classes"] == want["classes"], (got, want)
+        for key in ("boxes", "scores"):
+            np.testing.assert_allclose(np.asarray(got[key], np.float64),
+                                       np.asarray(want[key], np.float64),
+                                       atol=1e-4, err_msg=key)
+    _say(f"[http] yolov3's {len(http)} answers match the in-process "
+         f"engine's (boxes and scores within 1e-4; bit for bit: "
+         f"{_same_bits(http, engine)})")
 
 
 def _train_batch(n: int, classes: int = 1000, seed: int = 0,
@@ -1552,8 +1932,9 @@ def phase_throughput(trainer, name: str = "alexnet1", steps: int = 24,
 
 def phase_served_batch(name: str) -> None:
     """``load_served(name)`` in float32 (TF32 off) answers one bucket-64
-    batch: finite top-5 answers, no LRN launch; then profiler windows
-    over the batch."""
+    batch through its CUDA graph runner (``compile_for(64)``): finite
+    top-5 answers bit for bit the eager forward's, no LRN launch; then
+    profiler windows over the runner."""
     from deepvision_tpu_torch.device import strict_fp32
     from deepvision_tpu_torch.serve import load_served
 
@@ -1562,18 +1943,25 @@ def phase_served_batch(name: str) -> None:
     batch = (np.random.default_rng(0)
              .normal(0, 1, (BUCKETS[-1], *served.input_shape))
              .astype(np.float32))
-    served.run(batch)  # warm
+    runner = served.compile_for(len(batch))
     _zero_launch_counts()
     t0 = time.perf_counter()
-    out = served.run(batch)
+    out = runner(batch)
     wall = time.perf_counter() - t0
     launches = sum(_launch_counts().values())
     assert out["classes"].shape == (len(batch), 5), out["classes"].shape
     assert np.all(np.isfinite(out["probs"])) and launches == 0, launches
-    _say(f"[serve-batch] {name}: a bucket-{len(batch)} batch answered in "
-         f"{wall * 1e3:.1f} ms of host wall, top-1 of the first 8 "
-         f"{out['classes'][:8, 0]}; LRN launches {launches}")
-    _profile(lambda: served.run(batch), f"{name} bucket-{len(batch)} batch")
+    eager = served.run(batch)
+    assert all(np.array_equal(out[k], eager[k]) for k in eager), name
+    _say(f"[serve-batch] {name}: a bucket-{len(batch)} batch answered by "
+         f"its CUDA graph (captured in {runner.capture_s:.2f} s, pool "
+         f"{runner.pool_bytes / 2**20:.1f} MiB) in {wall * 1e3:.1f} ms of "
+         f"host wall, bit for bit the eager forward's, top-1 of the first "
+         f"8 {out['classes'][:8, 0]}; LRN launches {launches}")
+    _profile_served(runner, served, batch,
+                    f"{name} bucket-{len(batch)} batch")
+    runner = None
+    _closed(f"{name} served batch")
 
 
 def phase_resnets(smi: str, workdir: Path) -> None:
@@ -1582,7 +1970,9 @@ def phase_resnets(smi: str, workdir: Path) -> None:
     its training throughput (its CLI runs in :func:`phase_train_clis`);
     then ``resnet34`` and ``resnet50v2`` trained for one epoch and served
     one batch."""
-    _timed("resnet50 serve", phase_serve, smi, "resnet50", lrns=0)
+    GRAPHS["resnet50"] = _timed("resnet50 serve", phase_serve, smi,
+                                "resnet50", lrns=0)[3]
+    GRAPHS["resnet50"].pop("bucket1")
     _timed("resnet50 card-vs-cpu step", phase_card_vs_cpu_step, "resnet50")
     _, trainer = _timed("resnet50 trainer", phase_trainer,
                         workdir / "inproc_resnet50", "resnet50", lrns=0)
@@ -2489,15 +2879,23 @@ def phase_adam_skip() -> None:
          f"loss scale {scale:g} -> {float(state.loss_scale.scale):g}")
 
 
+def _yolo_requests(served_shape=(YOLO_SIZE, YOLO_SIZE, 3)) -> np.ndarray:
+    """The seeded requests of ``yolov3``'s serving phases."""
+    return (np.random.default_rng(0).uniform(
+        -1, 1, (YOLO_REQUESTS, *served_shape)).astype(np.float32))
+
+
 def phase_yolo_serve(smi: str) -> tuple:
     """``load_served("yolov3")`` at 416x416x3 and 20 classes, seeded
     weights, float32 (TF32 off), behind an ``InferenceEngine`` on buckets
     (1, 4, 16, 64): 32 seeded requests queued at once (one bucket-64
-    batch) and 4 one at a time (bucket 1), each answer identical (boxes,
-    scores, classes) to the same module's batch post-processed with the
-    plain NMS sweep; the NMS kernel launched once a batch, no LRN; then
-    profiler windows over a bucket-64 batch. Returns (the served model,
-    the path's NMS launches, the profile)."""
+    batch) and 4 one at a time (bucket 1), each answer bit for bit the
+    eager forward's at its bucket and identical (boxes, scores, classes)
+    to the same module's batch post-processed with the plain NMS sweep;
+    the NMS kernel launched once a replay, no LRN; then profiler windows
+    over a bucket-64 batch, on the graph and eager. Returns (the served
+    model, the path's NMS launches, the profile, the graphs' report, the
+    answers)."""
     import torch
 
     from deepvision_tpu_torch.device import strict_fp32
@@ -2507,14 +2905,14 @@ def phase_yolo_serve(smi: str) -> tuple:
     from deepvision_tpu_torch.serve.models import _detect_post, _to_host
 
     strict_fp32()
-    # the same convolution algorithms in the engine's run and the plain
-    # one, so that their grids are the same bits and only NMS differs
+    # the same convolution algorithms in the engine's graphs, the eager
+    # run and the plain one, so that their grids are the same bits and
+    # only NMS differs
     torch.backends.cudnn.deterministic = True
     served = load_served("yolov3", seed=0)
     assert served.task == "detect"
     assert served.input_shape == (YOLO_SIZE, YOLO_SIZE, 3)
-    xs = (np.random.default_rng(0).uniform(
-        -1, 1, (YOLO_REQUESTS, *served.input_shape)).astype(np.float32))
+    xs = _yolo_requests(served.input_shape)
 
     def plain(batch):
         with torch.inference_mode():
@@ -2525,41 +2923,53 @@ def phase_yolo_serve(smi: str) -> tuple:
         return _to_host(dict(zip(keys, out[:4])))
 
     t0 = time.perf_counter()
-    with InferenceEngine([served], buckets=BUCKETS) as eng:
+    batches = [xs] + [xs[i:i + 1] for i in range(4)]
+    with InferenceEngine([served], buckets=BUCKETS,
+                         freeze_cache=True) as eng:
+        misses = eng.stats()["cache"]["misses"]
+        eager_answers = _eager_answers(served, batches)
         _zero_launch_counts()
-        eng.pause()
-        futures = [eng.submit(x) for x in xs]
-        eng.resume()
-        answers = [f.result(timeout=600) for f in futures]
-        singles = [eng.submit(x).result(timeout=600) for x in xs[:4]]
+        rounds = _graph_rounds(eng, served, batches, eager_answers)
         stats = eng.stats()
-    wall = time.perf_counter() - t0
-    launches, lrn = _nms_launches(), sum(_launch_counts().values())
+        launches, lrn = _nms_launches(), sum(_launch_counts().values())
+        wall = time.perf_counter() - t0
+        graphs = _graph_report("yolov3", eng, "yolov3", misses)
+    graphs["reserved_after_close"] = _closed("yolov3")
+    # the served batch's times under cuDNN's default algorithms, as the
+    # serving CLI runs: a bucket-64 graph captured under them, and eager
+    torch.backends.cudnn.deterministic = False
+    batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
+    batch[:len(xs)] = xs
+    prof = _profile_largest(served, batch, graphs,
+                            label=f"yolov3 bucket-{BUCKETS[-1]} batch f32",
+                            eager=True, share_of="nms")
+    graphs["profile"] = prof
+    answers, singles = rounds[0], [r[0] for r in rounds[1:]]
     tel = stats["telemetry"]
     padded = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
     padded[:len(xs)] = xs
+    torch.backends.cudnn.deterministic = True
     want = plain(padded)
     for i, a in enumerate(answers):
         assert a == _detect_post(want, i), i
     for i, a in enumerate(singles):
         assert a == _detect_post(plain(xs[i:i + 1]), 0), i
+    torch.backends.cudnn.deterministic = False
     assert launches == tel["batches"] == 5, (launches, tel)
     assert lrn == 0
+    for per in graphs["launches_per_replay"].values():
+        assert per == {"nms_sweep": 1}, per
     kept = [len(a["scores"]) for a in answers]
     _say(f"[yolo-serve] yolov3 f32 at {YOLO_SIZE}, {YOLO_CLASSES} classes: "
          f"{len(xs)} queued requests (one bucket-64 batch) and 4 single "
-         f"ones answered in {wall:.1f} s with detections identical to the "
+         f"ones answered in {wall:.1f} s by CUDA graph replays, bit for bit "
+         f"the eager forward's and with detections identical to the "
          f"plain-NMS run of the same batches; kept {min(kept)}-{max(kept)} "
          f"boxes a request; batches {tel['batches']}, NMS kernel launches "
-         f"{launches}, LRN {lrn}; e2e latency p50 "
+         f"{launches} (one a replay), LRN {lrn}; e2e latency p50 "
          f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
          f"{tel['device_time']['p50_ms']} ms")
-
-    torch.backends.cudnn.deterministic = False
-    batch = padded
-    prof = _profile(lambda: served.run(batch),
-                    f"yolov3 bucket-{BUCKETS[-1]} batch f32", share_of="nms")
-    return served, launches, prof
+    return served, launches, prof, graphs, answers + singles
 
 
 def _cli(module: str, args: list[str], stdin: str | None = None
@@ -2709,31 +3119,43 @@ def phase_yolo_records(smi: str, workdir: Path) -> dict:
     return {**rates, "records": d}
 
 
-def _yolo_clis(d: Path, workdir: Path, images: dict) -> dict:
+def _yolo_clis(d: Path, workdir: Path, images: dict, offer) -> dict:
     """``yolov3``'s CLIs over its records (:func:`_model_clis`): the
     training CLI ``--data-dir ... --device-aug`` at the config's 416,
     batch 16 and bf16 for 1 epoch of ``YOLO_CLI_STEPS`` steps,
-    ``--resume`` to 2, and from that checkpoint the serving CLI (2
-    requests) and the ``eval detection`` CLI over the ``val-*`` shards;
-    the mAP line is printed, not gated; beside those ``predict detect``
-    on a JPEG (:func:`_predict_detect`). Returns the NMS launches by path
-    and the mAP line."""
+    ``--resume`` to 2, and from that checkpoint the ``eval detection``
+    CLI over the ``val-*`` shards (the mAP line is printed, not gated)
+    and beside it ``predict detect`` on a JPEG (:func:`_predict_detect`);
+    the checkpoint is offered to the serving CLI (``offer``, held by
+    :func:`_yolo_served`). Returns the NMS launches by path and the mAP
+    line."""
     clis = _model_clis(
         "yolov3", d, workdir / "yolo_cli", YOLO_SIZE,
-        ["--steps-per-epoch", str(YOLO_CLI_STEPS)], ["--score", "0.05"],
+        ["--steps-per-epoch", str(YOLO_CLI_STEPS)], offer, _yolo_served,
         ["detection"], partial(_predict_detect, image=images["jpeg"]))
     line = clis["eval"]
-    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
-               for r in clis["replies"])
-    serve_nms = clis["serve_launches"]["nms_sweep"]
     eval_nms = clis["eval_launches"]["nms_sweep"]
     assert line["metric"] == "mAP" and line["images"] == 64, line
-    assert serve_nms > 0 and eval_nms == 4, (serve_nms, eval_nms)
-    _say(f"[yolo-cli] NMS kernel launches serve {serve_nms}, eval "
-         f"{eval_nms}")
-    return {"nms_launches": {"serving_cli": serve_nms, "eval_cli": eval_nms,
+    assert eval_nms == 4, eval_nms
+    _say(f"[yolo-cli] NMS kernel launches eval {eval_nms}")
+    return {"nms_launches": {"eval_cli": eval_nms,
                              "predict_cli": clis["beside"]},
             "map": line}
+
+
+def _yolo_served(replies: list, launches: dict, runners: dict) -> int:
+    """The serving CLI's detections for ``yolov3`` (one NMS launch a
+    replay, the only NMS launches of that process); returns its NMS
+    launches."""
+    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
+               for r in replies)
+    assert all(b["launches"] == {"nms_sweep": 1}
+               for b in runners["buckets"].values()), runners
+    # the eager forwards of the 2 buckets' captures, then 1 or 2 replays
+    serve_nms = launches["nms_sweep"]
+    assert 3 <= serve_nms <= 4, serve_nms
+    _say(f"[yolo-cli] NMS kernel launches serve {serve_nms}")
+    return serve_nms
 
 
 def _predict_detect(wd: Path, image: str) -> int:
@@ -2897,8 +3319,8 @@ def phase_yolo(smi: str, workdir: Path) -> dict:
     path's LRN launches are 0."""
     import torch
 
-    served, serve_nms, serve_prof = _timed("yolov3 serve", phase_yolo_serve,
-                                           smi)
+    served, serve_nms, serve_prof, GRAPHS["yolov3"], answers = _timed(
+        "yolov3 serve", phase_yolo_serve, smi)
     nms = _timed("nms sweep", phase_nms, served)
     served = None
     torch.cuda.empty_cache()
@@ -2918,38 +3340,57 @@ def phase_yolo(smi: str, workdir: Path) -> dict:
     return {"nms": {k: v for k, v in nms.items()
                     if k != "yolo_postprocess_ms"},
             "nms_launches": {"serve_engine": serve_nms},
-            "summary": summary, "records": records["records"]}
+            "summary": summary, "records": records["records"],
+            "answers": answers}
 
 
 # ---------------------------------------------------- CenterNet and pose
 
 
-def _serve_against_cpu(served, xs, check, **load_kw) -> tuple:
+def _serve_against_cpu(served, xs, check, profile: dict | None = None,
+                       **load_kw) -> tuple:
     """``served`` behind an ``InferenceEngine`` on ``BUCKETS``: ``xs``
-    queued at once (one bucket-64 batch) and 4 single requests, then
-    ``check(the first 8 answers, the singles, cpu, xs[:8])``, where
-    ``cpu`` is the served model rebuilt on this machine's CPU
-    (``load_served(**load_kw)``) with the card's weights. Returns (the
-    answers, the engine's telemetry, the seconds)."""
+    queued at once (one bucket-64 batch) and 4 single requests (4
+    bucket-1 batches in a row), each answer bit for bit the eager
+    forward's at its bucket (:func:`_graph_rounds`), no LRN or NMS
+    launch; then ``check(the first 8 answers, the singles, cpu, xs[:8])``,
+    where ``cpu`` is the served model rebuilt on this machine's CPU
+    (``load_served(**load_kw)``) with the card's weights. With
+    ``profile`` (``_profile_served``'s keywords, ``label`` among them),
+    profiler windows over the bucket-64 batch on a graph captured after
+    the engine closed (:func:`_profile_largest`). Returns (the
+    answers, the engine's telemetry, the seconds, the graphs' report with
+    the profile)."""
     from deepvision_tpu_torch.serve import InferenceEngine, load_served
 
     t0 = time.perf_counter()
-    with InferenceEngine([served], buckets=BUCKETS) as eng:
+    batches = [xs] + [xs[i:i + 1] for i in range(4)]
+    with InferenceEngine([served], buckets=BUCKETS,
+                         freeze_cache=True) as eng:
+        misses = eng.stats()["cache"]["misses"]
+        eager_answers = _eager_answers(served, batches)
         _zero_launch_counts()
-        eng.pause()
-        futures = [eng.submit(x) for x in xs]
-        eng.resume()
-        answers = [f.result(timeout=600) for f in futures]
-        singles = [eng.submit(x).result(timeout=600) for x in xs[:4]]
+        rounds = _graph_rounds(eng, served, batches, eager_answers)
         stats = eng.stats()
-    wall = time.perf_counter() - t0
-    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+        wall = time.perf_counter() - t0
+        assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+        graphs = _graph_report(served.name, eng, served.name, misses)
+        for per in graphs["launches_per_replay"].values():
+            assert per == {}, per
+    graphs["reserved_after_close"] = _closed(served.name)
+    if profile is not None:
+        batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
+        batch[:len(xs)] = xs
+        graphs["profile"] = _profile_largest(served, batch, graphs,
+                                             **profile)
+    GRAPHS[served.name] = graphs
+    answers, singles = rounds[0], [r[0] for r in rounds[1:]]
     cpu = load_served(served.name, device="cpu",
                       input_size=served.input_shape[0], **load_kw)
     cpu.module.load_state_dict(served.module.state_dict())
     check(answers[:CPU_CHECKED], singles, cpu,
           xs[:max(CPU_CHECKED, len(singles))])
-    return answers, stats["telemetry"], wall
+    return answers, stats["telemetry"], wall, graphs
 
 
 def _centernet_check(got: dict, want: dict, tol: float = 1e-4) -> None:
@@ -3003,8 +3444,10 @@ def phase_centernet_serve(smi: str) -> dict:
     assert served.input_shape == (CN_SIZE, CN_SIZE, 3)
     xs = (np.random.default_rng(0).uniform(
         -1, 1, (CN_REQUESTS, *served.input_shape)).astype(np.float32))
-    answers, tel, wall = _serve_against_cpu(served, xs, _centernet_checks,
-                                            score_thresh=CN_SCORE)
+    answers, tel, wall, graphs = _serve_against_cpu(
+        served, xs, _centernet_checks,
+        profile={"label": f"centernet bucket-{BUCKETS[-1]} batch f32",
+                 "share_of": "sort"}, score_thresh=CN_SCORE)
     kept = [len(a["scores"]) for a in answers]
     assert tel["batches"] == 5, tel
     batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
@@ -3022,9 +3465,7 @@ def phase_centernet_serve(smi: str) -> dict:
          f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
          f"{tel['device_time']['p50_ms']} ms; the peak decode of a "
          f"bucket-{BUCKETS[-1]} batch's heads {decode_ms:.4f} ms")
-    prof = _profile(lambda: served.run(batch),
-                    f"centernet bucket-{BUCKETS[-1]} batch f32",
-                    share_of="sort")
+    prof = graphs["profile"]
     if prof["device_ms"]:
         _say(f"[centernet-serve] the decode is {decode_ms:.4f} of "
              f"{prof['device_ms']:.3f} ms = "
@@ -3121,17 +3562,82 @@ def phase_centernet_step(size: int = 128) -> None:
                            centernet_train_step)
 
 
+class _Offer(NamedTuple):
+    """A model chain's checkpoint for the serving CLI
+    (:func:`_serve_chains`), offered once the chain has trained: the
+    model, the workdir that holds its checkpoint, its requests and
+    ``check(replies, launches, runners)``, which holds the model's
+    replies, the process's kernel launches and the model's runners to
+    the chain's expectations."""
+
+    name: str
+    workdir: Path
+    xs: np.ndarray
+    check: object
+
+
+def _chain(ready, label: str, chain, *args):
+    """``_timed(label, chain, *args, offer=ready.set_result)``: a model
+    chain that offers its checkpoint through the future ``ready``, which
+    takes the chain's error instead if it fails before its offer."""
+    try:
+        return _timed(label, chain, *args, offer=ready.set_result)
+    except BaseException as e:
+        if not ready.done():
+            ready.set_exception(e)
+        raise
+
+
+def _serve_chains(ready) -> dict:
+    """Once every future of ``ready`` holds its chain's :class:`_Offer`
+    (:func:`_chain`), one ``python -m deepvision_tpu_torch.serve -m
+    name=workdir ...`` over all their checkpoints (``--buckets 1,4
+    --score 0.05``: the score threshold reaches the detectors alone),
+    the requests of each model addressed by ``"model"``; then each
+    offer's ``check``. Returns the checks' results by model."""
+    offers = [f.result() for f in ready]
+    args, lines = [], []
+    for o in offers:
+        args += ["-m", f"{o.name}={o.workdir}"]
+        lines += [json.dumps({"id": f"{o.name}/{i}", "model": o.name,
+                              "input": x.tolist()}) + "\n"
+                  for i, x in enumerate(o.xs)]
+    t0 = time.perf_counter()
+    proc = _cli("deepvision_tpu_torch.serve",
+                [*args, "--buckets", "1,4", "--score", "0.05"],
+                "".join(lines))
+    replies = [json.loads(line) for line in proc.stdout.splitlines()]
+    assert [r["id"] for r in replies] == [
+        json.loads(line)["id"] for line in lines], replies
+    runners = json.loads(re.search(r"^\[serve\] runners (.*)$",
+                                   proc.stderr, re.M).group(1))
+    launches = _cli_launches(proc.stderr)
+    names = [o.name for o in offers]
+    _say(f"[chain-serve] one serving CLI answered {len(replies)} requests "
+         f"for {names} from their chains' checkpoints in "
+         f"{time.perf_counter() - t0:.1f} s; "
+         f"{proc.stderr.strip().splitlines()[-1]}")
+    out = {}
+    for o in offers:
+        mine = [r for r in replies if r["id"].startswith(f"{o.name}/")]
+        assert len(mine) == len(o.xs) and all("result" in r for r in mine), (
+            mine)
+        out[o.name] = o.check(mine, launches, runners[o.name])
+    return out
+
+
 def _model_clis(name: str, d: Path, wd: Path, size: int,
-                train_args: list[str], serve_args: list[str],
-                eval_args: list[str], beside=None) -> dict:
+                train_args: list[str], offer, check, eval_args: list[str],
+                beside=None) -> dict:
     """The training CLI of ``name`` over the records in ``d`` with
     ``--device-aug`` for 1 epoch, then ``--resume`` to 2 (every epoch's
     train loss finite, no kernel but nvJPEG's ``ycc_to_rgb`` launched);
-    then from its newest checkpoint the serving CLI (2 requests of
-    ``size`` px) and the eval CLI at once, with ``beside(wd / name)``
-    (a predict CLI and its check) if given. Returns the epoch lines, the
-    replies, the eval line, the kernel launches each CLI counted (None
-    where it prints none) and ``beside``'s result."""
+    then its newest checkpoint offered to a serving CLI (``offer``, an
+    :class:`_Offer` of 2 requests of ``size`` px held by ``check``), and
+    the eval CLI from it beside ``beside(wd / name)`` (a predict CLI and
+    its check) if given. Returns the epoch lines, the eval line, the
+    kernel launches each CLI counted (None where it prints none) and
+    ``beside``'s result."""
     from concurrent.futures import ThreadPoolExecutor
 
     common = ["-m", name, "--data-dir", str(d), "--device-aug",
@@ -3155,34 +3661,26 @@ def _model_clis(name: str, d: Path, wd: Path, size: int,
          f"{time.perf_counter() - t0:.1f} s; launches {train_launches}")
     xs = (np.random.default_rng(1).uniform(-1, 1, (2, size, size, 3))
           .astype(np.float32))
-    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
-                    for i in range(2))
+    offer(_Offer(name, wd / name, xs, check))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
-                            ["-m", f"{name}={wd / name}", "--buckets", "1,4",
-                             *serve_args], lines)
+    with ThreadPoolExecutor(2) as pool:
         evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
                                [*eval_args, "--workdir", str(wd / name),
                                 "--data-dir", str(d), "--batch-size", "16"])
         extra = pool.submit(beside, wd / name) if beside else None
-        serve, evaluate = serve.result(), evaluate.result()
+        evaluate = evaluate.result()
         extra = extra.result() if extra else None
-    replies = [json.loads(s) for s in serve.stdout.splitlines()]
-    assert [r["id"] for r in replies] == [0, 1], replies
     line = json.loads(evaluate.stdout.strip().splitlines()[-1])
-    _say(f"[{name}-cli] serving CLI answered {len(replies)} requests from "
-         f"the checkpoint ({serve.stderr.strip().splitlines()[-1]}); eval "
-         f"CLI: {json.dumps(line)[:400]}; both in "
+    _say(f"[{name}-cli] eval CLI: {json.dumps(line)[:400]}; with "
+         f"{'its predict CLI ' if beside else ''}in "
          f"{time.perf_counter() - t0:.1f} s")
 
     def launches(proc):
         return (_cli_launches(proc.stderr)
                 if "kernel launches " in proc.stderr else None)
 
-    return {"epochs": epochs, "replies": replies, "eval": line,
+    return {"epochs": epochs, "eval": line,
             "train_launches": train_launches,
-            "serve_launches": launches(serve),
             "eval_launches": launches(evaluate), "beside": extra}
 
 
@@ -3231,40 +3729,58 @@ def phase_centernet_records(smi: str, workdir: Path) -> dict:
     return {**rates, "records": d}
 
 
-def _centernet_clis(d: Path, workdir: Path) -> dict:
-    """``centernet``'s CLIs over its records (:func:`_model_clis`): the
-    detect answers, ``eval detection -m centernet`` over the ``val-*``
-    shards with null NMS fields; no NMS kernel launched."""
+def _no_kernel_a_replay(runners: dict) -> None:
+    """A served model whose graphs launch none of the port's kernels."""
+    assert all(b["launches"] == {} for b in runners["buckets"].values()), (
+        runners)
+
+
+def _centernet_clis(d: Path, workdir: Path, offer) -> dict:
+    """``centernet``'s CLIs over its records (:func:`_model_clis`):
+    ``eval detection -m centernet`` over the ``val-*`` shards with null
+    NMS fields, no NMS kernel launched; the served answers detections.
+    Returns the mAP line."""
     clis = _model_clis(
         "centernet", d, workdir / "centernet_cli", CN_SIZE,
-        ["--steps-per-epoch", str(CN_CLI_STEPS)], ["--score", "0.05"],
+        ["--steps-per-epoch", str(CN_CLI_STEPS)], offer, _detections_served,
         ["detection", "-m", "centernet", "--names", "mscoco", "--size",
          str(CN_SIZE)])
     line = clis["eval"]
-    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
-               for r in clis["replies"])
-    assert clis["serve_launches"]["nms_sweep"] == 0
     assert clis["eval_launches"]["nms_sweep"] == 0
     assert line["metric"] == "mAP" and line["images"] == CN_VAL, line
     assert line["nms_candidates_max"] is None and line["nms_exact"] is None
     return line
 
 
-def _pose_clis(d: Path, workdir: Path, images: dict) -> dict:
+def _detections_served(replies: list, launches: dict, runners: dict
+                       ) -> None:
+    """Detections served by graphs that launch none of the port's
+    kernels."""
+    assert all(set(r["result"]) == {"boxes", "scores", "classes"}
+               for r in replies)
+    _no_kernel_a_replay(runners)
+
+
+def _pose_clis(d: Path, workdir: Path, images: dict, offer) -> dict:
     """``hourglass104``'s CLIs over its records (:func:`_model_clis`):
-    16 joints an answer, ``eval pose`` over the ``val-*`` shards, and
-    beside them ``predict pose`` on a PNG (:func:`_predict_pose`)."""
+    ``eval pose`` over the ``val-*`` shards, and beside it ``predict
+    pose`` on a PNG (:func:`_predict_pose`); 16 joints a served answer.
+    Returns the PCK line."""
     clis = _model_clis(
         "hourglass104", d, workdir / "pose_cli", POSE_SIZE,
-        ["--steps-per-epoch", str(POSE_CLI_STEPS)], [],
+        ["--steps-per-epoch", str(POSE_CLI_STEPS)], offer, _joints_served,
         ["pose", "--size", str(POSE_SIZE)],
         partial(_predict_pose, image=images["png"]))
     line = clis["eval"]
-    assert all(len(r["result"]["joints"]) == POSE_JOINTS
-               for r in clis["replies"])
-    assert clis["serve_launches"]["nms_sweep"] == 0
     assert line["metric"] == "PCK@0.5" and 0.0 <= line["value"] <= 1.0
     return line
+
+
+def _joints_served(replies: list, launches: dict, runners: dict) -> None:
+    """``POSE_JOINTS`` joints an answer, from graphs that launch none of
+    the port's kernels."""
+    assert all(len(r["result"]["joints"]) == POSE_JOINTS for r in replies)
+    _no_kernel_a_replay(runners)
 
 
 def _predict_pose(wd: Path, image: str) -> None:
@@ -3290,25 +3806,39 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
     """The YOLO v3, CenterNet, pose, DCGAN, CycleGAN and MobileNet V1 CLI
     chains at once, one thread each (their processes share the card;
     their checks are their own and their seconds are not read as rates),
-    each but CenterNet's ending in a ``predict`` CLI on ``images``. Adds
-    the NMS launches and the mAP, PCK and GAN score lines to the
-    summaries."""
-    from concurrent.futures import ThreadPoolExecutor
+    each but CenterNet's ending in a ``predict`` CLI on ``images``; once
+    the YOLO v3, pose, DCGAN and MobileNet V1 chains have trained, one
+    serving CLI over their checkpoints beside their eval and predict
+    CLIs, and once CenterNet's (the longest) has, one over its own
+    (:func:`_serve_chains`). Adds the NMS launches and the mAP, PCK and
+    GAN score lines to the summaries."""
+    from concurrent.futures import Future, ThreadPoolExecutor
 
-    with ThreadPoolExecutor(6) as pool:
-        yl = pool.submit(_timed, "yolov3 CLIs", _yolo_clis,
+    ready = {name: Future() for name in (
+        "yolov3", "hourglass104", "dcgan", "mobilenet1", "centernet")}
+    with ThreadPoolExecutor(8) as pool:
+        yl = pool.submit(_chain, ready["yolov3"], "yolov3 CLIs", _yolo_clis,
                          yolo.pop("records"), workdir, images)
-        cn = pool.submit(_timed, "centernet CLIs", _centernet_clis,
-                         centernet.pop("records"), workdir)
-        hg = pool.submit(_timed, "hourglass104 CLIs", _pose_clis,
-                         pose.pop("records"), workdir, images)
-        dc = pool.submit(_timed, "dcgan CLIs", _dcgan_clis, workdir)
+        cn = pool.submit(_chain, ready["centernet"], "centernet CLIs",
+                         _centernet_clis, centernet.pop("records"), workdir)
+        hg = pool.submit(_chain, ready["hourglass104"], "hourglass104 CLIs",
+                         _pose_clis, pose.pop("records"), workdir, images)
+        dc = pool.submit(_chain, ready["dcgan"], "dcgan CLIs", _dcgan_clis,
+                         workdir)
         cy = pool.submit(_timed, "cyclegan CLIs", _cyclegan_clis,
                          gan.pop("records"), workdir, images)
-        mb = pool.submit(_timed, "mobilenet1 CLIs", _mobilenet_clis, workdir,
-                         images)
+        mb = pool.submit(_chain, ready["mobilenet1"], "mobilenet1 CLIs",
+                         _mobilenet_clis, workdir, images)
+        served = [pool.submit(_timed, "chains' serving CLI", _serve_chains,
+                              [ready[name] for name in (
+                                  "yolov3", "hourglass104", "dcgan",
+                                  "mobilenet1")]),
+                  pool.submit(_timed, "centernet's serving CLI",
+                              _serve_chains, [ready["centernet"]])]
+        replies = {k: v for f in served for k, v in f.result().items()}
         y = yl.result()
-        yolo["nms_launches"].update(y["nms_launches"])
+        yolo["nms_launches"].update(serving_cli=replies["yolov3"],
+                                    **y["nms_launches"])
         yolo["summary"]["map_line"] = y["map"]
         centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
         gan["dcgan_eval"], gan["cyclegan_eval"] = dc.result(), cy.result()
@@ -3375,7 +3905,10 @@ def phase_pose_serve(smi: str) -> dict:
                                                             POSE_SIZE, 3)
     xs = (np.random.default_rng(0).uniform(
         -1, 1, (CN_REQUESTS, *served.input_shape)).astype(np.float32))
-    answers, tel, wall = _serve_against_cpu(served, xs, _pose_checks)
+    answers, tel, wall, graphs = _serve_against_cpu(
+        served, xs, _pose_checks,
+        profile={"label": f"hourglass104 bucket-{BUCKETS[-1]} batch f32",
+                 "share_of": "argmax", "eager": True})
     assert all(len(a["joints"]) == POSE_JOINTS for a in answers)
     assert tel["batches"] == 5, tel
     _say(f"[pose-serve] hourglass104 f32 at {POSE_SIZE}, {POSE_JOINTS} "
@@ -3386,11 +3919,7 @@ def phase_pose_serve(smi: str) -> dict:
          f"batches {tel['batches']}; e2e latency p50 "
          f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
          f"{tel['device_time']['p50_ms']} ms")
-    batch = np.zeros((BUCKETS[-1], *served.input_shape), np.float32)
-    batch[:len(xs)] = xs
-    return _profile(lambda: served.run(batch),
-                    f"hourglass104 bucket-{BUCKETS[-1]} batch f32",
-                    share_of="argmax")
+    return graphs["profile"]
 
 
 def phase_pose_remat(n: int = 4) -> None:
@@ -3624,7 +4153,11 @@ def phase_gan_serve(smi: str) -> dict:
     ``GAN_REQUESTS`` seeded noise vectors queued at once (one bucket-64
     batch) and 4 single ones, the first 8 answers and the singles held
     against the same module on this machine's CPU (:func:`_gan_checks`);
-    profiler windows over a bucket-64 batch. No LRN or NMS launch."""
+    profiler windows over a bucket-64 batch. No LRN or NMS launch. The
+    engine and its eager comparison run under cuDNN's deterministic
+    algorithms."""
+    import torch
+
     from deepvision_tpu_torch.device import strict_fp32
     from deepvision_tpu_torch.serve import load_served
 
@@ -3634,7 +4167,18 @@ def phase_gan_serve(smi: str) -> dict:
     assert served.input_shape == (DCGAN_NOISE,)
     zs = (np.random.default_rng(0).normal(size=(GAN_REQUESTS, DCGAN_NOISE))
           .astype(np.float32))
-    answers, tel, wall = _serve_against_cpu(served, zs, _gan_checks)
+    # cuDNN's default transposed convolutions (dgrad engines) sum with
+    # atomics and differ from call to call in the last bit; its
+    # deterministic ones let the graphs be held to the eager forward bit
+    # for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        answers, tel, wall, graphs = _serve_against_cpu(
+            served, zs, _gan_checks,
+            profile={"label": f"dcgan_generator bucket-{BUCKETS[-1]} batch "
+                              f"f32 (deterministic cuDNN)", "windows": 3})
+    finally:
+        torch.backends.cudnn.deterministic = False
     assert all(np.asarray(a["image"]).shape == (28, 28, 1) for a in answers)
     assert tel["batches"] == 5, tel
     _say(f"[gan-serve] dcgan_generator f32: {len(zs)} queued noise "
@@ -3643,14 +4187,7 @@ def phase_gan_serve(smi: str) -> dict:
          f"images; batches {tel['batches']}; e2e latency p50 "
          f"{tel['e2e_latency']['p50_ms']} ms, device time a batch p50 "
          f"{tel['device_time']['p50_ms']} ms")
-    batch = np.zeros((BUCKETS[-1], DCGAN_NOISE), np.float32)
-    batch[:len(zs)] = zs
-    _zero_launch_counts()
-    prof = _profile(lambda: served.run(batch),
-                    f"dcgan_generator bucket-{BUCKETS[-1]} batch f32",
-                    windows=3)
-    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
-    return prof
+    return graphs["profile"]
 
 
 def _gan_leaves(state) -> dict:
@@ -4092,41 +4629,39 @@ def _gan_chain(name: str, wd: Path, train_args: list[str]) -> list[str]:
     return epochs
 
 
-def _dcgan_clis(workdir: Path) -> dict:
+def _dcgan_clis(workdir: Path, offer) -> dict:
     """``train -m dcgan`` at its batch of 256 on 512 synthetic digits (2
-    steps an epoch), the resume, then from its checkpoint the serving
-    CLI (2 noise vectors -> 28x28x1 images in [-1, 1]), ``eval gan -m
-    dcgan`` (the LeNet-5 judge's Inception-Score ratio, printed, not
-    gated) and ``predict dcgan`` (:func:`_predict_dcgan`) at once.
-    Returns the eval line."""
+    steps an epoch), the resume, then its checkpoint offered to the
+    serving CLI (``offer``: 2 noise vectors -> 28x28x1 images in [-1,
+    1]), and from it ``eval gan -m dcgan`` (the LeNet-5 judge's
+    Inception-Score ratio, printed, not gated) and ``predict dcgan``
+    (:func:`_predict_dcgan`) at once. Returns the eval line."""
     from concurrent.futures import ThreadPoolExecutor
 
     wd = workdir / "gan_cli"
     _gan_chain("dcgan", wd, ["--synthetic-size", "512"])
     zs = np.random.default_rng(2).normal(size=(2, DCGAN_NOISE))
-    lines = "".join(json.dumps({"id": i, "input": zs[i].tolist()}) + "\n"
-                    for i in range(2))
-    with ThreadPoolExecutor(3) as pool:
-        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
-                            ["-m", f"dcgan={wd / 'dcgan'}", "--buckets",
-                             "1,4"], lines)
+    offer(_Offer("dcgan", wd / "dcgan", zs, _images_served))
+    with ThreadPoolExecutor(2) as pool:
         evaluate = pool.submit(_cli, "deepvision_tpu_torch.eval",
                                ["gan", "-m", "dcgan", "--workdir",
                                 str(wd / "dcgan")])
         predicted = pool.submit(_predict_dcgan, wd / "dcgan")
-        serve, evaluate = serve.result(), evaluate.result()
+        evaluate = evaluate.result()
         predicted.result()
-    replies = [json.loads(s) for s in serve.stdout.splitlines()]
-    assert [r["id"] for r in replies] == [0, 1], replies
+    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
+    assert line["epoch"] == 1 and np.isfinite(line["score"]), line
+    _say(f"[dcgan-cli] eval CLI: {json.dumps(line)}")
+    return line
+
+
+def _images_served(replies: list, launches: dict, runners: dict) -> None:
+    """28x28x1 images in [-1, 1], from graphs that launch none of the
+    port's kernels."""
     for r in replies:
         image = np.asarray(r["result"]["image"])
         assert image.shape == (28, 28, 1) and np.abs(image).max() <= 1.0
-    line = json.loads(evaluate.stdout.strip().splitlines()[-1])
-    assert line["epoch"] == 1 and np.isfinite(line["score"]), line
-    _say(f"[dcgan-cli] serving CLI answered {len(replies)} noise vectors "
-         f"from the checkpoint ({serve.stderr.strip().splitlines()[-1]}); "
-         f"eval CLI: {json.dumps(line)}")
-    return line
+    _no_kernel_a_replay(runners)
 
 
 def _predict_dcgan(wd: Path) -> None:
@@ -4311,7 +4846,10 @@ def _classifier_serve(smi: str, name: str) -> dict:
           .astype(np.float32))
     _calibrate_bn(served.module, xs)
     check, gaps = _classify_check(served, CLS_CPU_CHECKED, CLS_TOL)
-    _, tel, wall = _serve_against_cpu(served, xs, check)
+    _, tel, wall, graphs = _serve_against_cpu(
+        served, xs, check,
+        profile={"label": f"{name} bucket-{BUCKETS[-1]} batch", "top": 5,
+                 "windows": 3})
     _say(f"[{name}-serve] {served.input_shape} -> 1000 classes, largest "
          f"|logit| {gaps['logit_scale']:.3g}, "
          f"{sum(p.numel() for p in served.module.parameters())} parameters,"
@@ -4324,11 +4862,7 @@ def _classifier_serve(smi: str, name: str) -> dict:
          f"{CLS_TOL} x max(1, |logit|) = "
          f"{CLS_TOL * max(1.0, gaps['logit_scale']):.2e}: largest gap "
          f"{gaps['logits']:.2e}); LRN and NMS launches 0 ({smi})")
-    batch = xs[:BUCKETS[-1]]
-    _zero_launch_counts()
-    prof = _profile(lambda: served.run(batch),
-                    f"{name} bucket-{len(batch)} batch", top=5, windows=3)
-    assert sum(_launch_counts().values()) == 0 and _nms_launches() == 0
+    prof = graphs["profile"]
     return {"device_ms": prof["device_ms"], "launches": prof["launches"],
             "idle": prof["idle"], "logit_gap": gaps["logits"]}
 
@@ -4461,33 +4995,26 @@ def phase_rmsprop_skip() -> None:
          f"bit, loss scale {scale:g} -> {float(state.loss_scale.scale):g}")
 
 
-def _mobilenet_clis(workdir: Path, images: dict) -> None:
+def _mobilenet_clis(workdir: Path, images: dict, offer) -> None:
     """:func:`phase_train_cli` of ``mobilenet1`` (RMSprop and the step
-    schedule, whose update count the restore must give back), then the
-    serving CLI answering 2 requests from its newest checkpoint and
-    ``predict classify`` on a JPEG (:func:`_predict_classify`) at once."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    schedule, whose update count the restore must give back), then its
+    newest checkpoint offered to the serving CLI (``offer``, 2
+    requests) and ``predict classify`` on a JPEG from it
+    (:func:`_predict_classify`)."""
     wd = workdir / "classifier_cli"
     phase_train_cli(wd, "mobilenet1", lrns=0)
-    xs = _train_batch(2, seed=1)["image"]
-    lines = "".join(json.dumps({"id": i, "input": xs[i].tolist()}) + "\n"
-                    for i in range(2))
-    with ThreadPoolExecutor(2) as pool:
-        serve = pool.submit(_cli, "deepvision_tpu_torch.serve",
-                            ["-m", f"mobilenet1={wd / 'mobilenet1'}",
-                             "--buckets", "1,4"], lines)
-        predicted = pool.submit(_predict_classify, wd / "mobilenet1",
-                                images["jpeg"])
-        serve = serve.result()
-        predicted.result()
-    replies = [json.loads(s) for s in serve.stdout.splitlines()]
-    assert [r["id"] for r in replies] == [0, 1], replies
+    offer(_Offer("mobilenet1", wd / "mobilenet1",
+                 _train_batch(2, seed=1)["image"], _top5_served))
+    _predict_classify(wd / "mobilenet1", images["jpeg"])
+
+
+def _top5_served(replies: list, launches: dict, runners: dict) -> None:
+    """Finite top-5 answers, from graphs that launch none of the port's
+    kernels."""
     for r in replies:
         assert len(r["result"]["classes"]) == 5
         assert np.all(np.isfinite(r["result"]["probs"])), r
-    _say(f"[mobilenet1-cli] serving CLI answered {len(replies)} requests "
-         f"from the checkpoint ({serve.stderr.strip().splitlines()[-1]})")
+    _no_kernel_a_replay(runners)
 
 
 def _predict_classify(wd: Path, image: str) -> None:
@@ -5324,6 +5851,8 @@ def phase_converters(smi: str, workdir: Path, images: dict) -> dict:
 # the predict CLIs appended to the model CLI chains: their kernel
 # launches and seconds, by chain
 PREDICT_RUNS: dict[str, dict] = {}
+# each engine-served model's CUDA graph report (:func:`_graph_report`)
+GRAPHS: dict[str, dict] = {}
 
 
 def _record_predict(label: str, launches: dict, seconds: float) -> None:
@@ -5369,8 +5898,12 @@ def main() -> int:
     offline_s = time.perf_counter() - t_offline
     # each main path's LRN launches, counted from 0 just before it
     paths = {}
-    paths["serve_f32"], results, xs = _timed("alexnet1 serve", phase_serve,
-                                             smi)
+    paths["serve_f32"], results, xs, GRAPHS["alexnet1"] = _timed(
+        "alexnet1 serve", phase_serve, smi, eager=True)
+    # two of the requests and the engine's bucket-1 answers, for the HTTP
+    # server's (phase_http)
+    alexnet_http = (xs[35:37], list(GRAPHS["alexnet1"].pop("bucket1")
+                                    .values()))
     paths["train_step_f32"] = _timed("alexnet1 train step",
                                      phase_train_step)
     paths["trainer_bf16"], trainer = _timed("alexnet1 trainer",
@@ -5380,8 +5913,9 @@ def main() -> int:
     trainer = None
     # Inception V1: the reference's BN-free variant, whose stem LRNs
     # (n=64, n=192) run on the kernels, then the BN variant
-    paths["inception1_ref_serve_f32"], _, _ = _timed(
-        "inception1_ref serve", phase_serve, smi, "inception1_ref")
+    paths["inception1_ref_serve_f32"], _, _, GRAPHS["inception1_ref"] = \
+        _timed("inception1_ref serve", phase_serve, smi, "inception1_ref")
+    GRAPHS["inception1_ref"].pop("bucket1")
     paths["inception1_ref_train_step_f32"] = _timed(
         "inception1_ref train step", phase_train_step, "inception1_ref")
     paths["inception1_ref_trainer_bf16"], trainer = _timed(
@@ -5429,15 +5963,23 @@ def main() -> int:
     # the resilience drills and the converters beside the model CLI chains:
     # all only wait on their own processes, and none of their numbers is a
     # rate
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         drills = pool.submit(_timed, "resilience", phase_resilience, smi,
                              workdir, records["dir"])
         converted = pool.submit(_timed, "converters", phase_converters, smi,
                                 workdir, images)
+        http = pool.submit(_timed, "HTTP server", phase_http, workdir,
+                           *alexnet_http, _yolo_requests()[:2],
+                           yolo.pop("answers")[-4:-2])
         _timed("model CLIs", phase_model_clis, workdir, yolo,
                hourglass["centernet"], hourglass["pose"], gan, images)
         resilience = drills.result()
         converted = converted.result()
+        http = http.result()
+    paths["http_server_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": http["launches"]["lrn_forward_f32"]}
+    yolo["nms_launches"]["http_server"] = http["launches"]["nms_sweep"]
     paths["chaos_cli_bf16"] = resilience["launches"]
     for name, run in converted.items():
         paths[f"predict_converted_{name}_f32"] = run.pop("launches")
@@ -5461,6 +6003,11 @@ def main() -> int:
             "source": LRN_BWD_SOURCE if backward else LRN_SOURCE,
             "replaces": LRN_BWD_REPLACES if backward else LRN_REPLACES,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            # a served model's CUDA graph launches this many a replay
+            "launches_per_replay": {
+                m: g["launches_per_replay"][str(BUCKETS[-1])][name]
+                for m, g in GRAPHS.items()
+                if name in g["launches_per_replay"][str(BUCKETS[-1])]},
             # times: cold, summed over AlexNet V1's two LRNs at batch 128
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -5485,6 +6032,9 @@ def main() -> int:
     by_path = yolo["nms_launches"]
     kernels.append({**yolo["nms"], "launches": sum(by_path.values()),
                     "launches_by_path": by_path,
+                    "launches_per_replay": {"yolov3": GRAPHS["yolov3"][
+                        "launches_per_replay"][str(BUCKETS[-1])][
+                        "nms_sweep"]},
                     "note": "not a TPU kernel: the greedy fori_loop of the "
                             "JAX nms_indices (stock XLA)"})
     native = {
@@ -5509,6 +6059,7 @@ def main() -> int:
     print(f"[resilience] {json.dumps(resilience['summary'])}")
     print(f"[loader] {json.dumps(loader)}")
     print(f"[offline] {json.dumps(offline)}")
+    print(f"[graphs] {json.dumps({**GRAPHS, 'http': http})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

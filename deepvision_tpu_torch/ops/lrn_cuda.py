@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from deepvision_tpu_torch.ops import note_captured
 from deepvision_tpu_torch.ops._build import load_library
 
 __all__ = ["local_response_norm_cuda", "local_response_norm_backward_cuda",
@@ -134,8 +135,11 @@ def local_response_norm_cuda(x: torch.Tensor, size: int = 5,
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} "
             f"(rows={rows}, C={c}, size={size}, {plan})")
-    local_response_norm_cuda.launches += 1
-    local_response_norm_cuda.launches_by_kernel[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        note_captured(name)  # recorded into a graph, launched by replays
+    else:
+        local_response_norm_cuda.launches += 1
+        local_response_norm_cuda.launches_by_kernel[name] += 1
     return y
 
 
@@ -188,8 +192,11 @@ def local_response_norm_backward_cuda(x: torch.Tensor, g: torch.Tensor,
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} (rows={rows}, C={c}, "
             f"size={size}, {plan})")
-    local_response_norm_backward_cuda.launches += 1
-    local_response_norm_backward_cuda.launches_by_kernel[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        note_captured(name)  # recorded into a graph, launched by replays
+    else:
+        local_response_norm_backward_cuda.launches += 1
+        local_response_norm_backward_cuda.launches_by_kernel[name] += 1
     return dx
 
 

@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from deepvision_tpu_torch.ops import note_captured
 from deepvision_tpu_torch.ops._build import load_library
 
 __all__ = ["nms_sweep_cuda", "KERNEL_NAME"]
@@ -72,7 +73,10 @@ def nms_sweep_cuda(boxes: torch.Tensor, alive: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{KERNEL_NAME} launch failed: CUDA error {err} "
                            f"(images={b}, K={k})")
-    nms_sweep_cuda.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        note_captured("nms_sweep")  # recorded into a graph, launched by replays
+    else:
+        nms_sweep_cuda.launches += 1
     return out
 
 

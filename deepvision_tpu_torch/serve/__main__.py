@@ -1,4 +1,5 @@
-"""Serving CLI of the port: the stdin-JSONL twin of ``serve.py``.
+"""Serving CLI of the port: the single-engine twin of ``serve.py``, over
+stdin JSONL (the default) or HTTP (``--http PORT``, ``serve/http.py``).
 
     python -m deepvision_tpu_torch.serve -m alexnet1 --buckets 1,4,16,64
     {"id": 1, "model": "alexnet1", "input": [[[...224x224x3 floats...]]]}
@@ -23,7 +24,21 @@ the newest verified epoch. ``yolov3`` serves the detect task: ``--score``
 and ``--iou`` are its NMS thresholds, and its boxes are normalized
 corners. ``dcgan`` (or ``dcgan_generator``) serves the DCGAN generator
 of a ``train -m dcgan`` checkpoint: the input is the noise, the answer
-the image. The HTTP surface and the fleet mode of ``serve.py`` come
+the image.
+
+    python -m deepvision_tpu_torch.serve -m alexnet1 -m yolov3 --http 8080
+    POST /v1/predict {"model": "alexnet1", "input": [[[...]]]}
+         -> {"result": {"classes": [...], "probs": [...]}}
+    GET /stats, GET /metrics, GET /healthz
+
+``--http 0`` binds an ephemeral port and ``--port-file F`` writes it to
+F once the engine is warm. ``--faults crash@2`` (the
+``resilience/faults.py`` grammar) crashes the dispatcher before its
+third batch: that batch answers 500, ``/healthz`` answers 503 with
+``Retry-After`` for the supervisor's backoff (``--restart-backoff-s``),
+then 200. On the card every (model, bucket) is a CUDA graph captured at
+start-up; the runner cache is frozen after it, so that no request pays a
+capture. SIGINT stops the server. The fleet mode of ``serve.py`` comes
 later.
 """
 
@@ -38,6 +53,7 @@ import numpy as np
 
 from deepvision_tpu_torch.serve.admission import ShedError
 from deepvision_tpu_torch.serve.engine import InferenceEngine
+from deepvision_tpu_torch.serve.http import run_http
 from deepvision_tpu_torch.serve.models import load_served
 
 
@@ -51,14 +67,25 @@ def build_engine(args) -> InferenceEngine:
             top_k=args.top, score_thresh=args.score,
             iou_thresh=args.iou))
     buckets = tuple(int(b) for b in args.buckets.split(","))
+    injector = None
+    if args.faults:
+        from deepvision_tpu_torch.resilience.faults import FaultInjector
+
+        injector = FaultInjector(args.faults, seed=args.fault_seed)
+        print(f"fault injection armed: {args.faults!r}", file=sys.stderr)
     print(f"serving {[m.name for m in models]} buckets={buckets} on "
           f"{args.device}; warming...", file=sys.stderr)
     engine = InferenceEngine(
         models, buckets=buckets, max_queue=args.max_queue,
         per_model_limit=args.per_model_limit,
-        batch_window_s=args.batch_window_ms / 1e3)
-    print(f"warmup done in {engine.warmup_s}s; precision "
-          f"{engine.precision}", file=sys.stderr)
+        batch_window_s=args.batch_window_ms / 1e3, freeze_cache=True,
+        fault_injector=injector,
+        restart_backoff_s=args.restart_backoff_s)
+    stats = engine.stats()
+    print(f"warmup done in {engine.warmup_s}s ({stats['cache']['entries']} "
+          f"runners); precision {engine.precision}", file=sys.stderr)
+    # by model: runner kind, graph pool bytes, each bucket's launches a call
+    print(f"[serve] runners {json.dumps(stats['runners'])}", file=sys.stderr)
     return engine
 
 
@@ -145,19 +172,43 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    help="detect: the NMS score threshold")
     p.add_argument("--iou", type=float, default=0.5,
                    help="detect: the NMS IoU threshold")
+    p.add_argument("--http", type=int, default=None,
+                   help="serve HTTP on this port instead of stdin JSONL; "
+                   "0 binds an ephemeral one (see --port-file)")
+    p.add_argument("--port-file", default=None,
+                   help="write the bound HTTP port here (atomically) once "
+                   "the engine is warm")
+    p.add_argument("--faults", default=None,
+                   help="fault schedule for chaos drills "
+                   "(resilience/faults.py grammar): 'crash@2' crashes "
+                   "the dispatcher before its third batch, and the "
+                   "supervisor must recover")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed of the probabilistic (~) fault specs")
+    p.add_argument("--restart-backoff-s", type=float, default=0.05,
+                   help="the supervisor's first wait before it restarts a "
+                   "crashed dispatcher (doubling, at most 5 s); not a flag "
+                   "of serve.py, whose wait is this default: a drill sets "
+                   "it to see /healthz answer 503 while recovering")
     args = p.parse_args(argv)
     engine = build_engine(args)
     try:
-        run_stdin(engine, args, stdin, stdout)
+        if args.http is not None:
+            run_http(engine, args)
+        else:
+            run_stdin(engine, args, stdin, stdout)
     finally:
         engine.close()
-    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+    from deepvision_tpu_torch.ops import kernel_launches
 
     t = engine.telemetry
+    launches = {k: v for k, v in kernel_launches().items()
+                if k.startswith("lrn_forward") or k == "nms_sweep"}
     print(f"[serve] completed={t.completed} batches={t.batches} "
-          f"failed={t.failed} shed={t.shed} timed_out={t.timed_out}; "
-          f"kernel launches {{'nms_sweep': {nms_sweep_cuda.launches}}}",
-          file=sys.stderr)
+          f"failed={t.failed} shed={t.shed} timed_out={t.timed_out} "
+          f"dispatcher_crashes={t.dispatcher_crashes} "
+          f"dispatcher_restarts={t.dispatcher_restarts}; "
+          f"kernel launches {launches}", file=sys.stderr)
     return 0
 
 

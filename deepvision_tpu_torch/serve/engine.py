@@ -1,12 +1,18 @@
-"""Batched inference engine: queue -> micro-batch -> bucket -> forward.
+"""Batched inference engine: queue -> micro-batch -> bucket -> runner.
 
-The core of ``deepvision_tpu/serve/engine.py``'s ``InferenceEngine`` on
-PyTorch. A dispatcher thread drains the request queue into per-model
-micro-batches and pads each batch with zero rows up to a fixed bucket
-ladder (default 1/4/16/64), so the device only ever sees a few batch
-shapes, each run once at start-up by :meth:`InferenceEngine.warm`. A
-batch goes to the device with one host-to-device copy and its outputs
-come back with one device-to-host copy (``ServedModel.run``).
+The port of ``deepvision_tpu/serve/engine.py``'s ``InferenceEngine``. A
+dispatcher thread drains the request queue into per-model micro-batches
+and pads each batch with zero rows up to a fixed bucket ladder (default
+1/4/16/64), so that the device only ever sees a few batch shapes. Each
+(model, bucket) has one runner (``ServedModel.compile_for``: a captured
+CUDA graph on the card, the eager forward on the CPU) in a
+:class:`~deepvision_tpu_torch.serve.compile_cache.CompileCache` keyed by
+``(model, bucket, dtype, weights fingerprint)``; :meth:`InferenceEngine.warm`
+builds them all before the dispatcher starts, so that no request pays a
+build (``stats()["cache"]["misses"]`` stays frozen; ``freeze_cache``
+makes a later miss raise). A batch goes to the device with one
+host-to-device copy and its outputs come back with one device-to-host
+copy.
 
 Guarantees, as in the twin:
 
@@ -18,16 +24,24 @@ Guarantees, as in the twin:
   resolves with ``TimeoutError``, never a late answer;
 - **batch failure containment**: a forward that raises fails exactly
   that batch's futures;
-- **clean shutdown**: ``close()`` stops and joins the dispatcher and
-  fails every pending future.
+- **clean shutdown**: ``close()`` stops and joins the dispatcher, fails
+  every pending future and drops the runners (and with them the CUDA
+  graphs and their memory pools);
+- **crash containment**: the dispatcher runs under a supervisor
+  (``_supervise``): an exception that escapes the loop body fails every
+  queued and in-flight future at once (no client waits for its
+  deadline), is counted (``dispatcher_crashes``,
+  ``dispatcher_restarts``), and the loop restarts after a capped
+  exponential backoff, during which :meth:`health` reports
+  ``"recovering"`` (``/healthz`` serves 503). A ``fault_injector``
+  (``resilience/faults.FaultInjector``) crashes the loop on schedule
+  (``crash@N``) where the twin's does.
 
-Multi-tenancy, the artifact store, pipelines, sessions, fault injection
-and the supervisor's restart loop belong to later slices of the port. A
-dispatcher that dies here fails every pending future and closes the
-engine instead of restarting.
+Multi-tenancy, the artifact store, pipelines and sessions belong to
+later slices of the port.
 
 The engine runs its models in true float32: it turns TF32 off for
-cuDNN and cuBLAS (``device.strict_fp32``).
+cuDNN and cuBLAS (``device.strict_fp32``) before it captures any graph.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import numpy as np
 
 from deepvision_tpu_torch.device import strict_fp32
 from deepvision_tpu_torch.serve.admission import AdmissionController, ShedError
+from deepvision_tpu_torch.serve.compile_cache import CompileCache
 from deepvision_tpu_torch.serve.models import ServedModel
 from deepvision_tpu_torch.serve.telemetry import ServeTelemetry
 
@@ -69,6 +84,14 @@ class InferenceEngine:
     long the dispatcher waits for the largest bucket to fill before it
     runs a partial (padded) batch. 0 trades padding for latency; a
     backlog fills buckets regardless.
+
+    ``cache_entries``: the runner cache's LRU bound. ``freeze_cache``:
+    freeze the cache after the warm-up, so that a request-time miss
+    raises instead of building a runner. ``fault_injector``: a
+    ``FaultInjector`` whose ``check_dispatch`` runs before each batch.
+    ``restart_backoff_s`` and ``restart_backoff_max_s``: the
+    supervisor's first and largest wait before it restarts a crashed
+    dispatcher (doubling between).
     """
 
     def __init__(
@@ -79,6 +102,11 @@ class InferenceEngine:
         max_queue: int = 256,
         per_model_limit: int | None = None,
         batch_window_s: float = 0.0,
+        cache_entries: int = 64,
+        freeze_cache: bool = False,
+        fault_injector=None,
+        restart_backoff_s: float = 0.05,
+        restart_backoff_max_s: float = 5.0,
     ):
         self._models = {m.name: m for m in models}
         if not self._models:
@@ -90,6 +118,11 @@ class InferenceEngine:
                 f"{buckets}")
         self.buckets = tuple(buckets)
         self.precision = strict_fp32()
+        self._cache = CompileCache(max_entries=cache_entries)
+        # one CUDA graph memory pool a model on the card, shared by its
+        # buckets' graphs (captured one after another, replayed one at a
+        # time)
+        self._pools: dict[str, object] = {}
         self.telemetry = ServeTelemetry()
         self._admission = AdmissionController(
             max_queue=max_queue, per_model_limit=per_model_limit)
@@ -103,21 +136,60 @@ class InferenceEngine:
         self._pending: dict[str, list[_Request]] = {
             name: [] for name in self._models}
         self._in_flight: list[_Request] = []
+        self._recovering = threading.Event()
+        # written by the supervisor, read by health() from any thread
+        self._health_lock = threading.Lock()
+        self._recover_until = 0.0  # monotonic end of the backoff
+        self._injector = fault_injector
+        self._restart_backoff_s = restart_backoff_s
+        self._restart_backoff_max_s = restart_backoff_max_s
+        self._backoff_reset_s = 5.0  # healthy this long resets the backoff
         self.warm()
+        if freeze_cache:
+            self._cache.freeze()
         self._thread = threading.Thread(
-            target=self._dispatch, name="serve-dispatch", daemon=True)
+            target=self._supervise, name="serve-dispatch", daemon=True)
         self._thread.start()
 
     # -- setup -----------------------------------------------------------
+    def _model_key(self, m: ServedModel, bucket: int) -> tuple:
+        """Runner-cache key: ``(model, bucket, dtype, weights
+        fingerprint)``. The fingerprint pins a runner to the weights it
+        was built for; a model without one keys ``"static"``."""
+        fp = getattr(m, "weights_fingerprint", None)
+        return (m.name, bucket, m.dtype_str,
+                fp() if fp is not None else "static")
+
+    def _build(self, m: ServedModel, bucket: int):
+        pool = None
+        if m.device.type == "cuda":
+            import torch
+
+            if m.name not in self._pools:
+                self._pools[m.name] = torch.cuda.graph_pool_handle()
+            pool = self._pools[m.name]
+        return m.compile_for(bucket, pool)
+
     def warm(self) -> None:
-        """Run every (model, bucket) once on a zero batch, so cuDNN's
-        algorithm choice, the kernels' build and the allocator's first
-        growth happen before any request; time in ``warmup_s``."""
+        """Build every (model, bucket) runner so that no request pays a
+        build; time in ``warmup_s``. On the card each is an eager forward
+        and a CUDA graph's capture, the largest bucket first: the smaller
+        graphs then fit in the pool's blocks that the larger one's
+        intermediates freed, and the pool holds about what the largest
+        bucket needs, not the sum over the ladder."""
         t0 = time.perf_counter()
         for m in self._models.values():
-            for bucket in self.buckets:
-                m.run(np.zeros((bucket, *m.input_shape), m.input_dtype))
+            for bucket in reversed(self.buckets):
+                self._cache.get_or_build(
+                    self._model_key(m, bucket),
+                    lambda m=m, bucket=bucket: self._build(m, bucket))
         self.warmup_s = round(time.perf_counter() - t0, 3)
+
+    def _bucket_runner(self, served: ServedModel, bucket: int):
+        """The cached runner of (model, bucket)."""
+        return self._cache.get_or_build(
+            self._model_key(served, bucket),
+            lambda: self._build(served, bucket))
 
     # -- client surface --------------------------------------------------
     def submit(self, x, model: str | None = None, *,
@@ -159,16 +231,55 @@ class InferenceEngine:
         return req.future
 
     def stats(self) -> dict:
-        """JSON-able state: models, ladder, queue and telemetry."""
+        """JSON-able state for ``/stats``: models, ladder, health, queue,
+        the runner cache, the runners and telemetry."""
         return {
             "models": sorted(self._models),
             "devices": {n: str(m.device) for n, m in self._models.items()},
             "buckets": list(self.buckets),
             "precision": self.precision,
             "warmup_s": self.warmup_s,
+            "health": self.health(),
             "queue": self._admission.stats(),
+            "cache": self._cache.stats(),
+            "runners": self.runner_stats(),
             "telemetry": self.telemetry.snapshot(),
         }
+
+    def runner_stats(self) -> dict:
+        """By model: the kind of its runners, the bytes its graph memory
+        pool reserves (0 on the CPU) and, by bucket, the runner's build
+        seconds and the kernel launches of one call: the runners that
+        the cache holds now."""
+        out: dict[str, dict] = {}
+        for key, r in sorted(self._cache.items(), key=lambda kv: kv[0][:2]):
+            name, bucket = key[:2]
+            entry = out.setdefault(name, {"kind": r.kind, "pool_bytes": 0,
+                                          "buckets": {}})
+            entry["pool_bytes"] += r.pool_bytes
+            entry["buckets"][str(bucket)] = {
+                "capture_s": round(r.capture_s, 4),
+                "launches": dict(r.launches)}
+        return out
+
+    def health(self) -> dict:
+        """Liveness for ``/healthz``: ``"recovering"``, with
+        ``retry_after_s`` (the rest of the backoff), while the supervisor
+        waits to restart a crashed dispatcher; ``"ok"`` otherwise. The
+        crash and restart counts ride along, so that a probe tells a
+        self-healed engine from one that never faulted."""
+        recovering = self._recovering.is_set()
+        out = {
+            "status": "recovering" if recovering else "ok",
+            "dispatcher_crashes": self.telemetry.dispatcher_crashes,
+            "dispatcher_restarts": self.telemetry.dispatcher_restarts,
+        }
+        if recovering:
+            with self._health_lock:
+                until = self._recover_until
+            out["retry_after_s"] = round(
+                max(0.05, until - time.monotonic()), 3)
+        return out
 
     # pause/resume: deterministic queue build-up (backpressure, deadline
     # expiry) for tests
@@ -180,18 +291,40 @@ class InferenceEngine:
         self._q.put(_WAKE)
 
     # -- dispatcher ------------------------------------------------------
-    def _dispatch(self) -> None:
-        try:
-            self._dispatch_loop()
-        except BaseException as e:
-            # no restart loop in this slice: fail everything pending now
-            # (no client waits for its deadline) and refuse new work
-            self._stop.set()
-            n = self._fail_all_pending(RuntimeError(
-                f"dispatcher crashed: {type(e).__name__}: {e}"))
-            print(f"[serve] dispatcher crashed ({type(e).__name__}: {e}); "
-                  f"failed {n} pending request(s); engine closed",
-                  file=sys.stderr, flush=True)
+    def _supervise(self) -> None:
+        """Run the dispatch loop under crash supervision: an exception
+        that escapes the loop body fails every queued and in-flight
+        future with the error at once, then the loop restarts after a
+        capped exponential backoff, during which :meth:`health` reports
+        ``"recovering"``. It reports so before the futures fail, so that
+        a client that sees its request fail finds the engine recovering.
+        The backoff resets once a loop has lived ``_backoff_reset_s``."""
+        backoff = self._restart_backoff_s
+        while True:
+            t0 = time.monotonic()
+            try:
+                self._dispatch_loop()
+                return  # close(): the loop drained and exited
+            except BaseException as e:
+                self.telemetry.record_dispatcher_crash()
+                if time.monotonic() - t0 > self._backoff_reset_s:
+                    backoff = self._restart_backoff_s
+                with self._health_lock:
+                    self._recover_until = time.monotonic() + backoff
+                self._recovering.set()
+                n = self._fail_all_pending(RuntimeError(
+                    f"dispatcher crashed: {type(e).__name__}: {e}"))
+                print(f"[serve-supervisor] dispatcher crashed "
+                      f"({type(e).__name__}: {e}); failed {n} pending "
+                      f"request(s); restarting in {backoff:.2f}s",
+                      file=sys.stderr, flush=True)
+                self._stop.wait(backoff)  # close() wakes this at once
+                self._recovering.clear()
+                if self._stop.is_set():
+                    self._fail_all_pending(RuntimeError("engine closed"))
+                    return
+                backoff = min(backoff * 2, self._restart_backoff_max_s)
+                self.telemetry.record_dispatcher_restart()
 
     def _dispatch_loop(self) -> None:
         pending = self._pending
@@ -210,10 +343,14 @@ class InferenceEngine:
             self._fill_window(pending, name, ladder_max)
             reqs = pending[name][:ladder_max]
             del pending[name][:ladder_max]
+            # visible to the crash handler from the moment they leave the
+            # backlog, so that a crash past this point fails them too
             self._in_flight = reqs
             live = self._expire(reqs)
             if live:
                 self._in_flight = live
+                if self._injector is not None:
+                    self._injector.check_dispatch()  # chaos site
                 self._run_batch(self._models[name], live)
             self._in_flight = []
         # closing: fail anything still queued so no caller blocks forever
@@ -313,8 +450,9 @@ class InferenceEngine:
         for i, r in enumerate(reqs):
             x[i] = r.x
         try:
+            runner = self._bucket_runner(served, bucket)
             t0 = time.perf_counter()
-            host = served.run(x)
+            host = runner(x)
             t_dev = time.perf_counter() - t0
         except Exception as e:  # forward failure: fail this batch only
             for r in reqs:
@@ -341,11 +479,15 @@ class InferenceEngine:
     # -- lifecycle -------------------------------------------------------
     def close(self, timeout: float = 10.0) -> None:
         """Stop the dispatcher and join its thread; pending futures fail
-        with RuntimeError('engine closed'). Idempotent."""
+        with RuntimeError('engine closed'). Then drop every runner and
+        graph memory pool, which frees the graphs' device memory once
+        the allocator's cache is emptied. Idempotent."""
         self._stop.set()
         self._paused.clear()
         self._q.put(_WAKE)
         self._thread.join(timeout)
+        self._cache.drop_where(lambda key: True)
+        self._pools.clear()
 
     def __enter__(self) -> "InferenceEngine":
         return self

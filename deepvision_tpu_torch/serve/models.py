@@ -32,11 +32,19 @@ turns batch row ``i`` into a JSON-able result. The task head (softmax
 and top-k) runs on the device inside :meth:`ServedModel.run`, which
 moves a batch to the device with one copy and brings every output back
 with one copy.
+
+The engine's path is :meth:`ServedModel.compile_for`, the twin of the
+JAX ``compile_for``: one runner a bucket, ``host batch -> host
+outputs``. On the card it is a :class:`CudaGraphRunner`, one captured
+``torch.cuda.CUDAGraph`` of the forward, the task head and the packing
+of every output into one byte buffer, replayed between one copy in and
+one copy out; on the CPU an :class:`EagerRunner` over :meth:`run`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from pathlib import Path
 from typing import Any, Callable, Mapping
 
@@ -47,11 +55,12 @@ from torch import nn
 from deepvision_tpu_torch.convert.from_flax import flax_to_torch
 from deepvision_tpu_torch.device import resolve_device
 from deepvision_tpu_torch.models import create_model
+from deepvision_tpu_torch.ops import captured_launches, credit_launches
 from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
-__all__ = ["ServedModel", "load_served", "restore_state", "model_geometry",
-           "task_for", "input_scale"]
+__all__ = ["ServedModel", "CudaGraphRunner", "EagerRunner", "load_served",
+           "restore_state", "model_geometry", "task_for", "input_scale"]
 
 # the served task of each model that is not a classifier ("gan" serves
 # the DCGAN generator: the input is the noise z, the output an image)
@@ -94,28 +103,184 @@ class ServedModel:
     forward: Callable[[torch.Tensor], dict]
     input_dtype: Any = np.float32
     scale: str = "imagenet"
+    _fingerprint: str | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    @property
+    def dtype_str(self) -> str:
+        return str(np.dtype(self.input_dtype))
+
+    def weights_fingerprint(self) -> str:
+        """The digest of the weights (``resilience/sentinel``'s
+        fingerprint of the module's JAX-layout tree), taken once: the
+        runner cache's key holds it, so that a runner built for one
+        generation of weights can never be found for another."""
+        if self._fingerprint is None:
+            from deepvision_tpu_torch.resilience.sentinel import (
+                state_tree,
+                tree_fingerprint,
+            )
+
+            self._fingerprint = tree_fingerprint(
+                state_tree(self.module))["digest"]
+        return self._fingerprint
 
     def run(self, batch: np.ndarray) -> dict[str, np.ndarray]:
-        """Host batch -> host outputs: one H2D copy, the forward, one
-        D2H copy of all outputs together."""
+        """Host batch -> host outputs, eagerly: one H2D copy, the
+        forward, one D2H copy of all outputs together."""
         x = torch.from_numpy(np.ascontiguousarray(batch, self.input_dtype))
         with torch.inference_mode():
             return _to_host(self.forward(x.to(self.device)))
 
+    def compile_for(self, bucket: int, pool=None):
+        """The runner of batches of ``bucket`` rows, ``host batch -> host
+        outputs`` (a batch of fewer rows is padded with zero rows): a
+        :class:`CudaGraphRunner` on the card, captured into the graph
+        memory pool ``pool`` (``torch.cuda.graph_pool_handle()``; the
+        buckets of one model share one), an :class:`EagerRunner` on the
+        CPU. A capture that fails raises: the card never falls back to
+        the eager forward."""
+        if self.device.type == "cuda":
+            return CudaGraphRunner(self, bucket, pool)
+        return EagerRunner(self, bucket)
 
-def _to_host(out: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """Fetch every output in one device-to-host copy: each output's
-    bytes per row are laid side by side, copied, and split again."""
+
+def _pack(out: Mapping[str, torch.Tensor]):
+    """Every output's bytes a row laid side by side in one ``(B, bytes)``
+    uint8 tensor, so that one copy fetches them all. -> (the tensor, its
+    layout for :func:`_unpack`)."""
     rows = [t.contiguous().view(torch.uint8).reshape(t.shape[0], -1)
             for t in out.values()]
-    host = torch.cat(rows, dim=1).cpu().numpy()
+    layout = [(key, torch.empty((), dtype=t.dtype).numpy().dtype,
+               tuple(t.shape[1:]), r.shape[1])
+              for (key, t), r in zip(out.items(), rows)]
+    return torch.cat(rows, dim=1), layout
+
+
+def _unpack(host: np.ndarray, layout) -> dict[str, np.ndarray]:
+    """:func:`_pack`'s host bytes split into the outputs again, each a
+    copy of its own."""
     result, start = {}, 0
-    for (key, t), r in zip(out.items(), rows):
-        part = np.ascontiguousarray(host[:, start:start + r.shape[1]])
-        start += r.shape[1]
-        np_dtype = torch.empty((), dtype=t.dtype).numpy().dtype
-        result[key] = part.view(np_dtype).reshape(tuple(t.shape))
+    for key, np_dtype, shape, width in layout:
+        part = np.array(host[:, start:start + width])
+        start += width
+        result[key] = part.view(np_dtype).reshape((host.shape[0], *shape))
     return result
+
+
+def _to_host(out: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """Fetch every output in one device-to-host copy."""
+    packed, layout = _pack(out)
+    return _unpack(packed.cpu().numpy(), layout)
+
+
+def _check_batch(batch: np.ndarray, shape: tuple) -> None:
+    """A runner of ``shape`` takes a batch of at most ``shape[0]`` rows of
+    its row shape."""
+    if batch.ndim != len(shape) or len(batch) > shape[0] \
+            or batch.shape[1:] != shape[1:]:
+        raise ValueError(f"a runner of {shape} got a batch of "
+                         f"{batch.shape}")
+
+
+class EagerRunner:
+    """The CPU's bucket runner: the eager forward (:meth:`ServedModel.run`)
+    on the batch padded to the bucket."""
+
+    kind = "eager"
+    pool_bytes = 0
+    capture_s = 0.0
+
+    def __init__(self, served: ServedModel, bucket: int):
+        self.served, self.bucket = served, bucket
+        self.launches: dict[str, int] = {}
+
+    def __call__(self, batch: np.ndarray) -> dict[str, np.ndarray]:
+        shape = (self.bucket, *self.served.input_shape)
+        batch = np.asarray(batch)
+        _check_batch(batch, shape)
+        x = np.zeros(shape, self.served.input_dtype)
+        x[:len(batch)] = batch
+        return self.served.run(x)
+
+
+class CudaGraphRunner:
+    """One bucket of one served model as a captured CUDA graph.
+
+    The graph holds the forward, the task head and :func:`_pack`, from a
+    static input of ``(bucket, *input_shape)`` to one packed output
+    buffer. A call copies the batch into the static input (rows past the
+    batch zeroed on the card), replays the graph and copies the packed
+    outputs back into a pinned host buffer: one copy in, one copy out,
+    on the current stream of the served device, whatever thread calls.
+
+    Before the capture the forward runs once eagerly on a side stream,
+    so that what a first call does (the kernels' build and ``ctypes``
+    load, ``anchor_tensor``'s cache, cuDNN's algorithm choice, the
+    allocator's growth) is never captured. The thresholds of the task
+    head (``--top``, ``--score``, ``--iou``) are fixed for a served model
+    and are captured as constants; nothing that changes per request
+    reaches the graph but the static input's bytes. ``launches`` are the
+    port's kernels that one replay launches: those that the capture's
+    calls of their wrappers recorded (``ops.note_captured``); each call
+    credits them (``ops.credit_launches``). ``pool_bytes`` is what the
+    capture added to the memory the allocator reserves: the graph's
+    share of its pool. Graphs of one pool are replayed one at a time
+    (the engine's one dispatcher), each output copied out before the
+    next replay."""
+
+    kind = "cuda_graph"
+
+    def __init__(self, served: ServedModel, bucket: int, pool=None):
+        dev = served.device
+        self.bucket = bucket
+        self._device = dev
+        self._input_dtype = served.input_dtype
+        shape = (bucket, *served.input_shape)
+        dtype = torch.from_numpy(np.zeros(0, served.input_dtype)).dtype
+        t0 = time.perf_counter()
+        with torch.cuda.device(dev), torch.inference_mode():
+            self._static_in = torch.zeros(shape, dtype=dtype, device=dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                _, self._layout = _pack(served.forward(self._static_in))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            # the capture empties the allocator's cache itself; empty it
+            # first, so that the reserved bytes move by the pool alone
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            counts = captured_launches()
+            self._graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self._graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                self._static_out, _ = _pack(served.forward(self._static_in))
+            torch.cuda.synchronize(dev)
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            after = captured_launches()
+            self.launches = {k: n - counts.get(k, 0)
+                             for k, n in after.items()
+                             if n != counts.get(k, 0)}
+            self._host_out = torch.empty(self._static_out.shape,
+                                         dtype=torch.uint8, pin_memory=True)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, batch: np.ndarray) -> dict[str, np.ndarray]:
+        batch = np.ascontiguousarray(batch, self._input_dtype)
+        _check_batch(batch, tuple(self._static_in.shape))
+        n = len(batch)
+        x = torch.from_numpy(batch)
+        with torch.cuda.device(self._device), torch.inference_mode():
+            stream = torch.cuda.current_stream(self._device)
+            self._static_in[:n].copy_(x)
+            if n < self.bucket:
+                self._static_in[n:].zero_()
+            self._graph.replay()
+            self._host_out.copy_(self._static_out, non_blocking=True)
+            stream.synchronize()
+        credit_launches(self.launches)
+        return _unpack(self._host_out.numpy(), self._layout)
 
 
 def _classify_forward(module: nn.Module, top_k: int):

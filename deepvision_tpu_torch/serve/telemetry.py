@@ -1,55 +1,52 @@
 """Serving telemetry: per-request latency summaries and counters.
 
-A reduced twin of ``deepvision_tpu/serve/telemetry.py``
-(``ServeTelemetry``): the same ``record_*`` and ``snapshot`` names and
-the same snapshot keys, on plain counters and bounded latency
-reservoirs, with no metrics registry behind them. Request wall time is
-split into queue wait (admitted -> dispatched), device time (one
-batch's H2D copy, forward and D2H copy) and end-to-end latency.
+The twin of ``deepvision_tpu/serve/telemetry.py``'s ``ServeTelemetry``:
+the same ``record_*`` and ``snapshot`` names and the same snapshot keys.
+Request wall time is split into queue wait (admitted -> dispatched),
+device time (one batch's H2D copy, forward and D2H copy) and end-to-end
+latency. Every counter is an ``obs.metrics.Counter`` and every latency
+series an ``obs.metrics.Histogram``, registered into the process
+registry under ``serve_*`` names (a newer engine's telemetry replaces an
+older one's), so that ``GET /metrics`` renders the numbers ``/stats``
+reports.
 """
 
 from __future__ import annotations
 
 import threading
-from collections import deque
 
-import numpy as np
+from deepvision_tpu_torch.obs.metrics import (
+    Counter,
+    Histogram,
+    Registry,
+    default_registry,
+)
 
 __all__ = ["LatencyStats", "ServeTelemetry"]
 
 
 class LatencyStats:
-    """Bounded reservoir of the most recent ``maxlen`` samples with an
-    exact lifetime count and total. ``record`` takes seconds;
-    ``summary`` reports milliseconds."""
+    """A latency series over an ``obs.metrics.Histogram`` (a bounded
+    reservoir of the newest ``maxlen`` samples with an exact lifetime
+    count and total). ``record`` takes seconds; ``summary`` reports
+    milliseconds."""
 
-    def __init__(self, maxlen: int = 8192):
-        self._lock = threading.Lock()
-        self._samples: deque[float] = deque(maxlen=maxlen)
-        self.count = 0
-        self.total_s = 0.0
+    def __init__(self, maxlen: int = 8192, hist: Histogram | None = None):
+        self._hist = hist if hist is not None else Histogram(maxlen=maxlen)
 
     def record(self, seconds: float) -> None:
-        with self._lock:
-            self._samples.append(seconds)
-            self.count += 1
-            self.total_s += seconds
+        self._hist.observe(seconds)
+
+    @property
+    def count(self) -> int:
+        return self._hist.count
+
+    @property
+    def total_s(self) -> float:
+        return self._hist.total
 
     def summary(self) -> dict:
-        with self._lock:
-            count, total = self.count, self.total_s
-            samples = list(self._samples)
-        if not samples:
-            return {"count": count, "mean_ms": 0.0, "p50_ms": 0.0,
-                    "p95_ms": 0.0, "p99_ms": 0.0, "max_ms": 0.0}
-        arr = np.asarray(samples, np.float64) * 1e3
-        p50, p95, p99 = np.percentile(arr, [50, 95, 99])
-        return {"count": count,
-                "mean_ms": round(total / count * 1e3, 3),
-                "p50_ms": round(float(p50), 3),
-                "p95_ms": round(float(p95), 3),
-                "p99_ms": round(float(p99), 3),
-                "max_ms": round(float(arr.max()), 3)}
+        return self._hist.summary()
 
 
 # exact counters, in snapshot order
@@ -62,22 +59,34 @@ _COUNTER_FIELDS = (
     "batches",        # executed device batches
     "rows",           # real rows across executed batches
     "padded_rows",    # zero rows added to reach the bucket
+    # the dispatcher's supervisor (engine._supervise): a crash fails the
+    # queued and in-flight futures and the loop restarts after a backoff;
+    # these tell a self-healed engine from one that never faulted
+    "dispatcher_crashes",
+    "dispatcher_restarts",
 )
 
 
 class ServeTelemetry:
-    """Counters and per-stage latency summaries for one engine."""
+    """Counters and per-stage latency summaries for one engine,
+    registered into ``registry`` (default: the process's)."""
 
-    def __init__(self):
+    def __init__(self, registry: Registry | None = None):
+        reg = registry if registry is not None else default_registry()
+        self.registry = reg
         self._lock = threading.Lock()
-        self._c = dict.fromkeys(_COUNTER_FIELDS, 0)
-        self.queue_wait = LatencyStats()
-        self.device_time = LatencyStats()
-        self.e2e = LatencyStats()
+        self._c = {f: reg.register(f"serve_{f}", Counter())
+                   for f in _COUNTER_FIELDS}
+        self.queue_wait = LatencyStats(
+            hist=reg.register("serve_queue_wait", Histogram()))
+        self.device_time = LatencyStats(
+            hist=reg.register("serve_device_time", Histogram()))
+        self.e2e = LatencyStats(
+            hist=reg.register("serve_e2e_latency", Histogram()))
 
     def _inc(self, field: str, n: int = 1) -> None:
         with self._lock:
-            self._c[field] += n
+            self._c[field].inc(n)
 
     def record_submit(self) -> None:
         self._inc("submitted")
@@ -91,23 +100,29 @@ class ServeTelemetry:
     def record_failure(self) -> None:
         self._inc("failed")
 
+    def record_dispatcher_crash(self) -> None:
+        self._inc("dispatcher_crashes")
+
+    def record_dispatcher_restart(self) -> None:
+        self._inc("dispatcher_restarts")
+
     def record_batch(self, *, bucket: int, rows: int,
                      device_s: float) -> None:
         with self._lock:
-            self._c["batches"] += 1
-            self._c["rows"] += rows
-            self._c["padded_rows"] += bucket - rows
+            self._c["batches"].inc()
+            self._c["rows"].inc(rows)
+            self._c["padded_rows"].inc(bucket - rows)
             self.device_time.record(device_s)
 
     def record_request(self, *, queue_wait_s: float, e2e_s: float) -> None:
         with self._lock:
-            self._c["completed"] += 1
+            self._c["completed"].inc()
             self.queue_wait.record(queue_wait_s)
             self.e2e.record(e2e_s)
 
     def snapshot(self) -> dict:
         with self._lock:
-            vals = dict(self._c)
+            vals = {f: c.value for f, c in self._c.items()}
             executed = vals["rows"] + vals["padded_rows"]
             return {
                 **vals,
@@ -126,5 +141,5 @@ class ServeTelemetry:
 # attribute-style counter reads (eng.telemetry.batches, ...), as the twin
 for _f in _COUNTER_FIELDS:
     setattr(ServeTelemetry, _f,
-            property(lambda self, _f=_f: self._c[_f]))
+            property(lambda self, _f=_f: self._c[_f].value))
 del _f
