@@ -248,12 +248,17 @@ the seconds it took:
    CLIs of 9 (2 epochs, ``--resume`` to 3, the update count and BN
    statistics restored bit for bit). The serving CLIs of ``yolov3``,
    ``hourglass104``, the DCGAN generator and ``mobilenet1`` are one
-   process over the four chains' checkpoints (``-m`` repeated), started
-   once the four chains have trained (each offers its checkpoint through
-   a future, :func:`_chain`, and goes on to its eval and predict CLIs),
-   ``centernet``'s (the longest chain) its own once it has trained, 2
-   requests a model; their runners show one NMS launch a replay
-   for ``yolov3`` and none for the others. Each
+   process over the four chains' checkpoints (``-m`` repeated) and 24's
+   converted ``inception1_ref`` (``-m``) with its ``predict export``
+   artifact (``--artifact``), started once the four chains have trained
+   and the converters have offered theirs (each offers its checkpoint
+   through a future, :func:`_chain`, and goes on to its eval and predict
+   CLIs), ``centernet``'s (the longest chain) its own once it has
+   trained, 2 requests a model;
+   their runners show one NMS launch a replay for ``yolov3``, two LRN
+   launches for ``inception1_ref`` and its artifact (one runner, at the
+   exported batch 1) and none for the others; the artifact's top-5 are
+   those of ``-m``, its probabilities within 1e-4. Each
    chain but ``centernet``'s ends in a ``predict`` CLI from its
    checkpoint, on a JPEG encoded by nvJPEG or a PNG written by the
    port's writer (``detect -m yolov3`` at 416, ``pose`` at 256,
@@ -309,7 +314,11 @@ the seconds it took:
    deepvision_tpu_torch.convert`` and classified by ``predict
    classify``: the top-5 the source module's on the card, the converted
    module's logits within 1e-4 of the source's; the ``inception1_ref``
-   CLI's ``lrn_forward_f32`` launches counted in the ``kernels`` line.
+   CLI's ``lrn_forward_f32`` launches counted in the ``kernels`` line;
+   then ``predict export`` of the converted ``inception1_ref`` through
+   its entry point in this process (no process of its own), a batch-1
+   float32 artifact holding its 2 ``deepvision.lrn_forward`` nodes,
+   offered to 19's serving CLI of the four chains.
 
 25. The HTTP server (``phase_http``, beside 19's chains): ``python
    -m deepvision_tpu_torch.serve -m alexnet1 -m yolov3 --http 0
@@ -323,6 +332,23 @@ the seconds it took:
    cache's 4 misses frozen, ``/metrics`` with the crash counter and the
    device memory gauges, exit 0 on SIGINT, and its last line's true
    launches of the LRN and NMS kernels.
+26. Model export (``phase_export``, after 15), float32 with TF32 off
+   under deterministic cuDNN: ``alexnet1`` (seeded weights) exported
+   by ``export.export_forward`` at batch 4 and loaded by
+   ``load_exported``, its graph holding 2 ``deepvision.lrn_forward``
+   nodes and no plain window sum, one call launching 2
+   ``lrn_forward_f32`` on the counters and a profiled one running 2
+   ``lrn_forward_kernel<float`` by name, its logits the eager module's
+   bit for bit; then ``yolov3`` (416 px, 20 classes) on engines with an
+   artifact store over a fresh directory and buckets (1, 4): cold, both
+   buckets traced and exported into it; a second engine warms both from
+   it with no runner traced, each replay launching 1 ``nms_sweep`` on
+   the counters and 1 ``nms_sweep_kernel`` by name in a profiled
+   replay, its answers bit for bit the cold engine's; a corrupt blob and
+   a bucket-1 program filed under the bucket-4 key, both quarantined by
+   a third engine, which traces both and answers the same bits. It
+   prints the export seconds, the artifacts' megabytes and the warm-up
+   seconds cold and from the store.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -335,14 +361,16 @@ summaries, the ``[resilience] {...}``, ``[loader] {...}`` and
 ``[offline] {...}`` (22-24 and the predict CLIs: records/s, seconds)
 lines, the ``[graphs] {...}`` line (each engine-served model's warm-up,
 cache, pool bytes, launches a replay and profile, and 25's readings),
-the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.
+the ``[export] {...}`` line (26's figures and the ``predict export``
+CLI's), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
 import ast
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -545,6 +573,10 @@ EVAL_BATCH = 64
 PREDICT_TOL = 1e-4
 # a re-encoded file (quality 95, by nvJPEG) against its source pixels
 REENCODE_MEAN_LSB = 2.0
+# phase_export: alexnet1's artifact at bucket 4, yolov3's store on (1, 4)
+EXPORT_BUCKET = 4
+STORE_BUCKETS = (1, 4)
+ARTIFACT_SUFFIX = "_pt2"  # the model name of a served predict-export file
 
 
 def _say(*parts) -> None:
@@ -3344,6 +3376,227 @@ def phase_yolo(smi: str, workdir: Path) -> dict:
             "answers": answers}
 
 
+# ------------------------------------------------------------- export
+
+
+def _traced_port_kernels(run, want: dict[str, int],
+                         windows: int = 3) -> dict[str, int]:
+    """The port's kernels (``DEVICE_KERNELS``) that a profiled ``run()``
+    ran on the card, by counter name, found by kernel name: ``want``, or
+    this fails. A window that recorded another set is printed with what
+    it did record, and ``run`` is profiled again, up to ``windows``
+    times: in whole-script runs on this card the profiler has recorded
+    windows with none of the port's kernels, or with no device time at
+    all, around calls that launched them on the counters (PERF.md)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for window in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [name for name, _, _ in _device_events(prof)]
+        traced = {counter: sum(part in n for n in names)
+                  for counter, part in DEVICE_KERNELS.items()}
+        traced = {k: n for k, n in traced.items() if n}
+        if traced == want:
+            return traced
+        top = sorted(set(names), key=names.count, reverse=True)[:6]
+        _say(f"[profile] window {window}: {len(names)} device events, the "
+             f"port's kernels {traced}, not {want}; the most frequent "
+             f"{[n[:60] for n in top]}")
+    raise AssertionError(f"no window of {windows} traced {want}")
+
+
+def _export_alexnet(smi: str, workdir: Path) -> dict:
+    """``alexnet1`` (seeded weights, 1000 classes, float32, TF32 off,
+    deterministic cuDNN) exported by ``export_forward`` at batch
+    ``EXPORT_BUCKET`` and loaded by ``load_exported``: the graph holds 2
+    ``deepvision.lrn_forward`` nodes and no plain window sum
+    (``aten.unfold``); one call of the loaded program launches
+    ``lrn_forward_f32`` twice on the counters, and a profiled call runs 2
+    ``lrn_forward_kernel<float`` by name; its logits equal the eager
+    module's bit for bit. Returns the figures and the LRN launches of the
+    program's two calls."""
+    import torch
+
+    from deepvision_tpu_torch.export import (
+        export_forward,
+        graph_ops,
+        load_exported,
+        save_exported,
+    )
+    from deepvision_tpu_torch.serve import load_served
+
+    module = load_served("alexnet1", seed=0).module
+    x = torch.from_numpy(np.random.default_rng(5).normal(
+        0, 1, (EXPORT_BUCKET, 224, 224, 3)).astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    data = export_forward(module, x)
+    export_s = time.perf_counter() - t0
+    path = save_exported(workdir / "export" / "alexnet1.pt2", data)
+    t0 = time.perf_counter()
+    program = load_exported(path)
+    load_s = time.perf_counter() - t0
+    ops = graph_ops(program)
+    assert ops.get("deepvision.lrn_forward.default") == 2, ops
+    assert not any("unfold" in op for op in ops), ops
+    assert [tuple(a.shape) for a in program.in_avals] == [tuple(x.shape)]
+    with torch.inference_mode():
+        want = module(x)
+        _zero_launch_counts()
+        got = program(x)
+        torch.cuda.synchronize()
+        once = _launch_counts()
+        traced = _traced_port_kernels(lambda: program(x),
+                                      {"lrn_forward_f32": 2})
+    assert once == {**dict.fromkeys(once, 0), "lrn_forward_f32": 2}, once
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    _say(f"[export] alexnet1 f32 at batch {EXPORT_BUCKET}: exported in "
+         f"{export_s:.2f} s, {len(data) / 1e6:.1f} MB, loaded in "
+         f"{load_s:.2f} s; the graph holds 2 deepvision.lrn_forward nodes; "
+         f"a call launches {once['lrn_forward_f32']} lrn_forward_f32, and "
+         f"a traced call ran {traced} by name; logits bit for bit the "
+         f"eager module's ({smi})")
+    return {"export_s": export_s, "load_s": load_s,
+            "mb": len(data) / 1e6,
+            "lrn_launches": _launch_counts()["lrn_forward_f32"]}
+
+
+def _store_engine(served, store_dir: Path):
+    from deepvision_tpu_torch.serve import InferenceEngine
+
+    return InferenceEngine([dataclasses.replace(served, _fingerprint=None)],
+                           buckets=STORE_BUCKETS, store=store_dir,
+                           freeze_cache=True)
+
+
+def _store_answers(eng, xs) -> list:
+    """``xs`` at the largest bucket, then its first row at bucket 1."""
+    return [_queued(eng, xs), _queued(eng, xs[:1])]
+
+
+def _export_store(smi: str, workdir: Path) -> dict:
+    """``yolov3`` (416 px, 20 classes, seeded weights, float32, TF32 off,
+    deterministic cuDNN) on engines with an artifact store over a fresh
+    directory and buckets ``STORE_BUCKETS``, each engine's fingerprint
+    taken anew from the weights. Cold: both buckets miss, are traced and
+    exported into the store (2 puts, 2 entries); the bucket-1 program
+    holds 1 ``deepvision.nms_sweep`` node and none of the plain sweep's
+    ``bitwise_and`` steps. A second engine warms
+    both from disk (``warmed_from_store`` both buckets, 0 cache misses:
+    no runner traced), each replay launching 1 ``nms_sweep`` on the
+    counters and a profiled replay running 1 ``nms_sweep_kernel`` by
+    name; its answers equal the cold engine's bit for bit. Then the
+    bucket-1 blob is corrupted and the bucket-1 program filed under the
+    bucket-4 key (it loads, and fails on a bucket-4 batch): a third
+    engine quarantines both, traces both, and answers the same bits. No
+    reject or quarantine on the clean path. Returns the figures and the
+    phase's NMS launches."""
+    import torch
+
+    from deepvision_tpu_torch.export import deserialize_exported, graph_ops
+    from deepvision_tpu_torch.serve import load_served
+    from deepvision_tpu_torch.serve.artifact_store import ArtifactStore
+
+    served = load_served("yolov3", seed=0)
+    xs = _yolo_requests()[:EXPORT_BUCKET]
+    store_dir = workdir / "aot"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    _zero_launch_counts()
+    with _store_engine(served, store_dir) as eng:
+        stats = eng.stats()
+        cold = _store_answers(eng, xs)
+    cold_s = stats["warmup_s"]
+    assert stats["warmed_from_store"] == [], stats
+    assert stats["cache"]["misses"] == len(STORE_BUCKETS), stats["cache"]
+    assert stats["artifact_store"] | {"root": None} == {
+        "root": None, "entries": 2, "hits": 0, "misses": 2, "puts": 2,
+        "quarantined": 0}, stats["artifact_store"]
+    entries = {e["bucket"]: e for e in ArtifactStore(
+        store_dir, log=print).entries().values()}
+    mb = {b: e["size"] / 1e6 for b, e in sorted(entries.items())}
+
+    with _store_engine(served, store_dir) as eng:
+        stats = eng.stats()
+        before = _nms_launches()
+        warm = _store_answers(eng, xs)
+        replays = _nms_launches() - before
+        runner = eng._bucket_runner(eng._models["yolov3"], EXPORT_BUCKET)
+        traced = _traced_port_kernels(
+            lambda: runner(np.zeros((EXPORT_BUCKET, *served.input_shape),
+                                    np.float32)), {"nms_sweep": 1})
+    warm_s = stats["warmup_s"]
+    assert stats["warmed_from_store"] == [
+        f"yolov3@{b}" for b in STORE_BUCKETS], stats["warmed_from_store"]
+    assert stats["cache"]["misses"] == 0, stats["cache"]
+    assert stats["artifact_store"]["hits"] == 2, stats["artifact_store"]
+    assert stats["artifact_store"]["quarantined"] == 0
+    for per in stats["runners"]["yolov3"]["buckets"].values():
+        assert per["launches"] == {"nms_sweep": 1}, per
+    assert replays == 2, replays
+    assert _same_bits(warm, cold), "the store-warmed engine answered " \
+        "other bits than the cold one"
+
+    one = entries[1]
+    program1 = (store_dir / one["file"]).read_bytes()
+    ops = graph_ops(deserialize_exported(program1))
+    assert ops.get("deepvision.nms_sweep.default") == 1, ops
+    assert not any("bitwise_and" in op for op in ops), ops
+    (store_dir / one["file"]).write_bytes(b"not a torch.export program")
+    store = ArtifactStore(store_dir, log=print)
+    store.put(program1, **{k: entries[EXPORT_BUCKET][k] for k in (
+        "model", "bucket", "dtype", "device", "fingerprint")})
+    with _store_engine(served, store_dir) as eng:
+        stats = eng.stats()
+        healed = _store_answers(eng, xs)
+    assert stats["warmed_from_store"] == [], stats["warmed_from_store"]
+    assert stats["cache"]["misses"] == 2, stats["cache"]
+    assert stats["artifact_store"]["quarantined"] == 2, stats
+    assert len(list((store_dir / "quarantine").iterdir())) == 2
+    assert _same_bits(healed, cold), "the re-traced engine answered other " \
+        "bits than the cold one"
+    nms = _nms_launches()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    kept = [len(a["scores"]) for a in cold[0]]
+    _say(f"[export] yolov3 f32 at {YOLO_SIZE} on buckets {STORE_BUCKETS} "
+         f"with an artifact store: cold warm-up {cold_s} s (2 traces, 2 "
+         f"exports; blobs {mb} MB), warm-up from the store {warm_s} s (2 "
+         f"loads, 0 traces); the stored program holds 1 "
+         f"deepvision.nms_sweep node; NMS launches a replay 1 (counters "
+         f"{replays} for 2 batches, traced {traced}); answers bit for bit "
+         f"the cold engine's (kept {min(kept)}-{max(kept)} boxes a "
+         f"request); a "
+         f"corrupt blob and an unrunnable one quarantined and traced "
+         f"again, answers unchanged ({smi})")
+    return {"cold_warmup_s": cold_s, "store_warmup_s": warm_s,
+            "blob_mb": mb, "nms_launches": nms}
+
+
+def phase_export(smi: str, workdir: Path) -> dict:
+    """Model export on the card under deterministic cuDNN (bit for bit
+    needs the same convolution algorithms in the eager module, the
+    traced graphs and the loaded programs): :func:`_export_alexnet`, then
+    :func:`_export_store`, alone on the card and in this process (the
+    counters are the process's, and an export on a worker thread left
+    the next profiler window empty, PERF.md). Returns their figures."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+
+    strict_fp32()
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"alexnet1": _export_alexnet(smi, workdir)}
+        torch.cuda.empty_cache()
+        out["yolov3_store"] = _export_store(smi, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------- CenterNet and pose
 
 
@@ -3568,12 +3821,16 @@ class _Offer(NamedTuple):
     model, the workdir that holds its checkpoint, its requests and
     ``check(replies, launches, runners)``, which holds the model's
     replies, the process's kernel launches and the model's runners to
-    the chain's expectations."""
+    the chain's expectations; with ``artifact``, a ``predict export``
+    file of the same model and weights, served beside it under the name
+    ``name + ARTIFACT_SUFFIX`` with the same requests
+    (:func:`_artifact_served`)."""
 
     name: str
     workdir: Path
     xs: np.ndarray
     check: object
+    artifact: Path | None = None
 
 
 def _chain(ready, label: str, chain, *args):
@@ -3599,9 +3856,13 @@ def _serve_chains(ready) -> dict:
     args, lines = [], []
     for o in offers:
         args += ["-m", f"{o.name}={o.workdir}"]
-        lines += [json.dumps({"id": f"{o.name}/{i}", "model": o.name,
+        names = [o.name]
+        if o.artifact is not None:
+            names.append(o.name + ARTIFACT_SUFFIX)
+            args += ["--artifact", f"{names[-1]}={o.artifact}"]
+        lines += [json.dumps({"id": f"{name}/{i}", "model": name,
                               "input": x.tolist()}) + "\n"
-                  for i, x in enumerate(o.xs)]
+                  for name in names for i, x in enumerate(o.xs)]
     t0 = time.perf_counter()
     proc = _cli("deepvision_tpu_torch.serve",
                 [*args, "--buckets", "1,4", "--score", "0.05"],
@@ -3617,13 +3878,48 @@ def _serve_chains(ready) -> dict:
          f"for {names} from their chains' checkpoints in "
          f"{time.perf_counter() - t0:.1f} s; "
          f"{proc.stderr.strip().splitlines()[-1]}")
+    def replies_of(name, n):
+        mine = [r for r in replies if r["id"].startswith(f"{name}/")]
+        assert len(mine) == n and all("result" in r for r in mine), mine
+        return mine
+
     out = {}
     for o in offers:
-        mine = [r for r in replies if r["id"].startswith(f"{o.name}/")]
-        assert len(mine) == len(o.xs) and all("result" in r for r in mine), (
-            mine)
+        mine = replies_of(o.name, len(o.xs))
         out[o.name] = o.check(mine, launches, runners[o.name])
+        if o.artifact is not None:
+            art = o.name + ARTIFACT_SUFFIX
+            out[art] = _artifact_served(mine, replies_of(art, len(o.xs)),
+                                        runners[art], launches)
     return out
+
+
+def _artifact_served(replies: list, art_replies: list, art_runners: dict,
+                     launches: dict) -> int:
+    """A ``predict export`` artifact served by ``--artifact`` beside the
+    same checkpoint served by ``-m`` (``inception1_ref``): one runner, at
+    the exported batch 1, whose replay launches 2 ``lrn_forward_f32``; the
+    same top-5 classes for every
+    request, the probabilities within ``PREDICT_TOL`` (the ``-m`` model
+    may answer both requests in one bucket-4 replay, whose cuDNN
+    algorithms need not be those of a bucket-1 one, and cuDNN runs
+    nondeterministic algorithms in the serving CLI). The process's LRN
+    launches: each ``-m`` bucket's capture runs an eager forward first
+    (2 each), the artifact's capture and its warm-up's zero batch 2
+    each, and every replay 2. Returns the process's LRN launches."""
+    assert list(art_runners["buckets"]) == ["1"], art_runners
+    art_launches = art_runners["buckets"]["1"]["launches"]
+    assert art_launches == {"lrn_forward_f32": 2}, art_runners
+    for got, want in zip(art_replies, replies, strict=True):
+        _same_topk(got["result"], want["result"], "artifact")
+    lrn = launches["lrn_forward_f32"]
+    art = 2 + 2 + 2 * len(art_replies)
+    assert art + 4 + 2 <= lrn <= art + 4 + 2 * len(replies), launches
+    _say(f"[export-cli] serve --artifact answered {len(art_replies)} "
+         f"requests with the top-5 of -m's from the same weights; "
+         f"lrn_forward_f32 a replay {art_launches['lrn_forward_f32']}, "
+         f"{lrn} in the process")
+    return lrn
 
 
 def _model_clis(name: str, d: Path, wd: Path, size: int,
@@ -3802,16 +4098,20 @@ def _predict_pose(wd: Path, image: str) -> None:
 
 
 def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
-                     pose: dict, gan: dict, images: dict) -> None:
+                     pose: dict, gan: dict, images: dict,
+                     artifact) -> dict:
     """The YOLO v3, CenterNet, pose, DCGAN, CycleGAN and MobileNet V1 CLI
     chains at once, one thread each (their processes share the card;
     their checks are their own and their seconds are not read as rates),
     each but CenterNet's ending in a ``predict`` CLI on ``images``; once
     the YOLO v3, pose, DCGAN and MobileNet V1 chains have trained, one
-    serving CLI over their checkpoints beside their eval and predict
-    CLIs, and once CenterNet's (the longest) has, one over its own
-    (:func:`_serve_chains`). Adds the NMS launches and the mAP, PCK and
-    GAN score lines to the summaries."""
+    serving CLI over their checkpoints and the converted
+    ``inception1_ref`` with its ``predict export`` artifact (``artifact``,
+    the future through which the converters offer them) beside their
+    eval and predict CLIs, and once CenterNet's (the longest) has, one
+    over its own (:func:`_serve_chains`). Adds the NMS launches and the
+    mAP, PCK and GAN score lines to the summaries. Returns the replies'
+    checks by model."""
     from concurrent.futures import Future, ThreadPoolExecutor
 
     ready = {name: Future() for name in (
@@ -3832,7 +4132,7 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
         served = [pool.submit(_timed, "chains' serving CLI", _serve_chains,
                               [ready[name] for name in (
                                   "yolov3", "hourglass104", "dcgan",
-                                  "mobilenet1")]),
+                                  "mobilenet1")] + [artifact]),
                   pool.submit(_timed, "centernet's serving CLI",
                               _serve_chains, [ready["centernet"]])]
         replies = {k: v for f in served for k, v in f.result().items()}
@@ -3843,6 +4143,7 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
         centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
         gan["dcgan_eval"], gan["cyclegan_eval"] = dc.result(), cy.result()
         mb.result()
+    return replies
 
 
 def phase_centernet(smi: str, workdir: Path) -> dict:
@@ -5008,6 +5309,16 @@ def _mobilenet_clis(workdir: Path, images: dict, offer) -> None:
     _predict_classify(wd / "mobilenet1", images["jpeg"])
 
 
+def _lrn_top5_served(replies: list, launches: dict, runners: dict) -> None:
+    """Finite top-5 answers, from graphs that launch 2 ``lrn_forward_f32``
+    a replay (``inception1_ref``'s stem LRNs)."""
+    for r in replies:
+        assert len(r["result"]["classes"]) == 5
+        assert np.all(np.isfinite(r["result"]["probs"])), r
+    assert all(b["launches"] == {"lrn_forward_f32": 2}
+               for b in runners["buckets"].values()), runners
+
+
 def _top5_served(replies: list, launches: dict, runners: dict) -> None:
     """Finite top-5 answers, from graphs that launch none of the port's
     kernels."""
@@ -5774,14 +6085,16 @@ def _reference_nets():
     return module
 
 
-def _converted(name: str, workdir: Path, image: str) -> dict:
+def _converted(name: str, workdir: Path, image: str, offer=None) -> dict:
     """A seeded reference-layout ``name`` (``tests/torch_reference_nets``,
     BN statistics away from 0 and 1) saved with ``torch.save``, converted
     by ``python -m deepvision_tpu_torch.convert`` (on the card, the
     default), then ``predict classify`` on its checkpoint: its top-5
     equal the source module's on the card, the probabilities within
     ``PREDICT_TOL``; the converted module's logits (``load_served``)
-    within ``PREDICT_TOL`` of the source's. Returns the CLI's launches."""
+    within ``PREDICT_TOL`` of the source's. With ``offer``, then
+    ``predict export`` of the checkpoint (:func:`_predict_export`), and
+    both offered to a serving CLI. Returns the CLI's launches."""
     import torch
 
     from deepvision_tpu_torch import predict
@@ -5826,20 +6139,69 @@ def _converted(name: str, workdir: Path, image: str) -> dict:
          f"{convert_s:.1f} s; predict classify's top-5 {top.tolist()} equal "
          f"the source module's on the card, logits {gap:.2e} apart; "
          f"launches {launches}")
-    shutil.rmtree(wd / name, ignore_errors=True)
-    return {"launches": launches, "convert_s": convert_s,
-            "predict_s": predict_s}
+    out = {"launches": launches, "convert_s": convert_s,
+           "predict_s": predict_s}
+    if offer is None:
+        shutil.rmtree(wd / name, ignore_errors=True)
+        return out
+    out["export"] = _predict_export(name, wd)
+    xs = (np.random.default_rng(2).normal(0, 1, (2, 224, 224, 3))
+          .astype(np.float32))
+    offer(_Offer(name, wd / name, xs, _lrn_top5_served,
+                 artifact=out["export"]["path"]))
+    return out
 
 
-def phase_converters(smi: str, workdir: Path, images: dict) -> dict:
+def _predict_export(name: str, wd: Path) -> dict:
+    """``python -m deepvision_tpu_torch.predict export -m name --workdir
+    wd/name -o wd/name.pt2`` through its entry point in this process (no
+    process of its own: the phases' processes already fill the host): its
+    line names the artifact and its megabytes, and the file loads with a
+    batch-1 float32 input and 2 ``deepvision.lrn_forward`` nodes for
+    ``inception1_ref``. Returns its path, megabytes and seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deepvision_tpu_torch import predict
+    from deepvision_tpu_torch.export import graph_ops, load_exported
+
+    path = wd / f"{name}.pt2"
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        predict.main(["export", "-m", name, "--workdir", str(wd / name),
+                      "-o", str(path)])
+    export_s = time.perf_counter() - t0
+    print(out.getvalue(), end="", flush=True)
+    mb = path.stat().st_size / 1e6
+    assert f"exported {mb:.1f} MB torch.export artifact to {path}" in (
+        out.getvalue()), out.getvalue()
+    program = load_exported(path)
+    assert [(tuple(a.shape), a.dtype) for a in program.in_avals] == [
+        ((1, 224, 224, 3), torch.float32)], program.in_avals
+    ops = graph_ops(program)
+    assert ops.get("deepvision.lrn_forward.default") == 2, ops
+    _say(f"[export-cli] predict export -m {name}: {mb:.1f} MB in "
+         f"{export_s:.1f} s; 2 deepvision.lrn_forward nodes")
+    return {"path": path, "mb": mb, "s": export_s}
+
+
+def phase_converters(smi: str, workdir: Path, images: dict,
+                     offer) -> dict:
     """:func:`_converted` for ``resnet50`` and ``inception1_ref`` (whose
-    stem LRNs launch ``lrn_forward_f32``) at once. Returns each one's
-    predict launches and seconds."""
+    stem LRNs launch ``lrn_forward_f32``) at once; ``inception1_ref``'s
+    checkpoint and its ``predict export`` artifact offered to a serving
+    CLI through ``offer``. Returns each one's predict launches and
+    seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(2) as pool:
-        runs = {name: pool.submit(_converted, name, workdir, images["jpeg"])
-                for name in ("resnet50", "inception1_ref")}
+        runs = {name: pool.submit(
+            _converted, name, workdir, images["jpeg"],
+            offer if name == "inception1_ref" else None)
+            for name in ("resnet50", "inception1_ref")}
         out = {name: run.result() for name, run in runs.items()}
     launches = {name: r["launches"] for name, r in out.items()}
     assert launches["inception1_ref"]["lrn_forward_f32"] == 2, launches
@@ -5955,6 +6317,7 @@ def main() -> int:
 
     yolo = phase_yolo(smi, workdir)
     torch.cuda.empty_cache()
+    export = _timed("export", phase_export, smi, workdir)
     hourglass = {"centernet": phase_centernet(smi, workdir),
                  "pose": phase_pose(smi, workdir)}
     gan = phase_gan(smi, workdir)
@@ -5963,19 +6326,36 @@ def main() -> int:
     # the resilience drills and the converters beside the model CLI chains:
     # all only wait on their own processes, and none of their numbers is a
     # rate
+    from concurrent.futures import Future
+
+    # the converted inception1_ref and its predict-export artifact, for
+    # CenterNet's serving CLI
+    artifact = Future()
     with ThreadPoolExecutor(3) as pool:
         drills = pool.submit(_timed, "resilience", phase_resilience, smi,
                              workdir, records["dir"])
-        converted = pool.submit(_timed, "converters", phase_converters, smi,
-                                workdir, images)
+        converted = pool.submit(_chain, artifact, "converters",
+                                phase_converters, smi, workdir, images)
         http = pool.submit(_timed, "HTTP server", phase_http, workdir,
                            *alexnet_http, _yolo_requests()[:2],
                            yolo.pop("answers")[-4:-2])
-        _timed("model CLIs", phase_model_clis, workdir, yolo,
-               hourglass["centernet"], hourglass["pose"], gan, images)
+        served = _timed("model CLIs", phase_model_clis, workdir, yolo,
+                        hourglass["centernet"], hourglass["pose"], gan,
+                        images, artifact)
         resilience = drills.result()
         converted = converted.result()
         http = http.result()
+    paths["export_alexnet1_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": export["alexnet1"].pop("lrn_launches")}
+    yolo["nms_launches"]["export_store"] = export["yolov3_store"].pop(
+        "nms_launches")
+    paths["serve_cli_artifact_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": served["inception1_ref" + ARTIFACT_SUFFIX]}
+    cli_export = converted["inception1_ref"].pop("export")
+    export["predict_export_cli"] = {"mb": cli_export["mb"],
+                                    "s": cli_export["s"]}
     paths["http_server_f32"] = {
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": http["launches"]["lrn_forward_f32"]}
@@ -6060,6 +6440,7 @@ def main() -> int:
     print(f"[loader] {json.dumps(loader)}")
     print(f"[offline] {json.dumps(offline)}")
     print(f"[graphs] {json.dumps({**GRAPHS, 'http': http})}")
+    print(f"[export] {json.dumps({**export, 'card': smi})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

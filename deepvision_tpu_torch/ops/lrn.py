@@ -7,13 +7,20 @@ axis with torch semantics:
 window of ``n`` channels centred at ``c`` (``n//2`` to the left,
 ``n-1-n//2`` to the right, zero beyond the edges).
 
-:func:`local_response_norm` is a ``torch.autograd.Function`` which, like
-the JAX ``_fwd``, saves only x: its backward recomputes the denominator.
-A CUDA tensor takes the hand-written kernels both ways
-(``ops/lrn_cuda.py``: ``csrc/lrn.cu`` forward, ``csrc/lrn_bwd.cu``
-backward), a CPU tensor the plain PyTorch versions both ways, so the CPU
-tests run the same analytic backward as the card. It never swaps one for
-the other: a CUDA tensor the kernels cannot take raises.
+The forward and the backward are ``torch.library`` custom ops,
+``deepvision::lrn_forward`` and ``deepvision::lrn_backward``, so that
+``torch.export`` keeps each one a node of its graph (``export.py``) in
+place of tracing into the ctypes launch or the plain version. Each has a
+``cpu`` implementation, the plain PyTorch version, a ``cuda`` one, the
+hand-written kernel (``ops/lrn_cuda.py``: ``csrc/lrn.cu`` forward,
+``csrc/lrn_bwd.cu`` backward), and a fake one that gives the shape and
+dtype alone. The window and the constants are op arguments, which an
+exported graph holds as constants. The forward's gradient is registered
+with ``register_autograd``: like the JAX ``_fwd`` it saves only x, and
+the backward op recomputes the denominator. A CPU tensor takes the plain
+versions both ways, so the CPU tests run the same analytic backward as
+the card; a CUDA tensor the kernels both ways, and one that they cannot
+take raises. No other device has an implementation.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from deepvision_tpu_torch.ops.lrn_cuda import (
 )
 
 __all__ = ["local_response_norm", "local_response_norm_reference",
-           "local_response_norm_backward_reference", "LocalResponseNorm"]
+           "local_response_norm_backward_reference", "lrn_forward",
+           "lrn_backward"]
 
 
 def _math_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -71,33 +79,62 @@ def local_response_norm_backward_reference(
     return dx.to(x.dtype)
 
 
-class LocalResponseNorm(torch.autograd.Function):
-    """The LRN with its analytic backward; saves x only."""
+@torch.library.custom_op("deepvision::lrn_forward", mutates_args=(),
+                         device_types="cpu")
+def lrn_forward(x: torch.Tensor, size: int, alpha: float, beta: float,
+                k: float) -> torch.Tensor:
+    """The LRN op; on the CPU the plain forward."""
+    return local_response_norm_reference(x, size, alpha, beta, k)
 
-    @staticmethod
-    def forward(ctx, x, size, alpha, beta, k):
-        ctx.save_for_backward(x)
-        ctx.lrn = (size, alpha, beta, k)
-        if x.device.type == "cpu":
-            return local_response_norm_reference(x, size, alpha, beta, k)
-        return local_response_norm_cuda(x, size, alpha, beta, k)
 
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        if x.device.type == "cpu":
-            dx = local_response_norm_backward_reference(x, g, *ctx.lrn)
-        else:
-            # layout, not a fallback: the gradient that reaches the LRN
-            # from max_pool2d's backward on the NCHW view can be NCHW in
-            # memory, and the kernel reads NHWC rows
-            dx = local_response_norm_backward_cuda(x, g.contiguous(),
-                                                   *ctx.lrn)
-        return dx, None, None, None, None
+@lrn_forward.register_kernel("cuda")
+def _lrn_forward_cuda(x, size, alpha, beta, k):
+    return local_response_norm_cuda(x, size, alpha, beta, k)
+
+
+@lrn_forward.register_fake
+def _lrn_forward_fake(x, size, alpha, beta, k):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op("deepvision::lrn_backward", mutates_args=(),
+                         device_types="cpu")
+def lrn_backward(x: torch.Tensor, g: torch.Tensor, size: int, alpha: float,
+                 beta: float, k: float) -> torch.Tensor:
+    """The LRN's gradient op; on the CPU the plain backward."""
+    return local_response_norm_backward_reference(x, g, size, alpha, beta, k)
+
+
+@lrn_backward.register_kernel("cuda")
+def _lrn_backward_cuda(x, g, size, alpha, beta, k):
+    # layout, not a fallback: the gradient that reaches the LRN from
+    # max_pool2d's backward on the NCHW view can be NCHW in memory, and
+    # the kernel reads NHWC rows
+    return local_response_norm_backward_cuda(x, g.contiguous(), size, alpha,
+                                             beta, k)
+
+
+@lrn_backward.register_fake
+def _lrn_backward_fake(x, g, size, alpha, beta, k):
+    return torch.empty_like(x)
+
+
+def _save_x(ctx, inputs, output):
+    x, *lrn = inputs
+    ctx.save_for_backward(x)
+    ctx.lrn = lrn
+
+
+def _lrn_grad(ctx, g):
+    (x,) = ctx.saved_tensors
+    return lrn_backward(x, g, *ctx.lrn), None, None, None, None
+
+
+lrn_forward.register_autograd(_lrn_grad, setup_context=_save_x)
 
 
 def local_response_norm(x: torch.Tensor, size: int = 5, alpha: float = 1e-4,
                         beta: float = 0.75, k: float = 2.0) -> torch.Tensor:
-    """The kernels for a CUDA tensor, the plain versions for a CPU one,
-    forward and backward."""
-    return LocalResponseNorm.apply(x, size, alpha, beta, k)
+    """``deepvision::lrn_forward``: the kernels for a CUDA tensor, the
+    plain versions for a CPU one, forward and backward."""
+    return lrn_forward(x, size, alpha, beta, k)

@@ -15,10 +15,14 @@ As in the JAX code, on each image:
    the dead flags), the first ``max_out`` kept, the rest zero.
 
 The sweep is the one step that stock PyTorch cannot express without K
-dependent launches: on a CUDA tensor it is ``csrc/nms.cu``
-(:func:`~deepvision_tpu_torch.ops.nms_cuda.nms_sweep_cuda`), and on a
-CPU tensor its plain version :func:`nms_sweep_reference`, the JAX
-``fori_loop`` in torch ops over the ``(B, K)`` masks. Both compute the
+dependent launches. It is the custom op ``deepvision::nms_sweep``: on a
+CUDA tensor ``csrc/nms.cu``
+(:func:`~deepvision_tpu_torch.ops.nms_cuda.nms_sweep_cuda`, which writes
+a fresh mask and only reads ``alive``), on a CPU tensor its plain
+version :func:`nms_sweep_reference`, the JAX ``fori_loop`` in torch ops
+over the ``(B, K)`` masks, and a fake implementation for
+``torch.export``, so that an exported detector holds the op as one node
+and never the unrolled loop. Both compute the
 IoU with :func:`~deepvision_tpu_torch.ops.iou.broadcast_iou`'s float32
 operations in the same order (trap C18) and keep identical indices.
 
@@ -56,18 +60,35 @@ def nms_sweep_reference(boxes: torch.Tensor, alive: torch.Tensor,
     return alive
 
 
+@torch.library.custom_op("deepvision::nms_sweep", mutates_args=(),
+                         device_types="cpu")
+def _nms_sweep_op(boxes: torch.Tensor, alive: torch.Tensor,
+                  iou_thresh: float) -> torch.Tensor:
+    return nms_sweep_reference(boxes, alive, iou_thresh)
+
+
+@_nms_sweep_op.register_kernel("cuda")
+def _nms_sweep_cuda(boxes, alive, iou_thresh):
+    from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
+
+    return nms_sweep_cuda(boxes, alive, iou_thresh)
+
+
+@_nms_sweep_op.register_fake
+def _nms_sweep_fake(boxes, alive, iou_thresh):
+    return torch.empty_like(alive)
+
+
 def nms_sweep(boxes: torch.Tensor, alive: torch.Tensor,
               iou_thresh: float) -> torch.Tensor:
-    """The sweep for tensors on either device: the CUDA kernel for a
-    CUDA tensor (which launches or raises), the plain version for a CPU
-    one."""
-    if boxes.is_cuda:
-        from deepvision_tpu_torch.ops.nms_cuda import nms_sweep_cuda
-
-        return nms_sweep_cuda(boxes, alive, iou_thresh)
-    if boxes.device.type != "cpu":
+    """The sweep as the op ``deepvision::nms_sweep``, which
+    ``torch.export`` keeps as one node (the threshold a constant of the
+    graph): the CUDA kernel for a CUDA tensor (which launches or
+    raises), the plain version for a CPU one, shape and dtype alone for
+    a fake one."""
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS sweep for a tensor on {boxes.device}")
-    return nms_sweep_reference(boxes, alive, iou_thresh)
+    return _nms_sweep_op(boxes, alive, iou_thresh)
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,8 @@
         IMG -o out.png [--direction a2b] [--size 256]
     python -m deepvision_tpu_torch.predict curves --workdir runs/resnet50 \
         -o curves.png
+    python -m deepvision_tpu_torch.predict export -m resnet50 \
+        --workdir runs/resnet50 [-o resnet50.pt2] [--num-classes 1000]
 
 Every subcommand but ``curves`` takes ``--device``: ``cuda`` (the
 default, which raises without a card) or ``cpu``. ``classify``,
@@ -32,9 +34,12 @@ PATH`` also writes the answers (the top-k, the boxes, the joints, an
 image's float pixels) as JSON. ``curves``
 plots the metric history a checkpoint keeps and needs matplotlib (which
 the card's machine lacks); without it, it exits with a message that
-says so. ``export`` is not ported (it waits for the serving core's
-``torch.export`` artifacts). The last stderr line counts the kernel
-launches.
+says so. ``export`` writes the restored model's eval-mode forward at
+batch 1 in float32 as a ``torch.export`` artifact (``export.py``; the
+LRN kernels stay ``deepvision::lrn_forward`` nodes), which ``python -m
+deepvision_tpu_torch.serve --artifact`` serves without the model's code;
+it runs on the device it was exported on. The last stderr line counts
+the kernel launches.
 """
 
 from __future__ import annotations
@@ -330,6 +335,28 @@ def cmd_curves(args) -> None:
     print(f"wrote {args.output} ({len(metrics)} curves, epoch {epoch})")
 
 
+def cmd_export(args) -> None:
+    from deepvision_tpu_torch.export import (
+        SUFFIX,
+        export_forward,
+        save_exported,
+    )
+    from deepvision_tpu_torch.serve.models import restore_state
+
+    device = _device(args)
+    module, geo = restore_state(args.model, args.workdir, device=device,
+                                input_size=args.size,
+                                num_classes=args.num_classes)
+    _weights(args.workdir)
+    size = geo["input_size"]
+    sample = np.zeros((1, size, size, geo["channels"]), np.float32)
+    data = export_forward(module, sample)
+    out = args.output or f"{args.model}{SUFFIX}"
+    save_exported(out, data)
+    print(f"exported {len(data) / 1e6:.1f} MB torch.export artifact to "
+          f"{out}")
+
+
 def _jsonable(result):
     if isinstance(result, np.ndarray):
         return result.tolist()
@@ -390,6 +417,15 @@ def main(argv=None) -> int:
     sp.add_argument("--workdir", required=True)
     sp.add_argument("-o", "--output", default="curves.png")
     sp.set_defaults(fn=cmd_curves)
+    sp = sub.add_parser("export")
+    common(sp, model="resnet50", images=False)
+    sp.add_argument("-o", "--output", default=None,
+                    help="the artifact's path (default {model}.pt2)")
+    sp.add_argument("--num-classes", type=int, default=1000)
+    sp.add_argument("--size", type=int, default=None,
+                    help="the input size (default the checkpoint's, else "
+                         "the config's)")
+    sp.set_defaults(fn=cmd_export)
     args = p.parse_args(argv)
     result = args.fn(args)
     if getattr(args, "json", None):

@@ -2,13 +2,20 @@
 
 ``python -m deepvision_tpu_torch.serve -m alexnet1`` runs the stdin-JSONL
 server, and with ``--http PORT`` the HTTP one (``__main__.py``,
-``http.py``).
+``http.py``); ``--artifact`` serves a ``torch.export`` artifact
+(``models.from_exported``) and ``--store`` warms from an artifact store
+(``artifact_store.py``).
 """
 
 from deepvision_tpu_torch.serve.admission import ShedError
+from deepvision_tpu_torch.serve.artifact_store import ArtifactStore
 from deepvision_tpu_torch.serve.compile_cache import CompileCache
 from deepvision_tpu_torch.serve.engine import InferenceEngine
-from deepvision_tpu_torch.serve.models import ServedModel, load_served
+from deepvision_tpu_torch.serve.models import (
+    ServedModel,
+    from_exported,
+    load_served,
+)
 
-__all__ = ["CompileCache", "InferenceEngine", "ServedModel", "ShedError",
-           "load_served"]
+__all__ = ["ArtifactStore", "CompileCache", "InferenceEngine", "ServedModel",
+           "ShedError", "from_exported", "load_served"]

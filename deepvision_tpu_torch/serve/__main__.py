@@ -40,6 +40,18 @@ then 200. On the card every (model, bucket) is a CUDA graph captured at
 start-up; the runner cache is frozen after it, so that no request pays a
 capture. SIGINT stops the server. The fleet mode of ``serve.py`` comes
 later.
+
+    python -m deepvision_tpu_torch.predict export -m alexnet1 -o a.pt2
+    python -m deepvision_tpu_torch.serve --artifact alexnet1=a.pt2
+    python -m deepvision_tpu_torch.serve -m yolov3 --store aot/
+
+``--artifact [NAME=]PATH`` (repeatable) serves a ``torch.export``
+artifact of a classifier (``predict export``) without the model's code,
+on its exported batch alone (``serve/models.from_exported``); NAME
+defaults to the file's stem. ``--store DIR`` keeps every traced (model,
+bucket) request program in an artifact store (``serve/artifact_store.py``)
+and warms from it at the next start; the warm line counts the runners
+that came from it.
 """
 
 from __future__ import annotations
@@ -54,18 +66,34 @@ import numpy as np
 from deepvision_tpu_torch.serve.admission import ShedError
 from deepvision_tpu_torch.serve.engine import InferenceEngine
 from deepvision_tpu_torch.serve.http import run_http
-from deepvision_tpu_torch.serve.models import load_served
+from deepvision_tpu_torch.serve.models import from_exported, load_served
+
+
+def _parse_spec(spec: str) -> tuple[str, str | None]:
+    """``NAME[=PATH]`` -> (NAME, PATH or None), as ``serve.py`` parses
+    it."""
+    name, _, path = spec.partition("=")
+    return name, path or None
 
 
 def build_engine(args) -> InferenceEngine:
     models = []
-    for spec in args.model:
-        name, _, workdir = spec.partition("=")
+    for spec in args.model or []:
+        name, workdir = _parse_spec(spec)
         models.append(load_served(
-            name, workdir or None, seed=args.seed, device=args.device,
+            name, workdir, seed=args.seed, device=args.device,
             input_size=args.input_size, num_classes=args.num_classes,
             top_k=args.top, score_thresh=args.score,
             iou_thresh=args.iou))
+    for spec in args.artifact or []:
+        name, path = _parse_spec(spec)
+        if path is None:
+            name, path = None, name
+        models.append(from_exported(path, name=name, top_k=args.top,
+                                    device=args.device))
+    if not models:
+        sys.exit("no models: pass -m NAME[=WORKDIR] or --artifact "
+                 "[NAME=]PATH")
     buckets = tuple(int(b) for b in args.buckets.split(","))
     injector = None
     if args.faults:
@@ -80,10 +108,13 @@ def build_engine(args) -> InferenceEngine:
         per_model_limit=args.per_model_limit,
         batch_window_s=args.batch_window_ms / 1e3, freeze_cache=True,
         fault_injector=injector,
-        restart_backoff_s=args.restart_backoff_s)
+        restart_backoff_s=args.restart_backoff_s, store=args.store)
     stats = engine.stats()
+    from_store = stats["warmed_from_store"]
     print(f"warmup done in {engine.warmup_s}s ({stats['cache']['entries']} "
-          f"runners); precision {engine.precision}", file=sys.stderr)
+          f"runners" + (f", {len(from_store)} from store" if from_store
+                        else "") + f"); precision {engine.precision}",
+          file=sys.stderr)
     # by model: runner kind, graph pool bytes, each bucket's launches a call
     print(f"[serve] runners {json.dumps(stats['runners'])}", file=sys.stderr)
     return engine
@@ -149,9 +180,17 @@ def main(argv=None, stdin=None, stdout=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m deepvision_tpu_torch.serve",
         description=__doc__.split("\n\n")[0])
-    p.add_argument("-m", "--model", action="append", required=True,
-                   metavar="NAME", help="registry model to serve "
+    p.add_argument("-m", "--model", action="append", metavar="NAME",
+                   help="NAME[=WORKDIR], a registry model to serve "
                    "(repeatable)")
+    p.add_argument("--artifact", action="append", metavar="[NAME=]PATH",
+                   help="a torch.export artifact of a classifier "
+                   "(predict export) to serve at its exported batch "
+                   "(repeatable)")
+    p.add_argument("--store", default=None, metavar="DIR",
+                   help="artifact store: warm the runners from this "
+                   "directory's verified request programs instead of "
+                   "tracing (misses are traced and exported into it)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu, which is never chosen "
                    "for you")

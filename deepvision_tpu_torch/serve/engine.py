@@ -37,8 +37,19 @@ Guarantees, as in the twin:
   (``resilience/faults.FaultInjector``) crashes the loop on schedule
   (``crash@N``) where the twin's does.
 
-Multi-tenancy, the artifact store, pipelines and sessions belong to
-later slices of the port.
+The artifact store (``serve/artifact_store.py``, ``store=``): every
+(model, bucket) first tries the disk, where a verified request program
+of this device and these weights (``ServedModel.export_bytes``) loads
+and becomes its runner (``stats()["warmed_from_store"]``) in place of
+tracing the model; a miss is traced as before and exported back into
+the store. A runner over a loaded program (from the store, or a model
+served from an artifact, ``models.from_exported``) runs once on a zero
+batch through the request path before any request. A stored program that
+loads but fails to run is logged, rejected into ``quarantine/`` and the
+model traced; a failed export is logged: the store never fails a
+warm-up. An artifact's ladder is its exported batch
+(``ServedModel.buckets``). Multi-tenancy, pipelines and sessions belong
+to later slices of the port.
 
 The engine runs its models in true float32: it turns TF32 off for
 cuDNN and cuBLAS (``device.strict_fp32``) before it captures any graph.
@@ -57,6 +68,10 @@ import numpy as np
 
 from deepvision_tpu_torch.device import strict_fp32
 from deepvision_tpu_torch.serve.admission import AdmissionController, ShedError
+from deepvision_tpu_torch.serve.artifact_store import (
+    ArtifactStore,
+    device_desc,
+)
 from deepvision_tpu_torch.serve.compile_cache import CompileCache
 from deepvision_tpu_torch.serve.models import ServedModel
 from deepvision_tpu_torch.serve.telemetry import ServeTelemetry
@@ -91,7 +106,9 @@ class InferenceEngine:
     ``FaultInjector`` whose ``check_dispatch`` runs before each batch.
     ``restart_backoff_s`` and ``restart_backoff_max_s``: the
     supervisor's first and largest wait before it restarts a crashed
-    dispatcher (doubling between).
+    dispatcher (doubling between). ``store``: an ``ArtifactStore`` or
+    its directory, from which :meth:`warm` loads request programs and
+    into which it exports the ones it traces.
     """
 
     def __init__(
@@ -107,6 +124,7 @@ class InferenceEngine:
         fault_injector=None,
         restart_backoff_s: float = 0.05,
         restart_backoff_max_s: float = 5.0,
+        store=None,
     ):
         self._models = {m.name: m for m in models}
         if not self._models:
@@ -144,6 +162,12 @@ class InferenceEngine:
         self._restart_backoff_s = restart_backoff_s
         self._restart_backoff_max_s = restart_backoff_max_s
         self._backoff_reset_s = 5.0  # healthy this long resets the backoff
+        if store is not None and not isinstance(store, ArtifactStore):
+            store = ArtifactStore(store, log=self._log)
+        self._store = store
+        # the (model, bucket, dtype, fingerprint) keys whose runners came
+        # off the disk instead of a trace
+        self._from_store: set = set()
         self.warm()
         if freeze_cache:
             self._cache.freeze()
@@ -159,6 +183,17 @@ class InferenceEngine:
         fp = getattr(m, "weights_fingerprint", None)
         return (m.name, bucket, m.dtype_str,
                 fp() if fp is not None else "static")
+
+    @staticmethod
+    def _log(*args, **kw) -> None:
+        # store chatter goes to stderr: stdout is the JSONL stream when
+        # the serving CLI hosts this engine
+        print(*args, file=sys.stderr, **kw)
+
+    def ladder(self, m: ServedModel) -> tuple[int, ...]:
+        """``m``'s bucket ladder: its own (an artifact's exported batch)
+        or the engine's."""
+        return m.buckets if m.buckets else self.buckets
 
     def _build(self, m: ServedModel, bucket: int):
         pool = None
@@ -176,14 +211,94 @@ class InferenceEngine:
         and a CUDA graph's capture, the largest bucket first: the smaller
         graphs then fit in the pool's blocks that the larger one's
         intermediates freed, and the pool holds about what the largest
-        bucket needs, not the sum over the ladder."""
+        bucket needs, not the sum over the ladder.
+
+        With a store, each (model, bucket) but an artifact's first tries
+        the disk: a verified program of this device and these weights loads
+        into the cache (``install``, no miss counted) in place of the
+        trace. A miss is traced as before and exported into the store, so
+        that the first server over a directory fills it for the next. A
+        runner over a loaded program (from the store or an artifact) then
+        runs once on a zero batch through the request path; one from the
+        store that fails to build or run is rejected into quarantine and
+        the model traced."""
         t0 = time.perf_counter()
         for m in self._models.values():
-            for bucket in reversed(self.buckets):
-                self._cache.get_or_build(
-                    self._model_key(m, bucket),
-                    lambda m=m, bucket=bucket: self._build(m, bucket))
+            for bucket in reversed(self.ladder(m)):
+                key = self._model_key(m, bucket)
+                # an artifact already is a serialized program
+                storing = self._store is not None and not m.exported
+                program = (self._load_store_program(m, bucket) if storing
+                           else None)
+                if program is not None:
+                    try:
+                        runner = self._build(m.with_program(program), bucket)
+                        self._zero_run(m, runner, bucket)
+                    except Exception as e:
+                        # no re-export: this very program just failed
+                        # to run from its serialized form here
+                        self._log(f"[artifact-store] {m.name}@{bucket}: "
+                                  f"stored program failed to run ({e}); "
+                                  "rejecting + re-tracing")
+                        self._reject_store_entry(m, bucket, reason=str(e))
+                        storing = False
+                    else:
+                        self._cache.install(key, runner)
+                        self._from_store.add(key)
+                        continue
+                runner = self._cache.get_or_build(
+                    key, lambda m=m, bucket=bucket: self._build(m, bucket))
+                if m.exported:
+                    self._zero_run(m, runner, bucket)
+                if storing:
+                    self._save_store_entry(m, bucket)
         self.warmup_s = round(time.perf_counter() - t0, 3)
+
+    @staticmethod
+    def _zero_run(m: ServedModel, runner, bucket: int) -> None:
+        runner(np.zeros((bucket, *m.input_shape), m.input_dtype))
+
+    def _store_key(self, m: ServedModel, bucket: int) -> dict:
+        return {"model": m.name, "bucket": bucket, "dtype": m.dtype_str,
+                "device": device_desc(m.device),
+                "fingerprint": m.weights_fingerprint()}
+
+    def _load_store_program(self, m: ServedModel, bucket: int):
+        """Verified store bytes -> the loaded program, or None (a miss, a
+        corrupt entry that the store quarantined, bytes that do not
+        load): the caller traces the model, so that the store never
+        fails a warm-up, only shortens it."""
+        from deepvision_tpu_torch.export import deserialize_exported
+
+        data = self._store.get(**self._store_key(m, bucket))
+        if data is None:
+            return None
+        try:
+            return deserialize_exported(data)
+        except Exception as e:
+            self._log(f"[artifact-store] {m.name}@{bucket}: load failed "
+                      f"({e}); re-tracing")
+            return None
+
+    def _save_store_entry(self, m: ServedModel, bucket: int) -> None:
+        """Best-effort export into the store: a full disk must never take
+        serving down with it."""
+        try:
+            self._store.put(m.export_bytes(bucket),
+                            **self._store_key(m, bucket))
+        except Exception as e:
+            self._log(f"[artifact-store] export {m.name}@{bucket} "
+                      f"failed: {e}")
+
+    def _reject_store_entry(self, m: ServedModel, bucket: int, *,
+                            reason: str) -> None:
+        """Quarantine a store entry that loaded but could not run here,
+        best-effort like every store write."""
+        try:
+            self._store.reject(**self._store_key(m, bucket), reason=reason)
+        except Exception as e:
+            self._log(f"[artifact-store] reject {m.name}@{bucket} "
+                      f"failed: {e}")
 
     def _bucket_runner(self, served: ServedModel, bucket: int):
         """The cached runner of (model, bucket)."""
@@ -232,8 +347,9 @@ class InferenceEngine:
 
     def stats(self) -> dict:
         """JSON-able state for ``/stats``: models, ladder, health, queue,
-        the runner cache, the runners and telemetry."""
-        return {
+        the runner cache, the runners, the runners that came from the
+        store (and the store's counters) and telemetry."""
+        out = {
             "models": sorted(self._models),
             "devices": {n: str(m.device) for n, m in self._models.items()},
             "buckets": list(self.buckets),
@@ -243,8 +359,13 @@ class InferenceEngine:
             "queue": self._admission.stats(),
             "cache": self._cache.stats(),
             "runners": self.runner_stats(),
+            "warmed_from_store": sorted(
+                f"{k[0]}@{k[1]}" for k in self._from_store),
             "telemetry": self.telemetry.snapshot(),
         }
+        if self._store is not None:
+            out["artifact_store"] = self._store.stats()
+        return out
 
     def runner_stats(self) -> dict:
         """By model: the kind of its runners, the bytes its graph memory
@@ -329,7 +450,6 @@ class InferenceEngine:
     def _dispatch_loop(self) -> None:
         pending = self._pending
         rr = list(self._models)  # round-robin cursor over models
-        ladder_max = self.buckets[-1]
         while not self._stop.is_set():
             if self._paused.is_set():
                 self._stop.wait(0.002)
@@ -340,6 +460,7 @@ class InferenceEngine:
             name = self._next_model(pending, rr)
             if name is None:
                 continue
+            ladder_max = self.ladder(self._models[name])[-1]
             self._fill_window(pending, name, ladder_max)
             reqs = pending[name][:ladder_max]
             del pending[name][:ladder_max]
@@ -436,16 +557,17 @@ class InferenceEngine:
                 live.append(r)
         return live
 
-    def _bucket_for(self, n: int) -> int:
-        for b in self.buckets:
+    def _bucket_for(self, served: ServedModel, n: int) -> int:
+        ladder = self.ladder(served)
+        for b in ladder:
             if b >= n:
                 return b
-        return self.buckets[-1]
+        return ladder[-1]
 
     def _run_batch(self, served: ServedModel, reqs: list[_Request]) -> None:
         t_dispatch = time.perf_counter()
         n = len(reqs)
-        bucket = self._bucket_for(n)
+        bucket = self._bucket_for(served, n)
         x = np.zeros((bucket, *served.input_shape), served.input_dtype)
         for i, r in enumerate(reqs):
             x[i] = r.x

@@ -60,7 +60,8 @@ from deepvision_tpu_torch.train.checkpoint import CheckpointManager
 from deepvision_tpu_torch.train.configs import get_config
 
 __all__ = ["ServedModel", "CudaGraphRunner", "EagerRunner", "load_served",
-           "restore_state", "model_geometry", "task_for", "input_scale"]
+           "from_exported", "restore_state", "model_geometry", "task_for",
+           "input_scale"]
 
 # the served task of each model that is not a classifier ("gan" serves
 # the DCGAN generator: the input is the noise z, the output an image)
@@ -92,7 +93,10 @@ class ServedModel:
     """One model the engine can serve. ``forward`` maps a device batch
     to a dict of device tensors with the batch on axis 0;
     ``postprocess`` turns row ``i`` of the fetched (numpy) outputs into
-    a JSON-able dict."""
+    a JSON-able dict. ``buckets`` overrides the engine's ladder (an
+    artifact is pinned to the batch it was exported at); ``exported``
+    marks a model whose forward is a loaded ``torch.export`` program
+    (:func:`from_exported`)."""
 
     name: str
     task: str
@@ -103,6 +107,8 @@ class ServedModel:
     forward: Callable[[torch.Tensor], dict]
     input_dtype: Any = np.float32
     scale: str = "imagenet"
+    buckets: tuple[int, ...] | None = None
+    exported: bool = False
     _fingerprint: str | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -131,6 +137,26 @@ class ServedModel:
         x = torch.from_numpy(np.ascontiguousarray(batch, self.input_dtype))
         with torch.inference_mode():
             return _to_host(self.forward(x.to(self.device)))
+
+    def export_bytes(self, bucket: int) -> bytes:
+        """The whole request program at ``bucket``, the forward and the
+        task head with the current weights, as ``torch.export`` bytes
+        (``export.export_callable``): what the artifact store keeps under
+        this model's :meth:`weights_fingerprint`, so that a fresh server
+        loads it instead of tracing."""
+        from deepvision_tpu_torch.export import export_callable
+
+        dtype = torch.from_numpy(np.zeros(0, self.input_dtype)).dtype
+        return export_callable(self.forward,
+                               [((bucket, *self.input_shape), dtype)],
+                               device=self.device, module=self.module)
+
+    def with_program(self, program) -> "ServedModel":
+        """This model served by ``program`` (a loaded request program of
+        :meth:`export_bytes`) in place of its forward: same name, key,
+        task head and post-process."""
+        return dataclasses.replace(self, forward=program, exported=True,
+                                   _fingerprint=self.weights_fingerprint())
 
     def compile_for(self, bucket: int, pool=None):
         """The runner of batches of ``bucket`` rows, ``host batch -> host
@@ -491,3 +517,38 @@ def load_served(name: str, workdir: str | None = None, *,
         name=name, task=task, module=module,
         input_shape=(size, size, geo["channels"]), postprocess=post,
         device=dev, forward=forward, scale=input_scale(name))
+
+
+def from_exported(path: str | Path, *, name: str | None = None,
+                  task: str = "classify", top_k: int = 5,
+                  device: str | torch.device | None = None) -> ServedModel:
+    """An ``export.py`` artifact of a classifier's logits
+    (``export_forward``, ``predict export``) as a :class:`ServedModel`,
+    the twin of the JAX ``from_stablehlo``: the top-``top_k`` head runs
+    on the program's logits. The artifact is shape-specialized, so its
+    bucket ladder is the exported batch alone. It runs on the device it
+    was exported on, which must be ``device`` (default ``"cuda"``, which
+    raises without a card); its key's fingerprint is the artifact's
+    SHA-256."""
+    import hashlib
+
+    from deepvision_tpu_torch.export import deserialize_exported
+
+    if task != "classify":
+        raise ValueError(f"an artifact serves classify heads only, got task "
+                         f"{task!r}")
+    dev = resolve_device(device)
+    data = Path(path).read_bytes()
+    program = deserialize_exported(data)
+    if program.device.type != dev.type:
+        raise ValueError(f"{path} was exported on {program.device} and "
+                         f"runs there only; asked to serve it on {dev}")
+    (spec,) = program.in_avals  # export_forward exports a one-input forward
+    batch, *input_shape = spec.shape
+    return ServedModel(
+        name=name or Path(path).stem, task=task, module=program.module,
+        input_shape=tuple(input_shape), postprocess=_classify_post,
+        device=program.device, forward=_classify_forward(program, top_k),
+        input_dtype=torch.empty((), dtype=spec.dtype).numpy().dtype,
+        buckets=(int(batch),), exported=True,
+        _fingerprint=hashlib.sha256(data).hexdigest())
