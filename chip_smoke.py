@@ -349,6 +349,18 @@ the seconds it took:
    a third engine, which traces both and answers the same bits. It
    prints the export seconds, the artifacts' megabytes and the warm-up
    seconds cold and from the store.
+27. The serving fleet (``phase_fleet``, beside 25 and 19's chains): ``python -m deepvision_tpu_torch.serve --fleet 2 -m
+   alexnet1 -m yolov3 --buckets 1,4 --http 0 --store DIR --hedge-after 1
+   --faults replica_kill@2,replica_slow@5:4``: a router process that
+   holds no card file over two replica processes that do; the third
+   request's replica SIGKILLed and the request answered by failover, the
+   replica respawned and warmed from the store the first generation
+   filled concurrently (every runner from the store, no miss; one
+   verified blob a key, nothing quarantined), the first request after
+   the respawn hedged, 25's inputs answered as 25 holds them, the
+   federated ``/metrics`` against the replicas' ``/stats``, each
+   replica's runners and true kernel launches, and SIGINT: the router 0,
+   its children 143 after their ``[serve]`` lines.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -577,6 +589,17 @@ REENCODE_MEAN_LSB = 2.0
 EXPORT_BUCKET = 4
 STORE_BUCKETS = (1, 4)
 ARTIFACT_SUFFIX = "_pt2"  # the model name of a served predict-export file
+# phase_fleet: the replica chosen for the third routed attempt (the third
+# request's first) is SIGKILLed; the sixth attempt (the first request
+# after the respawn: the third request's failover is the fourth) waits
+# FLEET_SLOW_S before it is sent, and is hedged after FLEET_HEDGE_S
+FLEET_KILL_AT = 2
+FLEET_SLOW_AT = 5
+FLEET_SLOW_S = 4.0
+FLEET_HEDGE_S = 1.0
+FLEET_FAULTS = (f"replica_kill@{FLEET_KILL_AT},"
+                f"replica_slow@{FLEET_SLOW_AT}:{FLEET_SLOW_S}")
+FLEET_PAIRS = 3  # concurrent (alexnet1, yolov3) pairs at the end
 
 
 def _say(*parts) -> None:
@@ -1502,6 +1525,294 @@ def _http_yolo_check(http: list, engine: list) -> None:
          f"{_same_bits(http, engine)})")
 
 
+def _fleet_replicas(tmp: Path) -> dict[str, int]:
+    """The fleet's replicas that have written their port file, by slot
+    id (``ProcessReplica`` writes its child's under
+    ``$TMPDIR/dvt-replica-<sid>-*/``)."""
+    out = {}
+    for d in sorted(tmp.glob("dvt-replica-*")):
+        port = d / "port"
+        if port.exists() and port.read_text().strip():
+            out[d.name.split("-")[2]] = int(port.read_text())
+    return out
+
+
+def _children(pid: int) -> list[int]:
+    """The live processes whose parent is ``pid``, from ``/proc``."""
+    out = []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(stat.parent.name))
+    return sorted(out)
+
+
+def _card_files(pid: int) -> int:
+    """How many of ``pid``'s open files are the card's device files
+    (``/dev/nvidia*``): none until the process initializes CUDA."""
+    n = 0
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            n += os.readlink(fd).startswith("/dev/nvidia")
+        except OSError:
+            continue
+    return n
+
+
+def _verified_store(store: Path) -> dict[str, str]:
+    """The store's manifest entries, each blob read back against its
+    recorded size and SHA-256, by ``model@bucket``; asserts nothing is
+    quarantined."""
+    import hashlib
+
+    entries = json.loads((store / "manifest.json").read_text())["entries"]
+    out = {}
+    for e in entries.values():
+        data = (store / e["file"]).read_bytes()
+        assert len(data) == e["size"], e
+        assert hashlib.sha256(data).hexdigest() == e["sha256"], e
+        out[f"{e['model']}@{e['bucket']}"] = f"{len(data) / 1e6:.1f} MB"
+    quarantine = store / "quarantine"
+    assert not quarantine.exists() or not any(quarantine.iterdir()), \
+        sorted(quarantine.iterdir())
+    return dict(sorted(out.items()))
+
+
+def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
+                yolo_xs: np.ndarray, yolo: list) -> dict:
+    """The serving fleet as a user starts it: ``python -m
+    deepvision_tpu_torch.serve --fleet 2 -m alexnet1 -m yolov3 --buckets
+    1,4 --http 0 --port-file F --store DIR --hedge-after FLEET_HEDGE_S
+    --faults FLEET_FAULTS`` (seeded weights, a fresh store). The router
+    process must hold no card file (``/dev/nvidia*``) open, each replica
+    must. Requests go through the router one at a time, then in
+    concurrent pairs: the third request's replica is SIGKILLed
+    (``replica_kill``) and the request answered by failover; the router
+    respawns the replica, which warms every runner from the store the
+    first generation filled (0 traced, 0 cache misses); the first
+    request after the respawn is delayed ``FLEET_SLOW_S``
+    (``replica_slow``) and hedged to the other replica, which answers,
+    once. Every ``alexnet1`` answer equals the
+    in-process engine's at bucket 1 bit for bit, every ``yolov3`` one
+    passes :func:`_http_yolo_check`. ``/stats``: a failover, one death,
+    one restart, a hedge won, nothing failed; ``/healthz`` two ready
+    replicas; ``/metrics`` the ``router_*`` families and each replica's
+    ``serve_*`` counters under ``replica="rN"``, equal to the replicas'
+    own ``/stats``; each replica's runners a CUDA graph a bucket with 2
+    ``lrn_forward_f32`` (``alexnet1``) and 1 ``nms_sweep`` (``yolov3``)
+    a replay; the store one verified blob a key and nothing quarantined.
+    SIGINT ends the router with 0 and its children with 143, each after
+    its ``[serve]`` line. Returns the live replicas' true kernel launches
+    (their ``/stats``; the killed replica's are lost with it) and the
+    readings."""
+    import concurrent.futures
+
+    import torch
+
+    from deepvision_tpu_torch.obs.distributed import parse_prometheus
+
+    root = workdir / "fleet"
+    shutil.rmtree(root, ignore_errors=True)
+    tmp, store = root / "tmp", root / "aot"
+    tmp.mkdir(parents=True)
+    port_file, log = root / "router.port", root / "router.log"
+    cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "--fleet",
+           "2", "-m", "alexnet1", "-m", "yolov3", "--buckets", "1,4",
+           "--http", "0", "--port-file", str(port_file), "--store",
+           str(store), "--hedge-after", str(FLEET_HEDGE_S), "--faults",
+           FLEET_FAULTS]
+    inputs = {"alexnet1": alexnet_xs, "yolov3": yolo_xs}
+    answers: list[tuple[str, int, tuple]] = []  # (model, input, reply)
+
+    def ask(port: int, model: str, i: int) -> tuple:
+        reply = _http(port, "POST", "/v1/predict",
+                      _b64_request(model, inputs[model][i]))
+        answers.append((model, i, reply))
+        return reply
+
+    def get(port: int, path: str):
+        code, _, body = _http(port, "GET", path)
+        assert code == 200, (path, code, body[:2000])
+        return body if path == "/metrics" else json.loads(body)
+
+    t0 = time.perf_counter()
+    with open(log, "w") as err:
+        proc = subprocess.Popen(
+            cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
+            env={**os.environ, "PYTHONPATH": str(ROOT), "TMPDIR": str(tmp)})
+    try:
+        while not port_file.exists():
+            assert proc.poll() is None, _log_text(log)[-4000:]
+            assert time.perf_counter() - t0 < 600, _log_text(log)[-4000:]
+            time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        port = int(port_file.read_text())
+        first = {sid: get(p, "/stats")
+                 for sid, p in _fleet_replicas(tmp).items()}
+        kids = _children(proc.pid)
+        card_files = {pid: _card_files(pid) for pid in [proc.pid, *kids]}
+        apps = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
+        free_before = torch.cuda.mem_get_info()[0]
+        ask(port, "alexnet1", 0)
+        ask(port, "yolov3", 0)
+        ask(port, "alexnet1", 1)  # its replica is SIGKILLed
+        ask(port, "yolov3", 1)
+        t_kill = time.perf_counter()
+        while get(port, "/healthz")["replicas_ready"] < 2:
+            assert time.perf_counter() - t_kill < 300, \
+                _log_text(log)[-4000:]
+            time.sleep(0.1)
+        respawn_s = time.perf_counter() - t_kill
+        free_after = torch.cuda.mem_get_info()[0]
+        t_hedge = time.perf_counter()
+        ask(port, "alexnet1", 0)  # delayed, hedged
+        hedged_s = time.perf_counter() - t_hedge
+        while any(r["inflight"] for r in get(port, "/stats")["replicas"]):
+            assert time.perf_counter() - t_hedge < 60
+            time.sleep(0.05)
+        # concurrent pairs reach both replicas (least in flight first)
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for k in range(FLEET_PAIRS):
+                list(pool.map(lambda m, k=k: ask(port, m, k % 2),
+                              ("alexnet1", "yolov3")))
+        stats = get(port, "/stats")
+        health = get(port, "/healthz")
+        metrics = get(port, "/metrics").decode()
+        live = _fleet_replicas(tmp)
+        ids = {r["id"] for r in stats["replicas"]}
+        replicas = {sid: get(p, "/stats") for sid, p in live.items()
+                    if sid in ids}
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+    text = _log_text(log)
+    assert rc == 0, text[-4000:]
+    # the router holds no card file, every replica does. (nvidia-smi's
+    # compute apps, printed, cannot tell: in a container it may give
+    # every process's pid as the host's or as 1)
+    assert card_files[proc.pid] == 0, card_files
+    assert len(kids) == 2 and all(card_files[k] > 0 for k in kids), \
+        card_files
+    for model, i, (code, _, body) in answers:
+        assert code == 200, (model, i, code, body[:2000])
+    alex = [(i, json.loads(b)["result"]) for m, i, (_, _, b) in answers
+            if m == "alexnet1"]
+    gaps = [(i, r["classes"] == alexnet[i]["classes"], float(np.abs(
+        np.asarray(r["probs"]) - np.asarray(alexnet[i]["probs"])).max()))
+        for i, r in alex]
+    assert _same_bits([r for _, r in alex], [alexnet[i] for i, _ in alex]), (
+        "the fleet's alexnet1 answers differ from the in-process engine's "
+        f"at bucket 1: (input, same classes, max |probs gap|) {gaps}")
+    yolos = [(i, json.loads(b)["result"]) for m, i, (_, _, b) in answers
+             if m == "yolov3"]
+    _http_yolo_check([r for _, r in yolos], [yolo[i] for i, _ in yolos])
+    tel = stats["telemetry"]
+    n = len(answers)
+    assert tel["failovers"] >= 1 and tel["replica_deaths"] == 1, tel
+    assert tel["replica_restarts"] == 1, tel
+    assert tel["hedges"] >= 1 and tel["hedge_wins"] >= 1, tel
+    assert (tel["completed"], tel["failed"], tel["requests"]) == (n, 0, n), tel
+    assert health["replicas_ready"] == 2 and health["status"] == "ok", health
+    assert hedged_s < FLEET_SLOW_S, hedged_s
+    # the first generation traced and filled the store, concurrently;
+    # the respawn warmed every runner from it
+    runners = [f"{m}@{b}" for m in ("alexnet1", "yolov3") for b in (1, 4)]
+    assert sorted(first) == ["r1", "r2"], sorted(first)
+    traced = {sid: sorted(set(runners) - set(st["warmed_from_store"]))
+              for sid, st in first.items()}
+    assert set().union(*traced.values()) == set(runners), traced
+    blobs = _verified_store(store)
+    assert list(blobs) == runners, blobs
+    (old,) = ids - {"r3"}
+    assert ids == {old, "r3"} and sorted(replicas) == sorted(ids), (
+        ids, replicas.keys())
+    respawned = replicas["r3"]
+    assert respawned["warmed_from_store"] == runners, respawned
+    assert respawned["cache"]["misses"] == 0, respawned["cache"]
+    assert respawned["cache"]["entries"] == len(runners)
+    assert respawned["artifact_store"]["quarantined"] == 0
+    # federated: the router's families, and each replica's counters under
+    # its label summing to the replicas' own
+    fed = parse_prometheus(metrics)
+    assert fed["router_completed_total"] == [({}, float(n))], \
+        fed.get("router_completed_total")
+    assert fed["router_hedge_wins_total"][0][1] >= 1
+    for counter in ("completed", "batches", "failed"):
+        per = {labels.get("replica"): v
+               for labels, v in fed[f"serve_{counter}_total"]}
+        own = {sid: float(st["telemetry"][counter])
+               for sid, st in replicas.items()}
+        assert per == {**own, None: sum(own.values())}, (counter, per, own)
+    launches = {}
+    for sid, st in replicas.items():
+        for name, per in (("alexnet1", {"lrn_forward_f32": 2}),
+                          ("yolov3", {"nms_sweep": 1})):
+            r = st["runners"][name]
+            assert r["kind"] == "cuda_graph", r
+            assert all(b["launches"] == per for b in r["buckets"].values()), r
+        k = st["kernel_launches"]
+        assert k["lrn_forward_f32"] > 0 and k["lrn_forward_f32"] % 2 == 0, k
+        assert k["nms_sweep"] > 0, k
+        launches[sid] = {"lrn_forward_f32": k["lrn_forward_f32"],
+                         "nms_sweep": k["nms_sweep"]}
+    assert replicas["r3"]["telemetry"]["completed"] >= 1, replicas["r3"]
+    # SIGINT: the router stopped its children by SIGTERM, 143 each, after
+    # their [serve] lines
+    stopped = re.findall(r"\[router\] replica (r\d+) \(pid \d+\) stopped: "
+                         r"exit (-?\d+)", text)
+    assert sorted(stopped) == sorted((sid, "143") for sid in ids), stopped
+    last = text.strip().splitlines()[-1]
+    assert last.startswith("[router] failovers="), last
+    for sid in ids:
+        (child,) = tmp.glob(f"dvt-replica-{sid}-*/replica.log")
+        tail = _log_text(child).strip().splitlines()[-1]
+        assert tail.startswith("[serve] completed="), (sid, tail)
+    warm = {sid: st["warmup_s"] for sid, st in first.items()}
+    readings = {
+        "start_s": round(start_s, 1), "respawn_s": round(respawn_s, 1),
+        "hedged_s": round(hedged_s, 2), "warmup_s": warm,
+        "respawn_warmup_s": respawned["warmup_s"],
+        "traced_by_first_generation": traced, "store": blobs,
+        "free_gib_before_kill": round(free_before / 2**30, 2),
+        "free_gib_after_respawn": round(free_after / 2**30, 2),
+        "card_files": {("router" if pid == proc.pid else str(pid)): v
+                       for pid, v in card_files.items()},
+        "compute_apps": apps.splitlines(), "launches_by_replica": launches,
+        "telemetry": {k: tel[k] for k in (
+            "requests", "completed", "failed", "failovers", "hedges",
+            "hedge_wins", "replica_deaths", "replica_restarts")}}
+    _say(f"[fleet] {json.dumps(readings)}")
+    _say(f"[fleet] the router ({start_s:.1f} s to its port, both replicas "
+         f"warm) held no card file, each replica's process did; {n} "
+         f"requests answered, alexnet1 bit for bit the in-process engine's; "
+         f"the killed replica's request failed over, its replacement warmed "
+         f"all {len(runners)} runners from the store in "
+         f"{respawned['warmup_s']} s against the first generation's "
+         f"{warm} s (ready {respawn_s:.1f} s after the kill; free card "
+         f"memory {free_before / 2**30:.2f} GiB before the kill, "
+         f"{free_after / 2**30:.2f} after the respawn); the delayed request "
+         f"answered by its hedge in {hedged_s:.2f} s; kernel launches of the "
+         f"live replicas {launches} (the killed replica's are lost with "
+         f"it); SIGINT: exit 0, children 143; {last}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {
+        "lrn_forward_f32": sum(v["lrn_forward_f32"]
+                               for v in launches.values()),
+        "nms_sweep": sum(v["nms_sweep"] for v in launches.values())},
+        **readings}
+
+
 def _train_batch(n: int, classes: int = 1000, seed: int = 0,
                  size: int = 224) -> dict:
     """A seeded host batch of ``n`` size x size x 3 images and labels."""
@@ -1769,11 +2080,21 @@ def _unmoved_bn_statistics(module) -> tuple[list[str], int]:
     return unmoved, len(stats)
 
 
+def _train_env() -> dict:
+    """The environment of a training CLI of the training-CLI block, whose
+    nine processes (four ``resnet50`` at batch 256 among them) fill the
+    card's 80 GB: expandable segments keep each allocator's reserved
+    memory near what it holds (without them the ``resnet50`` CLI once ran
+    out of memory there)."""
+    return {**os.environ, "PYTHONPATH": str(ROOT),
+            "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+
+
 def _run_cli(args: list[str]) -> subprocess.CompletedProcess:
     proc = subprocess.run(
         [sys.executable, "-m", "deepvision_tpu_torch.train", *args],
         capture_output=True, text=True, cwd=ROOT, timeout=600,
-        env={**os.environ, "PYTHONPATH": str(ROOT)})
+        env=_train_env())
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return proc
 
@@ -2403,7 +2724,7 @@ def _run_clis(runs: dict[str, list[str]]) -> dict[str, tuple[str, str]]:
     procs = {label: subprocess.Popen(
         [sys.executable, "-m", "deepvision_tpu_torch.train", *args],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
-        env={**os.environ, "PYTHONPATH": str(ROOT)})
+        env=_train_env())
         for label, args in runs.items()}
     out = {}
     for label, proc in procs.items():
@@ -6296,6 +6617,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     records = _timed("records", phase_records, smi, workdir)
     torch.cuda.empty_cache()
+    _say(f"[memory] before the training-CLI block this process holds "
+         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved, "
+         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated; the "
+         f"card {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
     # the record CLIs, the other builds and eval classification beside the
     # training CLIs: all only wait on their own processes (no rate is read)
     with ThreadPoolExecutor(2) as pool:
@@ -6331,20 +6656,26 @@ def main() -> int:
     # the converted inception1_ref and its predict-export artifact, for
     # CenterNet's serving CLI
     artifact = Future()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         drills = pool.submit(_timed, "resilience", phase_resilience, smi,
                              workdir, records["dir"])
         converted = pool.submit(_chain, artifact, "converters",
                                 phase_converters, smi, workdir, images)
+        # the HTTP server and the fleet over the same requests, each on a
+        # worker of its own, so that both end before the model CLI chains
+        served_http = (*alexnet_http, _yolo_requests()[:2],
+                       yolo.pop("answers")[-4:-2])
         http = pool.submit(_timed, "HTTP server", phase_http, workdir,
-                           *alexnet_http, _yolo_requests()[:2],
-                           yolo.pop("answers")[-4:-2])
+                           *served_http)
+        fleet = pool.submit(_timed, "fleet", phase_fleet, workdir,
+                            *served_http)
         served = _timed("model CLIs", phase_model_clis, workdir, yolo,
                         hourglass["centernet"], hourglass["pose"], gan,
                         images, artifact)
         resilience = drills.result()
         converted = converted.result()
         http = http.result()
+        fleet = fleet.result()
     paths["export_alexnet1_f32"] = {
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": export["alexnet1"].pop("lrn_launches")}
@@ -6360,6 +6691,11 @@ def main() -> int:
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": http["launches"]["lrn_forward_f32"]}
     yolo["nms_launches"]["http_server"] = http["launches"]["nms_sweep"]
+    # the fleet's surviving and respawned replicas, from their own /stats
+    paths["fleet_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": fleet["launches"]["lrn_forward_f32"]}
+    yolo["nms_launches"]["fleet"] = fleet["launches"]["nms_sweep"]
     paths["chaos_cli_bf16"] = resilience["launches"]
     for name, run in converted.items():
         paths[f"predict_converted_{name}_f32"] = run.pop("launches")
@@ -6439,7 +6775,7 @@ def main() -> int:
     print(f"[resilience] {json.dumps(resilience['summary'])}")
     print(f"[loader] {json.dumps(loader)}")
     print(f"[offline] {json.dumps(offline)}")
-    print(f"[graphs] {json.dumps({**GRAPHS, 'http': http})}")
+    print(f"[graphs] {json.dumps({**GRAPHS, 'http': http, 'fleet': fleet})}")
     print(f"[export] {json.dumps({**export, 'card': smi})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,16 +1,16 @@
-"""deepvision_tpu_torch.obs: the port's observability for training, the
-twin of the single-process half of ``deepvision_tpu/obs/``:
+"""deepvision_tpu_torch.obs: the port's observability, the twin of
+``deepvision_tpu/obs/``:
 
 - ``metrics``: the process-wide registry of counters, gauges and
   reservoir histograms, its JSON ``snapshot()`` and its Prometheus text;
 - ``trace``: span tracing (``with span("step")``) into a ring buffer,
   Chrome-trace export and ``summarize_chrome``;
 - ``profiler``: ``torch.profiler`` windows (``--profile-steps A:B``) and
-  the ``mem_*`` device-memory gauges.
-
-The JAX package's cross-process layer (``obs/distributed.py``: trace
-propagation, span spools, federated metrics, the flight recorder) comes
-with the port's cluster.
+  the ``mem_*`` device-memory gauges;
+- ``distributed``: the fleet's half of the JAX package's
+  ``obs/distributed.py``: the trace id's HTTP hop and federated metrics
+  (``render_federated``, ``parse_prometheus``). Its span spools and
+  flight recorder come with the port's distributed observability.
 """
 
 from deepvision_tpu_torch.obs.metrics import (

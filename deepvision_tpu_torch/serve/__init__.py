@@ -4,7 +4,8 @@
 server, and with ``--http PORT`` the HTTP one (``__main__.py``,
 ``http.py``); ``--artifact`` serves a ``torch.export`` artifact
 (``models.from_exported``) and ``--store`` warms from an artifact store
-(``artifact_store.py``).
+(``artifact_store.py``). ``--fleet N`` puts a router (``router.py``) over
+N replica processes of the same CLI (``replica.py``).
 """
 
 from deepvision_tpu_torch.serve.admission import ShedError
@@ -16,6 +17,13 @@ from deepvision_tpu_torch.serve.models import (
     from_exported,
     load_served,
 )
+from deepvision_tpu_torch.serve.replica import (
+    EngineReplica,
+    ProcessReplica,
+    ReplicaDeadError,
+)
+from deepvision_tpu_torch.serve.router import FleetRouter
 
-__all__ = ["ArtifactStore", "CompileCache", "InferenceEngine", "ServedModel",
-           "ShedError", "from_exported", "load_served"]
+__all__ = ["ArtifactStore", "CompileCache", "EngineReplica", "FleetRouter",
+           "InferenceEngine", "ProcessReplica", "ReplicaDeadError",
+           "ServedModel", "ShedError", "from_exported", "load_served"]

@@ -38,8 +38,26 @@ third batch: that batch answers 500, ``/healthz`` answers 503 with
 ``Retry-After`` for the supervisor's backoff (``--restart-backoff-s``),
 then 200. On the card every (model, bucket) is a CUDA graph captured at
 start-up; the runner cache is frozen after it, so that no request pays a
-capture. SIGINT stops the server. The fleet mode of ``serve.py`` comes
-later.
+capture. SIGINT stops the server with exit code 0; SIGTERM with 143,
+after the engine has closed and the last line has been printed.
+
+    python -m deepvision_tpu_torch.serve --fleet 2 -m alexnet1 -m yolov3 \
+        --http 8080 --store aot/ --hedge-after 0.5 --slo alexnet1=0.2
+
+``--fleet N`` runs a router (``serve/router.py``) over N child processes
+(``serve/replica.py``), each this CLI with ``--http 0 --port-file`` on
+``--device`` (the card by default); the router process itself touches no
+device. Requests go to the least-loaded ready replica; a replica that
+dies (``--faults replica_kill@N`` SIGKILLs the one chosen for the N-th
+attempt) is failed over from and respawned, warming from the shared
+``--store`` when one is given; ``--hedge-after S`` sends a second attempt
+to another replica when the first has not answered in S seconds, the
+first answer winning (``replica_slow@N:S`` delays the N-th attempt);
+``--slo NAME=SECONDS`` is a model's p95 budget, its deadline ceiling and
+its admission bound; ``--fleet-max M`` lets the autoscaler add replicas
+up to M under pressure and drain them back when calm. ``/metrics``
+federates the replicas' counters, labelled ``replica="rN"``. The last
+stderr line is ``[router] failovers=... deaths=... restarts=...``.
 
     python -m deepvision_tpu_torch.predict export -m alexnet1 -o a.pt2
     python -m deepvision_tpu_torch.serve --artifact alexnet1=a.pt2
@@ -58,7 +76,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -120,6 +140,71 @@ def build_engine(args) -> InferenceEngine:
     return engine
 
 
+def build_fleet(args):
+    """A router over ``args.fleet`` child-process replicas, each this CLI
+    in HTTP mode on an ephemeral port with the model flags forwarded.
+    The router process loads no model and touches no device."""
+    from deepvision_tpu_torch.serve.replica import (
+        ProcessReplica,
+        replica_argv,
+    )
+    from deepvision_tpu_torch.serve.router import AutoscaleConfig, FleetRouter
+
+    if not (args.model or args.artifact):
+        sys.exit("no models: pass -m NAME[=WORKDIR] or --artifact "
+                 "[NAME=]PATH")
+    forward = [("--seed", args.seed), ("--input-size", args.input_size),
+               ("--num-classes", args.num_classes), ("--top", args.top),
+               ("--score", args.score), ("--iou", args.iou),
+               ("--max-queue", args.max_queue),
+               ("--batch-window-ms", args.batch_window_ms),
+               ("--timeout-s", args.timeout_s)]
+    child_argv = replica_argv(
+        args.model or [], artifact_specs=args.artifact or [],
+        buckets=args.buckets,
+        # the shared store: the first generation traces and fills it,
+        # every respawn warms from it
+        store=args.store, device=args.device,
+        extra=[str(a) for flag, value in forward if value is not None
+               for a in (flag, value)])
+
+    def factory(sid: str):
+        return ProcessReplica(sid, child_argv)
+
+    injector = None
+    if args.faults:
+        from deepvision_tpu_torch.resilience.faults import FaultInjector
+
+        injector = FaultInjector(args.faults, seed=args.fault_seed)
+        print(f"fault injection armed (router sites): {args.faults!r}",
+              file=sys.stderr)
+    slo = {}
+    for spec in args.slo or []:
+        name, _, sec = spec.partition("=")
+        try:
+            slo[name] = float(sec)
+        except ValueError:
+            sys.exit(f"bad --slo spec {spec!r}; want NAME=SECONDS")
+    fleet_max = args.fleet_max or args.fleet
+    autoscale = None
+    if fleet_max > args.fleet:
+        autoscale = AutoscaleConfig(min_replicas=args.fleet,
+                                    max_replicas=fleet_max)
+    models = [_parse_spec(s)[0] for s in args.model or []]
+    # the pipelines' and the tracking stream's routable names join here
+    # with serve/pipeline.py and serve/sessions.py
+    print(f"starting fleet of {args.fleet} replica(s) "
+          f"({models or args.artifact}) on {args.device}; replicas warm "
+          "in parallel...", file=sys.stderr)
+    router = FleetRouter(
+        factory, replicas=args.fleet, models=models, slo=slo or None,
+        default_deadline_s=args.timeout_s, max_queue=args.max_queue,
+        per_model_limit=args.per_model_limit, autoscale=autoscale,
+        hedge_after_s=args.hedge_after, fault_injector=injector)
+    print(f"fleet up: {router.health()}", file=sys.stderr, flush=True)
+    return router
+
+
 def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
     """One JSON request per line; responses, in submission order, to
     ``stdout``. Requests keep flowing while earlier ones run, so the
@@ -176,6 +261,27 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
         emit(*item)
 
 
+def _exit_on_sigterm():
+    """SIGTERM -> ``SystemExit(143)``, so that the ``finally`` blocks run:
+    the engine or the router closes (a router stops its children) and
+    the exit line is printed. Returns the handler it replaced, or None
+    off the main thread, where no handler can be set."""
+    if threading.current_thread() is not threading.main_thread():
+        return None
+
+    def on_sigterm(sig, frame):
+        raise SystemExit(143)
+
+    return signal.signal(signal.SIGTERM, on_sigterm)
+
+
+def _serve(front, args, stdin, stdout) -> None:
+    if args.http is not None:
+        run_http(front, args)
+    else:
+        run_stdin(front, args, stdin, stdout)
+
+
 def main(argv=None, stdin=None, stdout=None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m deepvision_tpu_torch.serve",
@@ -211,6 +317,21 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    help="detect: the NMS score threshold")
     p.add_argument("--iou", type=float, default=0.5,
                    help="detect: the NMS IoU threshold")
+    p.add_argument("--fleet", type=int, default=None,
+                   help="run a router over this many child-process "
+                   "replicas instead of one in-process engine")
+    p.add_argument("--fleet-max", type=int, default=None,
+                   help="the autoscaler's ceiling (default: --fleet, "
+                   "autoscaling off); it adds and drains replicas between "
+                   "--fleet and this")
+    p.add_argument("--slo", action="append", metavar="NAME=SECONDS",
+                   help="a model's p95 deadline budget (repeatable; fleet "
+                   "mode): its admission bound and deadline ceiling")
+    p.add_argument("--hedge-after", type=float, default=None,
+                   help="fleet mode: send a second attempt to another "
+                   "replica when the first has not answered within this "
+                   "many seconds (the first answer wins, exactly once); "
+                   "off by default")
     p.add_argument("--http", type=int, default=None,
                    help="serve HTTP on this port instead of stdin JSONL; "
                    "0 binds an ephemeral one (see --port-file)")
@@ -230,14 +351,30 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    "of serve.py, whose wait is this default: a drill sets "
                    "it to see /healthz answer 503 while recovering")
     args = p.parse_args(argv)
-    engine = build_engine(args)
+    previous = _exit_on_sigterm()
     try:
-        if args.http is not None:
-            run_http(engine, args)
-        else:
-            run_stdin(engine, args, stdin, stdout)
+        if args.fleet is not None:
+            router = build_fleet(args)
+            try:
+                _serve(router, args, stdin, stdout)
+            finally:
+                router.close()
+                # the grep-stable exit line of a fleet
+                print(router.summary_line(), file=sys.stderr, flush=True)
+            return 0
+        engine = build_engine(args)
+        try:
+            _serve(engine, args, stdin, stdout)
+        finally:
+            engine.close()
+            _print_exit_line(engine)
+        return 0
     finally:
-        engine.close()
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def _print_exit_line(engine: InferenceEngine) -> None:
     from deepvision_tpu_torch.ops import kernel_launches
 
     t = engine.telemetry
@@ -247,8 +384,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
           f"failed={t.failed} shed={t.shed} timed_out={t.timed_out} "
           f"dispatcher_crashes={t.dispatcher_crashes} "
           f"dispatcher_restarts={t.dispatcher_restarts}; "
-          f"kernel launches {launches}", file=sys.stderr)
-    return 0
+          f"kernel launches {launches}", file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Admission control: bounded queues, per-model limits, graceful shed.
 
-The port's own copy of ``deepvision_tpu/serve/admission.py`` without the
-SLO budgets, multi-tenant quotas and SLO classes, which come with the
-router and tenancy tiers.
+The port's own copy of ``deepvision_tpu/serve/admission.py`` with its
+SLO budgets (the fleet router's) and without the multi-tenant quotas and
+SLO classes, which come with the tenancy tier.
 
 When the engine cannot keep up it rejects new work at once with a retry
 hint instead of queueing it into unbounded latency: an admitted request
@@ -35,17 +35,23 @@ class AdmissionController:
       models; the engine's worst-case memory and latency bound.
     - ``per_model_limit``: optional cap per model, so one hot model
       cannot take the whole queue.
+    - ``slo_budget_s``: optional per-model p95 deadline budgets (the
+      router's SLO table). A request whose estimated wait (backlog depth
+      x the service-time EWMA) already exceeds its model's budget is
+      shed at the door: queueing it could only give a late answer.
 
     ``observe_batch`` keeps an EWMA of per-row service time; the shed
     hint is ``depth x row_s``, how long the backlog needs to drain.
     """
 
     def __init__(self, max_queue: int = 256,
-                 per_model_limit: int | None = None):
+                 per_model_limit: int | None = None,
+                 slo_budget_s: dict[str, float] | None = None):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = max_queue
         self.per_model_limit = per_model_limit
+        self.slo_budget_s = dict(slo_budget_s or {})
         self._lock = threading.Lock()
         self._counts: dict[str, int] = {}
         self._sheds: dict[str, int] = {}
@@ -68,6 +74,15 @@ class AdmissionController:
                 raise self._shed_locked(model, (
                     f"model {model!r} at its concurrency limit "
                     f"({self.per_model_limit})"))
+            # the tenant quota and SLO class branches of the twin come
+            # with the tenancy tier
+            budget = self.slo_budget_s.get(model)
+            if budget is not None:
+                est_wait = self._total * self._row_s
+                if est_wait > budget:
+                    raise self._shed_locked(model, (
+                        f"estimated queue wait {est_wait:.3f}s exceeds "
+                        f"model {model!r} p95 budget {budget}s"))
             self._counts[model] = self._counts.get(model, 0) + 1
             self._total += 1
 
@@ -96,4 +111,6 @@ class AdmissionController:
                 "per_model_depth": dict(self._counts),
                 "ewma_row_ms": round(self._row_s * 1e3, 3),
                 "sheds_by_model": dict(self._sheds),
+                **({"slo_budget_s": dict(self.slo_budget_s)}
+                   if self.slo_budget_s else {}),
             }

@@ -108,7 +108,10 @@ class InferenceEngine:
     supervisor's first and largest wait before it restarts a crashed
     dispatcher (doubling between). ``store``: an ``ArtifactStore`` or
     its directory, from which :meth:`warm` loads request programs and
-    into which it exports the ones it traces.
+    into which it exports the ones it traces. ``telemetry``: a
+    ``ServeTelemetry`` (default: one over the process registry); a fleet
+    of in-process replicas gives each engine one over a registry of its
+    own.
     """
 
     def __init__(
@@ -125,6 +128,7 @@ class InferenceEngine:
         restart_backoff_s: float = 0.05,
         restart_backoff_max_s: float = 5.0,
         store=None,
+        telemetry: ServeTelemetry | None = None,
     ):
         self._models = {m.name: m for m in models}
         if not self._models:
@@ -141,7 +145,8 @@ class InferenceEngine:
         # buckets' graphs (captured one after another, replayed one at a
         # time)
         self._pools: dict[str, object] = {}
-        self.telemetry = ServeTelemetry()
+        self.telemetry = telemetry if telemetry is not None \
+            else ServeTelemetry()
         self._admission = AdmissionController(
             max_queue=max_queue, per_model_limit=per_model_limit)
         self._window = batch_window_s
@@ -348,7 +353,12 @@ class InferenceEngine:
     def stats(self) -> dict:
         """JSON-able state for ``/stats``: models, ladder, health, queue,
         the runner cache, the runners, the runners that came from the
-        store (and the store's counters) and telemetry."""
+        store (and the store's counters), telemetry, and the process's
+        kernel launches so far (``ops.kernel_launches``: true launches,
+        each capture's eager forward and each replay's, which a fleet's
+        replicas report from their own processes)."""
+        from deepvision_tpu_torch.ops import kernel_launches
+
         out = {
             "models": sorted(self._models),
             "devices": {n: str(m.device) for n, m in self._models.items()},
@@ -362,6 +372,7 @@ class InferenceEngine:
             "warmed_from_store": sorted(
                 f"{k[0]}@{k[1]}" for k in self._from_store),
             "telemetry": self.telemetry.snapshot(),
+            "kernel_launches": kernel_launches(),
         }
         if self._store is not None:
             out["artifact_store"] = self._store.stats()

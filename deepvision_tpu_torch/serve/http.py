@@ -1,15 +1,25 @@
 """The HTTP front of the serving CLI (``--http PORT``), on the standard
-library's ``http.server``: the single-engine surface of ``serve.py``.
+library's ``http.server``: the surface of ``serve.py``, over one engine
+or over a fleet router (``serve/router.FleetRouter``).
 
     POST /v1/predict  {"model": NAME, "input": [...]}           -> result
                       {"model": NAME, "input_b64": B64, "shape": [...]}
-    GET  /stats       engine, runner cache, queue and telemetry (JSON)
+    GET  /stats       engine, runner cache, queue, telemetry and the
+                      process's kernel launches (JSON); a router's
+                      replicas, breakers and telemetry
     GET  /metrics     Prometheus text of the process's metric registry
                       (``serve_*`` counters and latency quantiles, and
-                      the ``mem_*`` device gauges sampled per scrape)
+                      the ``mem_*`` device gauges sampled per scrape);
+                      a router's federated surface (its ``router_*``
+                      families and every replica's, labelled)
     GET  /metrics.json  the registry's typed dump
     GET  /healthz     200 {"status": "ok"}; 503 with ``Retry-After``
-                      while the dispatcher's supervisor recovers
+                      while the dispatcher's supervisor recovers (a
+                      router: while no replica is ready)
+
+A request may carry the fleet's trace id in ``X-DVTPU-Trace``
+(``obs/distributed.TRACE_HEADER``); the engine has no spans to stamp
+with it yet, so the front accepts it and uses it for nothing.
 
 The status codes are the JAX surface's: 400 for a request that cannot
 be decoded or does not fit the model, 404 for another path, 429 with
@@ -116,7 +126,13 @@ def make_handler(engine, args):
             elif self.path == "/stats":
                 self._send(200, engine.stats())
             elif self.path == "/metrics":
-                self._send_text(200, render_metrics(),
+                # a fleet router renders the federated surface, and never
+                # samples device memory: its process holds no CUDA
+                # context
+                render = getattr(engine, "render_metrics", None)
+                self._send_text(200,
+                                render() if render is not None
+                                else render_metrics(),
                                 "text/plain; version=0.0.4; charset=utf-8")
             elif self.path == "/metrics.json":
                 from deepvision_tpu_torch.obs.metrics import default_registry

@@ -261,6 +261,12 @@ class CudaGraphRunner:
         dev = served.device
         self.bucket = bucket
         self._device = dev
+        # the graph reads the weights at their addresses: the runner keeps
+        # the forward, and with it the module or the loaded program that
+        # owns them, alive. A program loaded from the artifact store has
+        # no other owner once the warm-up is over; freed, its weights'
+        # blocks went to the next allocation (the next model's program)
+        self._forward = served.forward
         self._input_dtype = served.input_dtype
         shape = (bucket, *served.input_shape)
         dtype = torch.from_numpy(np.zeros(0, served.input_dtype)).dtype

@@ -1,7 +1,8 @@
 """Serving telemetry: per-request latency summaries and counters.
 
-The twin of ``deepvision_tpu/serve/telemetry.py``'s ``ServeTelemetry``:
-the same ``record_*`` and ``snapshot`` names and the same snapshot keys.
+The twin of ``deepvision_tpu/serve/telemetry.py``'s ``ServeTelemetry``
+and ``RouterTelemetry``: the same ``record_*`` and ``snapshot`` names,
+the same snapshot keys and the same ``[router]`` summary line.
 Request wall time is split into queue wait (admitted -> dispatched),
 device time (one batch's H2D copy, forward and D2H copy) and end-to-end
 latency. Every counter is an ``obs.metrics.Counter`` and every latency
@@ -22,7 +23,7 @@ from deepvision_tpu_torch.obs.metrics import (
     default_registry,
 )
 
-__all__ = ["LatencyStats", "ServeTelemetry"]
+__all__ = ["LatencyStats", "RouterTelemetry", "ServeTelemetry"]
 
 
 class LatencyStats:
@@ -141,5 +142,103 @@ class ServeTelemetry:
 # attribute-style counter reads (eng.telemetry.batches, ...), as the twin
 for _f in _COUNTER_FIELDS:
     setattr(ServeTelemetry, _f,
+            property(lambda self, _f=_f: self._c[_f].value))
+del _f
+
+
+# router counters, in /stats JSON order. Sheds split by origin: an
+# admission shed means the fleet is saturated (autoscale signal), a
+# circuit shed that a model's replicas keep failing (fast-fail), a
+# no-replica shed that every replica is draining, dead or starting.
+_ROUTER_COUNTER_FIELDS = (
+    "requests",           # admitted into the router
+    "completed",          # futures resolved with a result
+    "failed",             # resolved with a non-shed error
+    "failovers",          # attempts retried on another replica after a
+                          # replica death
+    "hedges",             # duplicate attempts launched on a slow primary
+    "hedge_wins",         # requests whose hedge resolved first
+    "shed_admission",     # router admission (queue, SLO budget) rejects
+    "shed_circuit",       # per-model circuit breaker open
+    "shed_no_replica",    # no READY replica to route to
+    "shed_replica",       # replica-side backpressure that survived the
+                          # retry budget (capacity saturated, not absent)
+    "replica_deaths",     # replicas observed dead (probe or attempt)
+    "replica_restarts",   # replicas respawned by the supervisor
+    "scale_ups",          # autoscaler added a replica
+    "scale_downs",        # autoscaler drained a replica
+    # stateful streams come with the sessions tier: these two stay 0
+    # until then, and keep the twin's summary-line format
+    "sessions_migrated",
+    "session_resets",
+)
+
+
+class RouterTelemetry:
+    """Counters, latency histograms and the autoscaler's signal gauges
+    for one fleet router, registered under ``router_*`` names (default:
+    the process registry, so that ``GET /metrics`` carries the fleet
+    view). The gauges are what the autoscaler reads back by name: the
+    fleet's queue-wait p95, shed rate and dispatcher crashes, gathered
+    from the replicas' own ``/stats`` by the probe loop. Registration is
+    latest-wins: a process's newest router owns the names."""
+
+    def __init__(self):
+        reg = default_registry()
+        self.registry = reg
+        self._lock = threading.Lock()
+        self._c = {f: reg.register(f"router_{f}", Counter())
+                   for f in _ROUTER_COUNTER_FIELDS}
+        self.e2e = LatencyStats(       # admitted -> future resolved
+            hist=reg.register("router_e2e_latency", Histogram()))
+        self.attempt = LatencyStats(   # one replica round trip
+            hist=reg.register("router_attempt_latency", Histogram()))
+        self.replicas_ready = reg.gauge("router_replicas_ready")
+        self.replicas_target = reg.gauge("router_replicas_target")
+        self.queue_wait_p95_ms = reg.gauge("router_queue_wait_p95_ms")
+        self.shed_rate_per_s = reg.gauge("router_shed_rate_per_s")
+        self.dispatcher_crashes = reg.gauge("router_dispatcher_crashes")
+
+    def inc(self, field: str, n: int = 1) -> None:
+        self._c[field].inc(n)
+
+    def record_attempt(self, seconds: float) -> None:
+        self.attempt.record(seconds)
+
+    def record_completed(self, e2e_s: float) -> None:
+        with self._lock:
+            self._c["completed"].inc()
+            self.e2e.record(e2e_s)
+
+    def snapshot(self) -> dict:
+        vals = {f: c.value for f, c in self._c.items()}
+        total_sheds = (vals["shed_admission"] + vals["shed_circuit"]
+                       + vals["shed_no_replica"] + vals["shed_replica"])
+        resolved = vals["completed"] + vals["failed"]
+        return {
+            **vals,
+            "sheds_total": total_sheds,
+            # the error budget lived: failed / resolved (sheds are the
+            # designed overload answer, not budget burn)
+            "failed_frac": (round(vals["failed"] / resolved, 4)
+                            if resolved else 0.0),
+            "e2e_latency": self.e2e.summary(),
+            "attempt_latency": self.attempt.summary(),
+        }
+
+    def summary_line(self) -> str:
+        """The grep-stable exit line of a fleet."""
+        v = self.snapshot()
+        return (f"[router] failovers={v['failovers']} "
+                f"hedges={v['hedges']} deaths={v['replica_deaths']} "
+                f"restarts={v['replica_restarts']} "
+                f"sheds={v['sheds_total']} completed={v['completed']} "
+                f"failed={v['failed']} "
+                f"sessions_migrated={v['sessions_migrated']} "
+                f"resets={v['session_resets']}")
+
+
+for _f in _ROUTER_COUNTER_FIELDS:
+    setattr(RouterTelemetry, _f,
             property(lambda self, _f=_f: self._c[_f].value))
 del _f

@@ -552,3 +552,35 @@ def test_cli_http_process_survives_a_crash(tmp_path):
     last = text.strip().splitlines()[-1]
     assert "dispatcher_crashes=1 dispatcher_restarts=1" in last, last
     assert "kernel launches {" in last, last
+
+
+def test_cli_http_process_exits_143_on_sigterm_with_its_last_line(tmp_path):
+    """SIGTERM (what a fleet router sends a replica it stops) closes the
+    engine and prints the ``[serve]`` line before the process exits with
+    143, as ``serve.py`` turns it into ``SystemExit(143)``."""
+    port_file = tmp_path / "port"
+    log = tmp_path / "serve.log"
+    cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m", MODEL,
+           "--device", "cpu", "--seed", "0", "--buckets", "1", "--http",
+           "0", "--port-file", str(port_file)]
+    with open(log, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=REPO, stderr=err,
+                                stdout=subprocess.DEVNULL,
+                                env={**os.environ, "PYTHONPATH": str(REPO)})
+    try:
+        deadline = time.monotonic() + 120
+        while not port_file.exists():
+            assert proc.poll() is None, log.read_text()
+            assert time.monotonic() < deadline, log.read_text()
+            time.sleep(0.05)
+        port = int(port_file.read_text())
+        answered = _post(port, _b64(_requests(1, seed=5)[0]))
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+    text = log.read_text()
+    assert answered[0] == 200
+    assert rc == 143, text
+    last = text.strip().splitlines()[-1]
+    assert last.startswith("[serve] completed=1 batches=1 failed=0"), last
+    assert "kernel launches {" in last, last
