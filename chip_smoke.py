@@ -361,6 +361,20 @@ the seconds it took:
    federated ``/metrics`` against the replicas' ``/stats``, each
    replica's runners and true kernel launches, and SIGINT: the router 0,
    its children 143 after their ``[serve]`` lines.
+28. Pipeline serving (``phase_pipeline``, in process on a worker of its
+   own beside 27): ``yolov3`` (416 px, score 0), ``hourglass104`` (256
+   px) and ``alexnet1`` behind one engine on buckets (1, 4) with two
+   DAGs, ``detpose`` (the top 3 boxes of VOC's person class, 256 px crops,
+   pose) and ``detcls`` (the top 3 boxes, 224 px crops, ``alexnet1``),
+   each stage chunked through (4, 8) and each (DAG, entry bucket) one
+   CUDA graph: every answer bit for bit the eager DAG's, the DAGs'
+   decisions the sequential client's, the glue on the card its CPU
+   version's within 1e-6, frozen misses, each replay's credited
+   ``nms_sweep`` and ``lrn_forward_f32`` and the counted launches equal
+   to them; the DAGs' and the sequential client's device time and host
+   wall a call at entry bucket 4, printed. The chains' serving CLI of 19
+   serves ``detpose`` over the chains' checkpoints too (``--pipelines``,
+   2 requests, ``[pipeline] served detpose=2 frozen=True``).
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -373,8 +387,9 @@ summaries, the ``[resilience] {...}``, ``[loader] {...}`` and
 ``[offline] {...}`` (22-24 and the predict CLIs: records/s, seconds)
 lines, the ``[graphs] {...}`` line (each engine-served model's warm-up,
 cache, pool bytes, launches a replay and profile, and 25's readings),
-the ``[export] {...}`` line (26's figures and the ``predict export``
-CLI's), the card's name and power limit, and last ``{"ok": true,
+the ``[pipeline] {...}`` line (28's readings), the ``[export] {...}``
+line (26's figures and the ``predict export`` CLI's), the card's name
+and power limit, and last ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -392,6 +407,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from functools import partial
 from pathlib import Path
@@ -600,6 +616,20 @@ FLEET_HEDGE_S = 1.0
 FLEET_FAULTS = (f"replica_kill@{FLEET_KILL_AT},"
                 f"replica_slow@{FLEET_SLOW_AT}:{FLEET_SLOW_S}")
 FLEET_PAIRS = 3  # concurrent (alexnet1, yolov3) pairs at the end
+# phase_pipeline: the DAGs' top-K, yolov3's class of VOC's "person", each
+# stage's chunk ladder, the entry (and the engine's) buckets, and the
+# requests' amplitude (fresh detector weights saturate on full-scale
+# inputs: every score 1.0, boxes at inf, a degenerate top-K)
+PIPE_K = 3
+PIPE_PERSON = 14
+PIPE_LADDER = [4, 8]
+PIPE_BUCKETS = (1, 4)
+PIPE_AMPLITUDE = 0.003
+PIPE_TIMED = 10  # timed calls a DAG and a sequential client
+# taken by a counted window (zero the counters, drive a path, read them)
+# on a worker thread, and by any in-process work that may launch one of
+# the port's kernels while such a window may be open on another thread
+CARD_COUNTS = threading.Lock()
 
 
 def _say(*parts) -> None:
@@ -973,7 +1003,8 @@ def _queued(eng, xs, model: str | None = None) -> list:
     return [f.result(timeout=600) for f in futures]
 
 
-def _graph_rounds(eng, served, batches, eager: list) -> list:
+def _graph_rounds(eng, served, batches, eager: list,
+                  model: str | None = None) -> list:
     """Each host batch of ``batches`` queued on ``eng`` in turn, one
     batch each: its answers, from the CUDA graph of its bucket, equal bit
     for bit to ``eager``'s (:func:`_eager_answers` of the same batches,
@@ -984,7 +1015,7 @@ def _graph_rounds(eng, served, batches, eager: list) -> list:
     the answers."""
     out = []
     for xs, want in zip(batches, eager, strict=True):
-        got = _queued(eng, xs)
+        got = _queued(eng, xs, model)
         assert _same_bits(got, want), (
             f"{served.name}: the CUDA graph of bucket {_bucket(len(xs))} "
             "answered other bits than the eager forward")
@@ -1811,6 +1842,403 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
                                for v in launches.values()),
         "nms_sweep": sum(v["nms_sweep"] for v in launches.values())},
         **readings}
+
+
+def _pipeline_specs(cls_size: int) -> list[dict]:
+    """The two DAGs of ``phase_pipeline`` and the chains' serving CLI:
+    ``detpose``, ``yolov3`` -> the top ``PIPE_K`` boxes of class
+    ``PIPE_PERSON`` -> 256 px crops -> ``hourglass104``, and ``detcls``,
+    ``yolov3`` -> the top ``PIPE_K`` boxes -> ``cls_size`` crops ->
+    ``alexnet1``; each stage chunked through ``PIPE_LADDER``."""
+
+    def spec(name, people, size, model, stage):
+        return {"name": name, "buckets": list(PIPE_BUCKETS), "nodes": [
+            {"name": "det", "model": "yolov3"},
+            {"name": "people", "glue": "top_k_boxes", "inputs": ["det"],
+             "params": people},
+            {"name": "crop", "glue": "crop_resize",
+             "inputs": ["input", "people"], "params": {"size": size}},
+            {"name": stage, "model": model, "inputs": ["crop.crops"],
+             "buckets": PIPE_LADDER}],
+            "outputs": [{"node": "det"}, {"node": stage,
+                                          "mask": "crop.valid"}]}
+
+    return [spec("detpose", {"k": PIPE_K, "class_id": PIPE_PERSON},
+                 POSE_SIZE, "hourglass104", "pose"),
+            spec("detcls", {"k": PIPE_K}, cls_size, "alexnet1", "cls")]
+
+
+def _pipeline_requests(n: int, seed: int = 0) -> np.ndarray:
+    return (PIPE_AMPLITUDE * np.random.default_rng(seed).normal(
+        size=(n, YOLO_SIZE, YOLO_SIZE, 3))).astype(np.float32)
+
+
+def _host_crops(x: np.ndarray, det: dict, size: int,
+                class_id: int | None) -> tuple[np.ndarray, np.ndarray]:
+    """The sequential client's glue: the top ``PIPE_K`` boxes of a detect
+    answer by score (of ``class_id`` only: the others score 0), in a
+    stable descending sort (``top_k_boxes``' order), cut from ``x`` by the
+    plain ``crop_and_resize`` on this machine's CPU. -> (the ``PIPE_K``
+    crops, which of them a client keeps: a score above 0). With a score
+    threshold of 0 every one of the detector's 100 slots is kept, so the
+    answer's boxes are its slots in order, as the DAG sees them."""
+    import torch
+
+    from deepvision_tpu_torch.ops.crop_resize import crop_and_resize
+
+    scores = np.asarray(det["scores"], np.float32)
+    assert len(scores) >= PIPE_K, len(scores)
+    if class_id is not None:
+        scores = scores * (np.asarray(det["classes"]) == class_id)
+    order = np.argsort(-scores, kind="stable")[:PIPE_K]
+    boxes = np.asarray(det["boxes"], np.float32).reshape(-1, 4)[order]
+    crops = crop_and_resize(torch.from_numpy(x[None]),
+                            torch.from_numpy(boxes[None]), size)[0].numpy()
+    return crops, scores[order] > 0
+
+
+def _glue_on_card(det, xs: np.ndarray, cls_size: int) -> float:
+    """``top_k_boxes`` (both DAGs' parameters) and ``crop_resize`` on the
+    card against the same functions on this machine's CPU, on one batch
+    of the card's detections: -> the largest gap (held to 1e-6)."""
+    import torch
+
+    from deepvision_tpu_torch.export import TensorSpec
+    from deepvision_tpu_torch.serve import pipeline
+
+    with torch.inference_mode():
+        x = torch.from_numpy(xs).cuda()
+        out = det.forward(x)
+    avals = [{k: TensorSpec(tuple(v.shape), v.dtype)
+              for k, v in out.items()}]
+    gaps = []
+    for people, size in (({"k": PIPE_K, "class_id": PIPE_PERSON},
+                          POSE_SIZE), ({"k": PIPE_K}, cls_size)):
+        top_k, _ = pipeline._GLUE["top_k_boxes"](people, avals)
+        with torch.inference_mode():
+            card = top_k(out)
+            cpu = top_k({k: v.cpu() for k, v in out.items()})
+            sel_avals = [TensorSpec(tuple(x.shape), x.dtype),
+                         {k: TensorSpec(tuple(v.shape), v.dtype)
+                          for k, v in card.items()}]
+            crop, _ = pipeline._GLUE["crop_resize"]({"size": size},
+                                                    sel_avals)
+            crops_card = crop(x, card)
+            crops_cpu = crop(x.cpu(), {k: v.cpu() for k, v in card.items()})
+        assert torch.equal(card["valid"].cpu(), cpu["valid"])
+        assert torch.equal(crops_card["valid"].cpu(), crops_cpu["valid"])
+        for a, b in ((card["boxes"], cpu["boxes"]),
+                     (card["scores"], cpu["scores"]),
+                     (crops_card["crops"], crops_cpu["crops"])):
+            a = a.cpu()
+            finite = torch.isfinite(b)
+            assert torch.equal(finite, torch.isfinite(a))
+            assert torch.equal(a[~finite], b[~finite])
+            gaps.append(float((a[finite] - b[finite]).abs().max())
+                        if finite.any() else 0.0)
+    gap = max(gaps)
+    assert gap <= 1e-6, gaps
+    return gap
+
+
+def _dag_times(eng, name: str, xs: np.ndarray) -> dict:
+    """At entry bucket 4: the DAG runner's replay alone on the card
+    (median of CUDA events around ``PIPE_TIMED`` replays) and its call
+    on the host (copy in, replay, copy out: median wall)."""
+    import torch
+
+    runner = eng._bucket_runner(eng._models[name], PIPE_BUCKETS[-1])
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(PIPE_TIMED)]
+    runner(xs)
+    walls = []
+    for _ in range(PIPE_TIMED):
+        t0 = time.perf_counter()
+        runner(xs)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    for start, end in events:
+        start.record()
+        runner._graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return {"device_ms": statistics.median(s.elapsed_time(e)
+                                           for s, e in events),
+            "wall_ms": statistics.median(walls)}
+
+
+def _sequential_times(eng, stage: str, size: int, class_id, xs) -> dict:
+    """The sequential client of the same 4 images through the runners
+    the front door uses: the detector's bucket-4 call, its answers
+    decoded on the host, the host crops, then the stage's calls of up to
+    4 crops. -> the replays' device time summed (CUDA events around each
+    replay) and the client's host wall, medians over ``PIPE_TIMED``."""
+    import torch
+
+    det = eng._models["yolov3"]
+    det_run = eng._bucket_runner(det, PIPE_BUCKETS[-1])
+    stage_model = eng._models[stage]
+
+    def client():
+        host = det_run(xs)
+        crops = np.concatenate([
+            c[keep] for c, keep in (
+                _host_crops(x, det.postprocess(host, i), size, class_id)
+                for i, x in enumerate(xs))])
+        runs = []
+        for j in range(0, len(crops), PIPE_BUCKETS[-1]):
+            chunk = crops[j:j + PIPE_BUCKETS[-1]]
+            b = next(b for b in PIPE_BUCKETS if b >= len(chunk))
+            run = eng._bucket_runner(stage_model, b)
+            run(chunk)
+            runs.append((run, len(chunk)))
+        return runs
+
+    runs = client()
+    walls = []
+    for _ in range(PIPE_TIMED):
+        t0 = time.perf_counter()
+        client()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    device = []
+    for _ in range(PIPE_TIMED):
+        total = 0.0
+        for run in [det_run] + [r for r, _ in runs]:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run._graph.replay()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        device.append(total)
+    return {"device_ms": statistics.median(device),
+            "wall_ms": statistics.median(walls),
+            "calls": 1 + len(runs)}
+
+
+def phase_pipeline(smi: str) -> dict:
+    """Pipeline serving as a user builds it in process: ``yolov3`` at 416
+    (20 classes, seeded weights, score threshold 0), ``hourglass104`` at
+    256 (16 joints) and ``alexnet1`` at 224, float32 (TF32 off, cuDNN
+    deterministic), behind one ``InferenceEngine`` on buckets (1, 4) with
+    the ``detpose`` and ``detcls`` DAGs (:func:`_pipeline_specs`) and
+    ``freeze_cache=True``: each (DAG, entry bucket) one CUDA graph. With
+    ``PIPE_K`` = 3, entry bucket 1 gives a padded stage chunk (3 rows to
+    4) and entry bucket 4 two (8 and 4). Small-amplitude requests: each
+    DAG answer bit for bit the eager DAG's at its entry bucket
+    (``Pipeline.run``), and so its outputs before the decode, masked K
+    slots included (seed-0 ``yolov3`` may keep no box of the person
+    class, and the decode drops masked rows), two different batches at
+    one bucket answering differently; the DAG deciding what the
+    sequential client decides (:func:`_sequential_parity`: the detector
+    through the front door at rtol 5e-3, the host's crops of its top-3
+    boxes by the plain ``crop_and_resize``, each crop through the front
+    door, every K slot's row: pose argmax joints equal and confidences to
+    rtol 1e-4, ``alexnet1``'s top-5 classes equal); the glue on the card
+    equal to its CPU version within 1e-6; cache misses flat and
+    ``stats()["pipelines"]`` counting each request; each replay crediting
+    1 ``nms_sweep`` and ``detcls``' 2 ``lrn_forward_f32`` a stage chunk
+    (2 at entry bucket 1, 4 at 4), the counted window's launches equal to
+    those. Prints, without gating, each DAG's device time and host wall a
+    call at entry bucket 4 and the sequential client's. No profiler
+    window (one on a worker thread lost the port's kernels). Returns the
+    DAG traffic's launches and the readings."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import (
+        InferenceEngine,
+        Pipeline,
+        PipelineSpec,
+        load_served,
+    )
+
+    strict_fp32()
+    deterministic = torch.backends.cudnn.deterministic
+    # the same convolution algorithms in the graphs and the eager DAG, so
+    # that they answer the same bits
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    try:
+        det = load_served("yolov3", seed=0, score_thresh=0.0)
+        pose = load_served("hourglass104", seed=0, input_size=POSE_SIZE)
+        cls = load_served("alexnet1", seed=0)
+        cls_size = cls.input_shape[0]
+        models = {m.name: m for m in (det, pose, cls)}
+        t_valid = time.perf_counter()
+        pipes = [Pipeline(PipelineSpec.from_json(spec), models)
+                 for spec in _pipeline_specs(cls_size)]
+        valid_s = time.perf_counter() - t_valid
+        load_s = t_valid - t0
+        eng = InferenceEngine(list(models.values()), buckets=PIPE_BUCKETS,
+                              pipelines=pipes, freeze_cache=True)
+        with eng:
+            out = _pipeline_traffic(eng, pipes, cls_size)
+        out["reserved_after_close"] = _closed("pipelines")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out.update(load_s=round(load_s, 1), validate_s=round(valid_s, 3),
+               phase_s=round(time.perf_counter() - t0, 1))
+    _say(f"[pipeline] {json.dumps(out)}")
+    _say(f"[pipeline] detpose and detcls served in process on {smi}: "
+         f"models loaded in {load_s:.1f} s, both DAGs validated by shape "
+         f"propagation in {valid_s:.3f} s, the engine warm in "
+         f"{out['warmup_s']} s (the DAGs' captures "
+         f"{out['dag_warmup_s']} s); {out['requests']} DAG requests "
+         f"answered by graph replays bit for bit the eager DAGs', deciding "
+         f"what the sequential client decides; the glue on the card within "
+         f"{out['glue_gap']:.1e} of the CPU's; launches of the DAG traffic "
+         f"{out['launches']}; at entry bucket 4 a DAG call "
+         f"{ {k: v['dag'] for k, v in out['times'].items()} } against the "
+         f"sequential client's "
+         f"{ {k: v['sequential'] for k, v in out['times'].items()} } (ms); "
+         f"{out['phase_s']} s in all")
+    return out
+
+
+def _pipeline_traffic(eng, pipes, cls_size: int) -> dict:
+    """``phase_pipeline``'s checks on the warm engine."""
+    stats = eng.stats()
+    misses = stats["cache"]["misses"]
+    runners = stats["runners"]
+    for p in pipes:
+        assert runners[p.name]["kind"] == "cuda_graph", runners[p.name]
+    dag_warm = {p.name: round(sum(r["capture_s"] for r in runners[
+        p.name]["buckets"].values()), 2) for p in pipes}
+    xs = _pipeline_requests(1 + 1 + 2 * PIPE_BUCKETS[-1])
+    four = PIPE_BUCKETS[-1]
+    batches = [xs[0:1], xs[1:2], xs[2:2 + four], xs[2 + four:2 + 2 * four]]
+    # the eager DAG's outputs, every K slot (masked ones too), and its
+    # answers (masked rows dropped)
+    eager_raw = {p.name: [p.run(_padded(xs, p.input_shape)) for xs in batches]
+                 for p in pipes}
+    eager = {p.name: [[p.postprocess(raw, i) for i in range(len(xs))]
+                      for raw, xs in zip(eager_raw[p.name], batches)]
+             for p in pipes}
+    with CARD_COUNTS:
+        _zero_launch_counts()
+        for p in pipes:
+            _graph_rounds(eng, p, batches, eager[p.name], model=p.name)
+        launches = {"nms_sweep": _nms_launches(),
+                    **{k: v for k, v in _launch_counts().items() if v}}
+    stats = eng.stats()
+    requests = sum(len(b) for b in batches)
+    assert stats["cache"]["misses"] == misses, (misses, stats["cache"])
+    assert stats["pipelines"] == {p.name: requests for p in pipes}, stats
+    per_replay = {p.name: {b: r["launches"] for b, r in stats["runners"][
+        p.name]["buckets"].items()} for p in pipes}
+    assert per_replay == {
+        "detpose": {"1": {"nms_sweep": 1}, "4": {"nms_sweep": 1}},
+        "detcls": {"1": {"nms_sweep": 1, "lrn_forward_f32": 2},
+                   "4": {"nms_sweep": 1, "lrn_forward_f32": 4}}}, per_replay
+    # the eager DAGs were built last at entry bucket 4
+    assert [p.last_chunk_plans for p in pipes] == [
+        {"det": [(0, 4, 4)], stage: [(0, 8, 8), (8, 4, 4)]}
+        for stage in ("pose", "cls")], [p.last_chunk_plans for p in pipes]
+    replays = len(pipes) * len(batches)
+    assert launches == {"nms_sweep": replays,
+                        "lrn_forward_f32": 2 * (2 + 4)}, launches
+    # the graphs' outputs before the decode, masked rows included, bit for
+    # bit the eager DAG's (the decode drops masked rows: with seed-0
+    # weights no box of the person class may be kept at all)
+    for p in pipes:
+        for xs, want in zip(batches, eager_raw[p.name], strict=True):
+            got = eng._bucket_runner(p, _bucket(len(xs)))(xs)
+            assert got.keys() == want.keys(), (got.keys(), want.keys())
+            for k, w in want.items():
+                g = got[k][:len(xs)]
+                assert g.dtype == w.dtype and g.tobytes() == w[
+                    :len(xs)].tobytes(), (p.name, len(xs), k)
+    # the sequential client on the entry-bucket-4 batch of each DAG
+    xs4 = batches[2]
+    stages = {"detpose": ("pose", "hourglass104", POSE_SIZE, PIPE_PERSON),
+              "detcls": ("cls", "alexnet1", cls_size, None)}
+    valid = _sequential_parity(eng, pipes, xs4, stages)
+    return _pipeline_rest(eng, pipes, xs4, stages, cls_size, misses,
+                          dag_warm, requests, launches, per_replay, valid)
+
+
+def _padded(xs: np.ndarray, shape: tuple) -> np.ndarray:
+    """``xs`` padded with zero rows to its bucket."""
+    out = np.zeros((_bucket(len(xs)), *shape), np.float32)
+    out[:len(xs)] = xs
+    return out
+
+
+def _sequential_parity(eng, pipes, xs4: np.ndarray, stages: dict) -> dict:
+    """Each DAG at entry bucket 4 on ``xs4`` against the sequential
+    client: the DAG's detections against the detector's answers through
+    the front door (one bucket-4 batch; rtol 5e-3); its K slots' mask
+    against the host's top ``PIPE_K`` boxes (:func:`_host_crops`); and
+    every K slot's stage row (masked ones too: the DAG computes them all)
+    against the front door's answer to the host's crop of that box (pose
+    argmax joints equal and confidences to rtol 1e-4, ``alexnet1``'s top-5
+    classes equal). -> the slots a client keeps, by DAG."""
+    four = PIPE_BUCKETS[-1]
+    seq_det = _queued(eng, xs4, "yolov3")
+    valid = {}
+    for p in pipes:
+        stage, model, size, class_id = stages[p.name]
+        raw = eng._bucket_runner(p, four)(xs4)
+        rows = {k.split("/", 1)[1]: v for k, v in raw.items()
+                if k.startswith(stage + "/")}
+        crops, kept = [], 0
+        for i, d in enumerate(seq_det):
+            a = p.postprocess(raw, i)
+            assert a["det"]["classes"] == d["classes"], (p.name, i)
+            for key in ("boxes", "scores"):
+                np.testing.assert_allclose(
+                    np.asarray(a["det"][key], np.float64),
+                    np.asarray(d[key], np.float64), rtol=5e-3, atol=1e-6,
+                    err_msg=f"{p.name} det {key}")
+            mine, keep = _host_crops(xs4[i], d, size, class_id)
+            assert keep.tolist() == raw[stage + "__mask"][i].tolist(), (
+                p.name, i, keep, raw[stage + "__mask"][i])
+            assert len(a[stage]) == int(keep.sum()), (p.name, i)
+            crops.append(mine)
+            kept += int(keep.sum())
+        valid[p.name] = kept
+        crops = np.concatenate(crops)
+        seq = []
+        for j in range(0, len(crops), four):
+            seq += _queued(eng, crops[j:j + four], model)
+        served = eng._models[model]
+        for n, want in enumerate(seq):
+            i, j = divmod(n, PIPE_K)
+            got = served.postprocess({k: v[i] for k, v in rows.items()}, j)
+            if stage == "pose":
+                g, w = np.asarray(got["joints"]), np.asarray(want["joints"])
+                np.testing.assert_array_equal(g[:, :2], w[:, :2])
+                np.testing.assert_allclose(g[:, 2], w[:, 2], rtol=1e-4)
+            else:
+                assert got["classes"] == want["classes"], (i, j, got, want)
+    return valid
+
+
+def _pipeline_rest(eng, pipes, xs4, stages, cls_size, misses, dag_warm,
+                   requests, launches, per_replay, valid) -> dict:
+    """``phase_pipeline``'s glue check, its timings, the frozen misses
+    once more, and its readings."""
+    glue_gap = _glue_on_card(eng._models["yolov3"], xs4, cls_size)
+    times = {p.name: {
+        "dag": _dag_times(eng, p.name, xs4),
+        "sequential": _sequential_times(eng, *stages[p.name][1:3],
+                                        stages[p.name][3], xs4)}
+        for p in pipes}
+    for t in times.values():
+        for v in t.values():
+            for k in ("device_ms", "wall_ms"):
+                v[k] = round(v[k], 3)
+    stats = eng.stats()
+    assert stats["cache"]["misses"] == misses, stats["cache"]
+    return {"warmup_s": eng.warmup_s, "dag_warmup_s": dag_warm,
+            "misses": misses, "hits": stats["cache"]["hits"],
+            "requests": requests * len(pipes), "valid_crops": valid,
+            "launches": launches, "launches_per_replay": per_replay,
+            "pool_bytes": {p.name: stats["runners"][p.name]["pool_bytes"]
+                           for p in pipes},
+            "glue_gap": glue_gap, "times": times}
 
 
 def _train_batch(n: int, classes: int = 1000, seed: int = 0,
@@ -4166,13 +4594,17 @@ def _chain(ready, label: str, chain, *args):
         raise
 
 
-def _serve_chains(ready) -> dict:
+def _serve_chains(ready, pipelines: Path | None = None) -> dict:
     """Once every future of ``ready`` holds its chain's :class:`_Offer`
     (:func:`_chain`), one ``python -m deepvision_tpu_torch.serve -m
     name=workdir ...`` over all their checkpoints (``--buckets 1,4
     --score 0.05``: the score threshold reaches the detectors alone),
     the requests of each model addressed by ``"model"``; then each
-    offer's ``check``. Returns the checks' results by model."""
+    offer's ``check``. With ``pipelines`` (a spec file of ``detpose``
+    over the chains' ``yolov3`` and ``hourglass104``), ``--pipelines``
+    too and 2 requests addressed by ``"pipeline"`` (:func:`_dag_served`),
+    whose NMS launches are taken out of the process's before the checks.
+    Returns the checks' results by model (and ``detpose``'s launches)."""
     offers = [f.result() for f in ready]
     args, lines = [], []
     for o in offers:
@@ -4184,6 +4616,11 @@ def _serve_chains(ready) -> dict:
         lines += [json.dumps({"id": f"{name}/{i}", "model": name,
                               "input": x.tolist()}) + "\n"
                   for name in names for i, x in enumerate(o.xs)]
+    if pipelines is not None:
+        args += ["--pipelines", str(pipelines)]
+        lines += [json.dumps({"id": f"detpose/{i}", "pipeline": "detpose",
+                              "input": x.tolist()}) + "\n"
+                  for i, x in enumerate(_pipeline_requests(2, seed=1))]
     t0 = time.perf_counter()
     proc = _cli("deepvision_tpu_torch.serve",
                 [*args, "--buckets", "1,4", "--score", "0.05"],
@@ -4205,6 +4642,10 @@ def _serve_chains(ready) -> dict:
         return mine
 
     out = {}
+    if pipelines is not None:
+        out["detpose"] = _dag_served(replies_of("detpose", 2), proc.stderr)
+        launches = {**launches,
+                    "nms_sweep": launches["nms_sweep"] - out["detpose"]}
     for o in offers:
         mine = replies_of(o.name, len(o.xs))
         out[o.name] = o.check(mine, launches, runners[o.name])
@@ -4213,6 +4654,38 @@ def _serve_chains(ready) -> dict:
             out[art] = _artifact_served(mine, replies_of(art, len(o.xs)),
                                         runners[art], launches)
     return out
+
+
+def _dag_served(replies: list, stderr: str) -> int:
+    """The serving CLI's ``detpose`` answers (the detections and the
+    masked pose rows, ``--pipelines``): the exit lines ``[pipeline]
+    served detpose=2 frozen=True`` with the cache's misses those of the
+    warm-up (one a runner), and ``[pipeline] runners``, a CUDA graph an
+    entry bucket that launches 1 ``nms_sweep`` a replay, called once on
+    a zero batch at the warm-up and then by the requests' 1 or 2
+    batches. Returns the DAG's NMS launches in the process: each
+    capture's eager DAG, then every call."""
+    assert all(set(r["result"]) == {"det", "pose"} for r in replies), (
+        replies)
+    assert all(len(r["result"]["pose"]) <= PIPE_K for r in replies)
+    served = re.search(r"^\[pipeline\] served detpose=2 frozen=True "
+                       r"misses=(\d+) hits=\d+$", stderr, re.M)
+    warm = re.search(r"^warmup done in \S+s \((\d+) runners", stderr, re.M)
+    assert served and warm and served.group(1) == warm.group(1), (
+        stderr[-4000:])
+    dag = json.loads(re.search(r"^\[pipeline\] runners (.*)$", stderr,
+                               re.M).group(1))["detpose"]
+    assert dag["kind"] == "cuda_graph", dag
+    buckets = dag["buckets"].values()
+    assert all(b["launches"] == {"nms_sweep": 1} for b in buckets), dag
+    calls = sum(b["calls"] for b in buckets)
+    assert len(buckets) + 1 <= calls <= len(buckets) + len(replies), dag
+    nms = len(buckets) + calls
+    _say(f"[pipeline-cli] serve --pipelines answered {len(replies)} detpose "
+         f"requests ({[len(r['result']['pose']) for r in replies]} person "
+         f"crops); misses {served.group(1)}, frozen; the DAG's runners "
+         f"called {calls} times, {nms} NMS launches")
+    return nms
 
 
 def _artifact_served(replies: list, art_replies: list, art_runners: dict,
@@ -4428,15 +4901,20 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
     the YOLO v3, pose, DCGAN and MobileNet V1 chains have trained, one
     serving CLI over their checkpoints and the converted
     ``inception1_ref`` with its ``predict export`` artifact (``artifact``,
-    the future through which the converters offer them) beside their
-    eval and predict CLIs, and once CenterNet's (the longest) has, one
-    over its own (:func:`_serve_chains`). Adds the NMS launches and the
+    the future through which the converters offer them) and the
+    ``detpose`` DAG over the chains' ``yolov3`` and ``hourglass104``
+    (``--pipelines``) beside their eval and predict CLIs, and once
+    CenterNet's (the longest) has, one over its own
+    (:func:`_serve_chains`). Adds the NMS launches and the
     mAP, PCK and GAN score lines to the summaries. Returns the replies'
     checks by model."""
     from concurrent.futures import Future, ThreadPoolExecutor
 
     ready = {name: Future() for name in (
         "yolov3", "hourglass104", "dcgan", "mobilenet1", "centernet")}
+    # detpose over the chains' yolov3 and hourglass104 checkpoints
+    spec = workdir / "pipelines.json"
+    spec.write_text(json.dumps(_pipeline_specs(224)[0]))
     with ThreadPoolExecutor(8) as pool:
         yl = pool.submit(_chain, ready["yolov3"], "yolov3 CLIs", _yolo_clis,
                          yolo.pop("records"), workdir, images)
@@ -4453,12 +4931,14 @@ def phase_model_clis(workdir: Path, yolo: dict, centernet: dict,
         served = [pool.submit(_timed, "chains' serving CLI", _serve_chains,
                               [ready[name] for name in (
                                   "yolov3", "hourglass104", "dcgan",
-                                  "mobilenet1")] + [artifact]),
+                                  "mobilenet1")] + [artifact], spec),
                   pool.submit(_timed, "centernet's serving CLI",
                               _serve_chains, [ready["centernet"]])]
         replies = {k: v for f in served for k, v in f.result().items()}
         y = yl.result()
         yolo["nms_launches"].update(serving_cli=replies["yolov3"],
+                                    pipeline_serving_cli=replies.pop(
+                                        "detpose"),
                                     **y["nms_launches"])
         yolo["summary"]["map_line"] = y["map"]
         centernet["map_line"], pose["pck_line"] = cn.result(), hg.result()
@@ -6387,8 +6867,9 @@ def _predict_served(name: str, wd: Path, image: str, args: list[str],
     got, launches = _predict(args, wd / f"{name}_predict.json")
     served = load_served(name, str(wd), device=torch.device("cuda"),
                          **load_kw)
-    x = predict.load_image(image, size, scale=scale, device="cuda")
-    want = served.postprocess(served.run(x), 0)
+    with CARD_COUNTS:  # its kernels are no path's (phase_pipeline)
+        x = predict.load_image(image, size, scale=scale, device="cuda")
+        want = served.postprocess(served.run(x), 0)
     return {"got": got, "want": want, "launches": launches}
 
 
@@ -6446,7 +6927,7 @@ def _converted(name: str, workdir: Path, image: str, offer=None) -> dict:
     x = predict.load_image(image, 224, scale=input_scale(name), device=dev)
     source = source.to(dev).eval()
     served = load_served(name, str(wd / name), device=dev)
-    with torch.inference_mode():
+    with torch.inference_mode(), CARD_COUNTS:  # no path's (phase_pipeline)
         xs = torch.from_numpy(x).to(dev)
         want_logits = source(xs.permute(0, 3, 1, 2)).float()
         got_logits = served.module(xs).float()
@@ -6656,7 +7137,7 @@ def main() -> int:
     # the converted inception1_ref and its predict-export artifact, for
     # CenterNet's serving CLI
     artifact = Future()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         drills = pool.submit(_timed, "resilience", phase_resilience, smi,
                              workdir, records["dir"])
         converted = pool.submit(_chain, artifact, "converters",
@@ -6669,6 +7150,10 @@ def main() -> int:
                            *served_http)
         fleet = pool.submit(_timed, "fleet", phase_fleet, workdir,
                             *served_http)
+        # in process, on a worker of its own: its launches are counted in
+        # a window that the other workers' in-process kernels wait out
+        # (CARD_COUNTS)
+        pipeline = pool.submit(_timed, "pipelines", phase_pipeline, smi)
         served = _timed("model CLIs", phase_model_clis, workdir, yolo,
                         hourglass["centernet"], hourglass["pose"], gan,
                         images, artifact)
@@ -6676,6 +7161,7 @@ def main() -> int:
         converted = converted.result()
         http = http.result()
         fleet = fleet.result()
+        pipeline = pipeline.result()
     paths["export_alexnet1_f32"] = {
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": export["alexnet1"].pop("lrn_launches")}
@@ -6696,6 +7182,11 @@ def main() -> int:
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": fleet["launches"]["lrn_forward_f32"]}
     yolo["nms_launches"]["fleet"] = fleet["launches"]["nms_sweep"]
+    # the DAGs' graph replays in process (phase_pipeline)
+    paths["pipeline_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": pipeline["launches"]["lrn_forward_f32"]}
+    yolo["nms_launches"]["pipeline_f32"] = pipeline["launches"]["nms_sweep"]
     paths["chaos_cli_bf16"] = resilience["launches"]
     for name, run in converted.items():
         paths[f"predict_converted_{name}_f32"] = run.pop("launches")
@@ -6724,6 +7215,11 @@ def main() -> int:
                 m: g["launches_per_replay"][str(BUCKETS[-1])][name]
                 for m, g in GRAPHS.items()
                 if name in g["launches_per_replay"][str(BUCKETS[-1])]},
+            # a DAG's graph by entry bucket (phase_pipeline)
+            "pipeline_launches_per_replay": {
+                f"{dag}@{b}": per[name]
+                for dag, by in pipeline["launches_per_replay"].items()
+                for b, per in by.items() if name in per},
             # times: cold, summed over AlexNet V1's two LRNs at batch 128
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6751,6 +7247,11 @@ def main() -> int:
                     "launches_per_replay": {"yolov3": GRAPHS["yolov3"][
                         "launches_per_replay"][str(BUCKETS[-1])][
                         "nms_sweep"]},
+                    "pipeline_launches_per_replay": {
+                        f"{dag}@{b}": per["nms_sweep"]
+                        for dag, by in pipeline[
+                            "launches_per_replay"].items()
+                        for b, per in by.items()},
                     "note": "not a TPU kernel: the greedy fori_loop of the "
                             "JAX nms_indices (stock XLA)"})
     native = {
@@ -6776,6 +7277,7 @@ def main() -> int:
     print(f"[loader] {json.dumps(loader)}")
     print(f"[offline] {json.dumps(offline)}")
     print(f"[graphs] {json.dumps({**GRAPHS, 'http': http, 'fleet': fleet})}")
+    print(f"[pipeline] {json.dumps({**pipeline, 'card': smi})}")
     print(f"[export] {json.dumps({**export, 'card': smi})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -41,10 +41,13 @@ def anchor_tensor(anchors_wh, like: torch.Tensor) -> torch.Tensor:
     """``anchors_wh`` (numpy) as a tensor in ``like``'s dtype on its
     device, made once a device: a host-to-device copy of a pageable
     array waits for the host, and the train step makes none."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
     values = tuple(map(tuple, np.asarray(anchors_wh, np.float32).tolist()))
-    if torch.compiler.is_compiling():
-        # under torch.export ``like`` is a fake tensor: the anchors are a
-        # constant of the traced program, and a fake one must never
+    if torch.compiler.is_compiling() or isinstance(like, FakeTensor):
+        # under torch.export, or a pipeline's shape propagation
+        # (``serve/pipeline.py``), ``like`` is a fake tensor: the anchors
+        # are a constant of the traced program, and a fake one must never
         # reach the cache that eager calls read
         return torch.tensor(values, dtype=like.dtype, device=like.device)
     return _anchor_tensor(values, like.dtype, like.device)

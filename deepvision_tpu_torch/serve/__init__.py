@@ -4,8 +4,10 @@
 server, and with ``--http PORT`` the HTTP one (``__main__.py``,
 ``http.py``); ``--artifact`` serves a ``torch.export`` artifact
 (``models.from_exported``) and ``--store`` warms from an artifact store
-(``artifact_store.py``). ``--fleet N`` puts a router (``router.py``) over
-N replica processes of the same CLI (``replica.py``).
+(``artifact_store.py``). ``--pipelines FILE`` serves DAGs of the models
+and glue (``pipeline.py``: detect -> crop -> pose) beside them.
+``--fleet N`` puts a router (``router.py``) over N replica processes of
+the same CLI (``replica.py``).
 """
 
 from deepvision_tpu_torch.serve.admission import ShedError
@@ -17,6 +19,13 @@ from deepvision_tpu_torch.serve.models import (
     from_exported,
     load_served,
 )
+from deepvision_tpu_torch.serve.pipeline import (
+    ModelStage,
+    Pipeline,
+    PipelineError,
+    PipelineSpec,
+    load_pipeline_specs,
+)
 from deepvision_tpu_torch.serve.replica import (
     EngineReplica,
     ProcessReplica,
@@ -25,5 +34,7 @@ from deepvision_tpu_torch.serve.replica import (
 from deepvision_tpu_torch.serve.router import FleetRouter
 
 __all__ = ["ArtifactStore", "CompileCache", "EngineReplica", "FleetRouter",
-           "InferenceEngine", "ProcessReplica", "ReplicaDeadError",
-           "ServedModel", "ShedError", "from_exported", "load_served"]
+           "InferenceEngine", "ModelStage", "Pipeline", "PipelineError",
+           "PipelineSpec", "ProcessReplica", "ReplicaDeadError",
+           "ServedModel", "ShedError", "from_exported", "load_pipeline_specs",
+           "load_served"]

@@ -63,6 +63,20 @@ stderr line is ``[router] failovers=... deaths=... restarts=...``.
     python -m deepvision_tpu_torch.serve --artifact alexnet1=a.pt2
     python -m deepvision_tpu_torch.serve -m yolov3 --store aot/
 
+    python -m deepvision_tpu_torch.serve -m yolov3 -m hourglass104 \
+        --pipelines detpose.json
+    {"id": 1, "pipeline": "detpose", "input": [[[...416x416x3...]]]}
+    -> {"id": 1, "result": {"det": {...}, "pose": [{"joints": ...}, ...]}}
+
+``--pipelines FILE`` (repeatable; one spec, a list, or ``{"pipelines":
+[...]}``, ``serve/pipeline.py``) serves each DAG beside the models: it is
+checked (acyclic, every edge's shapes) at start-up, warmed end to end
+with the models (on the card one CUDA graph an entry bucket), and
+answered for ``{"pipeline": NAME}`` on stdin or ``POST
+/v1/pipeline/NAME``. The last stderr lines then include ``[pipeline]
+served NAME=N frozen=True misses=M hits=H``. A fleet routes pipeline
+names like models and gives every replica the same files.
+
 ``--artifact [NAME=]PATH`` (repeatable) serves a ``torch.export``
 artifact of a classifier (``predict export``) without the model's code,
 on its exported batch alone (``serve/models.from_exported``); NAME
@@ -87,6 +101,7 @@ from deepvision_tpu_torch.serve.admission import ShedError
 from deepvision_tpu_torch.serve.engine import InferenceEngine
 from deepvision_tpu_torch.serve.http import run_http
 from deepvision_tpu_torch.serve.models import from_exported, load_served
+from deepvision_tpu_torch.serve.pipeline import Pipeline, load_pipeline_specs
 
 
 def _parse_spec(spec: str) -> tuple[str, str | None]:
@@ -115,20 +130,28 @@ def build_engine(args) -> InferenceEngine:
         sys.exit("no models: pass -m NAME[=WORKDIR] or --artifact "
                  "[NAME=]PATH")
     buckets = tuple(int(b) for b in args.buckets.split(","))
+    by_name = {m.name: m for m in models}
+    # each DAG's structure and every edge's shapes are checked here, before
+    # anything warms: a bad spec stops the start-up, not a request
+    pipelines = [Pipeline(spec, by_name) for path in args.pipelines or []
+                 for spec in load_pipeline_specs(path)]
     injector = None
     if args.faults:
         from deepvision_tpu_torch.resilience.faults import FaultInjector
 
         injector = FaultInjector(args.faults, seed=args.fault_seed)
         print(f"fault injection armed: {args.faults!r}", file=sys.stderr)
-    print(f"serving {[m.name for m in models]} buckets={buckets} on "
-          f"{args.device}; warming...", file=sys.stderr)
+    print(f"serving {[m.name for m in models]}"
+          + (f" pipelines {[p.name for p in pipelines]}" if pipelines
+             else "") + f" buckets={buckets} on {args.device}; warming...",
+          file=sys.stderr)
     engine = InferenceEngine(
         models, buckets=buckets, max_queue=args.max_queue,
         per_model_limit=args.per_model_limit,
         batch_window_s=args.batch_window_ms / 1e3, freeze_cache=True,
         fault_injector=injector,
-        restart_backoff_s=args.restart_backoff_s, store=args.store)
+        restart_backoff_s=args.restart_backoff_s, store=args.store,
+        pipelines=pipelines)
     stats = engine.stats()
     from_store = stats["warmed_from_store"]
     print(f"warmup done in {engine.warmup_s}s ({stats['cache']['entries']} "
@@ -164,7 +187,7 @@ def build_fleet(args):
         buckets=args.buckets,
         # the shared store: the first generation traces and fills it,
         # every respawn warms from it
-        store=args.store, device=args.device,
+        store=args.store, device=args.device, pipelines=args.pipelines,
         extra=[str(a) for flag, value in forward if value is not None
                for a in (flag, value)])
 
@@ -191,8 +214,10 @@ def build_fleet(args):
         autoscale = AutoscaleConfig(min_replicas=args.fleet,
                                     max_replicas=fleet_max)
     models = [_parse_spec(s)[0] for s in args.model or []]
-    # the pipelines' and the tracking stream's routable names join here
-    # with serve/pipeline.py and serve/sessions.py
+    # pipeline names are routable like models: the specs are read as
+    # plain JSON here, and each replica builds, checks and warms its DAGs
+    models += [spec.name for path in args.pipelines or []
+               for spec in load_pipeline_specs(path)]
     print(f"starting fleet of {args.fleet} replica(s) "
           f"({models or args.artifact}) on {args.device}; replicas warm "
           "in parallel...", file=sys.stderr)
@@ -241,7 +266,10 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
         rid = req.get("id")
         t0 = time.perf_counter()
         try:
-            fut = engine.submit(x, model=req.get("model"),
+            # {"pipeline": NAME} addresses a served DAG as {"model":
+            # NAME} does a model: the same queue, the same engine
+            fut = engine.submit(x, model=(req.get("model")
+                                          or req.get("pipeline")),
                                 timeout_s=args.timeout_s)
         except ShedError as e:
             print(json.dumps({"id": rid, "error": str(e),
@@ -293,6 +321,11 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    help="a torch.export artifact of a classifier "
                    "(predict export) to serve at its exported batch "
                    "(repeatable)")
+    p.add_argument("--pipelines", action="append", metavar="FILE",
+                   help="a JSON pipeline spec file (one spec, a list, or "
+                   "{'pipelines': [...]}; repeatable): each DAG is checked "
+                   "and warmed end to end at start-up, then served for "
+                   "{'pipeline': NAME} on stdin or POST /v1/pipeline/NAME")
     p.add_argument("--store", default=None, metavar="DIR",
                    help="artifact store: warm the runners from this "
                    "directory's verified request programs instead of "
@@ -366,12 +399,34 @@ def main(argv=None, stdin=None, stdout=None) -> int:
         try:
             _serve(engine, args, stdin, stdout)
         finally:
+            runners = engine.runner_stats()  # close() drops the runners
             engine.close()
+            _print_pipeline_lines(engine, runners)
             _print_exit_line(engine)
         return 0
     finally:
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
+
+
+def _print_pipeline_lines(engine: InferenceEngine, runners: dict) -> None:
+    """The grep-stable line of a server with pipelines: the requests each
+    served, and the frozen runner cache's counters (misses that stayed
+    at the warm-up's: no request paid a build); then the pipelines'
+    runners (``runner_stats``, each bucket's calls among them), from
+    which a process's kernel launches split between the DAGs and the
+    models."""
+    stats = engine.stats()
+    if not stats["pipelines"]:
+        return
+    served = ",".join(f"{k}={v}" for k, v in stats["pipelines"].items())
+    cache = stats["cache"]
+    print(f"[pipeline] served {served} frozen={cache['frozen']} "
+          f"misses={cache['misses']} hits={cache['hits']}",
+          file=sys.stderr, flush=True)
+    print(f"[pipeline] runners "
+          f"{json.dumps({k: runners[k] for k in stats['pipelines']})}",
+          file=sys.stderr, flush=True)
 
 
 def _print_exit_line(engine: InferenceEngine) -> None:

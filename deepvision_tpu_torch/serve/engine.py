@@ -48,8 +48,18 @@ batch through the request path before any request. A stored program that
 loads but fails to run is logged, rejected into ``quarantine/`` and the
 model traced; a failed export is logged: the store never fails a
 warm-up. An artifact's ladder is its exported batch
-(``ServedModel.buckets``). Multi-tenancy, pipelines and sessions belong
-to later slices of the port.
+(``ServedModel.buckets``).
+
+Pipelines (``serve/pipeline.py``, ``pipelines=``): each DAG is served
+beside the models under its own name, through the same queue, buckets,
+admission and runner cache; its runner of an entry bucket is one CUDA
+graph of the whole DAG on the card. :meth:`InferenceEngine.warm` builds
+every entry bucket and runs each once on a zero batch, so that with
+``freeze_cache`` no request, plain or pipeline, pays a build. A pipeline
+never goes into the artifact store, and ``stats()["pipelines"]`` counts
+the requests each has served. A request whose deadline passes while its
+DAG runs resolves with ``TimeoutError`` ("mid-pipeline"), never a late
+answer. Multi-tenancy and sessions belong to later slices of the port.
 
 The engine runs its models in true float32: it turns TF32 off for
 cuDNN and cuBLAS (``device.strict_fp32``) before it captures any graph.
@@ -111,7 +121,9 @@ class InferenceEngine:
     into which it exports the ones it traces. ``telemetry``: a
     ``ServeTelemetry`` (default: one over the process registry); a fleet
     of in-process replicas gives each engine one over a registry of its
-    own.
+    own. ``pipelines``: built ``pipeline.Pipeline`` DAGs over these
+    models, served beside them (``submit(x, model=<pipeline name>)``); a
+    name that a model has already is refused.
     """
 
     def __init__(
@@ -129,6 +141,7 @@ class InferenceEngine:
         restart_backoff_max_s: float = 5.0,
         store=None,
         telemetry: ServeTelemetry | None = None,
+        pipelines: Iterable = (),
     ):
         self._models = {m.name: m for m in models}
         if not self._models:
@@ -141,6 +154,12 @@ class InferenceEngine:
         self.buckets = tuple(buckets)
         self.precision = strict_fp32()
         self._cache = CompileCache(max_entries=cache_entries)
+        for p in pipelines:
+            if p.name in self._models:
+                raise ValueError(
+                    f"pipeline {p.name!r} collides with a served model")
+            p.bind(self._cache, self.buckets)
+            self._models[p.name] = p
         # one CUDA graph memory pool a model on the card, shared by its
         # buckets' graphs (captured one after another, replayed one at a
         # time)
@@ -211,12 +230,13 @@ class InferenceEngine:
         return m.compile_for(bucket, pool)
 
     def warm(self) -> None:
-        """Build every (model, bucket) runner so that no request pays a
-        build; time in ``warmup_s``. On the card each is an eager forward
-        and a CUDA graph's capture, the largest bucket first: the smaller
-        graphs then fit in the pool's blocks that the larger one's
-        intermediates freed, and the pool holds about what the largest
-        bucket needs, not the sum over the ladder.
+        """Build every (model, bucket) runner, and every pipeline's entry
+        bucket, so that no request pays a build; time in ``warmup_s``. On
+        the card each is an eager forward and a CUDA graph's capture, the
+        largest bucket first: the smaller graphs then fit in the pool's
+        blocks that the larger one's intermediates freed, and the pool
+        holds about what the largest bucket needs, not the sum over the
+        ladder.
 
         With a store, each (model, bucket) but an artifact's first tries
         the disk: a verified program of this device and these weights loads
@@ -226,13 +246,14 @@ class InferenceEngine:
         runner over a loaded program (from the store or an artifact) then
         runs once on a zero batch through the request path; one from the
         store that fails to build or run is rejected into quarantine and
-        the model traced."""
+        the model traced. A pipeline's runner runs once on a zero batch
+        too, the whole DAG through the request path. The models come
+        first, so that their graphs are captured before the DAGs'."""
         t0 = time.perf_counter()
         for m in self._models.values():
             for bucket in reversed(self.ladder(m)):
                 key = self._model_key(m, bucket)
-                # an artifact already is a serialized program
-                storing = self._store is not None and not m.exported
+                storing = self._store is not None and self._storeable(m)
                 program = (self._load_store_program(m, bucket) if storing
                            else None)
                 if program is not None:
@@ -253,11 +274,18 @@ class InferenceEngine:
                         continue
                 runner = self._cache.get_or_build(
                     key, lambda m=m, bucket=bucket: self._build(m, bucket))
-                if m.exported:
+                if m.exported or getattr(m, "is_pipeline", False):
                     self._zero_run(m, runner, bucket)
                 if storing:
                     self._save_store_entry(m, bucket)
         self.warmup_s = round(time.perf_counter() - t0, 3)
+
+    @staticmethod
+    def _storeable(m) -> bool:
+        """Models whose request program the store can carry: a plain
+        model's. An artifact already is a serialized program, and a
+        pipeline is built from its stage models."""
+        return not m.exported and not getattr(m, "is_pipeline", False)
 
     @staticmethod
     def _zero_run(m: ServedModel, runner, bucket: int) -> None:
@@ -351,8 +379,9 @@ class InferenceEngine:
         return req.future
 
     def stats(self) -> dict:
-        """JSON-able state for ``/stats``: models, ladder, health, queue,
-        the runner cache, the runners, the runners that came from the
+        """JSON-able state for ``/stats``: models (pipelines among them),
+        the requests each pipeline served, ladder, health, queue, the
+        runner cache, the runners, the runners that came from the
         store (and the store's counters), telemetry, and the process's
         kernel launches so far (``ops.kernel_launches``: true launches,
         each capture's eager forward and each replay's, which a fleet's
@@ -361,6 +390,10 @@ class InferenceEngine:
 
         out = {
             "models": sorted(self._models),
+            "pipelines": {
+                name: m.requests_served
+                for name, m in sorted(self._models.items())
+                if getattr(m, "is_pipeline", False)},
             "devices": {n: str(m.device) for n, m in self._models.items()},
             "buckets": list(self.buckets),
             "precision": self.precision,
@@ -379,10 +412,10 @@ class InferenceEngine:
         return out
 
     def runner_stats(self) -> dict:
-        """By model: the kind of its runners, the bytes its graph memory
-        pool reserves (0 on the CPU) and, by bucket, the runner's build
-        seconds and the kernel launches of one call: the runners that
-        the cache holds now."""
+        """By model (and pipeline): the kind of its runners, the bytes its
+        graph memory pool reserves (0 on the CPU) and, by bucket, the
+        runner's build seconds, the kernel launches of one call and its
+        calls so far: the runners that the cache holds now."""
         out: dict[str, dict] = {}
         for key, r in sorted(self._cache.items(), key=lambda kv: kv[0][:2]):
             name, bucket = key[:2]
@@ -391,7 +424,7 @@ class InferenceEngine:
             entry["pool_bytes"] += r.pool_bytes
             entry["buckets"][str(bucket)] = {
                 "capture_s": round(r.capture_s, 4),
-                "launches": dict(r.launches)}
+                "launches": dict(r.launches), "calls": r.calls}
         return out
 
     def health(self) -> dict:
@@ -593,8 +626,14 @@ class InferenceEngine:
             return
         self.telemetry.record_batch(bucket=bucket, rows=n, device_s=t_dev)
         self._admission.observe_batch(t_dev, n)
+        expired: set[int] = set()
+        if getattr(served, "is_pipeline", False):
+            served.record_served(n)
+            expired = self._expire_mid_pipeline(reqs)
         now = time.perf_counter()
         for i, r in enumerate(reqs):
+            if id(r) in expired:
+                continue  # resolved with TimeoutError, its slot released
             try:
                 result = served.postprocess(host, i)
             except Exception as e:
@@ -608,6 +647,28 @@ class InferenceEngine:
                 queue_wait_s=t_dispatch - r.t_submit,
                 e2e_s=now - r.t_submit)
             self._admission.release(r.model)
+
+    def _expire_mid_pipeline(self, reqs: list[_Request]) -> set[int]:
+        """Deadline honesty mid-DAG: a multi-stage run can outlive a
+        deadline that the queue-time check passed. Each such request
+        resolves with ``TimeoutError`` exactly once (whoever resolves the
+        future releases its slot), never with a late answer. -> the ids
+        of the requests it resolved."""
+        now = time.perf_counter()
+        expired = set()
+        for r in reqs:
+            if r.deadline is None or now <= r.deadline:
+                continue
+            try:
+                r.future.set_exception(TimeoutError(
+                    f"deadline expired mid-pipeline after "
+                    f"{now - r.t_submit:.3f}s"))
+            except InvalidStateError:
+                continue  # raced close() resolved (and released) it
+            self.telemetry.record_timeout()
+            self._admission.release(r.model)
+            expired.add(id(r))
+        return expired
 
     # -- lifecycle -------------------------------------------------------
     def close(self, timeout: float = 10.0) -> None:

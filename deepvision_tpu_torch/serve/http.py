@@ -4,6 +4,9 @@ or over a fleet router (``serve/router.FleetRouter``).
 
     POST /v1/predict  {"model": NAME, "input": [...]}           -> result
                       {"model": NAME, "input_b64": B64, "shape": [...]}
+    POST /v1/pipeline/NAME  {"input": [...]}  a served DAG (``--pipelines``)
+                      by its URL; past the path the request is a
+                      /v1/predict one with ``"model": NAME``
     GET  /stats       engine, runner cache, queue, telemetry and the
                       process's kernel launches (JSON); a router's
                       replicas, breakers and telemetry
@@ -142,7 +145,13 @@ def make_handler(engine, args):
                 self._send(404, {"error": "not found"})
 
         def do_POST(self):
-            if self.path not in ("/v1/predict", "/predict"):
+            pipeline = None
+            if self.path.startswith("/v1/pipeline/"):
+                pipeline = self.path[len("/v1/pipeline/"):]
+                if not pipeline:
+                    self._send(404, {"error": "not found"})
+                    return
+            elif self.path not in ("/v1/predict", "/predict"):
                 self._send(404, {"error": "not found"})
                 return
             try:
@@ -161,7 +170,7 @@ def make_handler(engine, args):
                 self._send(400, {"error": f"bad request: {e}"})
                 return
             try:
-                fut = engine.submit(x, model=req.get("model"),
+                fut = engine.submit(x, model=pipeline or req.get("model"),
                                     timeout_s=timeout_s)
                 result = fut.result(timeout=timeout_s + 1.0)
             except ShedError as e:
@@ -210,8 +219,9 @@ def run_http(engine, args) -> None:
         with os.fdopen(fd, "w") as f:
             f.write(str(port))
         os.replace(tmp, args.port_file)
-    print(f"listening on :{port} (POST /v1/predict, GET /stats, "
-          f"GET /metrics, GET /healthz)", file=sys.stderr, flush=True)
+    print(f"listening on :{port} (POST /v1/predict, POST /v1/pipeline/NAME, "
+          f"GET /stats, GET /metrics, GET /healthz)", file=sys.stderr,
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

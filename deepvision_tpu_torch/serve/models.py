@@ -38,7 +38,11 @@ JAX ``compile_for``: one runner a bucket, ``host batch -> host
 outputs``. On the card it is a :class:`CudaGraphRunner`, one captured
 ``torch.cuda.CUDAGraph`` of the forward, the task head and the packing
 of every output into one byte buffer, replayed between one copy in and
-one copy out; on the CPU an :class:`EagerRunner` over :meth:`run`.
+one copy out; on the CPU an :class:`EagerRunner` over :meth:`run`. A
+served model is also a stage of a serving DAG (``serve/pipeline.py``):
+:meth:`ServedModel.as_stage`, with its input and output avals
+(:meth:`ServedModel.out_avals`, by shape propagation; an artifact's from
+its program's metadata).
 """
 
 from __future__ import annotations
@@ -109,6 +113,11 @@ class ServedModel:
     scale: str = "imagenet"
     buckets: tuple[int, ...] | None = None
     exported: bool = False
+    # a model served from an artifact: its program's output avals (the
+    # output nodes' ``meta["val"]``) and the task head that ``forward``
+    # runs on the program's outputs (:func:`from_exported`)
+    program_out_avals: tuple | None = None
+    head: Callable | None = None
     _fingerprint: str | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -130,6 +139,29 @@ class ServedModel:
             self._fingerprint = tree_fingerprint(
                 state_tree(self.module))["digest"]
         return self._fingerprint
+
+    def as_stage(self):
+        """The unit a serving DAG composes (``pipeline.ModelStage``): the
+        forward with explicit input and output avals and an artifact's
+        pinned batch."""
+        from deepvision_tpu_torch.serve.pipeline import ModelStage
+
+        return ModelStage(
+            name=self.name, forward=self.forward,
+            input_shape=self.input_shape, device=self.device,
+            input_dtype=self.input_dtype, pinned_buckets=self.buckets,
+            program_out_avals=self.program_out_avals, head=self.head)
+
+    def in_avals(self, bucket: int):
+        return self.as_stage().in_avals(bucket)
+
+    def out_avals(self, bucket: int):
+        """The output avals at ``bucket`` (``export.TensorSpec`` by key),
+        by shape propagation on fake tensors (``pipeline.shape_eval``):
+        no forward runs. A model served from an artifact takes them from
+        the program's metadata. The seam a pipeline checks its edges
+        against."""
+        return self.as_stage().out_avals(bucket)
 
     def run(self, batch: np.ndarray) -> dict[str, np.ndarray]:
         """Host batch -> host outputs, eagerly: one H2D copy, the
@@ -211,7 +243,7 @@ def _check_batch(batch: np.ndarray, shape: tuple) -> None:
 
 class EagerRunner:
     """The CPU's bucket runner: the eager forward (:meth:`ServedModel.run`)
-    on the batch padded to the bucket."""
+    on the batch padded to the bucket. ``calls`` counts its calls."""
 
     kind = "eager"
     pool_bytes = 0
@@ -220,8 +252,10 @@ class EagerRunner:
     def __init__(self, served: ServedModel, bucket: int):
         self.served, self.bucket = served, bucket
         self.launches: dict[str, int] = {}
+        self.calls = 0
 
     def __call__(self, batch: np.ndarray) -> dict[str, np.ndarray]:
+        self.calls += 1
         shape = (self.bucket, *self.served.input_shape)
         batch = np.asarray(batch)
         _check_batch(batch, shape)
@@ -249,11 +283,13 @@ class CudaGraphRunner:
     reaches the graph but the static input's bytes. ``launches`` are the
     port's kernels that one replay launches: those that the capture's
     calls of their wrappers recorded (``ops.note_captured``); each call
-    credits them (``ops.credit_launches``). ``pool_bytes`` is what the
-    capture added to the memory the allocator reserves: the graph's
-    share of its pool. Graphs of one pool are replayed one at a time
-    (the engine's one dispatcher), each output copied out before the
-    next replay."""
+    credits them (``ops.credit_launches``), and ``calls`` counts the
+    replays, so that the launches of a process split exactly among its
+    runners (each capture's eager forward launches once more).
+    ``pool_bytes`` is what the capture added to the memory the allocator
+    reserves: the graph's share of its pool. Graphs of one pool are
+    replayed one at a time (the engine's one dispatcher), each output
+    copied out before the next replay."""
 
     kind = "cuda_graph"
 
@@ -297,6 +333,7 @@ class CudaGraphRunner:
             self._host_out = torch.empty(self._static_out.shape,
                                          dtype=torch.uint8, pin_memory=True)
         self.capture_s = time.perf_counter() - t0
+        self.calls = 0
 
     def __call__(self, batch: np.ndarray) -> dict[str, np.ndarray]:
         batch = np.ascontiguousarray(batch, self._input_dtype)
@@ -311,16 +348,25 @@ class CudaGraphRunner:
             self._graph.replay()
             self._host_out.copy_(self._static_out, non_blocking=True)
             stream.synchronize()
+        self.calls += 1
         credit_launches(self.launches)
         return _unpack(self._host_out.numpy(), self._layout)
 
 
-def _classify_forward(module: nn.Module, top_k: int):
-    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
-        logits = module(x)
+def _classify_head(top_k: int):
+    def head(logits: torch.Tensor) -> dict[str, torch.Tensor]:
         probs = torch.softmax(logits.float(), dim=-1)
         top_probs, top_classes = torch.topk(probs, top_k, dim=-1)
         return {"probs": top_probs, "classes": top_classes.to(torch.int32)}
+
+    return head
+
+
+def _classify_forward(module: nn.Module, top_k: int):
+    head = _classify_head(top_k)
+
+    def forward(x: torch.Tensor) -> dict[str, torch.Tensor]:
+        return head(module(x))
 
     return forward
 
@@ -551,10 +597,14 @@ def from_exported(path: str | Path, *, name: str | None = None,
                          f"runs there only; asked to serve it on {dev}")
     (spec,) = program.in_avals  # export_forward exports a one-input forward
     batch, *input_shape = spec.shape
+    if len(program.out_avals) != 1:
+        raise ValueError(f"{path}: a classifier's artifact has one output, "
+                         f"its logits; got {len(program.out_avals)}")
     return ServedModel(
         name=name or Path(path).stem, task=task, module=program.module,
         input_shape=tuple(input_shape), postprocess=_classify_post,
         device=program.device, forward=_classify_forward(program, top_k),
         input_dtype=torch.empty((), dtype=spec.dtype).numpy().dtype,
         buckets=(int(batch),), exported=True,
+        program_out_avals=program.out_avals, head=_classify_head(top_k),
         _fingerprint=hashlib.sha256(data).hexdigest())

@@ -367,6 +367,7 @@ def replica_env(environ=None) -> dict:
 def replica_argv(model_specs: list[str], *, buckets: str | None = None,
                  artifact_specs: list[str] | None = None,
                  store: str | None = None, device: str = "cuda",
+                 pipelines: list[str] | None = None,
                  extra: list[str] | None = None) -> list[str]:
     """argv of a :class:`ProcessReplica` child: this interpreter running
     the port's serving CLI, ``-m deepvision_tpu_torch.serve``, in HTTP
@@ -374,7 +375,9 @@ def replica_argv(model_specs: list[str], *, buckets: str | None = None,
 
     ``store``: an artifact-store directory (``--store``) that every child
     of the fleet shares, so that a respawned replica warms its runners
-    from the programs the first generation traced."""
+    from the programs the first generation traced. ``pipelines``: the
+    ``--pipelines`` spec files, each of which every child builds, checks
+    and warms itself."""
     argv = [sys.executable, "-m", "deepvision_tpu_torch.serve",
             "--http", "0"]
     for spec in model_specs:
@@ -385,6 +388,8 @@ def replica_argv(model_specs: list[str], *, buckets: str | None = None,
         argv += ["--buckets", buckets]
     if store:
         argv += ["--store", str(store)]
+    for path in pipelines or []:
+        argv += ["--pipelines", str(path)]
     argv += ["--device", device]
     argv += list(extra or [])
     return argv

@@ -229,18 +229,21 @@ GAN_MODULES = (
     "data/mnist.py", "eval/gan.py")
 # the serving fleet's modules, likewise
 FLEET_MODULES = ("serve/router.py", "serve/replica.py", "obs/distributed.py")
+# the pipeline serving tier's modules, likewise
+PIPELINE_MODULES = ("ops/crop_resize.py", "serve/pipeline.py")
 
 
 def test_the_scans_reach_every_module_and_native_binding():
     """Both scans walk every ``.py`` under the package (the detection,
-    CenterNet, pose, GAN and fleet modules among them), and every native
-    source under ``csrc/`` is loaded by a scanned module's
+    CenterNet, pose, GAN, fleet and pipeline modules among them), and
+    every native source under ``csrc/`` is loaded by a scanned module's
     ``load_library`` call, so its binding is scanned too."""
     package = REPO / "deepvision_tpu_torch"
     scanned = {p.relative_to(package).as_posix() for p in _port_files()
                if package in p.parents}
     assert (set(DETECTION_MODULES) | set(HOURGLASS_MODULES)
-            | set(GAN_MODULES) | set(FLEET_MODULES)) <= scanned
+            | set(GAN_MODULES) | set(FLEET_MODULES)
+            | set(PIPELINE_MODULES)) <= scanned
     loaded = set()
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
