@@ -351,16 +351,24 @@ the seconds it took:
    seconds cold and from the store.
 27. The serving fleet (``phase_fleet``, beside 25 and 19's chains): ``python -m deepvision_tpu_torch.serve --fleet 2 -m
    alexnet1 -m yolov3 --buckets 1,4 --http 0 --store DIR --hedge-after 1
-   --faults replica_kill@2,replica_slow@5:4``: a router process that
+   --faults replica_kill@2,replica_slow@5:4,replica_kill@25 --track
+   yolov3:4 --session-dir DIR --snapshot-every 4``: a router process that
    holds no card file over two replica processes that do; the third
    request's replica SIGKILLed and the request answered by failover, the
    replica respawned and warmed from the store the first generation
-   filled concurrently (every runner from the store, no miss; one
+   filled concurrently (every model's runner from the store; one
    verified blob a key, nothing quarantined), the first request after
-   the respawn hedged, 25's inputs answered as 25 holds them, the
-   federated ``/metrics`` against the replicas' ``/stats``, each
-   replica's runners and true kernel launches, and SIGINT: the router 0,
-   its children 143 after their ``[serve]`` lines.
+   the respawn hedged, 25's inputs answered as 25 holds them; then the
+   stream drill: 2 tracking streams of 12 drifting ``yolov3`` frames, one
+   frame at a time, the replica pinned by the first SIGKILLed on its
+   frame 6 and the stream re-pinned to the survivor, which restores its
+   seq-3 snapshot while the router replays the window: every frame in
+   order, without a reset, bit for bit an in-process tracking engine's at
+   bucket 1 (1 ``nms_sweep`` a detect replay, none an advance replay,
+   each program's device time at bucket 1 printed); after the second
+   respawn the federated ``/metrics`` against the replicas' ``/stats``,
+   each replica's runners and true kernel launches, and SIGINT: the
+   router 0, its children 143 after their ``[serve]`` lines.
 28. Pipeline serving (``phase_pipeline``, in process on a worker of its
    own beside 27): ``yolov3`` (416 px, score 0), ``hourglass104`` (256
    px) and ``alexnet1`` behind one engine on buckets (1, 4) with two
@@ -613,9 +621,29 @@ FLEET_KILL_AT = 2
 FLEET_SLOW_AT = 5
 FLEET_SLOW_S = 4.0
 FLEET_HEDGE_S = 1.0
-FLEET_FAULTS = (f"replica_kill@{FLEET_KILL_AT},"
-                f"replica_slow@{FLEET_SLOW_AT}:{FLEET_SLOW_S}")
 FLEET_PAIRS = 3  # concurrent (alexnet1, yolov3) pairs at the end
+# phase_fleet's stream drill (``--track yolov3:STREAM_K``): after those 13
+# attempts (4 requests, the failover, the delayed request and its hedge,
+# the 3 pairs), 2 streams of STREAM_FRAMES frames, one frame at a time,
+# interleaved (attempt 13 + 2 i is the first stream's frame i). The
+# second replica_kill SIGKILLs the replica that the first stream is
+# pinned to on its frame STREAM_KILL_FRAME, while that replica holds the
+# stream's state past its newest snapshot (snapshots every
+# STREAM_SNAPSHOT_EVERY frames: after seq 3): the survivor restores seq 3
+# and the router replays the window. The session ids' crc32 pins differ
+# in parity, so that the two streams start on the two replicas. The
+# frames drift from one of the yolov3 requests to the next, scaled to
+# PIPE_AMPLITUDE, where seed-0 yolov3 keeps finite boxes (at 0.03 and
+# above its boxes overflow to inf)
+FLEET_STREAM_AT = 13
+STREAM_SIDS = ("cam0", "cam4")
+STREAM_FRAMES = 12
+STREAM_K = 4
+STREAM_SNAPSHOT_EVERY = 4
+STREAM_KILL_FRAME = 6
+FLEET_FAULTS = (f"replica_kill@{FLEET_KILL_AT},"
+                f"replica_slow@{FLEET_SLOW_AT}:{FLEET_SLOW_S},"
+                f"replica_kill@{FLEET_STREAM_AT + 2 * STREAM_KILL_FRAME}")
 # phase_pipeline: the DAGs' top-K, yolov3's class of VOC's "person", each
 # stage's chunk ladder, the entry (and the engine's) buckets, and the
 # requests' amplitude (fresh detector weights saturate on full-scale
@@ -1612,6 +1640,93 @@ def _verified_store(store: Path) -> dict[str, str]:
     return dict(sorted(out.items()))
 
 
+def _stream_frames() -> np.ndarray:
+    """The stream drill's frames, ``(streams, STREAM_FRAMES, 416, 416,
+    3)``: stream k drifts linearly from ``yolov3``'s request 2k to request
+    2k + 1, scaled to ``PIPE_AMPLITUDE``."""
+    reqs = _yolo_requests()
+    t = np.linspace(0, 1, STREAM_FRAMES, dtype=np.float32)[:, None, None,
+                                                            None]
+    return np.stack([
+        PIPE_AMPLITUDE * ((1 - t) * reqs[2 * k] + t * reqs[2 * k + 1])
+        for k in range(len(STREAM_SIDS))]).astype(np.float32)
+
+
+def _stream_reference(frames: np.ndarray, snapshots: Path) -> tuple:
+    """The stream drill's yardstick in process: seeded ``yolov3`` (416,
+    score 0.5, as the fleet's replicas serve it) behind a
+    ``TrackingPipeline`` (detector every ``STREAM_K``-th frame) on bucket 1,
+    the streams' frames one at a time, interleaved. Its warm-up and traffic
+    take ``CARD_COUNTS``; the counts are zeroed after the warm-up and read
+    after the traffic: 1 ``nms_sweep`` a detect+update replay and none an
+    advance replay. Then each program's replay at bucket 1 is timed (CUDA
+    events, median of 20; raw replays, no launch counted). -> (answers by
+    session id, readings)."""
+    from deepvision_tpu_torch.serve import InferenceEngine, load_served
+    from deepvision_tpu_torch.serve.sessions import (
+        SessionStore,
+        TrackingPipeline,
+    )
+    from deepvision_tpu_torch.timing import time_ms
+
+    det = load_served("yolov3", seed=0)
+    store = SessionStore(snapshot_dir=snapshots,
+                         snapshot_every=STREAM_SNAPSHOT_EVERY)
+    track = TrackingPipeline("track", det, store, detect_every=STREAM_K)
+    answers = {sid: [] for sid in STREAM_SIDS}
+    with CARD_COUNTS:
+        t0 = time.perf_counter()
+        eng = InferenceEngine([track], buckets=(1,), freeze_cache=True)
+        warm_s = time.perf_counter() - t0
+        with eng:
+            _zero_launch_counts()
+            for i in range(STREAM_FRAMES):
+                for k, sid in enumerate(STREAM_SIDS):
+                    answers[sid].append(eng.submit(
+                        frames[k][i], model="track", session=sid,
+                        seq=i).result(timeout=300))
+            nms, lrn = _nms_launches(), sum(_launch_counts().values())
+            (runner,) = [r for key, r in eng._cache.items()
+                         if key[0] == "track"]
+            calls = {"detect": runner.detect.calls - 1,  # the warm-up's
+                     "advance": runner.advance.calls}
+            per_replay = {"detect": dict(runner.detect.launches),
+                          "advance": dict(runner.advance.launches)}
+            device_ms = {
+                mode: round(time_ms(lambda _, g=prog._graph: g.replay(),
+                                    [None], iters=20, warmup=3), 4)
+                for mode, prog in (("detect", runner.detect),
+                                   ("advance", runner.advance))}
+            counters = eng.stats()["sessions"]["track"]["counters"]
+    detect_frames = len(STREAM_SIDS) * len(range(0, STREAM_FRAMES, STREAM_K))
+    assert calls == {"detect": detect_frames,
+                     "advance": len(STREAM_SIDS) * STREAM_FRAMES
+                     - detect_frames}, calls
+    assert per_replay == {"detect": {"nms_sweep": 1}, "advance": {}}, \
+        per_replay
+    assert nms == calls["detect"] and lrn == 0, (nms, lrn)
+    assert counters["resets"] == 0 and counters["restores"] == 0, counters
+    return answers, {"warmup_s": round(warm_s, 3), "nms_launches": nms,
+                     "replays": calls, "launches_per_replay": per_replay,
+                     "device_ms_bucket1": device_ms}
+
+
+def _stream_checks(got: dict, want: dict) -> None:
+    """The fleet's stream answers against the in-process yardstick's: every
+    frame answered in order and without a reset, its ``boxes``, ``scores``
+    and ``tracked`` bit for bit the yardstick's (and ``detected``), live
+    tracks on detect and on interpolated frames, every box finite."""
+    for sid in STREAM_SIDS:
+        assert [r["seq"] for r in got[sid]] == list(range(STREAM_FRAMES))
+        for i, (g, w) in enumerate(zip(got[sid], want[sid])):
+            assert g["session"] == sid and g["state_reset"] is False, g
+            assert g["detected"] == w["detected"] == (i % STREAM_K == 0)
+            for key in ("boxes", "scores", "tracked"):
+                assert g[key] == w[key], (sid, i, key, g[key], w[key])
+            assert any(g["tracked"]), (sid, i, g)
+            assert np.isfinite(np.asarray(g["boxes"])).all(), (sid, i, g)
+
+
 def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
                 yolo_xs: np.ndarray, yolo: list) -> dict:
     """The serving fleet as a user starts it: ``python -m
@@ -1622,8 +1737,9 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
     must. Requests go through the router one at a time, then in
     concurrent pairs: the third request's replica is SIGKILLed
     (``replica_kill``) and the request answered by failover; the router
-    respawns the replica, which warms every runner from the store the
-    first generation filled (0 traced, 0 cache misses); the first
+    respawns the replica, which warms every model's runner from the store
+    the first generation filled (0 traced; its 2 cache misses are the
+    tracker's buckets, never stored); the first
     request after the respawn is delayed ``FLEET_SLOW_S``
     (``replica_slow``) and hedged to the other replica, which answers,
     once. Every ``alexnet1`` answer equals the
@@ -1635,10 +1751,26 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
     own ``/stats``; each replica's runners a CUDA graph a bucket with 2
     ``lrn_forward_f32`` (``alexnet1``) and 1 ``nms_sweep`` (``yolov3``)
     a replay; the store one verified blob a key and nothing quarantined.
-    SIGINT ends the router with 0 and its children with 143, each after
-    its ``[serve]`` line. Returns the live replicas' true kernel launches
-    (their ``/stats``; the killed replica's are lost with it) and the
-    readings."""
+    Then the stream drill (``--track yolov3:STREAM_K --session-dir
+    <root>/sessions --snapshot-every STREAM_SNAPSHOT_EVERY``): the 2
+    streams' ``STREAM_FRAMES`` frames (:func:`_stream_frames`) go through
+    the router one at a time, interleaved (``POST /v1/predict`` with
+    ``session`` and ``seq``), each stream pinned to its own replica; the
+    first stream's frame ``STREAM_KILL_FRAME`` SIGKILLs its replica
+    (``replica_kill``), which holds the stream's state past its newest
+    snapshot, so that the router re-pins the stream to the survivor and
+    replays the stream's earlier frames, the survivor restoring the
+    snapshot of seq 3 and answering seqs 0-3 as duplicates. After the
+    second respawn: every frame answered in order without a reset, bit for
+    bit the in-process yardstick's (:func:`_stream_reference`,
+    :func:`_stream_checks`); one migration, no reset, 2 deaths, 2
+    restarts; each replica's ``track`` runners a CUDA graph pair a bucket,
+    1 ``nms_sweep`` a detect replay and none an advance replay. The checks
+    of the first kill read the fleet before the drill; ``/metrics`` and the
+    launches are read after it. SIGINT ends the router with 0 and its
+    children with 143, each after its ``[serve]`` line. Returns the live
+    replicas' true kernel launches (their ``/stats``; the killed replicas'
+    are lost with them), the yardstick's NMS launches and the readings."""
     import concurrent.futures
 
     import torch
@@ -1654,7 +1786,9 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
            "2", "-m", "alexnet1", "-m", "yolov3", "--buckets", "1,4",
            "--http", "0", "--port-file", str(port_file), "--store",
            str(store), "--hedge-after", str(FLEET_HEDGE_S), "--faults",
-           FLEET_FAULTS]
+           FLEET_FAULTS, "--track", f"yolov3:{STREAM_K}", "--session-dir",
+           str(root / "sessions"), "--snapshot-every",
+           str(STREAM_SNAPSHOT_EVERY)]
     inputs = {"alexnet1": alexnet_xs, "yolov3": yolo_xs}
     answers: list[tuple[str, int, tuple]] = []  # (model, input, reply)
 
@@ -1675,6 +1809,10 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err,
             env={**os.environ, "PYTHONPATH": str(ROOT), "TMPDIR": str(tmp)})
     try:
+        # the yardstick runs while the replicas warm up
+        frames = _stream_frames()
+        reference, stream_readings = _stream_reference(
+            frames, root / "reference-sessions")
         while not port_file.exists():
             assert proc.poll() is None, _log_text(log)[-4000:]
             assert time.perf_counter() - t0 < 600, _log_text(log)[-4000:]
@@ -1712,13 +1850,39 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             for k in range(FLEET_PAIRS):
                 list(pool.map(lambda m, k=k: ask(port, m, k % 2),
                               ("alexnet1", "yolov3")))
+        # the first kill's checks read the fleet as it is now
         stats = get(port, "/stats")
         health = get(port, "/healthz")
-        metrics = get(port, "/metrics").decode()
         live = _fleet_replicas(tmp)
         ids = {r["id"] for r in stats["replicas"]}
         replicas = {sid: get(p, "/stats") for sid, p in live.items()
                     if sid in ids}
+        pins_before = {}
+        streams = {sid: [] for sid in STREAM_SIDS}
+        for i in range(STREAM_FRAMES):
+            for k, sid in enumerate(STREAM_SIDS):
+                if k == 0 and i == STREAM_KILL_FRAME:
+                    pins_before = get(port, "/stats")["sessions"]["pins"]
+                    t_kill2 = time.perf_counter()
+                code, _, body = _http(port, "POST", "/v1/predict", {
+                    **_b64_request("track", frames[k][i]),
+                    "session": sid, "seq": i})
+                assert code == 200, (sid, i, code, body[:2000])
+                streams[sid].append(json.loads(body)["result"])
+        while (get(port, "/healthz")["replicas_ready"] < 2
+               or get(port, "/stats")["telemetry"]["replica_restarts"]
+               < 2):
+            assert time.perf_counter() - t_kill2 < 300, \
+                _log_text(log)[-4000:]
+            time.sleep(0.1)
+        respawn2_s = time.perf_counter() - t_kill2
+        end = get(port, "/stats")
+        end_health = get(port, "/healthz")
+        metrics = get(port, "/metrics").decode()
+        live = _fleet_replicas(tmp)
+        end_ids = {r["id"] for r in end["replicas"]}
+        end_replicas = {sid: get(p, "/stats") for sid, p in live.items()
+                        if sid in end_ids}
     finally:
         proc.send_signal(signal.SIGINT)
         try:
@@ -1770,42 +1934,83 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
         ids, replicas.keys())
     respawned = replicas["r3"]
     assert respawned["warmed_from_store"] == runners, respawned
-    assert respawned["cache"]["misses"] == 0, respawned["cache"]
-    assert respawned["cache"]["entries"] == len(runners)
+    # the stateful tracker's runners are built, never stored: a miss a
+    # bucket
+    assert respawned["cache"]["misses"] == 2, respawned["cache"]
+    assert respawned["cache"]["entries"] == len(runners) + 2
     assert respawned["artifact_store"]["quarantined"] == 0
+    # the stream drill: the first stream re-pinned on its frame
+    # STREAM_KILL_FRAME with its earlier frames replayed, the survivor
+    # restoring the seq-3 snapshot (seqs 0-3 duplicates)
+    _stream_checks(streams, reference)
+    lead, other = STREAM_SIDS
+    assert pins_before[lead] != pins_before[other], pins_before
+    moved = re.findall(r"\[router\] session (\S+) re-pinned to (r\d+) "
+                       r"\(replaying (\d+) frame\(s\)\)", text)
+    assert moved == [(lead, pins_before[other],
+                      str(STREAM_KILL_FRAME))], moved
+    etel = end["telemetry"]
+    n_all = n + len(STREAM_SIDS) * STREAM_FRAMES
+    assert (etel["sessions_migrated"], etel["session_resets"]) == (1, 0), etel
+    assert (etel["replica_deaths"], etel["replica_restarts"]) == (2, 2), etel
+    assert (etel["completed"], etel["failed"], etel["requests"]) == (
+        n_all, 0, n_all), etel
+    assert end_health["replicas_ready"] == 2, end_health
+    assert pins_before[lead] not in end_ids, (pins_before, end_ids)
+    counters = [st["sessions"]["track"]["counters"]
+                for st in end_replicas.values()]
+    assert sum(c["restores"] for c in counters) == 1, counters
+    assert sum(c["duplicates"] for c in counters) == 4, counters
+    assert sum(c["resets"] for c in counters) == 0, counters
     # federated: the router's families, and each replica's counters under
     # its label summing to the replicas' own
     fed = parse_prometheus(metrics)
-    assert fed["router_completed_total"] == [({}, float(n))], \
+    assert fed["router_completed_total"] == [({}, float(n_all))], \
         fed.get("router_completed_total")
     assert fed["router_hedge_wins_total"][0][1] >= 1
     for counter in ("completed", "batches", "failed"):
         per = {labels.get("replica"): v
                for labels, v in fed[f"serve_{counter}_total"]}
         own = {sid: float(st["telemetry"][counter])
-               for sid, st in replicas.items()}
+               for sid, st in end_replicas.items()}
         assert per == {**own, None: sum(own.values())}, (counter, per, own)
-    launches = {}
-    for sid, st in replicas.items():
+    launches, stream_replays = {}, {}
+    for sid, st in end_replicas.items():
         for name, per in (("alexnet1", {"lrn_forward_f32": 2}),
-                          ("yolov3", {"nms_sweep": 1})):
+                          ("yolov3", {"nms_sweep": 1}),
+                          ("track", {"nms_sweep": 1})):
             r = st["runners"][name]
             assert r["kind"] == "cuda_graph", r
             assert all(b["launches"] == per for b in r["buckets"].values()), r
+        track = st["runners"]["track"]["buckets"]
+        assert all(b["advance_launches"] == {} for b in track.values())
+        # replays past each bucket's warm-up zero run
+        stream_replays[sid] = {
+            "detect": sum(b["calls"] - 1 for b in track.values()),
+            "advance": sum(b["advance_calls"] for b in track.values())}
         k = st["kernel_launches"]
         assert k["lrn_forward_f32"] > 0 and k["lrn_forward_f32"] % 2 == 0, k
         assert k["nms_sweep"] > 0, k
         launches[sid] = {"lrn_forward_f32": k["lrn_forward_f32"],
                          "nms_sweep": k["nms_sweep"]}
     assert replicas["r3"]["telemetry"]["completed"] >= 1, replicas["r3"]
+    # the survivor ran its own stream (3 detect frames, 9 advance) and the
+    # migrated one from the seq-3 snapshot on: seqs 4 (replayed) and 8
+    # detect, 5 (replayed), 6, 7, 9, 10, 11 advance; the fresh respawn none
+    assert {k: sum(v[k] for v in stream_replays.values())
+            for k in ("detect", "advance")} == {"detect": 5,
+                                                "advance": 15}, \
+        stream_replays
     # SIGINT: the router stopped its children by SIGTERM, 143 each, after
     # their [serve] lines
     stopped = re.findall(r"\[router\] replica (r\d+) \(pid \d+\) stopped: "
                          r"exit (-?\d+)", text)
-    assert sorted(stopped) == sorted((sid, "143") for sid in ids), stopped
+    assert sorted(stopped) == sorted((sid, "143") for sid in end_ids), \
+        stopped
     last = text.strip().splitlines()[-1]
     assert last.startswith("[router] failovers="), last
-    for sid in ids:
+    assert "sessions_migrated=1 resets=0" in last, last
+    for sid in end_ids:
         (child,) = tmp.glob(f"dvt-replica-{sid}-*/replica.log")
         tail = _log_text(child).strip().splitlines()[-1]
         assert tail.startswith("[serve] completed="), (sid, tail)
@@ -1822,7 +2027,21 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
         "compute_apps": apps.splitlines(), "launches_by_replica": launches,
         "telemetry": {k: tel[k] for k in (
             "requests", "completed", "failed", "failovers", "hedges",
-            "hedge_wins", "replica_deaths", "replica_restarts")}}
+            "hedge_wins", "replica_deaths", "replica_restarts")},
+        "streams": {
+            "frames": len(STREAM_SIDS) * STREAM_FRAMES,
+            "migrations": etel["sessions_migrated"],
+            "resets": etel["session_resets"],
+            "respawn_s": round(respawn2_s, 1),
+            "pins_before_kill": pins_before,
+            "replicas_after": sorted(end_ids),
+            "session_counters": {sid: st["sessions"]["track"]["counters"]
+                                 for sid, st in end_replicas.items()},
+            "replays_by_replica": stream_replays,
+            "telemetry": {k: etel[k] for k in (
+                "requests", "completed", "failed", "failovers",
+                "replica_deaths", "replica_restarts")},
+            "reference": stream_readings}}
     _say(f"[fleet] {json.dumps(readings)}")
     _say(f"[fleet] the router ({start_s:.1f} s to its port, both replicas "
          f"warm) held no card file, each replica's process did; {n} "
@@ -1833,14 +2052,22 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
          f"{warm} s (ready {respawn_s:.1f} s after the kill; free card "
          f"memory {free_before / 2**30:.2f} GiB before the kill, "
          f"{free_after / 2**30:.2f} after the respawn); the delayed request "
-         f"answered by its hedge in {hedged_s:.2f} s; kernel launches of the "
-         f"live replicas {launches} (the killed replica's are lost with "
-         f"it); SIGINT: exit 0, children 143; {last}")
+         f"answered by its hedge in {hedged_s:.2f} s; the {len(STREAM_SIDS)} "
+         f"streams' {len(STREAM_SIDS) * STREAM_FRAMES} frames answered in "
+         f"order without a reset, bit for bit the in-process yardstick's, "
+         f"{lead} migrated off its SIGKILLed replica on frame "
+         f"{STREAM_KILL_FRAME} (restored from the seq-3 snapshot, "
+         f"{STREAM_KILL_FRAME} frames replayed), the respawn ready "
+         f"{respawn2_s:.1f} s after that kill; a frame's device time at "
+         f"bucket 1 {stream_readings['device_ms_bucket1']} ms; kernel "
+         f"launches of the live replicas {launches} (the killed replicas' "
+         f"are lost with them); SIGINT: exit 0, children 143; {last}")
     shutil.rmtree(root, ignore_errors=True)
     return {"launches": {
         "lrn_forward_f32": sum(v["lrn_forward_f32"]
                                for v in launches.values()),
         "nms_sweep": sum(v["nms_sweep"] for v in launches.values())},
+        "stream_reference_nms": stream_readings["nms_launches"],
         **readings}
 
 
@@ -7178,10 +7405,15 @@ def main() -> int:
         "lrn_forward_f32": http["launches"]["lrn_forward_f32"]}
     yolo["nms_launches"]["http_server"] = http["launches"]["nms_sweep"]
     # the fleet's surviving and respawned replicas, from their own /stats
+    # (the stream drill's detect replays among the NMS launches)
     paths["fleet_f32"] = {
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": fleet["launches"]["lrn_forward_f32"]}
     yolo["nms_launches"]["fleet"] = fleet["launches"]["nms_sweep"]
+    # the stream drill's in-process yardstick, counted from 0 after its
+    # warm-up: 1 a detect+update replay, none an advance replay
+    yolo["nms_launches"]["fleet_stream_yardstick"] = fleet.pop(
+        "stream_reference_nms")
     # the DAGs' graph replays in process (phase_pipeline)
     paths["pipeline_f32"] = {
         **dict.fromkeys(times, 0),
@@ -7252,6 +7484,12 @@ def main() -> int:
                         for dag, by in pipeline[
                             "launches_per_replay"].items()
                         for b, per in by.items()},
+                    # a tracking stream's two graphs at bucket 1
+                    # (phase_fleet's yardstick)
+                    "stream_launches_per_replay": {
+                        prog: per.get("nms_sweep", 0)
+                        for prog, per in fleet["streams"]["reference"][
+                            "launches_per_replay"].items()},
                     "note": "not a TPU kernel: the greedy fori_loop of the "
                             "JAX nms_indices (stock XLA)"})
     native = {
@@ -7276,6 +7514,9 @@ def main() -> int:
     print(f"[resilience] {json.dumps(resilience['summary'])}")
     print(f"[loader] {json.dumps(loader)}")
     print(f"[offline] {json.dumps(offline)}")
+    # the fleet's readings hold the stream drill's ("streams"): migrations,
+    # the second respawn's seconds, the yardstick's device ms of a detect
+    # and of an interpolated frame at bucket 1
     print(f"[graphs] {json.dumps({**GRAPHS, 'http': http, 'fleet': fleet})}")
     print(f"[pipeline] {json.dumps({**pipeline, 'card': smi})}")
     print(f"[export] {json.dumps({**export, 'card': smi})}")

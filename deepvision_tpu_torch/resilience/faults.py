@@ -9,11 +9,13 @@ feed's producer per upstream pull, ``data/prefetch.py``, and
 ``data/tfrecord.read_records`` per record when given an injector),
 ``ckpt_corrupt`` (``train/checkpoint.py``, per committed save),
 ``worker_kill`` (``data/loader.py``, per merged batch) and ``sdc_grad``
-/ ``sdc_param`` (the Trainer, per run step). The serving, router,
-cluster and session sites (``dispatch_crash``, ``replica_kill``,
-``replica_slow``, ``host_preempt``, ``host_stall``, ``session_kill``,
-``snapshot_corrupt``) parse and have their hooks, but nothing in the
-port consults them until their modules are ported. Where the table
+/ ``sdc_param`` (the Trainer, per run step); the serving sites,
+``dispatch_crash`` (``serve/engine.py``, per batch), ``replica_kill`` and
+``replica_slow`` (``serve/router.py``, per routed attempt),
+``session_kill`` (``serve/sessions.py``, per committed frame) and
+``snapshot_corrupt`` (there, per written snapshot). The cluster sites
+(``host_preempt``, ``host_stall``) parse and have their hooks, but
+nothing in the port consults them until their modules are ported. Where the table
 below names the JAX package's checkify tripwire, the port's Trainer
 reads its per-step finite flag.
 

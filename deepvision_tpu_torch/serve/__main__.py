@@ -77,6 +77,30 @@ answered for ``{"pipeline": NAME}`` on stdin or ``POST
 served NAME=N frozen=True misses=M hits=H``. A fleet routes pipeline
 names like models and gives every replica the same files.
 
+    python -m deepvision_tpu_torch.serve -m yolov3 --track yolov3:4 \
+        --session-dir sessions/ --snapshot-every 8
+    {"id": 1, "model": "track", "session": "cam0", "seq": 0, "input": [...]}
+    -> {"id": 1, "result": {"boxes": [...], "scores": [...],
+        "tracked": [...], "session": "cam0", "seq": 0, "detected": true,
+        "state_reset": false}}
+
+``--track MODEL[:K]`` serves a stateful tracking stream named ``track``
+over the detect model MODEL (``-m MODEL``, or ``synth``: a weight-free
+synthetic detector of 16x16x1 frames, ``serve/sessions.py``): the
+detector runs every K-th frame of a stream (default 4) and the frames
+between propagate the stream's slate, which stays on the device. A frame
+carries ``session`` and ``seq`` (stdin, or ``POST /v1/predict``); every
+answer says ``state_reset``. ``--session-capacity`` bounds the live
+streams (a new one is shed when full), ``--session-ttl-s`` evicts idle
+ones, ``--snapshot-every`` is the frame cadence of the crash-safe
+snapshots under ``--session-dir`` (default a fresh temporary directory).
+With ``--fleet N`` every replica gets these flags and one shared session
+directory, a stream sticks to one replica, and when that replica dies
+the router re-pins the stream to a survivor, which restores the newest
+snapshot, and replays the stream's last ``--session-replay-window``
+frames: the stream goes on without a reset (the exit line counts
+``sessions_migrated`` and ``resets``).
+
 ``--artifact [NAME=]PATH`` (repeatable) serves a ``torch.export``
 artifact of a classifier (``predict export``) without the model's code,
 on its exported batch alone (``serve/models.from_exported``); NAME
@@ -111,6 +135,40 @@ def _parse_spec(spec: str) -> tuple[str, str | None]:
     return name, path or None
 
 
+def _track(args, models: list, injector):
+    """``--track MODEL[:K]``: the ``TrackingPipeline`` named ``track``
+    over the served detect model MODEL, or over the synthetic detector
+    (appended to ``models``) for ``synth``, with a session store under
+    ``--session-dir``."""
+    import tempfile
+
+    from deepvision_tpu_torch.serve.sessions import (
+        SessionStore,
+        TrackingPipeline,
+        synthetic_detector,
+    )
+
+    det_name, _, k = args.track.partition(":")
+    by_name = {m.name: m for m in models}
+    if det_name in by_name:
+        det = by_name[det_name]
+    elif det_name == "synth":
+        det = synthetic_detector(device=args.device)
+        models.append(det)
+    else:
+        sys.exit(f"--track {args.track!r}: no model named {det_name!r} "
+                 "(pass -m, or use 'synth')")
+    sdir = args.session_dir or tempfile.mkdtemp(prefix="dvt-sessions-")
+    print(f"session snapshots -> {sdir} (cadence {args.snapshot_every} "
+          "frames)", file=sys.stderr)
+    store = SessionStore(
+        capacity=args.session_capacity, ttl_s=args.session_ttl_s,
+        snapshot_dir=sdir, snapshot_every=args.snapshot_every,
+        injector=injector)
+    return TrackingPipeline("track", det, store,
+                            detect_every=int(k) if k else 4)
+
+
 def build_engine(args) -> InferenceEngine:
     models = []
     for spec in args.model or []:
@@ -126,9 +184,9 @@ def build_engine(args) -> InferenceEngine:
             name, path = None, name
         models.append(from_exported(path, name=name, top_k=args.top,
                                     device=args.device))
-    if not models:
-        sys.exit("no models: pass -m NAME[=WORKDIR] or --artifact "
-                 "[NAME=]PATH")
+    if not (models or args.track):
+        sys.exit("no models: pass -m NAME[=WORKDIR], --artifact "
+                 "[NAME=]PATH or --track synth")
     buckets = tuple(int(b) for b in args.buckets.split(","))
     by_name = {m.name: m for m in models}
     # each DAG's structure and every edge's shapes are checked here, before
@@ -141,6 +199,8 @@ def build_engine(args) -> InferenceEngine:
 
         injector = FaultInjector(args.faults, seed=args.fault_seed)
         print(f"fault injection armed: {args.faults!r}", file=sys.stderr)
+    if args.track:
+        models.append(_track(args, models, injector))
     print(f"serving {[m.name for m in models]}"
           + (f" pipelines {[p.name for p in pipelines]}" if pipelines
              else "") + f" buckets={buckets} on {args.device}; warming...",
@@ -173,9 +233,25 @@ def build_fleet(args):
     )
     from deepvision_tpu_torch.serve.router import AutoscaleConfig, FleetRouter
 
-    if not (args.model or args.artifact):
-        sys.exit("no models: pass -m NAME[=WORKDIR] or --artifact "
-                 "[NAME=]PATH")
+    if not (args.model or args.artifact or args.track):
+        sys.exit("no models: pass -m NAME[=WORKDIR], --artifact "
+                 "[NAME=]PATH or --track synth")
+    session_flags = []
+    if args.track:
+        import tempfile
+
+        # one snapshot directory for every replica: when a replica dies,
+        # the survivor that a stream is re-pinned to restores the stream
+        # from the newest snapshot that the dead one wrote here
+        session_dir = args.session_dir or tempfile.mkdtemp(
+            prefix="dvt-sessions-")
+        print(f"session snapshots (shared across replicas) -> "
+              f"{session_dir}", file=sys.stderr)
+        session_flags = ["--track", args.track, "--session-dir",
+                         str(session_dir), "--session-capacity",
+                         str(args.session_capacity), "--session-ttl-s",
+                         str(args.session_ttl_s), "--snapshot-every",
+                         str(args.snapshot_every)]
     forward = [("--seed", args.seed), ("--input-size", args.input_size),
                ("--num-classes", args.num_classes), ("--top", args.top),
                ("--score", args.score), ("--iou", args.iou),
@@ -189,7 +265,7 @@ def build_fleet(args):
         # every respawn warms from it
         store=args.store, device=args.device, pipelines=args.pipelines,
         extra=[str(a) for flag, value in forward if value is not None
-               for a in (flag, value)])
+               for a in (flag, value)] + session_flags)
 
     def factory(sid: str):
         return ProcessReplica(sid, child_argv)
@@ -218,6 +294,13 @@ def build_fleet(args):
     # plain JSON here, and each replica builds, checks and warms its DAGs
     models += [spec.name for path in args.pipelines or []
                for spec in load_pipeline_specs(path)]
+    if args.track:
+        # the tracker (and for "synth" its detector) are routable names
+        # that each replica builds itself
+        models.append("track")
+        det_name = args.track.partition(":")[0]
+        if det_name not in models:
+            models.append(det_name)
     print(f"starting fleet of {args.fleet} replica(s) "
           f"({models or args.artifact}) on {args.device}; replicas warm "
           "in parallel...", file=sys.stderr)
@@ -225,7 +308,8 @@ def build_fleet(args):
         factory, replicas=args.fleet, models=models, slo=slo or None,
         default_deadline_s=args.timeout_s, max_queue=args.max_queue,
         per_model_limit=args.per_model_limit, autoscale=autoscale,
-        hedge_after_s=args.hedge_after, fault_injector=injector)
+        hedge_after_s=args.hedge_after, fault_injector=injector,
+        session_replay_window=args.session_replay_window)
     print(f"fleet up: {router.health()}", file=sys.stderr, flush=True)
     return router
 
@@ -259,6 +343,9 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
             if not isinstance(req, dict):
                 raise ValueError("request must be a JSON object")
             x = np.asarray(req["input"], np.float32)
+            # a stream frame: the session's id and the frame's number
+            seq = req.get("seq")
+            seq = int(seq) if seq is not None else None
         except (ValueError, KeyError, TypeError) as e:
             print(json.dumps({"error": f"bad request: {e}"}), file=stdout,
                   flush=True)
@@ -270,7 +357,8 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
             # NAME} does a model: the same queue, the same engine
             fut = engine.submit(x, model=(req.get("model")
                                           or req.get("pipeline")),
-                                timeout_s=args.timeout_s)
+                                timeout_s=args.timeout_s,
+                                session=req.get("session"), seq=seq)
         except ShedError as e:
             print(json.dumps({"id": rid, "error": str(e),
                               "retry_after": e.retry_after_s}),
@@ -326,6 +414,32 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    "{'pipelines': [...]}; repeatable): each DAG is checked "
                    "and warmed end to end at start-up, then served for "
                    "{'pipeline': NAME} on stdin or POST /v1/pipeline/NAME")
+    p.add_argument("--track", default=None, metavar="MODEL[:K]",
+                   help="serve a stateful tracking stream named 'track' "
+                   "over the detect model MODEL ('synth': a weight-free "
+                   "synthetic detector); the detector runs every K-th "
+                   "frame (default 4), the frames between propagate the "
+                   "stream's slate on the device. A frame is {'model': "
+                   "'track', 'session': ID, 'seq': N, 'input': ...}")
+    p.add_argument("--session-dir", default=None, metavar="DIR",
+                   help="crash-safe session snapshot directory (default: "
+                   "a fresh temporary one; a fleet shares one among its "
+                   "replicas, so that a migrated stream restores on the "
+                   "survivor)")
+    p.add_argument("--session-capacity", type=int, default=64,
+                   help="the live sessions an engine keeps; a NEW session "
+                   "is shed when full, existing state is never dropped "
+                   "for a newcomer")
+    p.add_argument("--session-ttl-s", type=float, default=300.0,
+                   help="idle seconds before a session is evicted (its "
+                   "dirty state snapshotted first)")
+    p.add_argument("--snapshot-every", type=int, default=8,
+                   help="the session snapshots' cadence in frames (it "
+                   "bounds the replay after a crash)")
+    p.add_argument("--session-replay-window", type=int, default=32,
+                   help="fleet mode: the frames the router keeps a stream "
+                   "to replay from the snapshot to the present after a "
+                   "failover; a wider gap is a DECLARED state_reset")
     p.add_argument("--store", default=None, metavar="DIR",
                    help="artifact store: warm the runners from this "
                    "directory's verified request programs instead of "
@@ -402,6 +516,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             runners = engine.runner_stats()  # close() drops the runners
             engine.close()
             _print_pipeline_lines(engine, runners)
+            _print_session_line(engine, runners)
             _print_exit_line(engine)
         return 0
     finally:
@@ -427,6 +542,20 @@ def _print_pipeline_lines(engine: InferenceEngine, runners: dict) -> None:
     print(f"[pipeline] runners "
           f"{json.dumps({k: runners[k] for k in stats['pipelines']})}",
           file=sys.stderr, flush=True)
+
+
+def _print_session_line(engine: InferenceEngine, runners: dict) -> None:
+    """The grep-stable line of a server with streams: each store's
+    counters (after close's flush) and its runners, the detect and the
+    advance programs' launches a call and calls by bucket."""
+    sessions = engine.stats().get("sessions")
+    if not sessions:
+        return
+    for name, st in sessions.items():
+        counters = " ".join(f"{k}={v}" for k, v in st["counters"].items())
+        print(f"[sessions] {name} live={st['live']} {counters}; runners "
+              f"{json.dumps(runners.get(name, {}).get('buckets', {}))}",
+              file=sys.stderr, flush=True)
 
 
 def _print_exit_line(engine: InferenceEngine) -> None:

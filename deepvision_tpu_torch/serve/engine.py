@@ -59,7 +59,21 @@ every entry bucket and runs each once on a zero batch, so that with
 never goes into the artifact store, and ``stats()["pipelines"]`` counts
 the requests each has served. A request whose deadline passes while its
 DAG runs resolves with ``TimeoutError`` ("mid-pipeline"), never a late
-answer. Multi-tenancy and sessions belong to later slices of the port.
+answer. Multi-tenancy belongs to a later slice of the port.
+
+Stateful streams (``serve/sessions.py``): a model with ``is_stateful``
+(a ``TrackingPipeline``) takes ``submit(x, model=..., session=ID,
+seq=N)``; a NEW session is shed at the door when its ``SessionStore`` is
+full. A batch holds at most one frame a session (the later frames go
+back to the front of the backlog, in order), each frame is dispositioned
+by the store (a duplicate is answered idempotently, without a run), and
+the detect and the interpolated frames run as two sub-batches, each one
+program of the runner. The new state is committed, as a clone of the
+program's static output, before the deadline check, so that a client's
+retry after a timeout is a duplicate and never forks the stream.
+``stats()`` and ``health()`` carry ``"sessions"``; ``close()`` flushes
+every dirty session's snapshot, or with ``abandon_sessions=True`` drops
+the state without one (a replica's kill).
 
 The engine runs its models in true float32: it turns TF32 off for
 cuDNN and cuBLAS (``device.strict_fp32``) before it captures any graph.
@@ -92,14 +106,19 @@ _WAKE = object()  # queue sentinel: wake the dispatcher without a request
 
 
 class _Request:
-    __slots__ = ("model", "x", "future", "t_submit", "deadline")
+    __slots__ = ("model", "x", "future", "t_submit", "deadline", "session",
+                 "seq")
 
-    def __init__(self, model: str, x: np.ndarray, deadline: float | None):
+    def __init__(self, model: str, x: np.ndarray, deadline: float | None,
+                 session: str | None = None, seq: int | None = None):
         self.model = model
         self.x = x
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline
+        # a stateful stream's id and frame number; None when stateless
+        self.session = session
+        self.seq = seq
 
 
 class InferenceEngine:
@@ -274,7 +293,8 @@ class InferenceEngine:
                         continue
                 runner = self._cache.get_or_build(
                     key, lambda m=m, bucket=bucket: self._build(m, bucket))
-                if m.exported or getattr(m, "is_pipeline", False):
+                if m.exported or getattr(m, "is_pipeline", False) \
+                        or getattr(m, "is_stateful", False):
                     self._zero_run(m, runner, bucket)
                 if storing:
                     self._save_store_entry(m, bucket)
@@ -283,9 +303,11 @@ class InferenceEngine:
     @staticmethod
     def _storeable(m) -> bool:
         """Models whose request program the store can carry: a plain
-        model's. An artifact already is a serialized program, and a
-        pipeline is built from its stage models."""
-        return not m.exported and not getattr(m, "is_pipeline", False)
+        model's. An artifact already is a serialized program, a pipeline
+        is built from its stage models, and a stateful model's programs
+        read live per-stream state."""
+        return not m.exported and not getattr(m, "is_pipeline", False) \
+            and not getattr(m, "is_stateful", False)
 
     @staticmethod
     def _zero_run(m: ServedModel, runner, bucket: int) -> None:
@@ -341,11 +363,17 @@ class InferenceEngine:
 
     # -- client surface --------------------------------------------------
     def submit(self, x, model: str | None = None, *,
-               timeout_s: float | None = None) -> Future:
+               timeout_s: float | None = None, session: str | None = None,
+               seq: int | None = None) -> Future:
         """Enqueue one example (no batch dim) for ``model``; returns a
         Future resolving to the task's result dict. Raises
         :class:`ShedError` at once when admission rejects, and
-        ``ValueError`` on a shape or model mismatch."""
+        ``ValueError`` on a shape or model mismatch.
+
+        A stateful model needs ``session`` (the stream's id) and ``seq``
+        (the frame's number, from 0); a NEW session is shed here when its
+        store is full. ``session`` on a stateless model is a
+        ``ValueError``."""
         if model is None:
             if len(self._models) != 1:
                 raise ValueError(
@@ -362,6 +390,29 @@ class InferenceEngine:
             raise ValueError(
                 f"{model!r} expects input shape {served.input_shape}, "
                 f"got {x.shape}")
+        if getattr(served, "is_stateful", False):
+            if session is None or seq is None:
+                raise ValueError(
+                    f"stateful model {model!r} requires session= and "
+                    "seq= on submit")
+            if not isinstance(session, str):
+                # a session id names its snapshot files
+                raise ValueError(f"session must be a string, got "
+                                 f"{type(session).__name__}")
+            seq = int(seq)
+            if seq < 0:
+                raise ValueError(f"seq must be >= 0, got {seq}")
+            try:
+                # capacity sheds NEW sessions at the door; existing
+                # streams keep their state (never a silent reset)
+                served.store.admit(session)
+            except ShedError:
+                self.telemetry.record_shed()
+                raise
+        elif session is not None:
+            raise ValueError(
+                f"model {model!r} is stateless; session=/seq= is only "
+                "valid for stateful models")
         try:
             self._admission.admit(model)
         except ShedError:
@@ -370,7 +421,7 @@ class InferenceEngine:
         self.telemetry.record_submit()
         req = _Request(model, x, deadline=(
             time.perf_counter() + timeout_s if timeout_s is not None
-            else None))
+            else None), session=session, seq=seq)
         self._q.put(req)
         if self._stop.is_set():
             # raced close(): the dispatcher's exit drain may already have
@@ -378,14 +429,20 @@ class InferenceEngine:
             self._fail_request(req, RuntimeError("engine closed"))
         return req.future
 
+    def _session_stores(self) -> dict:
+        """name -> SessionStore of every stateful model."""
+        return {name: m.store for name, m in self._models.items()
+                if getattr(m, "is_stateful", False)}
+
     def stats(self) -> dict:
         """JSON-able state for ``/stats``: models (pipelines among them),
         the requests each pipeline served, ladder, health, queue, the
         runner cache, the runners, the runners that came from the
-        store (and the store's counters), telemetry, and the process's
+        store (and the store's counters), telemetry, the process's
         kernel launches so far (``ops.kernel_launches``: true launches,
         each capture's eager forward and each replay's, which a fleet's
-        replicas report from their own processes)."""
+        replicas report from their own processes) and, with a stateful
+        model, each session store's stats."""
         from deepvision_tpu_torch.ops import kernel_launches
 
         out = {
@@ -409,13 +466,19 @@ class InferenceEngine:
         }
         if self._store is not None:
             out["artifact_store"] = self._store.stats()
+        stores = self._session_stores()
+        if stores:
+            out["sessions"] = {name: s.stats()
+                               for name, s in sorted(stores.items())}
         return out
 
     def runner_stats(self) -> dict:
         """By model (and pipeline): the kind of its runners, the bytes its
         graph memory pool reserves (0 on the CPU) and, by bucket, the
         runner's build seconds, the kernel launches of one call and its
-        calls so far: the runners that the cache holds now."""
+        calls so far (a track runner's of its detect program, and its
+        advance program's beside them): the runners that the cache holds
+        now."""
         out: dict[str, dict] = {}
         for key, r in sorted(self._cache.items(), key=lambda kv: kv[0][:2]):
             name, bucket = key[:2]
@@ -424,7 +487,8 @@ class InferenceEngine:
             entry["pool_bytes"] += r.pool_bytes
             entry["buckets"][str(bucket)] = {
                 "capture_s": round(r.capture_s, 4),
-                "launches": dict(r.launches), "calls": r.calls}
+                "launches": dict(r.launches), "calls": r.calls,
+                **(r.extra_stats() if hasattr(r, "extra_stats") else {})}
         return out
 
     def health(self) -> dict:
@@ -444,6 +508,18 @@ class InferenceEngine:
                 until = self._recover_until
             out["retry_after_s"] = round(
                 max(0.05, until - time.monotonic()), 3)
+        stores = self._session_stores()
+        if stores:
+            # live streams, the bytes their state holds, and the worst
+            # snapshot age (how much replay a crash now would need)
+            agg = [s.stats() for s in stores.values()]
+            ages = [a["snapshot_age_s"] for a in agg
+                    if a["snapshot_age_s"] is not None]
+            out["sessions"] = {
+                "live": sum(a["live"] for a in agg),
+                "pinned_bytes": sum(a["pinned_bytes"] for a in agg),
+                "snapshot_age_s": max(ages) if ages else None,
+            }
         return out
 
     # pause/resume: deterministic queue build-up (backpressure, deadline
@@ -504,10 +580,13 @@ class InferenceEngine:
             name = self._next_model(pending, rr)
             if name is None:
                 continue
-            ladder_max = self.ladder(self._models[name])[-1]
+            served = self._models[name]
+            ladder_max = self.ladder(served)[-1]
             self._fill_window(pending, name, ladder_max)
             reqs = pending[name][:ladder_max]
             del pending[name][:ladder_max]
+            if getattr(served, "is_stateful", False):
+                reqs = self._one_frame_a_session(pending[name], reqs)
             # visible to the crash handler from the moment they leave the
             # backlog, so that a crash past this point fails them too
             self._in_flight = reqs
@@ -516,10 +595,28 @@ class InferenceEngine:
                 self._in_flight = live
                 if self._injector is not None:
                     self._injector.check_dispatch()  # chaos site
-                self._run_batch(self._models[name], live)
+                self._run_batch(served, live)
             self._in_flight = []
         # closing: fail anything still queued so no caller blocks forever
         self._fail_all_pending(RuntimeError("engine closed"))
+
+    @staticmethod
+    def _one_frame_a_session(backlog: list, reqs: list) -> list:
+        """One frame a session a batch: a program reads each row's slate
+        as it was before the batch, so two frames of one stream in a batch
+        would both read stale state. The later frames go back to the FRONT
+        of the backlog in arrival order, so each stream stays FIFO."""
+        seen: set[str] = set()
+        keep: list[_Request] = []
+        defer: list[_Request] = []
+        for r in reqs:
+            if r.session in seen:
+                defer.append(r)
+            else:
+                seen.add(r.session)
+                keep.append(r)
+        backlog[:0] = defer
+        return keep
 
     def _fail_all_pending(self, exc: BaseException) -> int:
         """Resolve every queued and in-flight future with ``exc``."""
@@ -609,6 +706,9 @@ class InferenceEngine:
         return ladder[-1]
 
     def _run_batch(self, served: ServedModel, reqs: list[_Request]) -> None:
+        if getattr(served, "is_stateful", False):
+            self._run_stateful_batch(served, reqs)
+            return
         t_dispatch = time.perf_counter()
         n = len(reqs)
         bucket = self._bucket_for(served, n)
@@ -670,16 +770,122 @@ class InferenceEngine:
             expired.add(id(r))
         return expired
 
+    def _run_stateful_batch(self, served, reqs: list[_Request]) -> None:
+        """One batch of a stateful model (a ``TrackingPipeline``): each
+        frame dispositioned by the session store, duplicates answered
+        idempotently, then the detect and the interpolated frames as two
+        sub-batches, each one program of the runner. The state stays on
+        the device: one fetch of each sub-batch's outputs, none of the
+        state; the one state fetch is the store's snapshot on its
+        cadence, inside ``commit``."""
+        store = served.store
+        t_dispatch = time.perf_counter()
+        frames = [(r, store.begin_frame(r.session, r.seq,
+                                        served.detect_every))
+                  for r in reqs]
+        now = time.perf_counter()
+        for r, f in frames:
+            if f.action != "duplicate":
+                continue
+            # an idempotent answer to a replayed or retried frame: seq
+            # already applied, nothing run, no state touched
+            try:
+                r.future.set_result({"session": r.session, "seq": r.seq,
+                                     "replayed": True,
+                                     "state_reset": False})
+            except InvalidStateError:
+                continue  # raced close() resolved (and released) it
+            self.telemetry.record_request(
+                queue_wait_s=t_dispatch - r.t_submit,
+                e2e_s=now - r.t_submit)
+            self._admission.release(r.model)
+        for mode in ("detect", "interp"):
+            group = [(r, f) for r, f in frames if f.action == "apply"
+                     and f.run_detect == (mode == "detect")]
+            if group:
+                self._run_stateful_group(served, store, group, mode,
+                                         t_dispatch)
+
+    def _run_stateful_group(self, served, store, group, mode: str,
+                            t_dispatch: float) -> None:
+        n = len(group)
+        bucket = self._bucket_for(served, n)
+        try:
+            runner = self._bucket_runner(served, bucket)
+            # each stream's slate row: its device row, a restored
+            # snapshot's host arrays, or None (fresh or reset: zeros)
+            rows = [f.entry.state for _r, f in group]
+            t0 = time.perf_counter()
+            if mode == "detect":
+                x = np.stack([r.x for r, _f in group])
+                new_slates, host = runner.detect.run(x, rows)
+            else:
+                new_slates, host = runner.advance.run(None, rows)
+            t_dev = time.perf_counter() - t0
+        except Exception as e:  # a forward failure: fail the group only
+            for r, _f in group:
+                self._fail_request(r, e)
+            return
+        self.telemetry.record_batch(bucket=bucket, rows=n, device_s=t_dev)
+        self._admission.observe_batch(t_dev, n)
+        now = time.perf_counter()
+        for i, (r, f) in enumerate(group):
+            # commit FIRST: the stream's lineage advances even if this
+            # answer expired, so the client's retry is a duplicate and
+            # never forks the stream. A clone, never a view: the
+            # program's next call overwrites its static outputs
+            store.commit(r.session, r.seq,
+                         {k: v[i].clone() for k, v in new_slates.items()})
+            if r.deadline is not None and now > r.deadline:
+                try:
+                    r.future.set_exception(TimeoutError(
+                        f"deadline expired mid-batch after "
+                        f"{now - r.t_submit:.3f}s"))
+                except InvalidStateError:
+                    continue
+                self.telemetry.record_timeout()
+                self._admission.release(r.model)
+                continue
+            try:
+                result = served.postprocess(host, i)
+                # the same merge on every restore path
+                result["session"] = r.session
+                result["seq"] = r.seq
+                result["detected"] = mode == "detect"
+                result["state_reset"] = bool(f.reset)
+            except Exception as e:
+                self._fail_request(r, e)
+                continue
+            try:
+                r.future.set_result(result)
+            except InvalidStateError:
+                continue  # raced close() resolved (and released) it
+            self.telemetry.record_request(
+                queue_wait_s=t_dispatch - r.t_submit,
+                e2e_s=now - r.t_submit)
+            self._admission.release(r.model)
+
     # -- lifecycle -------------------------------------------------------
-    def close(self, timeout: float = 10.0) -> None:
+    def close(self, timeout: float = 10.0, *,
+              abandon_sessions: bool = False) -> None:
         """Stop the dispatcher and join its thread; pending futures fail
-        with RuntimeError('engine closed'). Then drop every runner and
-        graph memory pool, which frees the graphs' device memory once
-        the allocator's cache is emptied. Idempotent."""
+        with RuntimeError('engine closed'). Each session store then
+        flushes a snapshot of every dirty session, or with
+        ``abandon_sessions=True`` drops the state without one (the crash
+        semantics of a replica's kill, so that recovery runs off the
+        cadence snapshots). Then drop every runner and graph memory pool,
+        which frees the graphs' device memory once the allocator's cache
+        is emptied. Idempotent."""
         self._stop.set()
         self._paused.clear()
         self._q.put(_WAKE)
         self._thread.join(timeout)
+        for s in {id(s): s for s in self._session_stores().values()
+                  }.values():
+            if abandon_sessions:
+                s.abandon()
+            else:
+                s.flush()
         self._cache.drop_where(lambda key: True)
         self._pools.clear()
 

@@ -7,6 +7,8 @@ or over a fleet router (``serve/router.FleetRouter``).
     POST /v1/pipeline/NAME  {"input": [...]}  a served DAG (``--pipelines``)
                       by its URL; past the path the request is a
                       /v1/predict one with ``"model": NAME``
+                      a stream frame of a stateful model (``--track``)
+                      adds ``"session": ID, "seq": N``
     GET  /stats       engine, runner cache, queue, telemetry and the
                       process's kernel launches (JSON); a router's
                       replicas, breakers and telemetry
@@ -28,7 +30,8 @@ The status codes are the JAX surface's: 400 for a request that cannot
 be decoded or does not fit the model, 404 for another path, 429 with
 ``Retry-After`` when admission sheds, 500 when the dispatcher crashed
 or the engine is closed (a server fault a client may retry), 504 when
-the request's deadline expired.
+the request's deadline expired. A ``seq`` that is not an integer is a
+400.
 """
 
 from __future__ import annotations
@@ -160,6 +163,11 @@ def make_handler(engine, args):
                 if not isinstance(req, dict):
                     raise ValueError("request must be a JSON object")
                 x = decode_input(req)
+                # a stream frame (the router forwards these on its
+                # replica hop): the session's id and the frame's number
+                session = req.get("session")
+                seq = req.get("seq")
+                seq = int(seq) if seq is not None else None
                 timeout_s = args.timeout_s
                 if "timeout_s" in req:
                     timeout_s = min(float(req["timeout_s"]), args.timeout_s)
@@ -171,7 +179,8 @@ def make_handler(engine, args):
                 return
             try:
                 fut = engine.submit(x, model=pipeline or req.get("model"),
-                                    timeout_s=timeout_s)
+                                    timeout_s=timeout_s, session=session,
+                                    seq=seq)
                 result = fut.result(timeout=timeout_s + 1.0)
             except ShedError as e:
                 self._send(429, {"error": str(e),

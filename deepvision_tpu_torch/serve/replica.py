@@ -27,7 +27,12 @@ The contract every backend keeps:
   ``"recovering"``) or raises :class:`ReplicaDeadError`;
 - ``kill()`` is abrupt (SIGKILL, or an engine closed under its
   requests), ``stop()`` graceful (SIGTERM); both are idempotent. A
-  killed replica is not restarted: the router builds a fresh one.
+  killed replica is not restarted: the router builds a fresh one. A
+  kill loses the stateful sessions' state past their newest snapshots;
+  a stop flushes it.
+
+A stream frame carries ``session`` and ``seq`` to ``request()``; the
+replica's session store threads the stream's state by them.
 """
 
 from __future__ import annotations
@@ -93,10 +98,12 @@ class EngineReplica:
 
     def kill(self) -> None:
         """Abrupt death: in-flight futures fail with 'engine closed',
-        later requests and probes raise :class:`ReplicaDeadError`."""
+        later requests and probes raise :class:`ReplicaDeadError`.
+        Session state is ABANDONED, not flushed: an in-process kill must
+        recover from the cadence snapshots as a SIGKILL does."""
         self._dead = True
         if self._engine is not None:
-            self._engine.close()
+            self._engine.close(abandon_sessions=True)
 
     # -- serving surface -------------------------------------------------
     def _live_engine(self):
@@ -106,11 +113,14 @@ class EngineReplica:
 
     def request(self, model: str | None, x, *,
                 timeout_s: float | None = None,
-                trace: str | None = None) -> dict:
+                trace: str | None = None,
+                session: str | None = None,
+                seq: int | None = None) -> dict:
         # ``trace``: the port's engine has no spans to stamp yet
         engine = self._live_engine()
         try:
-            fut = engine.submit(x, model=model, timeout_s=timeout_s)
+            fut = engine.submit(x, model=model, timeout_s=timeout_s,
+                                session=session, seq=seq)
             return fut.result(
                 timeout=timeout_s + 1.0 if timeout_s is not None else None)
         except (ShedError, TimeoutError, ValueError):
@@ -279,7 +289,9 @@ class ProcessReplica:
     # -- serving surface -------------------------------------------------
     def request(self, model: str | None, x, *,
                 timeout_s: float | None = None,
-                trace: str | None = None) -> dict:
+                trace: str | None = None,
+                session: str | None = None,
+                seq: int | None = None) -> dict:
         import base64
 
         # the binary wire format (``input_b64``): base64 of the raw bytes
@@ -292,6 +304,11 @@ class ProcessReplica:
         }
         if model is not None:
             payload["model"] = model
+        if session is not None:
+            # a stream frame: the child's session store threads the
+            # stream's state by (session, seq)
+            payload["session"] = session
+            payload["seq"] = seq
         if timeout_s is not None:
             # the router's remaining deadline rides to the child, so that
             # it stops working a request the router has already timed out

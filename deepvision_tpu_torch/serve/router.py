@@ -31,15 +31,27 @@ turns them into one serving surface:
 The router never touches a device: a fleet's router process creates no
 CUDA context (its replicas do).
 
-The fault sites ``replica_kill`` and ``replica_slow``
-(``resilience/faults.py``) are consulted on each routed attempt with
-monotonic occurrence counters, so that a drill replays exactly.
+Stateful streams (``serve/sessions.py``): a frame submitted with
+``session`` and ``seq`` joins its stream's FIFO (one drain a stream, the
+streams in parallel) and goes to the stream's pinned replica, a crc32
+hash of the session id over the READY slots' ids (stable across router
+restarts). When the pin is no longer routable the stream is re-pinned to
+a survivor (``sessions_migrated``), and the router replays its bounded
+window of the stream's last frames (``session_replay_window``), so that
+the survivor rebuilds the state past its newest snapshot; a reset that a
+replayed frame declared is passed on to the frame's answer
+(``session_resets`` counts the declared resets). A stream frame is never
+hedged: a duplicate in flight could apply a state update twice.
 
-Left for later tiers, as the twin has them: stateful sessions
-(``_SessionRoute`` and the session dispatch, with ``serve/sessions.py``),
-the tenant quotas and SLO classes of the admission gate (with
-``serve/tenancy.py``), and the flight recorder's probe notes (with the
-port's distributed observability).
+The fault sites ``replica_kill`` and ``replica_slow``
+(``resilience/faults.py``) are consulted on each routed attempt (a
+replayed frame's too) with monotonic occurrence counters, so that a drill
+replays exactly.
+
+Left for later tiers, as the twin has them: the tenant quotas and SLO
+classes of the admission gate (with ``serve/tenancy.py``), and the
+flight recorder's probe notes (with the port's distributed
+observability).
 """
 
 from __future__ import annotations
@@ -47,6 +59,8 @@ from __future__ import annotations
 import sys
 import threading
 import time
+import zlib
+from collections import deque
 from concurrent.futures import (
     FIRST_COMPLETED,
     Future,
@@ -268,10 +282,11 @@ class _Request:
     """One routed request: a resolve-once future and its context."""
 
     __slots__ = ("model", "key", "x", "future", "t_submit", "deadline",
-                 "trace", "_resolved", "_lock")
+                 "trace", "session", "seq", "_resolved", "_lock")
 
     def __init__(self, model: str | None, x, deadline: float,
-                 key: str | None = None, trace: str | None = None):
+                 key: str | None = None, trace: str | None = None,
+                 session: str | None = None, seq: int | None = None):
         self.model = model
         self.key = key if key is not None else (model or "_default")
         self.x = x
@@ -281,6 +296,9 @@ class _Request:
         # minted here, at the fleet's front door, unless an upstream
         # surface gave one; every attempt carries it
         self.trace = trace if trace is not None else new_trace_id()
+        # a stream frame's session and seq: pinned, strictly in order
+        self.session = session
+        self.seq = seq
         self._resolved = False
         self._lock = threading.Lock()
 
@@ -302,6 +320,22 @@ class _Request:
         return True
 
 
+class _SessionRoute:
+    """The router's state of one stream: the pinned slot id, the FIFO of
+    its frames, and the window of its last frames that can be replayed to
+    a new pin instead of declaring a reset."""
+
+    __slots__ = ("sid", "pin", "queue", "active", "window", "last_used")
+
+    def __init__(self, sid: str, window: int):
+        self.sid = sid
+        self.pin: str | None = None      # the slot id the stream sticks to
+        self.queue: list = []            # [(req, breaker, key)] FIFO
+        self.active = False              # a drain task is running
+        self.window: deque = deque(maxlen=window)  # [(seq, x)]
+        self.last_used = time.monotonic()
+
+
 class FleetRouter:
     """Route requests across a supervised fleet of replicas.
 
@@ -310,6 +344,8 @@ class FleetRouter:
     through the same factory after a death. ``slo`` maps a model name to
     its p95 deadline budget in seconds: both the model's deadline ceiling
     and its admission budget (``AdmissionController.slo_budget_s``).
+    ``session_replay_window``: the frames a stream keeps for a replay
+    after its pin dies.
     """
 
     def __init__(
@@ -327,6 +363,7 @@ class FleetRouter:
         hedge_after_s: float | None = None,
         autoscale: AutoscaleConfig | None = None,
         fault_injector=None,
+        session_replay_window: int = 32,
     ):
         if replicas < 1:
             raise ValueError(f"need >= 1 replica, got {replicas}")
@@ -344,6 +381,8 @@ class FleetRouter:
             slo_budget_s=self._slo or None)
         self._injector = fault_injector
         self._lock = threading.Lock()
+        self._session_replay_window = max(0, int(session_replay_window))
+        self._sessions: dict[str, _SessionRoute] = {}
         self._slots: list[_Slot] = []
         self._gen = 0
         self._breakers: dict[str, CircuitBreaker] = {}
@@ -447,16 +486,18 @@ class FleetRouter:
     def submit(self, x, model: str | None = None, *,
                timeout_s: float | None = None,
                trace: str | None = None,
-               session: str | None = None) -> Future:
+               session: str | None = None,
+               seq: int | None = None) -> Future:
         """Route one example; returns a Future resolving to the task's
         result dict. A shed (circuit open, admission) raises at once, the
         engine's :class:`ShedError` contract. ``trace`` carries an
         upstream trace id; without one the router mints one, and every
-        attempt sends it over the ``X-DVTPU-Trace`` hop."""
-        if session is not None:
-            # stateful stream frames route with the sessions tier
-            raise NotImplementedError(
-                "session routing comes with the port's serve/sessions.py")
+        attempt sends it over the ``X-DVTPU-Trace`` hop.
+
+        ``session``/``seq`` mark a stream frame: it goes to the stream's
+        pinned replica after the stream's earlier frames, and survives
+        the pin's death by a re-pin, the survivor's restore from the
+        snapshot and a replay of the router's window."""
         if self._stop.is_set():
             raise RuntimeError("router is closed")
         # an anonymous request to a one-model fleet counts as that model
@@ -483,8 +524,12 @@ class FleetRouter:
                   if b is not None]
         budget = min(bounds) if bounds else self._default_deadline_s
         req = _Request(model, x, deadline=time.monotonic() + budget,
-                       key=key, trace=trace)
-        self._pool.submit(self._dispatch, req, breaker, key)
+                       key=key, trace=trace, session=session,
+                       seq=seq if seq is None else int(seq))
+        if session is not None:
+            self._enqueue_session(req, breaker, key)
+        else:
+            self._pool.submit(self._dispatch, req, breaker, key)
         return req.future
 
     # -- request lifecycle -----------------------------------------------
@@ -602,6 +647,153 @@ class FleetRouter:
         except Exception as e:  # a coordinator bug: never strand a client
             self._finish(req, key, error=e)
 
+    # -- stateful streams (serve/sessions.py) ----------------------------
+    def _enqueue_session(self, req: _Request, breaker, key: str) -> None:
+        """Append a frame to its stream's FIFO, with one drain task a
+        stream: a stream's frames go in submission order, the streams in
+        parallel."""
+        with self._lock:
+            route = self._sessions.get(req.session)
+            if route is None:
+                route = self._sessions[req.session] = _SessionRoute(
+                    req.session, self._session_replay_window)
+            route.last_used = time.monotonic()
+            route.queue.append((req, breaker, key))
+            if not route.active:
+                route.active = True
+                self._pool.submit(self._drain_session, route)
+
+    def _drain_session(self, route: _SessionRoute) -> None:
+        while True:
+            with self._lock:
+                if not route.queue:
+                    route.active = False
+                    return
+                req, breaker, key = route.queue.pop(0)
+            if self._stop.is_set():
+                self._finish(req, key,
+                             error=RuntimeError("router is closed"))
+                continue
+            try:
+                self._dispatch_stateful(route, req, breaker, key)
+            except Exception as e:  # a drain bug: never strand a client
+                self._finish(req, key, error=e)
+
+    def _pin_slot(self, route: _SessionRoute
+                  ) -> tuple[_Slot | None, bool]:
+        """The stream's pinned slot (its in-flight count raised), a fresh
+        pin by hash when it has none, and whether the stream MIGRATED: its
+        old pin is no longer routable."""
+        with self._lock:
+            ready = sorted((s for s in self._slots if s.state == READY),
+                           key=lambda s: s.sid)
+            if route.pin is not None:
+                for s in ready:
+                    if s.sid == route.pin:
+                        s.inflight += 1
+                        return s, False
+            if not ready:
+                return None, False
+            # a stable hash: the same session lands on the same slot id
+            # across router restarts (crc32, not PYTHONHASHSEED)
+            slot = ready[zlib.crc32(route.sid.encode()) % len(ready)]
+            migrated = route.pin is not None
+            route.pin = slot.sid
+            slot.inflight += 1
+            return slot, migrated
+
+    def _replay_window(self, route: _SessionRoute, slot: _Slot,
+                       req: _Request, breaker) -> tuple[bool, bool]:
+        """Send the window's frames before ``req`` to a new pin, so that
+        it rebuilds the state past its newest snapshot (it answers the
+        seqs that the snapshot covers as duplicates). -> (ok, whether a
+        replayed frame declared a reset), so that the client's frame never
+        hides a reset that happened during the recovery."""
+        with self._lock:
+            frames = [(s, x) for s, x in route.window if s < req.seq]
+        reset_seen = False
+        for s, x in frames:
+            if req.deadline - time.monotonic() <= 0:
+                return False, reset_seen
+            replay = _Request(req.model, x, deadline=req.deadline,
+                              key=req.key, trace=req.trace,
+                              session=req.session, seq=s)
+            with self._lock:
+                # paired with the decrement in _attempt's finally
+                slot.inflight += 1
+            ok, payload = self._attempt(replay, slot, breaker)
+            if not ok:
+                return False, reset_seen
+            if isinstance(payload, dict) and payload.get("state_reset"):
+                reset_seen = True
+        return True, reset_seen
+
+    def _dispatch_stateful(self, route: _SessionRoute, req: _Request,
+                           breaker, key: str) -> None:
+        """Coordinate one stream frame: an attempt on the pin and, when
+        the pin dies, a re-pin to a survivor and a replay of the window.
+        NEVER hedged: retries are safe by the replica's seq dedupe."""
+        retries_left = self._max_retries
+        last_exc: BaseException | None = None
+        reset_seen = False
+        while True:
+            remaining = req.deadline - time.monotonic()
+            if remaining <= 0:
+                self._finish(req, key, error=last_exc or TimeoutError(
+                    "deadline expired before any replica answered"))
+                return
+            slot, migrated = self._pin_slot(route)
+            if slot is None:
+                self._finish(req, key, error=(
+                    last_exc if isinstance(last_exc, ShedError)
+                    else RouterShedError(
+                        "no replica available for pinned session",
+                        round(2 * self._probe_interval_s, 3))))
+                return
+            if migrated:
+                self.telemetry.inc("sessions_migrated")
+                with self._lock:
+                    n_replay = len(route.window)
+                print(f"[router] session {route.sid} re-pinned to "
+                      f"{slot.sid} (replaying {n_replay} frame(s))",
+                      file=sys.stderr, flush=True)
+                ok, rs = self._replay_window(route, slot, req, breaker)
+                reset_seen = reset_seen or rs
+                if not ok:
+                    # the replay's target failed: replayed frames are
+                    # idempotent, so re-pin again
+                    with self._lock:
+                        slot.inflight = max(0, slot.inflight - 1)
+                    if retries_left <= 0:
+                        self._finish(req, key, error=last_exc
+                                     or ReplicaDeadError(
+                                         "replay target died"))
+                        return
+                    retries_left -= 1
+                    continue
+            ok, payload = self._attempt(req, slot, breaker)
+            if ok:
+                if isinstance(payload, dict):
+                    if reset_seen:
+                        payload["state_reset"] = True
+                    if payload.get("state_reset"):
+                        # a DECLARED reset, never a silent one
+                        self.telemetry.inc("session_resets")
+                with self._lock:
+                    route.window.append((req.seq, req.x))
+                    route.last_used = time.monotonic()
+                self._finish(req, key, result=payload)
+                return
+            last_exc = payload
+            if isinstance(payload, ReplicaDeadError):
+                # the pin died: the next pass re-pins and replays
+                self.telemetry.inc("failovers")
+                continue
+            if isinstance(payload, ValueError) or retries_left <= 0:
+                self._finish(req, key, error=payload)
+                return
+            retries_left -= 1
+
     def _slot_count(self) -> int:
         with self._lock:
             return len([s for s in self._slots
@@ -628,13 +820,19 @@ class FleetRouter:
             # the router's half of the request's timeline, under the
             # trace id the replica receives (a no-op while the tracer is
             # off)
+            # a stream frame's session and seq ride to the replica (only
+            # when set, so a replica double without them keeps working)
+            kw = ({"session": req.session, "seq": req.seq}
+                  if req.session is not None else {})
             with span("router_attempt", cat="router",
                       args={"trace": req.trace, "replica": slot.sid,
                             "model": req.key,
+                            **({"session": req.session}
+                               if req.session is not None else {}),
                             **({"hedge": True} if hedge else {})}):
                 result = slot.replica.request(
                     req.model, req.x, timeout_s=remaining,
-                    trace=req.trace)
+                    trace=req.trace, **kw)
         except ReplicaDeadError as e:
             breaker.record_failure()
             self._on_replica_dead(slot, str(e))
@@ -923,6 +1121,11 @@ class FleetRouter:
                 "inflight": s.inflight,
             } for s in self._slots]
             target = self._target
+            sessions = {
+                "live": len(self._sessions),
+                "replay_window": self._session_replay_window,
+                "pins": {r.sid: r.pin for r in self._sessions.values()},
+            }
         return {
             "models": sorted(self._models),
             "replicas": replicas,
@@ -932,6 +1135,7 @@ class FleetRouter:
             "breakers": {k: b.snapshot()
                          for k, b in self._breakers.items()},
             "health": self.health(),
+            "sessions": sessions,
             "telemetry": self.telemetry.snapshot(),
         }
 

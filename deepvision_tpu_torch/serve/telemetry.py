@@ -167,10 +167,8 @@ _ROUTER_COUNTER_FIELDS = (
     "replica_restarts",   # replicas respawned by the supervisor
     "scale_ups",          # autoscaler added a replica
     "scale_downs",        # autoscaler drained a replica
-    # stateful streams come with the sessions tier: these two stay 0
-    # until then, and keep the twin's summary-line format
-    "sessions_migrated",
-    "session_resets",
+    "sessions_migrated",  # streams re-pinned to a survivor
+    "session_resets",     # stream answers that DECLARED lost state
 )
 
 

@@ -674,6 +674,11 @@ def test_deadline_expiry_mid_dag_fails_exactly_once():
                     fut.result(timeout=60)
             finally:
                 p.stage_hook = None
+            # the engine resolves the future before it counts the timeout
+            deadline = time.monotonic() + 10.0
+            while e.telemetry.snapshot()["timed_out"] == before["timed_out"]:
+                assert time.monotonic() < deadline, "the timeout uncounted"
+                time.sleep(0.002)
             after = e.telemetry.snapshot()
             assert after["timed_out"] - before["timed_out"] == 1
             assert after["completed"] == before["completed"]

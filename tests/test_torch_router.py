@@ -31,7 +31,10 @@ on the CPU.
 
 The scenarios wait on states, not on sleeps; a hedge goes out after
 0.5 s and a delayed attempt waits 1.5 s, long against a CPU forward of
-``lenet5``.
+``lenet5``. The router (``_finish``) and the engine (``_run_batch``)
+resolve a client's future before they count the request, so a test that
+reads a counter after ``result()`` first waits for the counts to land
+(``counted``), and then holds them exactly.
 """
 
 import contextlib
@@ -56,7 +59,10 @@ from deepvision_tpu.resilience import FaultInjector as JaxFaultInjector  # noqa:
 from deepvision_tpu.serve import replica as jax_replica  # noqa: E402
 from deepvision_tpu.serve import router as jax_router  # noqa: E402
 from deepvision_tpu_torch.obs import distributed  # noqa: E402
-from deepvision_tpu_torch.obs.metrics import Registry  # noqa: E402
+from deepvision_tpu_torch.obs.metrics import (  # noqa: E402
+    Registry,
+    default_registry,
+)
 from deepvision_tpu_torch.resilience.faults import FaultInjector  # noqa: E402
 from deepvision_tpu_torch.serve import ShedError, load_served  # noqa: E402
 from deepvision_tpu_torch.serve import replica, router  # noqa: E402
@@ -83,6 +89,14 @@ def wait_until(cond, timeout=30.0, msg="condition"):
             return
         time.sleep(0.01)
     raise AssertionError(f"timed out waiting for {msg}")
+
+
+def counted(fleet, n: int) -> None:
+    """Wait until the router has counted ``n`` resolved requests: it
+    resolves a future before it counts it."""
+    tel = fleet.telemetry
+    wait_until(lambda: tel.completed + tel.failed >= n,
+               msg=f"{n} resolved requests counted")
 
 
 # ------------------------------------------ scripted replicas, both sides
@@ -269,15 +283,6 @@ def test_fault_sites_replay_like_jax():
         JaxFaultInjector(schedule).summary()
 
 
-def test_session_routing_is_refused_until_the_sessions_tier():
-    fleet, _ = _fake_fleet("port", 1)
-    try:
-        with pytest.raises(NotImplementedError, match="sessions"):
-            fleet.submit(_x(0), session="s1")
-    finally:
-        fleet.close()
-
-
 # ------------------------------------- breaker and autoscaler, stepwise
 
 
@@ -422,6 +427,7 @@ def test_engine_fleet_hedges_resolve_exactly_once(lenet):
         wait_until(lambda: all(r["inflight"] == 0
                                for r in fleet.stats()["replicas"]),
                    msg="the slow attempts ended")
+        counted(fleet, 6)
     finally:
         fleet.close()
     assert resolved == list(range(6))  # one resolution a request
@@ -451,6 +457,7 @@ def test_engine_fleet_slo_budget_is_the_deadline_and_sheds(lenet):
         # the backlog gone, the same request is admitted and answered
         got = fleet.submit(xs[2], model=MODEL).result(timeout=30)
         assert got["classes"] == lenet.run(xs[2:])["classes"][0].tolist()
+        counted(fleet, 3)
         stats = fleet.stats()
     finally:
         fleet.close()
@@ -500,6 +507,7 @@ def test_engine_fleet_kill_fails_over_and_heals(lenet):
             assert fleet.submit(x, model=MODEL).result(timeout=30)[
                 "classes"] == want[i].tolist()
         wait_until(lambda: len(fleet._ready_slots()) == 2, msg="healed")
+        counted(fleet, 12)
         ids = sorted(r["id"] for r in fleet.stats()["replicas"])
     finally:
         fleet.close()
@@ -534,6 +542,15 @@ def test_fleet_http_front_federates_metrics(lenet, monkeypatch):
         raise AssertionError("the router sampled device memory")
 
     monkeypatch.setattr(profiler, "sample_memory_gauges", no_device)
+    # a router's process holds no engine: take the serve_* families that
+    # an earlier test's in-process engines registered in this worker's
+    # process registry (latest wins) out of it for the test, so that the
+    # router renders only its own families beside the replicas'
+    registry = default_registry()
+    stale = {name: registry.get(name) for name in registry.names()
+             if name.startswith("serve_")}
+    for name in stale:
+        registry.unregister(name)
     fleet = _engine_fleet(lenet)
     server = make_server(("127.0.0.1", 0), make_handler(
         fleet, argparse.Namespace(timeout_s=30.0)))
@@ -542,6 +559,14 @@ def test_fleet_http_front_federates_metrics(lenet, monkeypatch):
     try:
         for x in _requests(3, seed=5):
             fleet.submit(x, model=MODEL).result(timeout=30)
+        # the router and the engines count a request after they resolve
+        # it: wait for the counts, then read /metrics and the replicas'
+        # own stats
+        counted(fleet, 3)
+        wait_until(lambda: sum(
+            s.replica.stats()["telemetry"]["completed"]
+            for s in fleet._ready_slots()) >= 3,
+            msg="the replicas' counts")
         conn = http.client.HTTPConnection(
             "127.0.0.1", server.server_address[1], timeout=30)
         conn.request("GET", "/metrics")
@@ -555,6 +580,8 @@ def test_fleet_http_front_federates_metrics(lenet, monkeypatch):
         server.shutdown()
         server.server_close()
         fleet.close()
+        for name, metric in stale.items():
+            registry.register(name, metric)
     parsed = distributed.parse_prometheus(text)
     assert parsed["router_completed_total"] == [({}, 3.0)]
     by_replica = dict((labels.get("replica"), v) for labels, v

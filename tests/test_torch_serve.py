@@ -13,6 +13,7 @@ import io
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -54,12 +55,25 @@ def served(jax_served):
                        input_size=SIZE, num_classes=CLASSES)
 
 
+def wait_until(cond, timeout=30.0, msg="condition"):
+    """The engine resolves a future before it counts the request: a test
+    that reads a counter after ``result()`` waits for it to land."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return
+        time.sleep(0.01)
+    raise AssertionError(f"timed out waiting for {msg}")
+
+
 def test_engine_matches_jax_serving_path(jax_served, served):
     x = _requests(5)
     want = jax_served.run(x)
     with InferenceEngine([served], buckets=(1, 4)) as eng:
         got = [f.result(timeout=60) for f in
                [eng.submit(xi) for xi in x]]
+        wait_until(lambda: eng.telemetry.completed
+                   + eng.telemetry.failed >= 5, msg="5 requests counted")
         stats = eng.stats()
     for i, r in enumerate(got):
         assert r["classes"] == np.asarray(want["classes"][i]).tolist()
@@ -109,6 +123,7 @@ def test_deadline_expiry_and_shed(served):
         with pytest.raises(TimeoutError, match="deadline"):
             late.result(timeout=60)
         t = eng.telemetry
+        wait_until(lambda: t.timed_out >= 1, msg="the timeout counted")
     assert (t.timed_out, t.shed) == (1, 1)
 
 
@@ -129,6 +144,8 @@ def test_batch_failure_fails_only_that_batch(served):
         with pytest.raises(RuntimeError, match="device fault"):
             f_bad.result(timeout=60)
         assert len(f_ok.result(timeout=60)["classes"]) == 5
+        wait_until(lambda: eng.telemetry.failed >= 1,
+                   msg="the failure counted")
         assert eng.telemetry.failed == 1
 
 

@@ -271,6 +271,18 @@ def _await_status(eng, want: str, timeout: float = 10.0) -> None:
         time.sleep(0.002)
 
 
+def _await_counted(eng, n: int, timeout: float = 10.0) -> None:
+    """Wait until ``eng`` has counted ``n`` resolved requests: an engine
+    resolves a future before it counts the request."""
+    deadline = time.monotonic() + timeout
+    while True:
+        tel = eng.stats()["telemetry"]
+        if tel["completed"] + tel["failed"] >= n:
+            return
+        assert time.monotonic() < deadline, tel
+        time.sleep(0.002)
+
+
 def _crash_drill(eng) -> dict:
     """crash@1: the first batch answers, the second fails; the engine
     goes recovering, then ok, and answers again."""
@@ -282,6 +294,7 @@ def _crash_drill(eng) -> dict:
     health = eng.health()
     _await_status(eng, "ok")
     third = eng.submit(x[2]).result(timeout=60)
+    _await_counted(eng, 3)
     tel = eng.stats()["telemetry"]
     return {"answers": (first, third), "health": health,
             "counts": (tel["dispatcher_crashes"],
@@ -380,6 +393,7 @@ def test_http_fronts_answer_alike(jax_served, served):
             r["deadline_ok"] = front.call(
                 "POST", "/v1/predict",
                 {"input": xs[2].tolist(), "timeout_s": 5.0})
+            _await_counted(eng, 3)
             r["healthz"] = front.call("GET", "/healthz")
             r["stats"] = front.call("GET", "/stats")
             r["metrics"] = front.call("GET", "/metrics")
