@@ -383,6 +383,25 @@ the seconds it took:
    wall a call at entry bucket 4, printed. The chains' serving CLI of 19
    serves ``detpose`` over the chains' checkpoints too (``--pipelines``,
    2 requests, ``[pipeline] served detpose=2 frozen=True``).
+29. Multi-tenant serving in process (``phase_tenancy``, after 28 on its
+   worker): ``alexnet1``, ``inception1_ref`` and ``yolov3`` at full width,
+   float32, with the ``detcls`` DAG behind one engine on buckets (1, 4),
+   frozen, under a residency budget of the two largest tenants' weight
+   bytes: round-robin passes bit for bit through each tenant's eviction
+   and restore (its graphs recaptured, never missed), an eviction of
+   ``yolov3`` freeing at least its weight bytes, the DAG recaptured and
+   answering bit for bit as before, a hot swap of ``alexnet1`` under 3
+   submitting threads (every answer one edition's whole, old before new,
+   none dropped, the DAG still on the old weights); the window's launches
+   counted (``CARD_COUNTS``), the recaptures' seconds, the bytes and the
+   pools printed.
+30. The swap drill through the serving CLI (``phase_tenancy_cli``, after
+   25 on its worker): ``-m alexnet1 -m inception1_ref -m yolov3
+   --residency-mb R --tenant-quota yolov3=8 --slo-class
+   inception1_ref=batch`` on a paced stdin stream with one swap control
+   line: every line answered, both editions of ``alexnet1`` seen, the
+   others untouched, each tenant's answers the same across its eviction,
+   and ``[tenancy] swaps=1`` with evictions and restores in its log.
 
 It then prints the native pieces' line (``[native] {...}``), the
 ``{"kernels": [...]}`` line (the LRN kernels' four entry points, per-shape
@@ -395,7 +414,8 @@ summaries, the ``[resilience] {...}``, ``[loader] {...}`` and
 ``[offline] {...}`` (22-24 and the predict CLIs: records/s, seconds)
 lines, the ``[graphs] {...}`` line (each engine-served model's warm-up,
 cache, pool bytes, launches a replay and profile, and 25's readings),
-the ``[pipeline] {...}`` line (28's readings), the ``[export] {...}``
+the ``[pipeline] {...}`` line (28's readings), the ``[tenancy] {...}``
+line (29's and 30's), the ``[export] {...}``
 line (26's figures and the ``predict export`` CLI's), the card's name
 and power limit, and last ``{"ok": true,
 "device": {...}}``.
@@ -654,6 +674,18 @@ PIPE_LADDER = [4, 8]
 PIPE_BUCKETS = (1, 4)
 PIPE_AMPLITUDE = 0.003
 PIPE_TIMED = 10  # timed calls a DAG and a sequential client
+# the tenancy drills (phase_tenancy, phase_tenancy_cli)
+TENANCY_PASSES = 2  # round-robin passes: each tenant evicted between them
+SWAP_PERTURB = 1e-3  # hot_swap(perturb=...): every weight plus this
+SWAP_THREADS = 3  # threads submitting through the swap
+SWAP_ANSWERS = 6  # answers before the swap and after it
+TENANCY_CLI_QUOTA = 8  # yolov3's --tenant-quota: above a group of 4
+# --batch-window-ms of the CLI drill: a group of 4 lines (parsed one by
+# one from JSON) makes one bucket-4 batch
+TENANCY_CLI_WINDOW_MS = 10000
+# the CLI drill's tenants and their input sizes (each config's own)
+TENANCY_CLI_SIZES = {"alexnet1": 224, "inception1_ref": 224,
+                     "yolov3": YOLO_SIZE}
 # taken by a counted window (zero the counters, drive a path, read them)
 # on a worker thread, and by any in-process work that may launch one of
 # the port's kernels while such a window may be open on another thread
@@ -2466,6 +2498,384 @@ def _pipeline_rest(eng, pipes, xs4, stages, cls_size, misses, dag_warm,
             "pool_bytes": {p.name: stats["runners"][p.name]["pool_bytes"]
                            for p in pipes},
             "glue_gap": glue_gap, "times": times}
+
+
+def _tenancy_models() -> list:
+    """``phase_tenancy``'s tenants at full width, float32, seeded:
+    ``alexnet1`` (224 px), ``inception1_ref`` (224 px) and ``yolov3``
+    (416 px, score 0, as ``phase_pipeline`` serves it)."""
+    from deepvision_tpu_torch.serve import load_served
+
+    return [load_served("alexnet1", seed=0),
+            load_served("inception1_ref", seed=0),
+            load_served("yolov3", seed=0, score_thresh=0.0)]
+
+
+def _two_largest(nbytes: dict) -> int:
+    """The residency budget of the tenancy drills: the two largest
+    tenants' weight bytes, below the three's sum, so that a round-robin
+    pass evicts one tenant each time the third comes back."""
+    ordered = sorted(nbytes.values())
+    budget = ordered[-1] + ordered[-2]
+    assert budget < sum(ordered), nbytes
+    return budget
+
+
+def phase_tenancy(smi: str) -> dict:
+    """Multi-tenant serving in process (``serve/tenancy.py``), chained
+    after ``phase_pipeline`` on its worker: ``alexnet1``,
+    ``inception1_ref`` and ``yolov3`` (:func:`_tenancy_models`) behind
+    one engine on buckets (1, 4) with the ``detcls`` DAG (``yolov3`` ->
+    ``alexnet1``), ``freeze_cache=True`` and a residency budget of the
+    two largest tenants' weight bytes (read from the tenants' editions,
+    then from ``stats()``). In a counted window (``CARD_COUNTS``):
+    ``TENANCY_PASSES`` round-robin passes of a bucket-1 and a bucket-4
+    batch a tenant, each tenant evicted and restored between passes, its
+    answers bit for bit its first pass's; the ``detcls`` answers; an
+    explicit eviction of ``yolov3`` freeing at least its weight bytes of
+    ``memory_allocated`` (and the DAG's graphs with its own); the DAG
+    answering bit for bit as before through recaptured graphs; a hot swap
+    of ``alexnet1`` (``perturb``) under ``SWAP_THREADS`` submitting
+    threads. After the window: each swap-drill answer bit for bit the
+    pre-swap graph's or the new weights' eager forward's (buckets 1 and
+    4), old before new in every thread, nothing dropped, one swap; the
+    DAG still on the old weights (``retired_pinned``); the weights'
+    layout (strides) the same after a restore; the frozen misses flat.
+    Prints the recaptures and their seconds, the tenants' bytes, the
+    graph pool bytes and the window's launches. -> the readings."""
+    import torch
+
+    from deepvision_tpu_torch.device import strict_fp32
+    from deepvision_tpu_torch.serve import (
+        InferenceEngine,
+        Pipeline,
+        PipelineSpec,
+    )
+
+    strict_fp32()
+    t0 = time.perf_counter()
+    models = _tenancy_models()
+    nbytes = {m.name: m.edition.nbytes for m in models}
+    budget = _two_largest(nbytes)
+    by_name = {m.name: m for m in models}
+    detcls = Pipeline(PipelineSpec.from_json(
+        _pipeline_specs(by_name["alexnet1"].input_shape[0])[1]), by_name)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    xs = {m.name: ((PIPE_AMPLITUDE if m.task == "detect" else 1.0)
+                   * rng.normal(size=(5, *m.input_shape))).astype(np.float32)
+          for m in models}
+    xs["detcls"] = _pipeline_requests(5, seed=2)
+    strides = [(tuple(t.shape), t.stride())
+               for t in by_name["alexnet1"].module.parameters()]
+    eng = InferenceEngine(models, buckets=PIPE_BUCKETS, pipelines=[detcls],
+                          freeze_cache=True, residency_bytes=budget)
+    with eng:
+        stats = eng.stats()
+        assert stats["tenancy"]["bytes"] == nbytes, stats["tenancy"]
+        assert stats["tenancy"]["budget_bytes"] == budget
+        misses = stats["cache"]["misses"]
+        warm_tenancy = stats["tenancy"]
+        with CARD_COUNTS:
+            _zero_launch_counts()
+            t_window = time.perf_counter()
+            out = _tenancy_traffic(eng, xs, nbytes)
+            launches = {"nms_sweep": _nms_launches(),
+                        **{k: v for k, v in _launch_counts().items() if v}}
+            window_s = time.perf_counter() - t_window
+        # comparisons, outside the counted window: the new weights' eager
+        # forward at buckets 1 and 4
+        _swap_answers_check(eng, xs["alexnet1"][0], out)
+        assert [(tuple(t.shape), t.stride()) for t in eng._models[
+            "alexnet1"].module.parameters()] == strides
+        stats = eng.stats()
+        assert stats["cache"]["misses"] == misses, stats["cache"]
+        ten = stats["tenancy"]
+        assert [p["tenant"] for p in ten["retired_pinned"]] == \
+            ["alexnet1"], ten["retired_pinned"]
+        assert ten["swaps"] == 1 and ten["evictions"] >= 3 \
+            and ten["rematerializations"] >= 3, ten
+        assert launches.get("lrn_forward_f32", 0) > 0 \
+            and launches["nms_sweep"] > 0, launches
+        pools = {n: r["pool_bytes"] for n, r in stats["runners"].items()}
+    warmup_s = eng.warmup_s
+    # the models, the DAG's stages (the retired alexnet1 among them) and
+    # the engine go before the reading
+    models = by_name = detcls = eng = None
+    reserved = _closed("tenancy")
+    readings = {
+        "load_s": round(load_s, 1), "warmup_s": warmup_s,
+        "warm_evictions": warm_tenancy["evictions"],
+        "window_s": round(window_s, 1), "budget_bytes": budget,
+        "bytes": nbytes, "pool_bytes": pools,
+        "pool_bytes_by_tenant": out["pool_bytes_by_tenant"],
+        "freed": out["freed"], "swap": out["swap"],
+        "recaptures": ten["recaptures"], "recapture_s": ten["recapture_s"],
+        "evictions": ten["evictions"],
+        "rematerializations": ten["rematerializations"],
+        "launches": launches, "reserved_after_close": reserved,
+        "phase_s": round(time.perf_counter() - t0, 1)}
+    _say(f"[tenancy] {json.dumps(readings)}")
+    _say(f"[tenancy] alexnet1, inception1_ref and yolov3 with the detcls "
+         f"DAG in one engine on {smi}: budget {budget} B of {nbytes} B; "
+         f"{TENANCY_PASSES} round-robin passes bit for bit through "
+         f"{ten['evictions']} evictions and {ten['rematerializations']} "
+         f"restores, {ten['recaptures']} graphs recaptured in "
+         f"{ten['recapture_s']} s; evicting yolov3 freed "
+         f"{out['freed']['allocated']} B allocated ({out['freed']['reserved']}"
+         f" B reserved with the graphs' pools); the DAG recaptured bit for "
+         f"bit; the swap captured its ladder in {out['swap']['capture_s']} s "
+         f"under {SWAP_THREADS} threads, {out['swap']['old']} answers on the "
+         f"old weights then {out['swap']['new']} on the new, none dropped; "
+         f"frozen misses {misses}; window launches {launches}; "
+         f"{readings['phase_s']} s in all")
+    return readings
+
+
+def _tenancy_traffic(eng, xs: dict, nbytes: dict) -> dict:
+    """``phase_tenancy``'s counted traffic: the passes, the eviction's
+    memory, the DAG through recaptured graphs and the swap under load.
+    -> the answers and readings that the checks after the window read."""
+    import torch
+
+    from deepvision_tpu_torch.serve.models import capture_lock
+
+    tenants = ("alexnet1", "inception1_ref", "yolov3")
+    batches = {name: [xs[name][0:1], xs[name][1:5]]
+               for name in (*tenants, "detcls")}
+    passes = []
+    for _ in range(TENANCY_PASSES):
+        passes.append({name: [_queued(eng, b, name) for b in batches[name]]
+                       for name in tenants})
+    for name in tenants:
+        for k, got in enumerate(passes[1:], 2):
+            assert _same_bits(got[name], passes[0][name]), (
+                f"{name}: pass {k} after its eviction and restore answered "
+                "other bits than pass 1")
+    dag = [_queued(eng, b, "detcls") for b in batches["detcls"]]
+    pools = eng.tenancy.pool_bytes()
+
+    def memory():
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        with capture_lock:  # never inside another thread's capture
+            torch.cuda.empty_cache()
+        return allocated, torch.cuda.memory_reserved()
+
+    before = memory()
+    recaptured = eng.tenancy.recaptures
+    assert eng.tenancy.evict("yolov3")
+    after = memory()
+    freed = {"allocated": before[0] - after[0],
+             "reserved": before[1] - after[1]}
+    assert freed["allocated"] >= nbytes["yolov3"], (freed, nbytes)
+    again = [_queued(eng, b, "detcls") for b in batches["detcls"]]
+    assert _same_bits(again, dag), "detcls after its stage's restore"
+    # yolov3's 2 buckets and the DAG's 2 entry buckets
+    assert eng.tenancy.recaptures - recaptured == 4, eng.tenancy.stats()
+    swap = _swap_under_load(eng, xs["alexnet1"][0], passes[0]["alexnet1"])
+    swapped_dag = [_queued(eng, b, "detcls") for b in batches["detcls"]]
+    assert _same_bits(swapped_dag, dag), "detcls after alexnet1's swap"
+    return {"freed": freed, "swap": swap, "pool_bytes_by_tenant": pools}
+
+
+def _swap_under_load(eng, x: np.ndarray, first: list) -> dict:
+    """``SWAP_THREADS`` threads submit ``x`` to ``alexnet1`` one request
+    at a time; once ``SWAP_ANSWERS`` have come back, ``hot_swap(perturb=
+    SWAP_PERTURB)`` on this thread, then ``SWAP_ANSWERS`` more. The
+    pre-swap graphs' answers to ``x`` at buckets 1 (``first``, pass 1's)
+    and 4 are taken before. -> the answers by thread and the swap's
+    result, for :func:`_swap_answers_check`."""
+    pre = {1: first[0][0], 4: _queued(eng, np.stack([x] * 4),
+                                      "alexnet1")[0]}
+    results = [[] for _ in range(SWAP_THREADS)]
+    errors = []
+    stop = threading.Event()
+
+    def pound(k):
+        while not stop.is_set():
+            try:
+                results[k].append(eng.submit(x, model="alexnet1")
+                                  .result(timeout=300))
+            except Exception as e:  # a dropped request fails the phase
+                errors.append(e)
+                return
+
+    def answered():
+        return sum(len(r) for r in results)
+
+    def wait_for(n):
+        t0 = time.perf_counter()
+        while answered() < n and not errors:
+            assert time.perf_counter() - t0 < 300, answered()
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=pound, args=(k,))
+               for k in range(SWAP_THREADS)]
+    for t in threads:
+        t.start()
+    try:
+        wait_for(SWAP_ANSWERS)
+        result = eng.hot_swap("alexnet1", perturb=SWAP_PERTURB)
+        wait_for(answered() + SWAP_ANSWERS)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors[:3]
+    assert eng.tenancy.swaps == 1, eng.tenancy.stats()
+    return {"pre": pre, "results": results, "result": result,
+            "capture_s": result["capture_s"]}
+
+
+def _swap_answers_check(eng, x: np.ndarray, out: dict) -> None:
+    """Each answer of the swap drill bit for bit either a pre-swap graph's
+    or the new weights' eager forward's (at bucket 1 or 4), the old ones
+    before the new ones in every thread, and some new. Fills in the
+    counts of both."""
+    served = eng._models["alexnet1"]
+    eng.tenancy.ensure_resident("alexnet1")
+    new = {b: served.postprocess(served.run(np.stack([x] * b)), 0)
+           for b in (1, 4)}
+    swap = out["swap"]
+    pre = swap.pop("pre")
+    assert not _same_bits(pre[1], new[1]), "the swap changed nothing"
+    counts = {"old": 0, "new": 0}
+    for answers in swap.pop("results"):
+        seen_new = False
+        for a in answers:
+            old = any(_same_bits(a, p) for p in pre.values())
+            fresh = any(_same_bits(a, n) for n in new.values())
+            assert old or fresh, ("an answer from neither edition", a)
+            assert not (seen_new and old and not fresh), \
+                "an old answer after a new one"
+            seen_new = seen_new or (fresh and not old)
+            counts["old" if old else "new"] += 1
+    assert counts["new"] > 0, counts
+    result = swap.pop("result")
+    swap.update(counts, fingerprint=result["fingerprint"],
+                dropped=result["dropped_executables"])
+
+
+def phase_tenancy_cli(workdir: Path) -> dict:
+    """The swap drill through the serving CLI, chained after
+    ``phase_http`` on its worker: one ``python -m
+    deepvision_tpu_torch.serve -m alexnet1 -m inception1_ref -m yolov3
+    --buckets 1,4 --residency-mb R --tenant-quota yolov3=N --slo-class
+    inception1_ref=batch`` (R the two largest tenants' weight bytes,
+    counted on the meta device; ``--batch-window-ms`` long enough that a
+    group of 4 lines makes one bucket-4 batch), fed a paced stdin stream:
+    two passes of a group of 4 requests a tenant, the control line
+    ``{"control": "swap", "model": "alexnet1", "perturb": ...}``, a wait
+    for the swap's log line, a third pass. The gates of JAX's ``make
+    swap-smoke``: every data line answered, ``alexnet1`` answering from
+    both editions, the other tenants untouched, each tenant's pass 2 bit
+    for bit its pass 1 (an eviction and a restore between them), the
+    exit line ``[tenancy] swaps=1`` with evictions and restores. Prints
+    the process's reserved memory before it starts (C33). -> the
+    launches from its last line, and readings."""
+    import torch
+
+    from deepvision_tpu_torch.models import get_model
+    from deepvision_tpu_torch.train.configs import get_config
+
+    tenants = tuple(TENANCY_CLI_SIZES)
+    sizes = {}
+    for name, size in TENANCY_CLI_SIZES.items():
+        with torch.device("meta"):
+            module = get_model(name, input_size=size,
+                               num_classes=get_config(name)["num_classes"])
+        sizes[name] = sum(t.numel() * t.element_size()
+                          for t in module.state_dict().values())
+    budget_mb = (_two_largest(sizes) + 4096) / 2 ** 20
+    rng = np.random.default_rng(22)
+    bodies = {}
+    for name, size in TENANCY_CLI_SIZES.items():
+        # yolov3 at small amplitude (full scale overflows fresh boxes),
+        # rounded: the lines are JSON that the CLI parses one by one
+        amp, digits = ((PIPE_AMPLITUDE, 5) if name == "yolov3"
+                       else (1.0, 3))
+        bodies[name] = [json.dumps({"model": name, "input": np.round(
+            amp * rng.normal(size=(size, size, 3)), digits).tolist()})
+            for _ in range(4)]
+    _say(f"[memory] before the tenancy swap drill this process holds "
+         f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; the "
+         f"card {torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+    log, out = workdir / "tenancy_cli.log", workdir / "tenancy_cli.out"
+    cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve",
+           "-m", "alexnet1", "-m", "inception1_ref", "-m", "yolov3",
+           "--buckets", "1,4", "--residency-mb", f"{budget_mb:.6f}",
+           "--tenant-quota", f"yolov3={TENANCY_CLI_QUOTA}",
+           "--slo-class", "inception1_ref=batch",
+           "--batch-window-ms", str(TENANCY_CLI_WINDOW_MS)]
+    t0 = time.perf_counter()
+    with open(log, "w") as err, open(out, "w") as reply:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE,
+                                stdout=reply, stderr=err, text=True,
+                                env={**os.environ, "PYTHONPATH": str(ROOT)})
+    try:
+        for p in range(3):
+            if p == 2:
+                proc.stdin.write(json.dumps(
+                    {"control": "swap", "model": "alexnet1",
+                     "perturb": SWAP_PERTURB}) + "\n")
+                proc.stdin.flush()
+                t_swap = time.perf_counter()
+                while "[tenancy] swapped alexnet1" not in _log_text(log):
+                    assert proc.poll() is None, _log_text(log)[-4000:]
+                    assert time.perf_counter() - t_swap < 600
+                    time.sleep(0.1)
+            for k, name in enumerate(tenants):
+                proc.stdin.write("".join(
+                    f'{{"id": {100 * p + 10 * k + i}, ' + body[1:] + "\n"
+                    for i, body in enumerate(bodies[name])))
+                proc.stdin.flush()
+        proc.stdin.close()
+        rc = proc.wait(900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = _log_text(log)
+    assert rc == 0, text[-4000:]
+    replies = {r["id"]: r for r in (json.loads(s) for s in _log_text(
+        out).splitlines() if s.strip())}
+    assert sorted(replies) == sorted(100 * p + 10 * k + i for p in range(3)
+                                     for k in range(3) for i in range(4))
+    assert all("result" in r for r in replies.values()), replies
+    got = {(p, k): [replies[100 * p + 10 * k + i]["result"]
+                    for i in range(4)] for p in range(3) for k in range(3)}
+    for k, name in enumerate(tenants):
+        assert _same_bits(got[(1, k)], got[(0, k)]), (
+            f"{name}: pass 2 differs from pass 1 across its eviction")
+        if name == "alexnet1":
+            assert not _same_bits(got[(2, k)], got[(0, k)]), \
+                "alexnet1 answered no new edition after the swap"
+        else:
+            assert _same_bits(got[(2, k)], got[(0, k)]), (
+                f"{name}: the swap of alexnet1 touched its answers")
+    line = next(s for s in text.splitlines()
+                if s.startswith("[tenancy] swaps="))
+    fields = dict(kv.split("=") for kv in line.split()[1:])
+    assert fields["swaps"] == "1", line
+    assert int(fields["evictions"]) >= 1, line
+    assert int(fields["rematerializations"]) >= 1, line
+    restored = {name: text.count(f"[tenancy] rematerialized {name} ")
+                for name in sizes}
+    launches = _cli_launches(text)
+    assert launches["lrn_forward_f32"] > 0 and launches["nms_sweep"] > 0, \
+        text.strip().splitlines()[-1]
+    seconds = time.perf_counter() - t0
+    _say(f"[tenancy-cli] 3 tenants under --residency-mb {budget_mb:.3f}: 36 "
+         f"lines answered, alexnet1 from both editions, the others "
+         f"untouched, each tenant's pass 2 bit for bit its pass 1; "
+         f"restores {restored}; {line}; {text.strip().splitlines()[-1]}; "
+         f"{seconds:.1f} s")
+    return {"launches": {"lrn_forward_f32": launches["lrn_forward_f32"],
+                         "nms_sweep": launches["nms_sweep"]},
+            "line": line, "restored": restored, "bytes": sizes,
+            "seconds": round(seconds, 1)}
 
 
 def _train_batch(n: int, classes: int = 1000, seed: int = 0,
@@ -7373,22 +7783,26 @@ def main() -> int:
         # worker of its own, so that both end before the model CLI chains
         served_http = (*alexnet_http, _yolo_requests()[:2],
                        yolo.pop("answers")[-4:-2])
-        http = pool.submit(_timed, "HTTP server", phase_http, workdir,
-                           *served_http)
+        # the CLI's swap drill after it, on the same worker
+        http = pool.submit(lambda: (
+            _timed("HTTP server", phase_http, workdir, *served_http),
+            _timed("tenancy CLI", phase_tenancy_cli, workdir)))
         fleet = pool.submit(_timed, "fleet", phase_fleet, workdir,
                             *served_http)
         # in process, on a worker of its own: its launches are counted in
         # a window that the other workers' in-process kernels wait out
-        # (CARD_COUNTS)
-        pipeline = pool.submit(_timed, "pipelines", phase_pipeline, smi)
+        # (CARD_COUNTS); then the tenancy drill in process, likewise
+        pipeline = pool.submit(lambda: (
+            _timed("pipelines", phase_pipeline, smi),
+            _timed("tenancy", phase_tenancy, smi)))
         served = _timed("model CLIs", phase_model_clis, workdir, yolo,
                         hourglass["centernet"], hourglass["pose"], gan,
                         images, artifact)
         resilience = drills.result()
         converted = converted.result()
-        http = http.result()
+        http, tenancy_cli = http.result()
         fleet = fleet.result()
-        pipeline = pipeline.result()
+        pipeline, tenancy = pipeline.result()
     paths["export_alexnet1_f32"] = {
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": export["alexnet1"].pop("lrn_launches")}
@@ -7419,6 +7833,15 @@ def main() -> int:
         **dict.fromkeys(times, 0),
         "lrn_forward_f32": pipeline["launches"]["lrn_forward_f32"]}
     yolo["nms_launches"]["pipeline_f32"] = pipeline["launches"]["nms_sweep"]
+    # the tenancy drill's counted window in process (phase_tenancy: the
+    # passes, recaptures' eager forwards, the DAG, the swap under load) and
+    # the CLI drill's process, from its last line
+    paths["tenancy_f32"] = {
+        **dict.fromkeys(times, 0),
+        "lrn_forward_f32": tenancy["launches"].get("lrn_forward_f32", 0)
+        + tenancy_cli["launches"]["lrn_forward_f32"]}
+    yolo["nms_launches"]["tenancy"] = (tenancy["launches"]["nms_sweep"]
+                                       + tenancy_cli["launches"]["nms_sweep"])
     paths["chaos_cli_bf16"] = resilience["launches"]
     for name, run in converted.items():
         paths[f"predict_converted_{name}_f32"] = run.pop("launches")
@@ -7519,6 +7942,8 @@ def main() -> int:
     # and of an interpolated frame at bucket 1
     print(f"[graphs] {json.dumps({**GRAPHS, 'http': http, 'fleet': fleet})}")
     print(f"[pipeline] {json.dumps({**pipeline, 'card': smi})}")
+    tenancy.update(cli=tenancy_cli, card=smi)
+    print(f"[tenancy] {json.dumps(tenancy)}")
     print(f"[export] {json.dumps({**export, 'card': smi})}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -39,6 +39,7 @@ import torch
 from deepvision_tpu_torch.models import get_model
 
 __all__ = ["flax_to_torch", "flax_param_tree_to_torch",
+           "module_state_from_flax",
            "flax_train_state_to_torch", "load_flax_train_state",
            "rmsprop_parts",
            "flax_gan_state_to_torch", "load_flax_gan_state"]
@@ -69,6 +70,16 @@ def _convert(model_name: str, variables: Mapping[str, Any],
              params_only: bool, model_kw: dict) -> dict[str, torch.Tensor]:
     with torch.device("meta"):
         module = get_model(model_name, **model_kw)
+    return _tree_to_state(module, variables, params_only, model_name,
+                          torch.float32)
+
+
+def _tree_to_state(module, variables: Mapping[str, Any], params_only: bool,
+                   label: str, dtype=None) -> dict[str, torch.Tensor]:
+    """``module``'s state (its parameters alone with ``params_only``) from
+    a flax tree, as CPU tensors of ``dtype`` (default: each entry's own
+    dtype), checked leaf for leaf against the module's names and
+    shapes."""
     buffers = {name for name, _ in module.named_buffers()}
     expected = (dict(module.named_parameters()) if params_only
                 else module.state_dict())
@@ -80,21 +91,32 @@ def _convert(model_name: str, variables: Mapping[str, Any],
         path = (collection, *modules, _LEAF.get(leaf, leaf))
         if path not in leaves:
             raise ValueError(
-                f"{model_name}: flax variables lack {'/'.join(path)} "
+                f"{label}: flax variables lack {'/'.join(path)} "
                 f"(for {name})")
         a = _to_torch_layout(np.asarray(leaves.pop(path)))
         if tuple(a.shape) != tuple(ref.shape):
             raise ValueError(
-                f"{model_name}: {'/'.join(path)} has shape {a.shape} after "
+                f"{label}: {'/'.join(path)} has shape {a.shape} after "
                 f"the layout change, the port's {name} needs "
                 f"{tuple(ref.shape)}")
-        out[name] = torch.tensor(a, dtype=torch.float32)  # a copy
+        out[name] = torch.tensor(a, dtype=dtype or ref.dtype)  # a copy
     if leaves:
         extra = sorted("/".join(p) for p in leaves)
         raise ValueError(
-            f"{model_name}: flax variables carry leaves the port does not "
+            f"{label}: flax variables carry leaves the port does not "
             f"use: {extra}")
     return out
+
+
+def module_state_from_flax(module, variables: Mapping[str, Any]
+                           ) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``module`` itself (any module whose names
+    are flax paths, a registry model or not) from flax ``variables``,
+    each entry in the module's dtype: the inverse of
+    ``resilience/sentinel.state_tree``, which a hot swap's new weights
+    come in."""
+    return _tree_to_state(module, variables, False,
+                          type(module).__name__)
 
 
 def flax_to_torch(model_name: str, variables: Mapping[str, Any],

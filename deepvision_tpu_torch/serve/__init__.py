@@ -7,10 +7,18 @@ server, and with ``--http PORT`` the HTTP one (``__main__.py``,
 (``artifact_store.py``). ``--pipelines FILE`` serves DAGs of the models
 and glue (``pipeline.py``: detect -> crop -> pose) beside them.
 ``--fleet N`` puts a router (``router.py``) over N replica processes of
-the same CLI (``replica.py``).
+the same CLI (``replica.py``). ``--residency-mb``, ``--tenant-quota`` and
+``--slo-class`` share the card among the models (``tenancy.py``: LRU
+weight residency over the CUDA graphs, zero-drop hot swap, per-tenant
+admission), and ``InferenceEngine.hot_swap`` swaps a model's weights
+under load.
 """
 
-from deepvision_tpu_torch.serve.admission import ShedError
+from deepvision_tpu_torch.serve.admission import (
+    SLO_CLASSES,
+    AdmissionController,
+    ShedError,
+)
 from deepvision_tpu_torch.serve.artifact_store import ArtifactStore
 from deepvision_tpu_torch.serve.compile_cache import CompileCache
 from deepvision_tpu_torch.serve.engine import InferenceEngine
@@ -32,9 +40,17 @@ from deepvision_tpu_torch.serve.replica import (
     ReplicaDeadError,
 )
 from deepvision_tpu_torch.serve.router import FleetRouter
+from deepvision_tpu_torch.serve.tenancy import (
+    TenancyManager,
+    WeightsEdition,
+    fingerprint_variables,
+    tree_nbytes,
+)
 
-__all__ = ["ArtifactStore", "CompileCache", "EngineReplica", "FleetRouter",
-           "InferenceEngine", "ModelStage", "Pipeline", "PipelineError",
-           "PipelineSpec", "ProcessReplica", "ReplicaDeadError",
-           "ServedModel", "ShedError", "from_exported", "load_pipeline_specs",
-           "load_served"]
+__all__ = ["AdmissionController", "ArtifactStore", "CompileCache",
+           "EngineReplica", "FleetRouter", "InferenceEngine", "ModelStage",
+           "Pipeline", "PipelineError", "PipelineSpec", "ProcessReplica",
+           "ReplicaDeadError", "SLO_CLASSES", "ServedModel", "ShedError",
+           "TenancyManager", "WeightsEdition", "fingerprint_variables",
+           "from_exported", "load_pipeline_specs", "load_served",
+           "tree_nbytes"]

@@ -108,11 +108,34 @@ defaults to the file's stem. ``--store DIR`` keeps every traced (model,
 bucket) request program in an artifact store (``serve/artifact_store.py``)
 and warms from it at the next start; the warm line counts the runners
 that came from it.
+
+    python -m deepvision_tpu_torch.serve -m alexnet1 -m inception1_ref \
+        -m yolov3 --residency-mb 474 --tenant-quota yolov3=8 \
+        --slo-class inception1_ref=batch
+    {"control": "swap", "model": "alexnet1", "perturb": 0.01}
+
+Tenancy (``serve/tenancy.py``): ``--residency-mb MB`` caps the weight
+bytes resident on the card; the least recently served models beyond it
+are evicted to host (their CUDA graphs dropped first) and restored, their
+graphs recaptured, when a request needs them. ``--tenant-quota NAME=N``
+caps a model's queued requests, ``--slo-class NAME=CLASS`` (gold,
+standard, batch) its share of the queue while others are queued; both
+are repeatable, and a fleet forwards all three flags to every replica
+and gives the router the quota and class maps. A stdin line
+``{"control": "swap", "model": NAME, "perturb": F | "workdir": DIR}``
+swaps the model's weights on a background thread while data lines keep
+flowing (stderr chatter only; a swap started near the end of the stream
+finishes before the close); over HTTP ``POST /v1/swap`` with the same
+body answers when the swap is done (404 on a fleet, whose router owns no
+weights). The stderr line before the last is ``[tenancy] swaps=N
+evictions=E rematerializations=R resident=a/b recaptures=C
+recapture_s=S``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import signal
 import sys
@@ -133,6 +156,22 @@ def _parse_spec(spec: str) -> tuple[str, str | None]:
     it."""
     name, _, path = spec.partition("=")
     return name, path or None
+
+
+def _parse_tenant_map(specs, *, flag: str, cast):
+    """Repeatable ``NAME=VALUE`` flags -> a dict, or None when none was
+    given (``--tenant-quota yolov3=8``, ``--slo-class alexnet1=gold``), as
+    ``serve.py`` parses them; a bad spec exits with its flag's name."""
+    out = {}
+    for spec in specs or []:
+        name, sep, val = spec.partition("=")
+        if not sep or not name:
+            sys.exit(f"bad {flag} spec {spec!r}; want NAME=VALUE")
+        try:
+            out[name] = cast(val)
+        except ValueError as e:
+            sys.exit(f"bad {flag} spec {spec!r}: {e}")
+    return out or None
 
 
 def _track(args, models: list, injector):
@@ -211,7 +250,13 @@ def build_engine(args) -> InferenceEngine:
         batch_window_s=args.batch_window_ms / 1e3, freeze_cache=True,
         fault_injector=injector,
         restart_backoff_s=args.restart_backoff_s, store=args.store,
-        pipelines=pipelines)
+        pipelines=pipelines,
+        residency_bytes=(int(args.residency_mb * 1024 * 1024)
+                         if args.residency_mb else None),
+        tenant_quota=_parse_tenant_map(args.tenant_quota,
+                                       flag="--tenant-quota", cast=int),
+        slo_class=_parse_tenant_map(args.slo_class, flag="--slo-class",
+                                    cast=str))
     stats = engine.stats()
     from_store = stats["warmed_from_store"]
     print(f"warmup done in {engine.warmup_s}s ({stats['cache']['entries']} "
@@ -257,7 +302,12 @@ def build_fleet(args):
                ("--score", args.score), ("--iou", args.iou),
                ("--max-queue", args.max_queue),
                ("--batch-window-ms", args.batch_window_ms),
-               ("--timeout-s", args.timeout_s)]
+               ("--timeout-s", args.timeout_s),
+               ("--residency-mb", args.residency_mb)]
+    tenant_flags = [a for flag, specs in (("--tenant-quota",
+                                           args.tenant_quota),
+                                          ("--slo-class", args.slo_class))
+                    for spec in specs or [] for a in (flag, spec)]
     child_argv = replica_argv(
         args.model or [], artifact_specs=args.artifact or [],
         buckets=args.buckets,
@@ -265,7 +315,7 @@ def build_fleet(args):
         # every respawn warms from it
         store=args.store, device=args.device, pipelines=args.pipelines,
         extra=[str(a) for flag, value in forward if value is not None
-               for a in (flag, value)] + session_flags)
+               for a in (flag, value)] + tenant_flags + session_flags)
 
     def factory(sid: str):
         return ProcessReplica(sid, child_argv)
@@ -309,7 +359,13 @@ def build_fleet(args):
         default_deadline_s=args.timeout_s, max_queue=args.max_queue,
         per_model_limit=args.per_model_limit, autoscale=autoscale,
         hedge_after_s=args.hedge_after, fault_injector=injector,
-        session_replay_window=args.session_replay_window)
+        session_replay_window=args.session_replay_window,
+        # tenant isolation at the fleet's front door too: a noisy tenant
+        # sheds here before it crowds any replica's queue
+        tenant_quota=_parse_tenant_map(args.tenant_quota,
+                                       flag="--tenant-quota", cast=int),
+        slo_class=_parse_tenant_map(args.slo_class, flag="--slo-class",
+                                    cast=str))
     print(f"fleet up: {router.health()}", file=sys.stderr, flush=True)
     return router
 
@@ -317,10 +373,45 @@ def build_fleet(args):
 def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
     """One JSON request per line; responses, in submission order, to
     ``stdout``. Requests keep flowing while earlier ones run, so the
-    dispatcher sees real micro-batches even from a pipe."""
+    dispatcher sees real micro-batches even from a pipe.
+
+    A control line ``{"control": "swap", "model": NAME, "perturb": F |
+    "workdir": DIR}`` hot-swaps the model's weights on a background
+    thread while data lines keep flowing; it answers nothing on stdout
+    (its chatter goes to stderr), and a swap started near the end of the
+    stream is joined before this returns."""
     stdin = stdin if stdin is not None else sys.stdin
     stdout = stdout if stdout is not None else sys.stdout
     pending: list[tuple[object, object, float]] = []  # (id, future, t0)
+    controls: list[threading.Thread] = []
+
+    def start_control(req: dict) -> None:
+        if req.get("control") != "swap":
+            print(f"[tenancy] unknown control {req.get('control')!r}",
+                  file=sys.stderr, flush=True)
+            return
+        hot_swap = getattr(engine, "hot_swap", None)
+        if hot_swap is None:
+            print("[tenancy] swap control needs a single-engine host (a "
+                  "fleet's router owns no weights)", file=sys.stderr,
+                  flush=True)
+            return
+
+        def swap():
+            kw = {k: req[k] for k in ("workdir", "perturb") if k in req}
+            try:
+                # a checkpoint restore's chatter must not reach the data
+                # stream on stdout
+                with contextlib.redirect_stdout(sys.stderr):
+                    hot_swap(req["model"], **kw)
+            except Exception as e:
+                print(f"[tenancy] swap {req.get('model')!r} failed: "
+                      f"{type(e).__name__}: {e}", file=sys.stderr,
+                      flush=True)
+
+        t = threading.Thread(target=swap, daemon=True, name="tenancy-swap")
+        t.start()
+        controls.append(t)
 
     def emit(rid, fut, t0):
         try:
@@ -342,6 +433,9 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
             req = json.loads(raw)
             if not isinstance(req, dict):
                 raise ValueError("request must be a JSON object")
+            if "control" in req:
+                start_control(req)
+                continue
             x = np.asarray(req["input"], np.float32)
             # a stream frame: the session's id and the frame's number
             seq = req.get("seq")
@@ -375,6 +469,10 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
             emit(*pending.pop(0))
     for item in pending:
         emit(*item)
+    for t in controls:
+        # a swap started near the end of the stream completes (and counts
+        # in the [tenancy] exit line) before the engine closes
+        t.join(timeout=args.timeout_s)
 
 
 def _exit_on_sigterm():
@@ -440,6 +538,21 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    help="fleet mode: the frames the router keeps a stream "
                    "to replay from the snapshot to the present after a "
                    "failover; a wider gap is a DECLARED state_reset")
+    p.add_argument("--residency-mb", type=float, default=None,
+                   help="the card's budget for resident model weights in "
+                   "MiB: the least recently served models beyond it are "
+                   "evicted to host (their CUDA graphs dropped) and "
+                   "restored, recaptured, on demand (default: all stay "
+                   "resident)")
+    p.add_argument("--tenant-quota", action="append", metavar="NAME=N",
+                   help="a model's admission quota, its most queued "
+                   "requests (repeatable): a noisy tenant sheds alone at "
+                   "its own cap")
+    p.add_argument("--slo-class", action="append", metavar="NAME=CLASS",
+                   help="a model's SLO class, gold, standard or batch "
+                   "(repeatable): while others are queued it may hold only "
+                   "its class's share of the queue (1.0, 0.8, 0.5); alone "
+                   "it has all of it")
     p.add_argument("--store", default=None, metavar="DIR",
                    help="artifact store: warm the runners from this "
                    "directory's verified request programs instead of "
@@ -517,6 +630,10 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             engine.close()
             _print_pipeline_lines(engine, runners)
             _print_session_line(engine, runners)
+            # the grep-stable tenancy line, which the swap drills read;
+            # the [serve] line stays the last
+            print(engine.tenancy.summary_line(), file=sys.stderr,
+                  flush=True)
             _print_exit_line(engine)
         return 0
     finally:

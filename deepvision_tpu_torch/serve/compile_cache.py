@@ -16,6 +16,15 @@ bounded; with the default ladder (4 buckets x a few models) nothing is
 ever evicted. Hit, miss and eviction counters feed ``stats()["cache"]``:
 after the warm-up, ``misses`` must stay frozen (no request built a
 runner), and :meth:`freeze` turns that into an error.
+
+:meth:`CompileCache.install` and :meth:`CompileCache.drop_where` are the
+deliberate mutation channel after the warm-up, and neither counts a
+miss: a hot swap installs its new ladder and drops the old fingerprint's
+runners, an eviction (``serve/tenancy.py``) drops the runners captured
+over the evicted weights, and their recapture installs them again under
+the same keys. The cache's :attr:`CompileCache.lock` is also the
+residency lock of the engine's ``TenancyManager``, so that a build, its
+registration and an eviction's drop happen in one order.
 """
 
 from __future__ import annotations
@@ -48,6 +57,12 @@ class CompileCache:
         self.misses = 0
         self.evictions = 0
         self._frozen = False
+
+    @property
+    def lock(self) -> threading.RLock:
+        """The cache's reentrant lock, held by every method and by a
+        build."""
+        return self._lock
 
     def freeze(self) -> None:
         """Turn "misses stay frozen after the warm-up" from a telemetry

@@ -59,7 +59,21 @@ every entry bucket and runs each once on a zero batch, so that with
 never goes into the artifact store, and ``stats()["pipelines"]`` counts
 the requests each has served. A request whose deadline passes while its
 DAG runs resolves with ``TimeoutError`` ("mid-pipeline"), never a late
-answer. Multi-tenancy belongs to a later slice of the port.
+answer.
+
+Tenancy (``serve/tenancy.py``): every weight-carrying model, the stage
+models of pipelines and trackers among them, is a tenant of the engine's
+``TenancyManager``, and every runner is registered with the weights
+editions it was captured over. ``residency_bytes`` caps the resident
+weight bytes: before a batch runs, its tenants are made resident (an
+evicted one's weights come back and its dropped runners are recaptured,
+through ``install``), the least recently dispatched others are evicted
+beyond the budget (their runners dropped first), and the runner's
+editions are pinned for the call, so that no eviction frees weights under
+a replay. :meth:`InferenceEngine.hot_swap` replaces one model's weights
+under load with zero drops; ``tenant_quota`` and ``slo_class`` are the
+admission gate's per-tenant maps. ``stats()["tenancy"]`` and
+:attr:`InferenceEngine.tenancy` report it.
 
 Stateful streams (``serve/sessions.py``): a model with ``is_stateful``
 (a ``TrackingPipeline``) takes ``submit(x, model=..., session=ID,
@@ -99,6 +113,7 @@ from deepvision_tpu_torch.serve.artifact_store import (
 from deepvision_tpu_torch.serve.compile_cache import CompileCache
 from deepvision_tpu_torch.serve.models import ServedModel
 from deepvision_tpu_torch.serve.telemetry import ServeTelemetry
+from deepvision_tpu_torch.serve.tenancy import TenancyManager
 
 __all__ = ["InferenceEngine", "ShedError"]
 
@@ -142,7 +157,9 @@ class InferenceEngine:
     of in-process replicas gives each engine one over a registry of its
     own. ``pipelines``: built ``pipeline.Pipeline`` DAGs over these
     models, served beside them (``submit(x, model=<pipeline name>)``); a
-    name that a model has already is refused.
+    name that a model has already is refused. ``residency_bytes``: the
+    resident weight bytes' budget (None: no eviction); ``tenant_quota``
+    and ``slo_class``: per-tenant admission (``admission``).
     """
 
     def __init__(
@@ -161,6 +178,9 @@ class InferenceEngine:
         store=None,
         telemetry: ServeTelemetry | None = None,
         pipelines: Iterable = (),
+        residency_bytes: int | None = None,
+        tenant_quota: dict[str, int] | None = None,
+        slo_class: dict[str, str] | None = None,
     ):
         self._models = {m.name: m for m in models}
         if not self._models:
@@ -186,7 +206,8 @@ class InferenceEngine:
         self.telemetry = telemetry if telemetry is not None \
             else ServeTelemetry()
         self._admission = AdmissionController(
-            max_queue=max_queue, per_model_limit=per_model_limit)
+            max_queue=max_queue, per_model_limit=per_model_limit,
+            tenant_quota=tenant_quota, slo_class=slo_class)
         self._window = batch_window_s
         self._poll_s = 0.05
         self._q: queue.Queue = queue.Queue()
@@ -211,6 +232,10 @@ class InferenceEngine:
         # the (model, bucket, dtype, fingerprint) keys whose runners came
         # off the disk instead of a trace
         self._from_store: set = set()
+        self._tenancy = TenancyManager(
+            self._cache, budget_bytes=residency_bytes, log=self._log,
+            on_drop=self._forget_pools)
+        self._adopt_tenants()
         self.warm()
         if freeze_cache:
             self._cache.freeze()
@@ -219,6 +244,25 @@ class InferenceEngine:
         self._thread.start()
 
     # -- setup -----------------------------------------------------------
+    def _adopt_tenants(self) -> None:
+        """Register every weight-carrying model with the tenancy manager:
+        a pipeline's or a tracker's stage models (the same objects as the
+        plain path's), else the model itself."""
+        for m in self._models.values():
+            for sm in self._tenant_models(m):
+                self._tenancy.adopt(sm)
+
+    @staticmethod
+    def _tenant_models(served) -> list:
+        if getattr(served, "is_pipeline", False) \
+                or getattr(served, "is_stateful", False):
+            return list(served.stage_models().values())
+        return [served]
+
+    def _tenant_names(self, served) -> list[str]:
+        """The tenants whose weights ``served``'s runners read."""
+        return [m.name for m in self._tenant_models(served)]
+
     def _model_key(self, m: ServedModel, bucket: int) -> tuple:
         """Runner-cache key: ``(model, bucket, dtype, weights
         fingerprint)``. The fingerprint pins a runner to the weights it
@@ -238,15 +282,31 @@ class InferenceEngine:
         or the engine's."""
         return m.buckets if m.buckets else self.buckets
 
-    def _build(self, m: ServedModel, bucket: int):
-        pool = None
-        if m.device.type == "cuda":
+    def _build(self, m: ServedModel, bucket: int, pool=None):
+        """``m``'s runner of ``bucket``, on the card captured into
+        ``pool`` (default: the model's own graph pool)."""
+        if pool is None and m.device.type == "cuda":
             import torch
 
             if m.name not in self._pools:
                 self._pools[m.name] = torch.cuda.graph_pool_handle()
             pool = self._pools[m.name]
         return m.compile_for(bucket, pool)
+
+    def _forget_pools(self, keys) -> None:
+        """An eviction dropped the runners of ``keys``: their models'
+        recaptures go into a fresh graph pool, since PyTorch cannot
+        capture into a pool whose graphs have all been freed."""
+        for key in keys:
+            self._pools.pop(key[0], None)
+
+    def _capture(self, key, m: ServedModel, bucket: int):
+        """Build ``key``'s runner and register it with the editions it
+        reads, with the build that captures it again."""
+        runner = self._build(m, bucket)
+        self._tenancy.register(key, runner,
+                               lambda: self._build(m, bucket))
+        return runner
 
     def warm(self) -> None:
         """Build every (model, bucket) runner, and every pipeline's entry
@@ -267,9 +327,19 @@ class InferenceEngine:
         store that fails to build or run is rejected into quarantine and
         the model traced. A pipeline's runner runs once on a zero batch
         too, the whole DAG through the request path. The models come
-        first, so that their graphs are captured before the DAGs'."""
+        first, so that their graphs are captured before the DAGs'.
+
+        Each model's tenants are made resident before its runners are
+        built (a graph is captured over weights on the card), and after
+        them the tenancy manager evicts over the budget, never those
+        tenants. A tenant whose whole ladder came from the store gives
+        its edition's device copy back (``release_to_baked``)."""
         t0 = time.perf_counter()
         for m in self._models.values():
+            names = self._tenant_names(m)
+            with self._tenancy.lock:
+                for tn in names:
+                    self._tenancy.ensure_resident(tn, protect=names)
             for bucket in reversed(self.ladder(m)):
                 key = self._model_key(m, bucket)
                 storing = self._store is not None and self._storeable(m)
@@ -292,12 +362,20 @@ class InferenceEngine:
                         self._from_store.add(key)
                         continue
                 runner = self._cache.get_or_build(
-                    key, lambda m=m, bucket=bucket: self._build(m, bucket))
+                    key, lambda m=m, bucket=bucket, key=key:
+                    self._capture(key, m, bucket))
                 if m.exported or getattr(m, "is_pipeline", False) \
                         or getattr(m, "is_stateful", False):
                     self._zero_run(m, runner, bucket)
                 if storing:
                     self._save_store_entry(m, bucket)
+            self._tenancy.settle(names)
+        if self._store is not None:
+            for m in self._models.values():
+                keys = [self._model_key(m, b) for b in self.ladder(m)]
+                if self._storeable(m) and all(k in self._from_store
+                                              for k in keys):
+                    self._tenancy.release_to_baked(m, len(keys))
         self.warmup_s = round(time.perf_counter() - t0, 3)
 
     @staticmethod
@@ -356,10 +434,119 @@ class InferenceEngine:
                       f"failed: {e}")
 
     def _bucket_runner(self, served: ServedModel, bucket: int):
-        """The cached runner of (model, bucket)."""
-        return self._cache.get_or_build(
-            self._model_key(served, bucket),
-            lambda: self._build(served, bucket))
+        """The cached runner of (model, bucket), with swap consistency: if
+        a hot swap flips the model between the key's read and the lookup,
+        look again, so that the runner a key names always pairs with the
+        weights in that key. A runner that an eviction dropped is
+        recaptured (``install``, no miss) once its weights are back."""
+        while True:
+            key = self._model_key(served, bucket)
+            runner = self._tenancy.restore(key)
+            if runner is None:
+                runner = self._cache.get_or_build(
+                    key, lambda: self._capture(key, served, bucket))
+            if key == self._model_key(served, bucket):
+                return runner
+
+    def _checkout(self, served, bucket: int):
+        """The runner of a batch, under the residency lock: the batch's
+        tenants made resident (protected together from the budget's
+        evictions), the runner looked up, its editions pinned until
+        :meth:`TenancyManager.unpin`."""
+        names = self._tenant_names(served)
+        with self._tenancy.lock:
+            for tn in names:
+                self._tenancy.ensure_resident(tn, protect=names)
+            runner = self._bucket_runner(served, bucket)
+            self._tenancy.pin(runner)
+        return runner
+
+    # -- tenancy ---------------------------------------------------------
+    def hot_swap(self, name: str, variables=None, *,
+                 workdir: str | None = None,
+                 perturb: float | None = None) -> dict:
+        """Zero-drop weight swap of model ``name``, on the caller's
+        thread: the new weights go into a shadow model (a new module and
+        forward), the whole bucket ladder is captured against it into a
+        new graph pool while the dispatcher serves the old one, then the
+        model flips between batches and the old fingerprint's runners
+        leave the cache. A batch already dispatched drains on the old
+        weights; nothing is dropped.
+
+        Exactly one source: ``variables`` (a weights tree in the JAX
+        layout, ``resilience/sentinel.state_tree``'s), ``workdir`` (the
+        newest verified checkpoint under ``{workdir}/ckpt``) or
+        ``perturb`` (every floating leaf of the current tree, batch
+        statistics included, plus ``perturb``: a new fingerprint without
+        a second checkpoint). A pipeline or a tracker that holds the
+        model as a stage keeps serving the weights it was captured over;
+        a swap targets a model's front door, never a pipeline, a
+        stateful wrapper or an artifact."""
+        served = self._models.get(name)
+        if served is None:
+            raise ValueError(f"unknown model {name!r}; serving "
+                             f"{sorted(self._models)}")
+        if getattr(served, "is_pipeline", False) \
+                or getattr(served, "is_stateful", False):
+            kind = ("pipeline" if getattr(served, "is_pipeline", False)
+                    else "stateful wrapper")
+            raise ValueError(f"{name!r} is a {kind}; hot-swap targets its "
+                             "stage models' front doors")
+        if served.edition is None:
+            raise ValueError(
+                f"{name!r} is a torch.export artifact (weights baked into "
+                "the program); register a new artifact instead")
+        if sum(v is not None for v in (variables, workdir, perturb)) != 1:
+            raise ValueError(
+                "pass exactly one of variables=, workdir=, perturb=")
+        from deepvision_tpu_torch.resilience.sentinel import state_tree
+
+        if workdir is not None:
+            from deepvision_tpu_torch.serve.models import restore_state
+
+            module, _ = restore_state(name, workdir, device="cpu")
+            variables = state_tree(module)
+        if perturb is not None:
+            def nudge(tree):
+                if isinstance(tree, dict):
+                    return {k: nudge(v) for k, v in tree.items()}
+                if np.issubdtype(tree.dtype, np.floating):
+                    return (tree + perturb).astype(tree.dtype)
+                return tree
+
+            variables = nudge(state_tree(served.edition.module))
+        pool = None
+        if served.device.type == "cuda":
+            import torch
+
+            # the new ladder's own pool; until it is the model's, a
+            # capture of the model goes into a fresh one, never into the
+            # old pool, whose graphs the swap frees
+            pool = torch.cuda.graph_pool_handle()
+            self._pools.pop(name, None)
+        result = self._tenancy.swap(
+            served, variables, ladder=self.ladder(served),
+            key_fn=self._model_key,
+            build=lambda m, b: self._build(m, b, pool),
+            rebuild=self._build)
+        if result.get("unchanged"):
+            return result
+        if pool is not None:
+            self._pools.setdefault(name, pool)
+        # the swap dropped any store-warmed runners of this model
+        self._from_store = {k for k in self._from_store if k[0] != name}
+        if self._store is not None and self._storeable(served):
+            # a replica respawned after the swap warms the new weights
+            for bucket in self.ladder(served):
+                self._save_store_entry(served, bucket)
+        return result
+
+    @property
+    def tenancy(self) -> TenancyManager:
+        """The engine's ``TenancyManager`` (without a budget unless
+        ``residency_bytes`` set one); the serving CLI prints its
+        :meth:`~TenancyManager.summary_line` at exit."""
+        return self._tenancy
 
     # -- client surface --------------------------------------------------
     def submit(self, x, model: str | None = None, *,
@@ -463,6 +650,7 @@ class InferenceEngine:
                 f"{k[0]}@{k[1]}" for k in self._from_store),
             "telemetry": self.telemetry.snapshot(),
             "kernel_launches": kernel_launches(),
+            "tenancy": self._tenancy.stats(),
         }
         if self._store is not None:
             out["artifact_store"] = self._store.stats()
@@ -716,10 +904,13 @@ class InferenceEngine:
         for i, r in enumerate(reqs):
             x[i] = r.x
         try:
-            runner = self._bucket_runner(served, bucket)
-            t0 = time.perf_counter()
-            host = runner(x)
-            t_dev = time.perf_counter() - t0
+            runner = self._checkout(served, bucket)
+            try:
+                t0 = time.perf_counter()
+                host = runner(x)
+                t_dev = time.perf_counter() - t0
+            finally:
+                self._tenancy.unpin(runner)
         except Exception as e:  # forward failure: fail this batch only
             for r in reqs:
                 self._fail_request(r, e)
@@ -811,17 +1002,20 @@ class InferenceEngine:
         n = len(group)
         bucket = self._bucket_for(served, n)
         try:
-            runner = self._bucket_runner(served, bucket)
-            # each stream's slate row: its device row, a restored
-            # snapshot's host arrays, or None (fresh or reset: zeros)
-            rows = [f.entry.state for _r, f in group]
-            t0 = time.perf_counter()
-            if mode == "detect":
-                x = np.stack([r.x for r, _f in group])
-                new_slates, host = runner.detect.run(x, rows)
-            else:
-                new_slates, host = runner.advance.run(None, rows)
-            t_dev = time.perf_counter() - t0
+            runner = self._checkout(served, bucket)
+            try:
+                # each stream's slate row: its device row, a restored
+                # snapshot's host arrays, or None (fresh or reset: zeros)
+                rows = [f.entry.state for _r, f in group]
+                t0 = time.perf_counter()
+                if mode == "detect":
+                    x = np.stack([r.x for r, _f in group])
+                    new_slates, host = runner.detect.run(x, rows)
+                else:
+                    new_slates, host = runner.advance.run(None, rows)
+                t_dev = time.perf_counter() - t0
+            finally:
+                self._tenancy.unpin(runner)
         except Exception as e:  # a forward failure: fail the group only
             for r, _f in group:
                 self._fail_request(r, e)
@@ -887,6 +1081,7 @@ class InferenceEngine:
             else:
                 s.flush()
         self._cache.drop_where(lambda key: True)
+        self._tenancy.clear()
         self._pools.clear()
 
     def __enter__(self) -> "InferenceEngine":

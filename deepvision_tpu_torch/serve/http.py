@@ -9,6 +9,12 @@ or over a fleet router (``serve/router.FleetRouter``).
                       /v1/predict one with ``"model": NAME``
                       a stream frame of a stateful model (``--track``)
                       adds ``"session": ID, "seq": N``
+    POST /v1/swap     {"model": NAME, "perturb": F | "workdir": DIR}: a
+                      zero-drop weight swap (``InferenceEngine.hot_swap``),
+                      synchronous: the 200 comes once the new ladder is
+                      captured, installed and flipped, with the swap's
+                      result; the other handler threads serve throughout.
+                      404 on a fleet (its router owns no weights)
     GET  /stats       engine, runner cache, queue, telemetry and the
                       process's kernel launches (JSON); a router's
                       replicas, breakers and telemetry
@@ -37,6 +43,7 @@ the request's deadline expired. A ``seq`` that is not an integer is a
 from __future__ import annotations
 
 import base64
+import contextlib
 import http.server
 import json
 import math
@@ -149,6 +156,9 @@ def make_handler(engine, args):
 
         def do_POST(self):
             pipeline = None
+            if self.path == "/v1/swap":
+                self._do_swap()
+                return
             if self.path.startswith("/v1/pipeline/"):
                 pipeline = self.path[len("/v1/pipeline/"):]
                 if not pipeline:
@@ -200,6 +210,34 @@ def make_handler(engine, args):
                 return
             self._send(200, {"result": jsonable(result)})
 
+        def _do_swap(self):
+            hot_swap = getattr(engine, "hot_swap", None)
+            if hot_swap is None:
+                self._send(404, {"error": "swap needs a single-engine "
+                                 "replica (a fleet's router owns no "
+                                 "weights)"})
+                return
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(n))
+                if not isinstance(req, dict) or "model" not in req:
+                    raise ValueError("need a JSON object with 'model'")
+                kw = {k: req[k] for k in ("workdir", "perturb") if k in req}
+            except (ValueError, KeyError, TypeError) as e:
+                self._send(400, {"error": f"bad request: {e}"})
+                return
+            try:
+                # a checkpoint restore's chatter stays off stdout
+                with contextlib.redirect_stdout(sys.stderr):
+                    result = hot_swap(req["model"], **kw)
+            except ValueError as e:
+                self._send(400, {"error": str(e)})
+                return
+            except Exception as e:
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            self._send(200, {"result": jsonable(result)})
+
     return Handler
 
 
@@ -229,8 +267,8 @@ def run_http(engine, args) -> None:
             f.write(str(port))
         os.replace(tmp, args.port_file)
     print(f"listening on :{port} (POST /v1/predict, POST /v1/pipeline/NAME, "
-          f"GET /stats, GET /metrics, GET /healthz)", file=sys.stderr,
-          flush=True)
+          f"POST /v1/swap, GET /stats, GET /metrics, GET /healthz)",
+          file=sys.stderr, flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -43,11 +43,25 @@ served model is also a stage of a serving DAG (``serve/pipeline.py``):
 :meth:`ServedModel.as_stage`, with its input and output avals
 (:meth:`ServedModel.out_avals`, by shape propagation; an artifact's from
 its program's metadata).
+
+Tenancy (``serve/tenancy.py``): a served model with weights carries a
+``WeightsEdition`` (its module, the weights' fingerprint and bytes), made
+with it. An eviction moves the module's weights to host and back in
+place, so the module and its parameters keep their identity; every
+runner names the editions it was captured over (``runner.editions``), so
+that an eviction can drop it first. A hot swap never writes into the
+live parameters: :meth:`ServedModel.shadow` builds a new module and a new
+forward (``make_forward``) with the new weights and a new edition, which
+:meth:`ServedModel.flip_to` makes the model's own once its runners are
+captured. Captures take :data:`capture_lock`, so that a swap's captures
+and the dispatcher's recaptures take turns.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import threading
 import time
 from pathlib import Path
 from typing import Any, Callable, Mapping
@@ -65,7 +79,13 @@ from deepvision_tpu_torch.train.configs import get_config
 
 __all__ = ["ServedModel", "CudaGraphRunner", "EagerRunner", "load_served",
            "from_exported", "restore_state", "model_geometry", "task_for",
-           "input_scale"]
+           "input_scale", "capture_lock"]
+
+# one CUDA graph capture at a time in the process: ``torch.cuda.graph``
+# synchronizes the device and empties the allocator's cache, which must
+# not happen inside another thread's capture (a hot swap captures while
+# the dispatcher may recapture an evicted tenant)
+capture_lock = threading.Lock()
 
 # the served task of each model that is not a classifier ("gan" serves
 # the DCGAN generator: the input is the noise z, the output an image)
@@ -100,7 +120,11 @@ class ServedModel:
     a JSON-able dict. ``buckets`` overrides the engine's ladder (an
     artifact is pinned to the batch it was exported at); ``exported``
     marks a model whose forward is a loaded ``torch.export`` program
-    (:func:`from_exported`)."""
+    (:func:`from_exported`). ``make_forward(module)`` builds ``forward``
+    over a module of the same architecture: what a hot swap's shadow
+    model runs. ``edition``: the weights' ``tenancy.WeightsEdition``,
+    made with the model for every model with a module of its own (not an
+    artifact, whose weights live in its program)."""
 
     name: str
     task: str
@@ -118,8 +142,19 @@ class ServedModel:
     # runs on the program's outputs (:func:`from_exported`)
     program_out_avals: tuple | None = None
     head: Callable | None = None
+    make_forward: Callable[[nn.Module], Callable] | None = dataclasses.field(
+        default=None, repr=False, compare=False)
+    edition: Any = dataclasses.field(default=None, repr=False, compare=False)
     _fingerprint: str | None = dataclasses.field(
         default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.edition is None and self.module is not None \
+                and not self.exported:
+            from deepvision_tpu_torch.serve.tenancy import WeightsEdition
+
+            self.edition = WeightsEdition(self.module,
+                                          fingerprint=self._fingerprint)
 
     @property
     def dtype_str(self) -> str:
@@ -129,7 +164,10 @@ class ServedModel:
         """The digest of the weights (``resilience/sentinel``'s
         fingerprint of the module's JAX-layout tree), taken once: the
         runner cache's key holds it, so that a runner built for one
-        generation of weights can never be found for another."""
+        generation of weights can never be found for another. A model
+        with an edition has its edition's."""
+        if self.edition is not None:
+            return self.edition.fingerprint
         if self._fingerprint is None:
             from deepvision_tpu_torch.resilience.sentinel import (
                 state_tree,
@@ -150,7 +188,51 @@ class ServedModel:
             name=self.name, forward=self.forward,
             input_shape=self.input_shape, device=self.device,
             input_dtype=self.input_dtype, pinned_buckets=self.buckets,
-            program_out_avals=self.program_out_avals, head=self.head)
+            program_out_avals=self.program_out_avals, head=self.head,
+            edition=self.edition)
+
+    def pinned_editions(self) -> tuple:
+        """The editions a runner of this model is captured over: its own,
+        and a DAG program's stage editions (``Pipeline.program``)."""
+        own = (self.edition,) if self.edition is not None else ()
+        return own + tuple(getattr(self.forward, "stage_editions", ()))
+
+    def shadow(self, variables, fingerprint: str | None = None
+               ) -> "ServedModel":
+        """This model with new weights ``variables`` (a tree in the JAX
+        layout, ``resilience/sentinel.state_tree``'s) as a new module, a
+        new forward and a new resident edition on the model's device: a
+        hot swap's stand-in, whose runners are captured before the flip.
+        The live module is copied, never written."""
+        if self.make_forward is None or self.edition is None:
+            raise ValueError(f"{self.name!r} has no forward builder; it "
+                             "cannot take new weights")
+        from deepvision_tpu_torch.convert.from_flax import (
+            module_state_from_flax,
+        )
+        from deepvision_tpu_torch.serve.tenancy import (
+            WeightsEdition,
+            tree_nbytes,
+        )
+
+        module = copy.deepcopy(self.module)
+        module.load_state_dict(module_state_from_flax(module, variables))
+        module.to(self.device)
+        module.eval()
+        module.requires_grad_(False)
+        edition = WeightsEdition(module, fingerprint,
+                                 tree_nbytes(variables), resident=True)
+        return dataclasses.replace(
+            self, module=module, forward=self.make_forward(module),
+            edition=edition, _fingerprint=edition.fingerprint)
+
+    def flip_to(self, shadow: "ServedModel") -> None:
+        """Serve ``shadow``'s module, forward and edition from now on
+        (a hot swap's flip, under the residency lock)."""
+        self.module = shadow.module
+        self.forward = shadow.forward
+        self.edition = shadow.edition
+        self._fingerprint = shadow._fingerprint
 
     def in_avals(self, bucket: int):
         return self.as_stage().in_avals(bucket)
@@ -187,7 +269,9 @@ class ServedModel:
         """This model served by ``program`` (a loaded request program of
         :meth:`export_bytes`) in place of its forward: same name, key,
         task head and post-process."""
+        # the program carries its weights: its runners read no edition
         return dataclasses.replace(self, forward=program, exported=True,
+                                   edition=None,
                                    _fingerprint=self.weights_fingerprint())
 
     def compile_for(self, bucket: int, pool=None):
@@ -243,14 +327,18 @@ def _check_batch(batch: np.ndarray, shape: tuple) -> None:
 
 class EagerRunner:
     """The CPU's bucket runner: the eager forward (:meth:`ServedModel.run`)
-    on the batch padded to the bucket. ``calls`` counts its calls."""
+    on the batch padded to the bucket, of the model as it was when the
+    runner was built (a shallow copy: a hot swap flips the model in
+    place, and the runner keeps its forward, as a graph keeps the weights
+    it was captured over). ``calls`` counts its calls."""
 
     kind = "eager"
     pool_bytes = 0
     capture_s = 0.0
 
     def __init__(self, served: ServedModel, bucket: int):
-        self.served, self.bucket = served, bucket
+        self.served, self.bucket = copy.copy(served), bucket
+        self.editions = served.pinned_editions()
         self.launches: dict[str, int] = {}
         self.calls = 0
 
@@ -287,9 +375,12 @@ class CudaGraphRunner:
     replays, so that the launches of a process split exactly among its
     runners (each capture's eager forward launches once more).
     ``pool_bytes`` is what the capture added to the memory the allocator
-    reserves: the graph's share of its pool. Graphs of one pool are
+    reserves: the graph's share of its pool (approximate when another
+    thread allocates or frees during the capture). Graphs of one pool are
     replayed one at a time (the engine's one dispatcher), each output
-    copied out before the next replay."""
+    copied out before the next replay. ``editions`` are the weights the
+    graph reads (``ServedModel.pinned_editions``), which the runner keeps
+    alive; the eager forward and the capture hold :data:`capture_lock`."""
 
     kind = "cuda_graph"
 
@@ -303,11 +394,12 @@ class CudaGraphRunner:
         # no other owner once the warm-up is over; freed, its weights'
         # blocks went to the next allocation (the next model's program)
         self._forward = served.forward
+        self.editions = served.pinned_editions()
         self._input_dtype = served.input_dtype
         shape = (bucket, *served.input_shape)
         dtype = torch.from_numpy(np.zeros(0, served.input_dtype)).dtype
         t0 = time.perf_counter()
-        with torch.cuda.device(dev), torch.inference_mode():
+        with capture_lock, torch.cuda.device(dev), torch.inference_mode():
             self._static_in = torch.zeros(shape, dtype=dtype, device=dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -451,12 +543,17 @@ def _load_gan_served(name: str, workdir: str | None, epoch: int | None,
     module.eval()
     module.requires_grad_(False)
 
+    return ServedModel(name=name, task="gan", module=module,
+                       input_shape=(noise_dim,), postprocess=_gan_post,
+                       device=dev, forward=_gan_forward(module),
+                       make_forward=_gan_forward, scale="tanh")
+
+
+def _gan_forward(module: nn.Module):
     def forward(z: torch.Tensor) -> dict[str, torch.Tensor]:
         return {"image": module(z)}
 
-    return ServedModel(name=name, task="gan", module=module,
-                       input_shape=(noise_dim,), postprocess=_gan_post,
-                       device=dev, forward=forward, scale="tanh")
+    return forward
 
 
 def _detect_post(host: dict, i: int) -> dict:
@@ -557,18 +654,24 @@ def load_served(name: str, workdir: str | None = None, *,
                                 num_heatmaps=num_heatmaps)
     classes, size = geo["num_classes"], geo["input_size"]
     if task == "detect" and name == "centernet":
-        forward, post = _centernet_forward(module, score_thresh), _detect_post
+        def make(m):
+            return _centernet_forward(m, score_thresh)
+        post = _detect_post
     elif task == "detect":
-        forward = _yolo_forward(module, classes, score_thresh, iou_thresh)
+        def make(m):
+            return _yolo_forward(m, classes, score_thresh, iou_thresh)
         post = _detect_post
     elif task == "pose":
-        forward, post = _pose_forward(module), _pose_post
+        make, post = _pose_forward, _pose_post
     else:
-        forward, post = _classify_forward(module, top_k), _classify_post
+        def make(m):
+            return _classify_forward(m, top_k)
+        post = _classify_post
     return ServedModel(
         name=name, task=task, module=module,
         input_shape=(size, size, geo["channels"]), postprocess=post,
-        device=dev, forward=forward, scale=input_scale(name))
+        device=dev, forward=make(module), make_forward=make,
+        scale=input_scale(name))
 
 
 def from_exported(path: str | Path, *, name: str | None = None,

@@ -44,6 +44,16 @@ Execution, per entry bucket (the engine pads every batch to one):
   fixed by the spec and are constants of the program, as the task
   heads' thresholds are.
 
+Tenancy (``serve/tenancy.py``): a pipeline takes each model stage
+(``ServedModel.as_stage``, its forward and weights edition) when it is
+built or bound, and its graphs are captured over those editions. An
+eviction of a stage tenant drops the DAG's graphs with the tenant's own,
+and its restore recaptures them over the same stages. After a hot swap
+of a stage model the DAG keeps serving the weights it was captured over,
+as the JAX DAG does, until it is built again: its runner cache key
+(:meth:`Pipeline.weights_fingerprint`) and its stages do not follow the
+swap, and the old edition counts as ``retired_pinned``.
+
 The JAX package checks at ``bind`` that every stage bucket divides the
 mesh's data axis; the port serves on one device and has no mesh, so
 there is nothing to check yet. The JAX runner's ``stage:<node>`` trace
@@ -129,6 +139,9 @@ class ModelStage:
     pinned_buckets: tuple[int, ...] | None = None
     program_out_avals: tuple | None = None
     head: Callable | None = None
+    # the ``tenancy.WeightsEdition`` that ``forward`` reads (None: an
+    # artifact's program, or a stage without weights)
+    edition: Any = None
 
     def in_avals(self, bucket: int) -> tuple[TensorSpec, ...]:
         return (TensorSpec((bucket, *self.input_shape),
@@ -420,17 +433,30 @@ class Pipeline:
         return str(np.dtype(self.input_dtype))
 
     def weights_fingerprint(self) -> str:
-        """The runner cache's key part: a digest of the spec and of every
-        stage model's weights fingerprint, so that a runner built over
-        one generation of weights is never found for another."""
+        """The runner cache's key part: a digest of the spec and of the
+        weights fingerprint of every model stage as the DAG took it, so
+        that a runner built over one generation of weights is never found
+        for another (and a stage model's hot swap leaves the DAG's key
+        and graphs as they are)."""
         parts = [json.dumps(dataclasses.asdict(self.spec), sort_keys=True,
                             default=str)]
         for node in self._order:
             if node.model:
-                served = self._models[node.model]
-                fp = getattr(served, "weights_fingerprint", None)
-                parts.append(f"{node.model}:{fp() if fp else 'static'}")
+                edition = self._stages[node.name]["stage"].edition
+                if edition is not None:
+                    fp = edition.fingerprint
+                else:  # an artifact: its program's digest
+                    fp = getattr(self._models[node.model],
+                                 "weights_fingerprint", lambda: "static")()
+                parts.append(f"{node.model}:{fp}")
         return hashlib.sha256("\n".join(parts).encode()).hexdigest()
+
+    def stage_models(self) -> dict[str, Any]:
+        """The served models that the DAG's model nodes name, by name
+        (the engine's plain path shares them): the tenants whose weights
+        its graphs read."""
+        return {n.model: self._models[n.model]
+                for n in self._order if n.model}
 
     # -- validation ------------------------------------------------------
     def _node_map(self) -> dict[str, PipelineNode]:
@@ -532,8 +558,10 @@ class Pipeline:
         return min(self.buckets)
 
     def _build_stages(self) -> dict[str, dict]:
-        """node name -> {"kind", "served"/"build", "ladder"}, resolved
-        once; ``as_stage()`` is taken when the DAG is walked."""
+        """node name -> {"kind", "served"/"build", "ladder"} and a model
+        node's ``stage`` (``as_stage()``, taken here: the forward and
+        weights edition that the DAG's graphs are captured over, kept
+        through a later hot swap of the model)."""
         stages = {}
         for node in self._order:
             if node.model:
@@ -541,6 +569,7 @@ class Pipeline:
                 ladder = tuple(node.buckets or served.buckets
                                or self._default_buckets)
                 stages[node.name] = {"kind": "model", "served": served,
+                                     "stage": served.as_stage(),
                                      "ladder": ladder}
             else:
                 stages[node.name] = {"kind": "glue",
@@ -583,7 +612,7 @@ class Pipeline:
                    for ref in node.inputs]
             info = self._stages[node.name]
             if info["kind"] == "model":
-                stage = info["served"].as_stage()
+                stage = info["stage"]
                 (aval,) = ins
                 if not isinstance(aval, TensorSpec):
                     raise PipelineError(
@@ -662,8 +691,12 @@ class Pipeline:
                 executors.append((node, glue_fns[node.name]))
         forward = self._dag(executors)
         # the graph reads the stages' weights at their addresses: the
-        # program holds every stage's forward, and with it its module
+        # program holds every stage's forward, and with it its module,
+        # and names their editions (``ServedModel.pinned_editions``)
         forward.stage_forwards = tuple(forwards)
+        forward.stage_editions = tuple(
+            info["stage"].edition for info in self._stages.values()
+            if info["kind"] == "model" and info["stage"].edition is not None)
         return ServedModel(
             name=f"{self.name}@{bucket}", task=self.task, module=None,
             input_shape=self.input_shape, postprocess=self.postprocess,
@@ -694,7 +727,7 @@ class Pipeline:
         """Chunk ``rows`` inter-stage rows through this stage's own
         ladder, each chunk padded with zero rows to its bucket. -> (the
         stage's executor, its forward)."""
-        stage = info["served"].as_stage()
+        stage = info["stage"]
         plan = chunk_plan(rows, info["ladder"])
         runners = {b: stage.runner(b) for _, _, b in plan}
         self.last_chunk_plans[node.name] = plan

@@ -48,10 +48,12 @@ The fault sites ``replica_kill`` and ``replica_slow``
 replayed frame's too) with monotonic occurrence counters, so that a drill
 replays exactly.
 
-Left for later tiers, as the twin has them: the tenant quotas and SLO
-classes of the admission gate (with ``serve/tenancy.py``), and the
-flight recorder's probe notes (with the port's distributed
-observability).
+``tenant_quota`` and ``slo_class`` reach the router's own admission gate
+(``admission.AdmissionController``), so that a noisy tenant sheds at the
+fleet's front door before it crowds any replica's queue.
+
+Left for a later tier: the flight recorder's probe notes (with the
+port's distributed observability).
 """
 
 from __future__ import annotations
@@ -345,7 +347,8 @@ class FleetRouter:
     its p95 deadline budget in seconds: both the model's deadline ceiling
     and its admission budget (``AdmissionController.slo_budget_s``).
     ``session_replay_window``: the frames a stream keeps for a replay
-    after its pin dies.
+    after its pin dies. ``tenant_quota`` and ``slo_class``: the tenant
+    maps of the router's admission gate (``admission``).
     """
 
     def __init__(
@@ -364,6 +367,8 @@ class FleetRouter:
         autoscale: AutoscaleConfig | None = None,
         fault_injector=None,
         session_replay_window: int = 32,
+        tenant_quota: dict[str, int] | None = None,
+        slo_class: dict[str, str] | None = None,
     ):
         if replicas < 1:
             raise ValueError(f"need >= 1 replica, got {replicas}")
@@ -378,7 +383,8 @@ class FleetRouter:
         self.telemetry = RouterTelemetry()
         self._admission = AdmissionController(
             max_queue=max_queue, per_model_limit=per_model_limit,
-            slo_budget_s=self._slo or None)
+            slo_budget_s=self._slo or None,
+            tenant_quota=tenant_quota, slo_class=slo_class)
         self._injector = fault_injector
         self._lock = threading.Lock()
         self._session_replay_window = max(0, int(session_replay_window))

@@ -30,7 +30,12 @@ recoverable resource:
   reset stream and for padding) into the static input, runs the program
   and fetches its outputs with one copy. The slate never goes to the host
   on the frame path: the one host trip is the snapshot on its cadence
-  (``.cpu()`` of the leaves).
+  (``.cpu()`` of the leaves). The tracker takes its detector's stage
+  (forward and weights edition) when it is built; its graphs are
+  captured over that edition, so that an eviction of the detector
+  (``serve/tenancy.py``) drops them and its restore recaptures them, and
+  a hot swap of the detector leaves the tracker on the weights it was
+  captured over.
 
 - Every stateful answer carries ``state_reset``: False while the slate's
   lineage is intact (a fresh stream, an in-order frame, a restore from a
@@ -61,7 +66,7 @@ import numpy as np
 import torch
 
 from deepvision_tpu_torch.serve.admission import ShedError
-from deepvision_tpu_torch.serve.models import _pack, _unpack
+from deepvision_tpu_torch.serve.models import _pack, _unpack, capture_lock
 
 __all__ = [
     "SessionStore",
@@ -596,7 +601,7 @@ class _StaticProgram:
                 self.packed = packed.clone()
                 self.pool_bytes = 0
             else:
-                with torch.cuda.device(device):
+                with capture_lock, torch.cuda.device(device):
                     side = torch.cuda.Stream(device)
                     side.wait_stream(torch.cuda.current_stream(device))
                     with torch.cuda.stream(side):
@@ -678,10 +683,13 @@ class _TrackRunner:
     ``pool_bytes``, ``capture_s``, and ``launches`` and ``calls`` of the
     detect program (a detect replay launches the detector's kernels, an
     advance replay none of them); :meth:`extra_stats` adds the advance
-    program's."""
+    program's. ``editions``: the detector's weights that the programs
+    read (``tenancy``)."""
 
     def __init__(self, detect: _StaticProgram, advance: _StaticProgram,
-                 bucket: int, slots: int, device: torch.device):
+                 bucket: int, slots: int, device: torch.device,
+                 editions: tuple = ()):
+        self.editions = editions
         self.detect = detect
         self.advance = advance
         self.bucket = bucket
@@ -770,8 +778,10 @@ class TrackingPipeline:
         return self.detector.device
 
     def stage_models(self) -> dict:
-        """The stage map (the twin of ``Pipeline``'s)."""
-        return {"detector": self._stage}
+        """The detector by its name, the tenant whose weights the
+        tracker's graphs read (the contract of ``Pipeline``'s; the JAX
+        twin's key ``"detector"`` names its stage, not a tenant)."""
+        return {self.detector.name: self.detector}
 
     def _check_detector(self, bucket: int) -> None:
         """The detector's output contract, from its avals by shape
@@ -820,7 +830,10 @@ class TrackingPipeline:
             self.slots, bucket, dev, pool)
         adv_prog = _StaticProgram(advance, None, self.input_dtype,
                                   self.slots, bucket, dev, pool)
-        return _TrackRunner(detect, adv_prog, bucket, self.slots, dev)
+        editions = ((self._stage.edition,) if self._stage.edition is not None
+                    else ())
+        return _TrackRunner(detect, adv_prog, bucket, self.slots, dev,
+                            editions)
 
     def postprocess(self, host: dict, i: int) -> dict:
         """Row ``i`` of the fetched outputs, deterministic fields only:

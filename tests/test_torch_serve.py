@@ -295,3 +295,35 @@ def test_no_quiet_cpu_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA device"):
         load_served("alexnet1")
     assert port_device.resolve_device("cpu") == torch.device("cpu")
+
+
+# serve.py's flags that the port's serving CLI does not have yet (serving
+# observability on one host, ROADMAP A4), and the port's own flags
+SERVE_FLAGS_TO_PORT = {"--profile-dir", "--trace-spool", "--obs-role"}
+PORT_ONLY_SERVE_FLAGS = {"--device", "--seed", "--input-size", "--iou",
+                         "--restart-backoff-s"}
+
+
+def _cli_flags(path: Path) -> set[str]:
+    """The long flags of every ``add_argument`` call in ``path``."""
+    flags = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Call) \
+                and getattr(node.func, "attr", None) == "add_argument":
+            flags |= {a.value for a in node.args
+                      if isinstance(a, ast.Constant)
+                      and str(a.value).startswith("--")}
+    return flags
+
+
+def test_serving_cli_flags_are_serve_py_s_but_the_listed_ones():
+    """The serving CLI's flag set is ``serve.py``'s, less the flags still
+    to port and plus the port's own, so that what is missing stays
+    explicit."""
+    jax_flags = _cli_flags(REPO / "serve.py")
+    port_flags = _cli_flags(REPO / "deepvision_tpu_torch" / "serve"
+                            / "__main__.py")
+    assert SERVE_FLAGS_TO_PORT <= jax_flags
+    assert not PORT_ONLY_SERVE_FLAGS & jax_flags
+    assert port_flags == (jax_flags - SERVE_FLAGS_TO_PORT) \
+        | PORT_ONLY_SERVE_FLAGS, (sorted(port_flags ^ jax_flags))
