@@ -331,7 +331,13 @@ the seconds it took:
    and 404 where due, ``/stats`` with one crash, one restart and the
    cache's 4 misses frozen, ``/metrics`` with the crash counter and the
    device memory gauges, exit 0 on SIGINT, and its last line's true
-   launches of the LRN and NMS kernels.
+   launches of the LRN and NMS kernels. With ``--trace-spool DIR
+   --obs-role http --profile-dir DIR``: the spool holds the batches'
+   ``device`` spans and the traced request's ``replica_queue`` and
+   ``postprocess`` (its trace id in the body), the crash left
+   ``flightrec-http-dispatcher_crash-*.json`` with the spans before it,
+   and the profiler's trace of the session, started after the warm-up,
+   holds 2 ``lrn_forward_kernel<float`` a ``alexnet1`` replay in it.
 26. Model export (``phase_export``, after 15), float32 with TF32 off
    under deterministic cuDNN: ``alexnet1`` (seeded weights) exported
    by ``export.export_forward`` at batch 4 and loaded by
@@ -367,8 +373,20 @@ the seconds it took:
    bucket 1 (1 ``nms_sweep`` a detect replay, none an advance replay,
    each program's device time at bucket 1 printed); after the second
    respawn the federated ``/metrics`` against the replicas' ``/stats``,
-   each replica's runners and true kernel launches, and SIGINT: the
-   router 0, its children 143 after their ``[serve]`` lines.
+   each replica's runners and true kernel launches, and SIGTERM: the
+   router 143 after its exit line, its children 143 after their
+   ``[serve]`` lines. With ``--trace-spool DIR`` every process spools its
+   spans: ``python -m deepvision_tpu_torch.obs.trace_merge DIR
+   --assert-flow --assert-spans router_attempt,replica_queue,device,
+   postprocess`` exits 0, a request's flow crosses from the router's row
+   into a replica's, each stream's session is on a replica's
+   ``replica_queue`` span, the migrated one on two replicas' spools (the
+   SIGKILLed one's up to its kill, then the survivor's), each replica
+   the router stopped left ``flightrec-rN-signal-15-*.json`` with its last
+   spans and its registry, and the router's own dump its
+   ``router_attempt`` spans and ``note:probe`` notes; the router still
+   holds no card file at the end. It prints the spans by name, the
+   flows, the spools' bytes and the merge's seconds.
 28. Pipeline serving (``phase_pipeline``, in process on a worker of its
    own beside 27): ``yolov3`` (416 px, score 0), ``hourglass104`` (256
    px) and ``alexnet1`` behind one engine on buckets (1, 4) with two
@@ -380,7 +398,13 @@ the seconds it took:
    version's within 1e-6, frozen misses, each replay's credited
    ``nms_sweep`` and ``lrn_forward_f32`` and the counted launches equal
    to them; the DAGs' and the sequential client's device time and host
-   wall a call at entry bucket 4, printed. The chains' serving CLI of 19
+   wall a call at entry bucket 4, printed. Then, with a span spool
+   attached in process, both DAGs at entry buckets 1 and 4 with trace
+   ids: the answers bit for bit the untraced ones, each node's
+   ``stage:<node>`` span (the CUDA events of the graph) inside its
+   batch's ``device`` span, in DAG order, their sum within it; each
+   stage's device ms at entry bucket 4 printed; the spool detached
+   before 29. The chains' serving CLI of 19
    serves ``detpose`` over the chains' checkpoints too (``--pipelines``,
    2 requests, ``[pipeline] served detpose=2 frozen=True``).
 29. Multi-tenant serving in process (``phase_tenancy``, after 28 on its
@@ -535,6 +559,7 @@ N_REQUESTS = 96
 BUCKETS = (1, 4, 16, 64)
 HTTP_FAULTS = "crash@2"  # the HTTP server's third batch crashes
 HTTP_BACKOFF_S = 2.0  # the supervisor's first backoff there
+HTTP_TRACE = "0123456789abcdef"  # the trace id of one of its requests
 # served answers of a model without LRN held against the CPU's
 CPU_CHECKED = 8
 # timed training steps of the paths before the records', resnet50's
@@ -674,6 +699,7 @@ PIPE_LADDER = [4, 8]
 PIPE_BUCKETS = (1, 4)
 PIPE_AMPLITUDE = 0.003
 PIPE_TIMED = 10  # timed calls a DAG and a sequential client
+STAGE_TIMED = 5  # traced entry-bucket-4 batches a DAG for its stage times
 # the tenancy drills (phase_tenancy, phase_tenancy_cli)
 TENANCY_PASSES = 2  # round-robin passes: each tenant evicted between them
 SWAP_PERTURB = 1e-3  # hot_swap(perturb=...): every weight plus this
@@ -1499,13 +1525,18 @@ def phase_http(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
     counter and the device memory gauges; SIGINT ends the process with
     0, and its last line counts the kernels' true launches (the eager
     forward of each capture, then one replay a batch; the crashed batch
-    replayed nothing). Returns the readings."""
+    replayed nothing). With ``--trace-spool``, ``--obs-role http`` and
+    ``--profile-dir``: :func:`_http_obs_checks`. Returns the readings."""
     port_file, log = workdir / "http.port", workdir / "http.log"
     port_file.unlink(missing_ok=True)
+    obs, prof = workdir / "http-obs", workdir / "http-profile"
+    shutil.rmtree(obs, ignore_errors=True)
+    shutil.rmtree(prof, ignore_errors=True)
     cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m",
            "alexnet1", "-m", "yolov3", "--http", "0", "--port-file",
            str(port_file), "--faults", HTTP_FAULTS, "--buckets", "1,4",
-           "--restart-backoff-s", str(HTTP_BACKOFF_S)]
+           "--restart-backoff-s", str(HTTP_BACKOFF_S), "--trace-spool",
+           str(obs), "--obs-role", "http", "--profile-dir", str(prof)]
     t0 = time.perf_counter()
     with open(log, "w") as err:
         proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL,
@@ -1532,8 +1563,10 @@ def phase_http(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             assert time.perf_counter() - t_crash < 60
             time.sleep(0.05)
         healed_s = time.perf_counter() - t_crash
+        # a trace id in the body, as a client sends one
         got["a1"] = _http(port, "POST", "/v1/predict",
-                          _b64_request("alexnet1", alexnet_xs[1]))
+                          {**_b64_request("alexnet1", alexnet_xs[1]),
+                           "trace": HTTP_TRACE})
         got["y1"] = _http(port, "POST", "/v1/predict",
                           _b64_request("yolov3", yolo_xs[1]))
         bad = _http(port, "POST", "/v1/predict",
@@ -1584,6 +1617,7 @@ def phase_http(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
     assert launches["lrn_forward_f32"] == 2 * (2 + 2), last
     assert launches["nms_sweep"] == 2 + 2, last
     pools = {n: r["pool_bytes"] for n, r in runners.items()}
+    obs_readings = _http_obs_checks(obs, prof, runners)
     _say(f"[http] the server took {start_s:.1f} s to its port (import, "
          f"load, warm-up {stats['warmup_s']} s); alexnet1 answers bit for "
          f"bit the in-process engine's; the crashed batch answered 500, "
@@ -1596,7 +1630,55 @@ def phase_http(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
          f"{time.perf_counter() - t0:.1f} s in all; {last}")
     return {"start_s": start_s, "healed_s": healed_s, "pool_bytes": pools,
             "launches": {"lrn_forward_f32": launches["lrn_forward_f32"],
-                         "nms_sweep": launches["nms_sweep"]}}
+                         "nms_sweep": launches["nms_sweep"]},
+            "obs": obs_readings}
+
+
+def _http_obs_checks(obs: Path, prof: Path, runners: dict) -> dict:
+    """The HTTP server's observability: its spool (``trace-spool-http-*``)
+    holds the answered batches' ``device`` spans and the traced request's
+    ``replica_queue`` and ``postprocess`` under ``HTTP_TRACE``; the crash
+    left ``flightrec-http-dispatcher_crash-*.json``, whose ring holds the
+    spans before it and whose snapshot counts the crash; the profiler's
+    Chrome trace of the session, started after the warm-up, holds
+    ``lrn_forward_kernel<float`` events at 2 a ``alexnet1`` replay, for
+    every replay of the session (the runners' calls)."""
+    from deepvision_tpu_torch.obs.distributed import read_spool
+
+    (spool,) = obs.glob("trace-spool-http-*.jsonl")
+    events = read_spool(spool)["events"]
+    names = [e["name"] for e in events]
+    traced = sorted(e["name"] for e in events
+                    if (e.get("args") or {}).get("trace") == HTTP_TRACE)
+    assert names.count("device") == 4, names
+    assert traced == ["postprocess", "replica_queue"], traced
+    (dump,) = obs.glob("flightrec-http-dispatcher_crash-*.json")
+    body = json.loads(dump.read_text())
+    ring = [e["name"] for e in body["events"] if e["kind"] == "span"]
+    assert ring.count("device") == 2, ring
+    assert body["snapshot"]["serve_dispatcher_crashes"] == 1, body[
+        "snapshot"]
+    replays = sum(b["calls"] for b in runners["alexnet1"][
+        "buckets"].values())
+    trace = json.loads((prof / "session.pt.trace.json").read_text())
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    lrn = [e for e in kernels
+           if DEVICE_KERNELS["lrn_forward_f32"] in e.get("name", "")]
+    nms = [e for e in kernels
+           if DEVICE_KERNELS["nms_sweep"] in e.get("name", "")]
+    _say(f"[http] observability: spool {spool.stat().st_size} bytes "
+         f"({len(events)} spans: {dict((n, names.count(n)) for n in set(names))}"
+         f"), the crash's dump {dump.name} holding {len(ring)} spans; the "
+         f"session's profile {len(kernels)} kernel events, "
+         f"{len(lrn)} of lrn_forward_kernel<float for {replays} alexnet1 "
+         f"replays, {len(nms)} of nms_sweep_kernel")
+    assert replays == 2 and len(lrn) == 2 * replays, (
+        "the profile of the serving session lacks the LRN kernel's "
+        f"launches: {len(lrn)} events for {replays} replays")
+    return {"spool_bytes": spool.stat().st_size, "spans": len(events),
+            "dump_spans": len(ring), "profile_kernels": len(kernels),
+            "profile_lrn_forward_f32": len(lrn),
+            "profile_nms_sweep": len(nms), "alexnet1_replays": replays}
 
 
 def _http_yolo_check(http: list, engine: list) -> None:
@@ -1799,19 +1881,23 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
     restarts; each replica's ``track`` runners a CUDA graph pair a bucket,
     1 ``nms_sweep`` a detect replay and none an advance replay. The checks
     of the first kill read the fleet before the drill; ``/metrics`` and the
-    launches are read after it. SIGINT ends the router with 0 and its
-    children with 143, each after its ``[serve]`` line. Returns the live
-    replicas' true kernel launches (their ``/stats``; the killed replicas'
-    are lost with them), the yardstick's NMS launches and the readings."""
+    launches are read after it. SIGTERM ends the router with 143 after its
+    exit line (its flight recorder's dump first) and its children with
+    143, each after its ``[serve]`` line. Every process spools its spans
+    under ``--trace-spool <root>/obs``: :func:`_fleet_trace_checks`.
+    Returns the live replicas' true kernel launches (their ``/stats``; the
+    killed replicas' are lost with them), the yardstick's NMS launches and
+    the readings."""
     import concurrent.futures
 
     import torch
 
     from deepvision_tpu_torch.obs.distributed import parse_prometheus
 
+    t_phase = time.perf_counter()
     root = workdir / "fleet"
     shutil.rmtree(root, ignore_errors=True)
-    tmp, store = root / "tmp", root / "aot"
+    tmp, store, obs = root / "tmp", root / "aot", root / "obs"
     tmp.mkdir(parents=True)
     port_file, log = root / "router.port", root / "router.log"
     cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "--fleet",
@@ -1820,7 +1906,7 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
            str(store), "--hedge-after", str(FLEET_HEDGE_S), "--faults",
            FLEET_FAULTS, "--track", f"yolov3:{STREAM_K}", "--session-dir",
            str(root / "sessions"), "--snapshot-every",
-           str(STREAM_SNAPSHOT_EVERY)]
+           str(STREAM_SNAPSHOT_EVERY), "--trace-spool", str(obs)]
     inputs = {"alexnet1": alexnet_xs, "yolov3": yolo_xs}
     answers: list[tuple[str, int, tuple]] = []  # (model, input, reply)
 
@@ -1915,8 +2001,10 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
         end_ids = {r["id"] for r in end["replicas"]}
         end_replicas = {sid: get(p, "/stats") for sid, p in live.items()
                         if sid in end_ids}
+        # the spools and the flight recorder opened no card file either
+        router_card_files_end = _card_files(proc.pid)
     finally:
-        proc.send_signal(signal.SIGINT)
+        proc.send_signal(signal.SIGTERM)
         try:
             rc = proc.wait(180)
         except subprocess.TimeoutExpired:
@@ -1924,7 +2012,8 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             proc.wait()
             raise
     text = _log_text(log)
-    assert rc == 0, text[-4000:]
+    assert rc == 143, text[-4000:]
+    assert router_card_files_end == 0, router_card_files_end
     # the router holds no card file, every replica does. (nvidia-smi's
     # compute apps, printed, cannot tell: in a container it may give
     # every process's pid as the host's or as 1)
@@ -2033,7 +2122,7 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             for k in ("detect", "advance")} == {"detect": 5,
                                                 "advance": 15}, \
         stream_replays
-    # SIGINT: the router stopped its children by SIGTERM, 143 each, after
+    # SIGTERM: the router stopped its children by SIGTERM, 143 each, after
     # their [serve] lines
     stopped = re.findall(r"\[router\] replica (r\d+) \(pid \d+\) stopped: "
                          r"exit (-?\d+)", text)
@@ -2046,6 +2135,9 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
         (child,) = tmp.glob(f"dvt-replica-{sid}-*/replica.log")
         tail = _log_text(child).strip().splitlines()[-1]
         assert tail.startswith("[serve] completed="), (sid, tail)
+    trace = _fleet_trace_checks(
+        obs, {sid: st["telemetry"]["completed"]
+              for sid, st in end_replicas.items()}, pins_before)
     warm = {sid: st["warmup_s"] for sid, st in first.items()}
     readings = {
         "start_s": round(start_s, 1), "respawn_s": round(respawn_s, 1),
@@ -2073,7 +2165,8 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
             "telemetry": {k: etel[k] for k in (
                 "requests", "completed", "failed", "failovers",
                 "replica_deaths", "replica_restarts")},
-            "reference": stream_readings}}
+            "reference": stream_readings},
+        "trace": trace}
     _say(f"[fleet] {json.dumps(readings)}")
     _say(f"[fleet] the router ({start_s:.1f} s to its port, both replicas "
          f"warm) held no card file, each replica's process did; {n} "
@@ -2093,7 +2186,11 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
          f"{respawn2_s:.1f} s after that kill; a frame's device time at "
          f"bucket 1 {stream_readings['device_ms_bucket1']} ms; kernel "
          f"launches of the live replicas {launches} (the killed replicas' "
-         f"are lost with them); SIGINT: exit 0, children 143; {last}")
+         f"are lost with them); SIGTERM: exit 143, children 143; the "
+         f"merged trace: {trace['cross_process_requests']} requests across "
+         f"processes, {trace['spool_bytes']} spool bytes, merged in "
+         f"{trace['merge_s']} s; {last}; the phase took "
+         f"{time.perf_counter() - t_phase:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
     return {"launches": {
         "lrn_forward_f32": sum(v["lrn_forward_f32"]
@@ -2101,6 +2198,104 @@ def phase_fleet(workdir: Path, alexnet_xs: np.ndarray, alexnet: list,
         "nms_sweep": sum(v["nms_sweep"] for v in launches.values())},
         "stream_reference_nms": stream_readings["nms_launches"],
         **readings}
+
+
+def _fleet_trace_checks(obs: Path, completed: dict, pins: dict) -> dict:
+    """The fleet's spools and dumps under ``obs``, merged by the port's
+    merger as a user runs it (``python -m
+    deepvision_tpu_torch.obs.trace_merge obs --assert-flow --assert-spans
+    router_attempt,replica_queue,device,postprocess``): it exits 0; at
+    least one request's flow crosses from the router's row into a
+    replica's; each stream's session is on a replica's ``replica_queue``
+    span, and the migrated stream's on the spools of two replicas, the
+    SIGKILLed pin's (read up to its kill, past a torn tail if the kill
+    tore one) and the survivor's; each replica that the router stopped by
+    SIGTERM (``completed``: its answered requests by slot id) left
+    ``flightrec-rN-signal-15-*.json`` with its registry (that count) and
+    its last spans, if it answered any; the router's dump holds its ``router_attempt``
+    spans and its ``note:probe`` notes. -> the readings (the spans by
+    name, the flows, the spools' bytes, the merge's seconds)."""
+    from deepvision_tpu_torch.obs.trace_merge import cross_process_requests
+
+    out = obs / "trace_merged.json"
+    t0 = time.perf_counter()
+    merge = subprocess.run(
+        [sys.executable, "-m", "deepvision_tpu_torch.obs.trace_merge",
+         str(obs), "-o", str(out), "--assert-flow", "--assert-spans",
+         "router_attempt,replica_queue,device,postprocess"],
+        cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT)})
+    merge_s = time.perf_counter() - t0
+    assert merge.returncode == 0, merge.stdout[-3000:] + merge.stderr[-3000:]
+    merged = json.loads(out.read_text())
+    meta = merged["metadata"]
+    # pid rows: a source each, in the order of the metadata's sources
+    source = {i + 1: m for i, m in enumerate(meta["sources"])}
+    spans: dict[str, int] = {}
+    notes: dict[str, int] = {}
+    stream_rows: dict[str, set] = {sid: set() for sid in STREAM_SIDS}
+    router_dump_spans = 0
+    for e in merged["traceEvents"]:
+        src = source.get(e.get("pid"), {})
+        role = (src.get("labels") or {}).get("role") or src.get("role")
+        if e.get("ph") == "i" and role == "router":
+            notes[e["name"]] = notes.get(e["name"], 0) + 1
+        if e.get("ph") != "X":
+            continue
+        spans[e["name"]] = spans.get(e["name"], 0) + 1
+        if src.get("kind") == "flightrec" and role == "router" \
+                and e["name"] == "router_attempt":
+            router_dump_spans += 1
+        session = (e.get("args") or {}).get("session")
+        if e["name"] == "replica_queue" and session in stream_rows \
+                and src.get("kind") == "spool":
+            stream_rows[session].add(role)
+    crossing = cross_process_requests(merged)
+    assert crossing >= 1, meta
+    lead, other = STREAM_SIDS
+    assert stream_rows[other] == {pins[other]}, (stream_rows, pins)
+    assert stream_rows[lead] == {pins[lead], pins[other]}, (
+        stream_rows, pins)
+    killed = [p for p in obs.glob(f"trace-spool-{pins[lead]}-*.jsonl")]
+    assert len(killed) == 1, killed
+    raw = killed[0].read_bytes()
+    torn = not raw.endswith(b"\n")
+    dumps = {}
+    for sid, n in completed.items():
+        (path,) = obs.glob(f"flightrec-{sid}-signal-15-*.json")
+        body = json.loads(path.read_text())
+        ring = [e for e in body["events"] if e["kind"] == "span"]
+        assert body["snapshot"]["serve_completed"] == n, (sid, n, body)
+        assert bool(ring) == (n > 0), (sid, n, len(ring))
+        dumps[sid] = len(ring)
+    assert not list(obs.glob(f"flightrec-{pins[lead]}-*.json")), (
+        "a SIGKILLed replica ran a dump handler")
+    (router_dump,) = obs.glob("flightrec-router-signal-15-*.json")
+    assert router_dump_spans > 0 and notes.get("note:probe", 0) > 0, (
+        router_dump_spans, notes)
+    assert spans.get("router_attempt", 0) > router_dump_spans, spans
+    spool_bytes = {p.name: p.stat().st_size for p in obs.glob(
+        "trace-spool-*.jsonl*")}
+    readings = {
+        "merge_s": round(merge_s, 3), "spans": spans, "notes": notes,
+        "flows": meta["flow_count"], "traced_requests": meta["trace_count"],
+        "cross_process_flows": meta["cross_process_flows"],
+        "cross_process_requests": crossing,
+        "sources": len(meta["sources"]),
+        "spool_bytes": sum(spool_bytes.values()),
+        "spool_bytes_by_file": spool_bytes,
+        "killed_spool_torn_tail": torn,
+        "dump_spans": dumps, "router_dump_spans": router_dump_spans,
+        "stream_rows": {k: sorted(v) for k, v in stream_rows.items()}}
+    _say(f"[fleet] the merged trace: {merge.stdout.strip().splitlines()[0]}"
+         f"; spans by name {spans}; router notes {notes}; "
+         f"{meta['flow_count']} flows, {crossing} requests from the "
+         f"router's row into a replica's; {lead} on the spools of "
+         f"{sorted(stream_rows[lead])} (the killed spool's tail torn: "
+         f"{torn}); dumps of the SIGTERMed replicas {dumps}, the router's "
+         f"{router_dump.name}; spools {sum(spool_bytes.values())} bytes; "
+         f"merged in {merge_s:.3f} s")
+    return readings
 
 
 def _pipeline_specs(cls_size: int) -> list[dict]:
@@ -2414,8 +2609,113 @@ def _pipeline_traffic(eng, pipes, cls_size: int) -> dict:
     stages = {"detpose": ("pose", "hourglass104", POSE_SIZE, PIPE_PERSON),
               "detcls": ("cls", "alexnet1", cls_size, None)}
     valid = _sequential_parity(eng, pipes, xs4, stages)
-    return _pipeline_rest(eng, pipes, xs4, stages, cls_size, misses,
-                          dag_warm, requests, launches, per_replay, valid)
+    out = _pipeline_rest(eng, pipes, xs4, stages, cls_size, misses,
+                         dag_warm, requests, launches, per_replay, valid)
+    out["traced"] = _traced_dags(eng, pipes, batches, eager, per_replay)
+    # the traced replays are the same path's
+    out["launches"] = {k: v + out["traced"]["launches"].get(k, 0)
+                       for k, v in launches.items()}
+    return out
+
+
+def _traced_dags(eng, pipes, batches: list, eager: dict,
+                 per_replay: dict) -> dict:
+    """Both DAGs traced, through the engine, with a span spool attached
+    to the process's tracer (``SpanSpool``, as ``serve --trace-spool``
+    attaches one): each of ``batches`` (entry buckets 1 and 4) with a
+    trace id a request, then the entry-bucket-4 batch ``STAGE_TIMED``
+    times more. Each answer is bit for bit the untraced eager DAG's (the
+    graph is the same, traced or not); each batch's ``device`` span holds
+    one ``stage:<node>`` span a node, in DAG order, one after another,
+    the stages' sum within it; the window's launches (``CARD_COUNTS``)
+    are those that the replays credit. The spool is detached before this
+    returns. -> each DAG's stage ms at entry bucket 4 (medians of the
+    ``STAGE_TIMED`` batches) beside its ``device`` span, the spool's bytes
+    and the launches."""
+    from deepvision_tpu_torch.obs.distributed import SpanSpool, read_spool
+
+    d = ROOT / "build" / "chip_smoke_pipeline_obs"
+    shutil.rmtree(d, ignore_errors=True)
+    four = PIPE_BUCKETS[-1]
+    runs = [(p, k, xs) for p in pipes for k, xs in enumerate(batches)]
+    runs += [(p, 2, batches[2]) for p in pipes for _ in range(STAGE_TIMED)]
+    spool = SpanSpool(d, role="pipeline")
+    traced: list[tuple] = []
+    try:
+        with CARD_COUNTS:
+            _zero_launch_counts()
+            for n, (p, k, xs) in enumerate(runs):
+                ids = [f"{n:08x}{i:08x}" for i in range(len(xs))]
+                eng.pause()
+                futs = [eng.submit(x, model=p.name, trace=t)
+                        for x, t in zip(xs, ids)]
+                eng.resume()
+                got = [f.result(timeout=300) for f in futs]
+                assert _same_bits(got, eager[p.name][k]), (
+                    f"{p.name}: a traced answer differs from the untraced "
+                    f"one at entry bucket {_bucket(len(xs))}")
+                traced.append((p, len(xs), set(ids)))
+            launches = {"nms_sweep": _nms_launches(),
+                        **{k: v for k, v in _launch_counts().items() if v}}
+        # the postprocess spans land after the answers
+        ours = {t for _, _, ids in traced for t in ids}
+        deadline = time.perf_counter() + 30
+        while sum(e["name"] == "postprocess"
+                  and e["args"]["trace"] in ours
+                  for e in read_spool(spool.path)["events"]) < len(ours):
+            assert time.perf_counter() < deadline
+            time.sleep(0.05)
+    finally:
+        spool.close()
+    events = [e for e in read_spool(spool.path)["events"]
+              if set(e.get("args", {}).get("traces", ())) & ours
+              or e.get("args", {}).get("trace") in ours]
+    expected: dict[str, int] = {}
+    for p, n, _ in traced:
+        for k, v in per_replay[p.name][str(_bucket(n))].items():
+            expected[k] = expected.get(k, 0) + v
+    assert launches == expected, (launches, expected)
+    stage_ms: dict[str, dict[str, list]] = {p.name: {} for p in pipes}
+    device_ms: dict[str, list] = {p.name: [] for p in pipes}
+    for p, n, ids in traced:
+        dev = [e for e in events if e["name"] == "device"
+               and set(e["args"].get("traces", ())) == ids]
+        assert len(dev) == 1, (p.name, n, len(dev))
+        dev = dev[0]
+        stages = [e for e in events if e["name"].startswith("stage:")
+                  and set(e["args"]["traces"]) == ids]
+        nodes = [node.name for node in p._order]
+        assert [e["name"] for e in stages] == [
+            f"stage:{x}" for x in nodes], (p.name, stages)
+        end = dev["ts"] + dev["dur"]
+        last = dev["ts"]
+        for e in stages:
+            assert last <= e["ts"] + 1e-9 and e["ts"] + e["dur"] <= end, (
+                p.name, n, e, dev)
+            last = e["ts"] + e["dur"]
+        assert sum(e["dur"] for e in stages) <= dev["dur"], (p.name, n)
+        if n == four:
+            device_ms[p.name].append(dev["dur"] * 1e3)
+            for e in stages:
+                stage_ms[p.name].setdefault(e["args"]["stage"], []).append(
+                    e["dur"] * 1e3)
+    out = {"stage_ms_bucket4": {
+        name: {st: round(statistics.median(v), 4) for st, v in per.items()}
+        for name, per in stage_ms.items()},
+        "device_span_ms_bucket4": {
+            name: round(statistics.median(v), 4)
+            for name, v in device_ms.items()},
+        "spool_bytes": spool.path.stat().st_size, "spans": len(events),
+        "launches": launches}
+    _say(f"[pipeline] traced through a spool ({out['spool_bytes']} bytes, "
+         f"{len(events)} spans): every answer bit for bit the untraced one, "
+         f"each node's stage:<node> span inside its batch's device span in "
+         f"DAG order; at entry bucket 4 the stages' device ms "
+         f"{out['stage_ms_bucket4']} in device spans of "
+         f"{out['device_span_ms_bucket4']} ms (medians of "
+         f"{len(device_ms[pipes[0].name])} batches); launches {launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
 
 
 def _padded(xs: np.ndarray, shape: tuple) -> np.ndarray:

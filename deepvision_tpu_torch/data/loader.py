@@ -28,6 +28,12 @@ the port's twin of ``deepvision_tpu/data/loader.py``.
   same rotation slot, so the merged stream equals an undisturbed run's;
   ``fault_injector`` consults the ``worker_kill`` site once per merged
   batch.
+- A worker is a process of its own, which the parent's tracer does not
+  see: when ``DVTPU_TRACE_SPOOL`` names a directory in its environment,
+  it spools its ``host_decode`` spans there as ``decode-w<id>``
+  (``obs/distributed.enable_spool_from_env``), so that the merged trace
+  gives each worker a row of its own. Without the variable it costs
+  nothing, and a spool that fails never kills a worker.
 
 The factory must be picklable: a module-level class instance (see
 ``data/imagenet.TrainShardFactory``).
@@ -195,6 +201,17 @@ def _worker_main(factory, worker_id: int, num_workers: int, queue,
         return (_SHM, (idx, ring.segs[idx].name,
                        ring.dump(idx, arrays), extras))
 
+    spool = None
+    try:
+        from deepvision_tpu_torch.obs.distributed import enable_spool_from_env
+        from deepvision_tpu_torch.obs.trace import span as _span
+
+        spool = enable_spool_from_env(role=f"decode-w{worker_id}")
+    except Exception:  # observability must never kill a decode worker
+        def _span(*a, **kw):
+            from contextlib import nullcontext
+
+            return nullcontext()
     try:
         stream = factory(worker_id, num_workers)
         if skip:
@@ -202,7 +219,9 @@ def _worker_main(factory, worker_id: int, num_workers: int, queue,
         it = iter(stream)
         while True:
             try:
-                batch = next(it)
+                with _span("host_decode", cat="feed",
+                           args={"worker": worker_id}):
+                    batch = next(it)
             except StopIteration:
                 break
             encoded = encode(batch)
@@ -213,6 +232,8 @@ def _worker_main(factory, worker_id: int, num_workers: int, queue,
         put((_ERROR, f"loader worker {worker_id}/{num_workers} died:\n"
              + traceback.format_exc()))
     finally:
+        if spool is not None:
+            spool.close()
         if ring and not ring_sent:
             # the parent never learned these names (stopped before the
             # handshake landed): still ours, reclaim them here

@@ -7,11 +7,27 @@
   Chrome-trace export and ``summarize_chrome``;
 - ``profiler``: ``torch.profiler`` windows (``--profile-steps A:B``) and
   the ``mem_*`` device-memory gauges;
-- ``distributed``: the fleet's half of the JAX package's
-  ``obs/distributed.py``: the trace id's HTTP hop and federated metrics
-  (``render_federated``, ``parse_prometheus``). Its span spools and
-  flight recorder come with the port's distributed observability.
+- ``distributed``: the trace id's HTTP hop, the crash-safe span spools
+  (``SpanSpool``, ``read_spool``), federated metrics
+  (``render_federated``, ``parse_prometheus``) and the flight recorder
+  (``install_flight_recorder``, ``flight_dump``);
+- ``trace_merge``: the spools and flight dumps of many processes as one
+  Chrome trace (``python -m deepvision_tpu_torch.obs.trace_merge DIR``).
 """
+
+from deepvision_tpu_torch.obs.distributed import (
+    TRACE_HEADER,
+    FlightRecorder,
+    SpanSpool,
+    enable_spool_from_env,
+    flight_dump,
+    get_flight_recorder,
+    install_flight_recorder,
+    new_trace_id,
+    parse_prometheus,
+    read_spool,
+    render_federated,
+)
 
 from deepvision_tpu_torch.obs.metrics import (
     Counter,
@@ -35,6 +51,17 @@ from deepvision_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "TRACE_HEADER",
+    "FlightRecorder",
+    "SpanSpool",
+    "enable_spool_from_env",
+    "flight_dump",
+    "get_flight_recorder",
+    "install_flight_recorder",
+    "new_trace_id",
+    "parse_prometheus",
+    "read_spool",
+    "render_federated",
     "Counter",
     "Gauge",
     "Histogram",

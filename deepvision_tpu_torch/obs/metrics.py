@@ -229,11 +229,14 @@ class Registry:
             return sorted(self._metrics)
 
     # -- export ----------------------------------------------------------
-    def collect(self) -> list[tuple[str, str, object]]:
+    def collect(self, scalars_only: bool = False
+                ) -> list[tuple[str, str, object]]:
         """One atomic collection pass: ``[(name, kind, payload), ...]``
         with every value read in one sweep under the registry lock.
         Every renderer formats from a collect() result, so one scrape
-        sees one point in time."""
+        sees one point in time. ``scalars_only`` skips the histograms
+        and their reservoir copies: the flight recorder's notes run on
+        hot cadences and read only counters and gauges."""
         out: list[tuple[str, str, object]] = []
         with self._lock:
             for name, m in sorted(self._metrics.items()):
@@ -241,7 +244,7 @@ class Registry:
                     out.append((name, "counter", m.value))
                 elif isinstance(m, Gauge):
                     out.append((name, "gauge", m.value))
-                else:
+                elif not scalars_only:
                     out.append((name, "histogram", m.dump()))
         return out
 

@@ -29,7 +29,24 @@ loop::
   holds a CUDA tensor; on the CPU it does nothing;
 - a ring buffer of the newest ``capacity`` spans; evicted spans are
   counted (``dropped_spans``, the ``trace_dropped_spans`` counter) and
-  the export says so in its metadata.
+  the export says so in its metadata;
+- sinks: ``add_sink(fn)`` registers a callback a completed span (the
+  span spool and the flight recorder, ``obs/distributed.py``). Spans
+  record while the tracer is enabled OR a sink is attached
+  (:attr:`Tracer.active`), so that an always-on flight recorder needs
+  no ring; a span with a sink and no ring still reaches the sink;
+- retroactive spans: :meth:`Tracer.record_span` records a span from
+  explicit ``perf_counter`` stamps, for code that already takes them
+  (the serving engine's queue wait, device call and post-process, a
+  pipeline's stages from the CUDA events of its graph). It never
+  touches the card;
+- ``epoch_wall``, the wall time of the trace's monotonic zero (reset by
+  ``clear()``), so that a cross-process merger
+  (``obs/trace_merge.py``) aligns the spools of many processes on one
+  timeline;
+- process labels: ``set_labels(role=..., host=..., generation=...)``
+  stamps exports and spool headers, so that a merged fleet trace names
+  its pid rows (``router``, ``replica r1``; :func:`format_labels`).
 
 :func:`summarize_chrome` turns an exported trace back into per-span
 totals and the share of the wall time the spans cover; ``python -m
@@ -45,7 +62,8 @@ import time
 from collections import deque
 from pathlib import Path
 
-__all__ = ["Span", "Tracer", "get_tracer", "span", "summarize_chrome"]
+__all__ = ["Span", "Tracer", "format_labels", "get_tracer", "span",
+           "summarize_chrome"]
 
 
 def _cuda_tensors(value):
@@ -144,13 +162,22 @@ class Tracer:
         self._epoch = time.perf_counter()  # trace time zero
         self.epoch_wall = time.time()      # wall clock of that zero
         self._local = threading.local()
+        self._sinks: list = []
         self._dropped = 0          # ring evictions since clear()
         self._drop_counter = None  # lazily bound obs counter
+        self._labels: dict = {}
 
     # -- lifecycle -------------------------------------------------------
     @property
     def enabled(self) -> bool:
         return self._enabled
+
+    @property
+    def active(self) -> bool:
+        """Spans record while the ring is enabled OR a sink is attached
+        (a spool or a flight recorder keeps spans flowing without the
+        ring)."""
+        return self._enabled or bool(self._sinks)
 
     @property
     def dropped_spans(self) -> int:
@@ -174,11 +201,36 @@ class Tracer:
             self._epoch = time.perf_counter()
             self.epoch_wall = time.time()
 
+    def add_sink(self, fn) -> None:
+        """Register ``fn(record: dict)``, called (under the tracer's lock,
+        in recording order) for every completed span. A sink runs on the
+        recording thread, so it must be cheap."""
+        with self._lock:
+            if fn not in self._sinks:
+                self._sinks.append(fn)
+
+    def remove_sink(self, fn) -> None:
+        with self._lock:
+            if fn in self._sinks:
+                self._sinks.remove(fn)
+
+    def set_labels(self, **labels) -> None:
+        """Stamp the process's identity (``role``, ``host``,
+        ``generation``) on exports and spool headers; a cross-process
+        merge names this process's pid row from them. None values are
+        ignored."""
+        self._labels.update({k: v for k, v in labels.items()
+                             if v is not None})
+
+    @property
+    def labels(self) -> dict:
+        return dict(self._labels)
+
     # -- recording -------------------------------------------------------
     def span(self, name: str, cat: str = "app", args: dict | None = None,
              device_sync=None):
-        """Context manager timing its body; a no-op while disabled."""
-        if not self._enabled:
+        """Context manager timing its body; a no-op while inactive."""
+        if not self.active:
             return _NOOP
         return Span(self, name, cat, args, device_sync)
 
@@ -190,9 +242,20 @@ class Tracer:
         self._local.depth = depth
         return depth  # 0 for outermost spans
 
+    def record_span(self, name: str, t0: float, t1: float,
+                    cat: str = "app", args: dict | None = None) -> None:
+        """Record a completed span from explicit ``time.perf_counter()``
+        stamps (the clock of the live spans), for code that already
+        stamps the region: the serving engine's queue wait, device call
+        and post-process, and a DAG's stages. It reads no device state,
+        so it never waits for the card."""
+        if not self.active:
+            return
+        self._emit(name, cat, t0, max(0.0, t1 - t0), 0, args)
+
     def _record(self, name: str, cat: str, t0: float, dur: float,
                 depth: int, args: dict | None) -> None:
-        if self._enabled:  # disabled while the span was open: drop it
+        if self.active:  # deactivated while the span was open: drop it
             self._emit(name, cat, t0, dur, depth, args)
 
     def _emit(self, name: str, cat: str, t0: float, dur: float,
@@ -201,11 +264,28 @@ class Tracer:
         event = (name, cat, t0 - self._epoch, dur,
                  thread.ident, thread.name, depth, args)
         with self._lock:
-            if len(self._events) >= self._capacity:
-                # the deque evicts silently; the count says so
-                self._dropped += 1
-                self._inc_drop_counter()
-            self._events.append(event)
+            if self._enabled:
+                if len(self._events) >= self._capacity:
+                    # the deque evicts silently; the count says so
+                    self._dropped += 1
+                    self._inc_drop_counter()
+                self._events.append(event)
+            if self._sinks:
+                rec = self._sink_record(event)
+                for sink in self._sinks:
+                    try:
+                        sink(rec)
+                    except Exception:
+                        pass  # a broken sink must never fail the loop
+
+    @staticmethod
+    def _sink_record(event: tuple) -> dict:
+        name, cat, ts, dur, tid, tname, depth, args = event
+        rec = {"name": name, "cat": cat, "ts": ts, "dur": dur,
+               "tid": tid, "tname": tname, "depth": depth}
+        if args:
+            rec["args"] = args
+        return rec
 
     def _inc_drop_counter(self) -> None:
         if self._drop_counter is None:
@@ -239,6 +319,10 @@ class Tracer:
         for tid, tname in threads.items():
             out.append({"ph": "M", "name": "thread_name", "pid": pid,
                         "tid": tid, "args": {"name": tname}})
+        if self._labels:
+            out.append({"ph": "M", "name": "process_name", "pid": pid,
+                        "tid": 0, "args": {"name": format_labels(
+                            self._labels)}})
         return out
 
     def export(self, path: str | Path) -> int:
@@ -251,10 +335,33 @@ class Tracer:
         meta = {"trace_dropped_spans": self.dropped_spans,
                 "complete": self.dropped_spans == 0,
                 "pid": os.getpid(), "epoch_wall": self.epoch_wall}
+        if self._labels:
+            meta["labels"] = dict(self._labels)
         path.write_text(json.dumps(
             {"traceEvents": events, "displayTimeUnit": "ms",
              "metadata": meta}))
         return sum(1 for e in events if e.get("ph") == "X")
+
+
+def format_labels(labels: dict) -> str:
+    """The row name of a labelled process: ``role`` first, then the
+    cluster identity (``"replica r1"``, ``"host 0 gen 2"``)."""
+    parts = []
+    role = labels.get("role")
+    if role:
+        parts.append(str(role))
+    host = labels.get("host")
+    if host is not None and (not role or str(role) != f"host{host}"):
+        parts.append(f"host {host}")
+    gen = labels.get("generation")
+    if gen is not None:
+        g = str(gen)
+        parts.append(g if g.startswith(("gen", "replay"))
+                     else f"gen {g}")
+    for k in sorted(labels):
+        if k not in ("role", "host", "generation"):
+            parts.append(f"{k}={labels[k]}")
+    return " ".join(parts) or "process"
 
 
 _TRACER = Tracer()

@@ -11,7 +11,11 @@ the same CLI (``replica.py``). ``--residency-mb``, ``--tenant-quota`` and
 ``--slo-class`` share the card among the models (``tenancy.py``: LRU
 weight residency over the CUDA graphs, zero-drop hot swap, per-tenant
 admission), and ``InferenceEngine.hot_swap`` swaps a model's weights
-under load.
+under load. ``--trace-spool DIR`` spools every process's spans (the
+engine's ``device``, ``replica_queue``, ``stage:<node>`` and
+``postprocess`` under each request's trace id) and installs the flight
+recorder there; ``python -m deepvision_tpu_torch.obs.trace_merge DIR``
+merges a fleet's spools into one trace.
 """
 
 from deepvision_tpu_torch.serve.admission import (

@@ -130,6 +130,27 @@ body answers when the swap is done (404 on a fleet, whose router owns no
 weights). The stderr line before the last is ``[tenancy] swaps=N
 evictions=E rematerializations=R resident=a/b recaptures=C
 recapture_s=S``.
+
+    python -m deepvision_tpu_torch.serve --fleet 2 -m alexnet1 --http 8080 \
+        --trace-spool obs/
+    python -m deepvision_tpu_torch.obs.trace_merge obs/ --assert-flow
+
+Observability: ``--trace-spool DIR`` appends every completed span of this
+process to a crash-safe spool under DIR (``obs/distributed.SpanSpool``;
+without the flag, the ``DVTPU_TRACE_SPOOL`` environment variable names
+the directory) and installs the flight recorder there, which dumps
+``flightrec-<role>-signal-15-*.json`` on SIGTERM (before the exit) and
+``flightrec-<role>-dispatcher_crash-*.json`` when the dispatcher
+crashes. ``--obs-role NAME`` labels the process's spans, spool and dumps
+(default ``replica``, or ``router`` for a fleet's router); a fleet
+forwards ``--trace-spool`` to every replica and labels each with its
+slot id (``r1``, ``r2``, ...). The engine's spans carry each request's
+trace id (``X-DVTPU-Trace``, or a ``"trace"`` field on stdin or in the
+body); ``python -m deepvision_tpu_torch.obs.trace_merge DIR`` merges the
+fleet's spools and dumps into one Perfetto trace. ``--profile-dir DIR``
+runs ``torch.profiler`` over the serving session, from the end of the
+warm-up to the shutdown (``DIR/session.pt.trace.json``; one engine, not
+a fleet's router).
 """
 
 from __future__ import annotations
@@ -137,6 +158,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import signal
 import sys
 import threading
@@ -144,6 +166,15 @@ import time
 
 import numpy as np
 
+from deepvision_tpu_torch.obs.distributed import (
+    ENV_SPOOL,
+    SpanSpool,
+    enable_spool_from_env,
+    flight_dump,
+    install_flight_recorder,
+)
+from deepvision_tpu_torch.obs.profiler import profile_session
+from deepvision_tpu_torch.obs.trace import get_tracer
 from deepvision_tpu_torch.serve.admission import ShedError
 from deepvision_tpu_torch.serve.engine import InferenceEngine
 from deepvision_tpu_torch.serve.http import run_http
@@ -308,6 +339,9 @@ def build_fleet(args):
                                            args.tenant_quota),
                                           ("--slo-class", args.slo_class))
                     for spec in specs or [] for a in (flag, spec)]
+    # the spool is optional on a namespace built by hand
+    spool_dir = getattr(args, "trace_spool", None)
+    obs_flags = ["--trace-spool", str(spool_dir)] if spool_dir else []
     child_argv = replica_argv(
         args.model or [], artifact_specs=args.artifact or [],
         buckets=args.buckets,
@@ -315,10 +349,13 @@ def build_fleet(args):
         # every respawn warms from it
         store=args.store, device=args.device, pipelines=args.pipelines,
         extra=[str(a) for flag, value in forward if value is not None
-               for a in (flag, value)] + tenant_flags + session_flags)
+               for a in (flag, value)] + tenant_flags + session_flags
+        + obs_flags)
 
     def factory(sid: str):
-        return ProcessReplica(sid, child_argv)
+        # each replica spools and dumps under its slot id, so that the
+        # merged fleet trace names its pid rows r1, r2, ...
+        return ProcessReplica(sid, child_argv + ["--obs-role", sid])
 
     injector = None
     if args.faults:
@@ -452,6 +489,7 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
             fut = engine.submit(x, model=(req.get("model")
                                           or req.get("pipeline")),
                                 timeout_s=args.timeout_s,
+                                trace=req.get("trace"),
                                 session=req.get("session"), seq=seq)
         except ShedError as e:
             print(json.dumps({"id": rid, "error": str(e),
@@ -476,17 +514,49 @@ def run_stdin(engine: InferenceEngine, args, stdin=None, stdout=None):
 
 
 def _exit_on_sigterm():
-    """SIGTERM -> ``SystemExit(143)``, so that the ``finally`` blocks run:
-    the engine or the router closes (a router stops its children) and
-    the exit line is printed. Returns the handler it replaced, or None
-    off the main thread, where no handler can be set."""
+    """SIGTERM -> the flight recorder's dump (``signal-15``, when one is
+    installed), then ``SystemExit(143)``, so that the ``finally`` blocks
+    run: the engine or the router closes (a router stops its children),
+    the spool closes and the exit line is printed. Returns the handler it
+    replaced, or None off the main thread, where no handler can be
+    set."""
     if threading.current_thread() is not threading.main_thread():
         return None
 
     def on_sigterm(sig, frame):
+        # the black box first: its ring holds the spans up to the signal
+        flight_dump(f"signal-{sig}")
         raise SystemExit(143)
 
     return signal.signal(signal.SIGTERM, on_sigterm)
+
+
+def _setup_obs(args, role: str):
+    """This process's distributed observability: the tracer labelled
+    ``role``, a span spool under ``--trace-spool`` (or the directory that
+    ``DVTPU_TRACE_SPOOL`` names) and the flight recorder there, which the
+    SIGTERM handler and a dispatcher crash dump. Without a directory it
+    does nothing: the labels name spools and dumps alone. -> (the spool
+    or None, whether a recorder was installed)."""
+    obs_dir = args.trace_spool or os.environ.get(ENV_SPOOL)
+    if not obs_dir:
+        return None, False
+    get_tracer().set_labels(role=role)
+    if args.trace_spool:
+        spool = SpanSpool(args.trace_spool, role=role)
+    else:
+        spool = enable_spool_from_env(role=role)
+    install_flight_recorder(obs_dir, meta={"role": role})
+    return spool, True
+
+
+def _teardown_obs(spool, recorder: bool) -> None:
+    """Detach what :func:`_setup_obs` attached (an in-process run leaves
+    no sink on the process's tracer)."""
+    if spool is not None:
+        spool.close()
+    if recorder:
+        install_flight_recorder(None)
 
 
 def _serve(front, args, stdin, stdout) -> None:
@@ -610,10 +680,27 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                    "crashed dispatcher (doubling, at most 5 s); not a flag "
                    "of serve.py, whose wait is this default: a drill sets "
                    "it to see /healthz answer 503 while recovering")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a torch.profiler trace of the whole "
+                   "serving session into this directory (started after "
+                   "the warm-up, stopped at shutdown)")
+    p.add_argument("--trace-spool", default=None, metavar="DIR",
+                   help="distributed tracing: append every completed span "
+                   "to a crash-safe per-process spool file under DIR (fleet "
+                   "mode forwards it to every replica); merge the fleet's "
+                   "spools into ONE Perfetto trace with python -m "
+                   "deepvision_tpu_torch.obs.trace_merge DIR. "
+                   "Flight-recorder dumps land in the same DIR")
+    p.add_argument("--obs-role", default=None,
+                   help="process label on spans, spools and dumps (fleet "
+                   "mode sets each replica's slot id automatically; "
+                   "default: router or replica by mode)")
     args = p.parse_args(argv)
     previous = _exit_on_sigterm()
+    obs = (None, False)
     try:
         if args.fleet is not None:
+            obs = _setup_obs(args, args.obs_role or "router")
             router = build_fleet(args)
             try:
                 _serve(router, args, stdin, stdout)
@@ -622,9 +709,13 @@ def main(argv=None, stdin=None, stdout=None) -> int:
                 # the grep-stable exit line of a fleet
                 print(router.summary_line(), file=sys.stderr, flush=True)
             return 0
+        obs = _setup_obs(args, args.obs_role or "replica")
         engine = build_engine(args)
         try:
-            _serve(engine, args, stdin, stdout)
+            # the profiler's session starts after the warm-up, so that the
+            # captures do not drown the steady state in its trace
+            with profile_session(args.profile_dir):
+                _serve(engine, args, stdin, stdout)
         finally:
             runners = engine.runner_stats()  # close() drops the runners
             engine.close()
@@ -637,6 +728,7 @@ def main(argv=None, stdin=None, stdout=None) -> int:
             _print_exit_line(engine)
         return 0
     finally:
+        _teardown_obs(*obs)
         if previous is not None:
             signal.signal(signal.SIGTERM, previous)
 

@@ -89,6 +89,19 @@ retry after a timeout is a duplicate and never forks the stream.
 every dirty session's snapshot, or with ``abandon_sessions=True`` drops
 the state without one (a replica's kill).
 
+Observability (``obs/``): ``submit(..., trace=ID)`` carries a request's
+distributed trace id (the router's ``X-DVTPU-Trace``). While the tracer
+is active (enabled, or a spool or flight recorder attached), each batch
+records retroactive spans from the stamps the dispatcher already takes:
+``device`` (model, bucket, rows and the batch's trace ids; on the
+stateful path its mode and sessions), a ``stage:<node>`` span a DAG
+stage inside it (``Pipeline.take_stage_stamps``: the CUDA events of the
+DAG's graph, read after the batch's fetch), and for each request with a
+trace id ``replica_queue`` and ``postprocess`` (with its session on the
+stateful path). No span waits for the card: the only sync is the
+output fetch of the runner. A dispatcher crash dumps the flight recorder
+(``obs/distributed.flight_dump``) before the pending requests fail.
+
 The engine runs its models in true float32: it turns TF32 off for
 cuDNN and cuBLAS (``device.strict_fp32``) before it captures any graph.
 """
@@ -105,6 +118,8 @@ from typing import Iterable
 import numpy as np
 
 from deepvision_tpu_torch.device import strict_fp32
+from deepvision_tpu_torch.obs.distributed import flight_dump
+from deepvision_tpu_torch.obs.trace import get_tracer
 from deepvision_tpu_torch.serve.admission import AdmissionController, ShedError
 from deepvision_tpu_torch.serve.artifact_store import (
     ArtifactStore,
@@ -121,16 +136,19 @@ _WAKE = object()  # queue sentinel: wake the dispatcher without a request
 
 
 class _Request:
-    __slots__ = ("model", "x", "future", "t_submit", "deadline", "session",
-                 "seq")
+    __slots__ = ("model", "x", "future", "t_submit", "deadline", "trace",
+                 "session", "seq")
 
     def __init__(self, model: str, x: np.ndarray, deadline: float | None,
-                 session: str | None = None, seq: int | None = None):
+                 trace: str | None = None, session: str | None = None,
+                 seq: int | None = None):
         self.model = model
         self.x = x
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.deadline = deadline
+        # the distributed trace id, stamped on this request's spans
+        self.trace = trace
         # a stateful stream's id and frame number; None when stateless
         self.session = session
         self.seq = seq
@@ -326,8 +344,9 @@ class InferenceEngine:
         runs once on a zero batch through the request path; one from the
         store that fails to build or run is rejected into quarantine and
         the model traced. A pipeline's runner runs once on a zero batch
-        too, the whole DAG through the request path. The models come
-        first, so that their graphs are captured before the DAGs'.
+        too, the whole DAG through the request path, and its stage events
+        are read once. The models come first, so that their graphs are
+        captured before the DAGs'.
 
         Each model's tenants are made resident before its runners are
         built (a graph is captured over weights on the card), and after
@@ -367,6 +386,10 @@ class InferenceEngine:
                 if m.exported or getattr(m, "is_pipeline", False) \
                         or getattr(m, "is_stateful", False):
                     self._zero_run(m, runner, bucket)
+                if getattr(m, "is_pipeline", False):
+                    # the stage events read once: a build whose graph
+                    # events cannot be timed fails the warm-up here
+                    m.take_stage_stamps()
                 if storing:
                     self._save_store_entry(m, bucket)
             self._tenancy.settle(names)
@@ -550,12 +573,16 @@ class InferenceEngine:
 
     # -- client surface --------------------------------------------------
     def submit(self, x, model: str | None = None, *,
-               timeout_s: float | None = None, session: str | None = None,
+               timeout_s: float | None = None, trace: str | None = None,
+               session: str | None = None,
                seq: int | None = None) -> Future:
         """Enqueue one example (no batch dim) for ``model``; returns a
         Future resolving to the task's result dict. Raises
         :class:`ShedError` at once when admission rejects, and
-        ``ValueError`` on a shape or model mismatch.
+        ``ValueError`` on a shape or model mismatch. ``trace`` is the
+        request's distributed trace id (the router's ``X-DVTPU-Trace``),
+        which its ``replica_queue``, ``device`` and ``postprocess`` spans
+        carry.
 
         A stateful model needs ``session`` (the stream's id) and ``seq``
         (the frame's number, from 0); a NEW session is shed here when its
@@ -608,7 +635,7 @@ class InferenceEngine:
         self.telemetry.record_submit()
         req = _Request(model, x, deadline=(
             time.perf_counter() + timeout_s if timeout_s is not None
-            else None), session=session, seq=seq)
+            else None), trace=trace, session=session, seq=seq)
         self._q.put(req)
         if self._stop.is_set():
             # raced close(): the dispatcher's exit drain may already have
@@ -741,6 +768,9 @@ class InferenceEngine:
                 with self._health_lock:
                     self._recover_until = time.monotonic() + backoff
                 self._recovering.set()
+                # the black box first: the flight recorder's ring holds
+                # the spans up to this very moment
+                flight_dump("dispatcher_crash")
                 n = self._fail_all_pending(RuntimeError(
                     f"dispatcher crashed: {type(e).__name__}: {e}"))
                 print(f"[serve-supervisor] dispatcher crashed "
@@ -917,27 +947,65 @@ class InferenceEngine:
             return
         self.telemetry.record_batch(bucket=bucket, rows=n, device_s=t_dev)
         self._admission.observe_batch(t_dev, n)
+        is_pipeline = getattr(served, "is_pipeline", False)
         expired: set[int] = set()
-        if getattr(served, "is_pipeline", False):
+        if is_pipeline:
             served.record_served(n)
             expired = self._expire_mid_pipeline(reqs)
+        tracer = get_tracer()
+        if tracer.active:
+            self._batch_spans(tracer, served, reqs, bucket, t_dispatch,
+                              t0, t0 + t_dev, is_pipeline)
         now = time.perf_counter()
         for i, r in enumerate(reqs):
             if id(r) in expired:
                 continue  # resolved with TimeoutError, its slot released
+            t_pp = time.perf_counter()
             try:
                 result = served.postprocess(host, i)
             except Exception as e:
                 self._fail_request(r, e)
-                continue
-            try:
-                r.future.set_result(result)
-            except InvalidStateError:
-                continue  # raced close() resolved (and released) it
-            self.telemetry.record_request(
-                queue_wait_s=t_dispatch - r.t_submit,
-                e2e_s=now - r.t_submit)
-            self._admission.release(r.model)
+            else:
+                try:
+                    r.future.set_result(result)
+                except InvalidStateError:
+                    continue  # raced close() resolved (and released) it
+                self.telemetry.record_request(
+                    queue_wait_s=t_dispatch - r.t_submit,
+                    e2e_s=now - r.t_submit)
+                self._admission.release(r.model)
+            if r.trace and tracer.active:
+                tracer.record_span("postprocess", t_pp, time.perf_counter(),
+                                   cat="serve", args={"trace": r.trace})
+
+    @staticmethod
+    def _batch_spans(tracer, served, reqs: list[_Request], bucket: int,
+                     t_dispatch: float, t0: float, t1: float,
+                     is_pipeline: bool) -> None:
+        """The retroactive spans of a stateless batch, from the stamps
+        the dispatcher took (``record_span``, the same ``perf_counter``
+        clock): ``device``, the runner's call, which ends with the fetch
+        of its outputs; a DAG's ``stage:<node>`` spans inside it; each
+        traced request's ``replica_queue``."""
+        traces = [r.trace for r in reqs if r.trace]
+        tracer.record_span(
+            "device", t0, t1, cat="serve",
+            args={"model": served.name, "bucket": bucket, "rows": len(reqs),
+                  **({"traces": traces} if traces else {})})
+        if is_pipeline:
+            # one span a stage, stamped with every trace id of the batch,
+            # so that a request's flow runs router -> replica_queue ->
+            # device -> stage:<node> -> postprocess
+            for stage_name, s0, s1 in served.take_stage_stamps():
+                tracer.record_span(
+                    f"stage:{stage_name}", s0, s1, cat="serve",
+                    args={"pipeline": served.name, "stage": stage_name,
+                          **({"traces": traces} if traces else {})})
+        for r in reqs:
+            if r.trace:
+                tracer.record_span(
+                    "replica_queue", r.t_submit, t_dispatch, cat="serve",
+                    args={"trace": r.trace, "model": served.name})
 
     def _expire_mid_pipeline(self, reqs: list[_Request]) -> set[int]:
         """Deadline honesty mid-DAG: a multi-stage run can outlive a
@@ -1022,6 +1090,15 @@ class InferenceEngine:
             return
         self.telemetry.record_batch(bucket=bucket, rows=n, device_s=t_dev)
         self._admission.observe_batch(t_dev, n)
+        tracer = get_tracer()
+        if tracer.active:
+            traces = [r.trace for r, _f in group if r.trace]
+            tracer.record_span(
+                "device", t0, t0 + t_dev, cat="serve",
+                args={"model": served.name, "bucket": bucket, "rows": n,
+                      "mode": mode,
+                      "sessions": [r.session for r, _f in group],
+                      **({"traces": traces} if traces else {})})
         now = time.perf_counter()
         for i, (r, f) in enumerate(group):
             # commit FIRST: the stream's lineage advances even if this
@@ -1040,6 +1117,7 @@ class InferenceEngine:
                 self.telemetry.record_timeout()
                 self._admission.release(r.model)
                 continue
+            t_pp = time.perf_counter()
             try:
                 result = served.postprocess(host, i)
                 # the same merge on every restore path
@@ -1053,11 +1131,22 @@ class InferenceEngine:
             try:
                 r.future.set_result(result)
             except InvalidStateError:
-                continue  # raced close() resolved (and released) it
-            self.telemetry.record_request(
-                queue_wait_s=t_dispatch - r.t_submit,
-                e2e_s=now - r.t_submit)
-            self._admission.release(r.model)
+                pass  # raced close() resolved (and released) it
+            else:
+                self.telemetry.record_request(
+                    queue_wait_s=t_dispatch - r.t_submit,
+                    e2e_s=now - r.t_submit)
+                self._admission.release(r.model)
+            if r.trace and tracer.active:
+                # the session on the spans: a stream's flow assembles in
+                # the merged timeline
+                tracer.record_span(
+                    "replica_queue", r.t_submit, t_dispatch, cat="serve",
+                    args={"trace": r.trace, "model": served.name,
+                          "session": r.session})
+                tracer.record_span(
+                    "postprocess", t_pp, time.perf_counter(), cat="serve",
+                    args={"trace": r.trace, "session": r.session})
 
     # -- lifecycle -------------------------------------------------------
     def close(self, timeout: float = 10.0, *,

@@ -29,8 +29,10 @@ or over a fleet router (``serve/router.FleetRouter``).
                       router: while no replica is ready)
 
 A request may carry the fleet's trace id in ``X-DVTPU-Trace``
-(``obs/distributed.TRACE_HEADER``); the engine has no spans to stamp
-with it yet, so the front accepts it and uses it for nothing.
+(``obs/distributed.TRACE_HEADER``) or in a ``"trace"`` field of its body
+(the header wins); it goes to ``submit(trace=)``, so that the engine's
+``replica_queue``, ``device`` and ``postprocess`` spans (or the router's
+``router_attempt``, in front of a fleet) carry it.
 
 The status codes are the JAX surface's: 400 for a request that cannot
 be decoded or does not fit the model, 404 for another path, 429 with
@@ -55,6 +57,7 @@ from pathlib import Path
 
 import numpy as np
 
+from deepvision_tpu_torch.obs.distributed import TRACE_HEADER
 from deepvision_tpu_torch.serve.admission import ShedError
 
 __all__ = ["make_handler", "run_http", "decode_input", "render_metrics",
@@ -187,10 +190,13 @@ def make_handler(engine, args):
             except (ValueError, KeyError, TypeError) as e:
                 self._send(400, {"error": f"bad request: {e}"})
                 return
+            # the distributed trace id: the router's hop carries it as a
+            # header, a client may send it in the body
+            trace = self.headers.get(TRACE_HEADER) or req.get("trace")
             try:
                 fut = engine.submit(x, model=pipeline or req.get("model"),
-                                    timeout_s=timeout_s, session=session,
-                                    seq=seq)
+                                    timeout_s=timeout_s, trace=trace,
+                                    session=session, seq=seq)
                 result = fut.result(timeout=timeout_s + 1.0)
             except ShedError as e:
                 self._send(429, {"error": str(e),

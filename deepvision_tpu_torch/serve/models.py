@@ -380,7 +380,10 @@ class CudaGraphRunner:
     replayed one at a time (the engine's one dispatcher), each output
     copied out before the next replay. ``editions`` are the weights the
     graph reads (``ServedModel.pinned_editions``), which the runner keeps
-    alive; the eager forward and the capture hold :data:`capture_lock`."""
+    alive; the eager forward and the capture hold :data:`capture_lock`.
+    A forward that carries ``after_replay`` (a DAG's, for its stage
+    events) is told, after each replay, the host stamp taken just before
+    it."""
 
     kind = "cuda_graph"
 
@@ -394,6 +397,7 @@ class CudaGraphRunner:
         # no other owner once the warm-up is over; freed, its weights'
         # blocks went to the next allocation (the next model's program)
         self._forward = served.forward
+        self._after_replay = getattr(served.forward, "after_replay", None)
         self.editions = served.pinned_editions()
         self._input_dtype = served.input_dtype
         shape = (bucket, *served.input_shape)
@@ -437,11 +441,14 @@ class CudaGraphRunner:
             self._static_in[:n].copy_(x)
             if n < self.bucket:
                 self._static_in[n:].zero_()
+            t_replay = time.perf_counter()
             self._graph.replay()
             self._host_out.copy_(self._static_out, non_blocking=True)
             stream.synchronize()
         self.calls += 1
         credit_launches(self.launches)
+        if self._after_replay is not None:
+            self._after_replay(t_replay)
         return _unpack(self._host_out.numpy(), self._layout)
 
 

@@ -54,10 +54,25 @@ as the JAX DAG does, until it is built again: its runner cache key
 (:meth:`Pipeline.weights_fingerprint`) and its stages do not follow the
 swap, and the old edition counts as ``retired_pinned``.
 
+Stage timing (``stage:<node>`` spans): the JAX runner syncs the device
+at each stage boundary while tracing; a graph replay has no boundary to
+sync at. So every capture records a pair of timing events around each
+stage (``torch.cuda.Event(enable_timing=True, external=True)``, event
+record nodes of the graph), whether or not anything traces: the graph,
+and so its answers, are the same with the tracer on or off. The runner
+stamps the host clock just before each replay; after the replay's fetch,
+:meth:`Pipeline.take_stage_stamps` reads the events' ``elapsed_time``
+from the first stage's start and places each stage from that stamp, as
+``(node, t0, t1)`` in ``perf_counter`` time inside the batch's ``device``
+span, which the engine records. A build that refuses timing events in a
+capture fails the capture, and one whose events cannot be read fails
+the engine's warm-up (its first read); there is no untimed graph and no
+fallback to the eager DAG. On the CPU the eager DAG stamps the host
+clock around each stage.
+
 The JAX package checks at ``bind`` that every stage bucket divides the
 mesh's data axis; the port serves on one device and has no mesh, so
-there is nothing to check yet. The JAX runner's ``stage:<node>`` trace
-spans have no counterpart either: the port's engine records no spans.
+there is nothing to check yet.
 """
 
 from __future__ import annotations
@@ -65,6 +80,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import time
 from pathlib import Path
 from typing import Any, Callable
 
@@ -402,6 +418,10 @@ class Pipeline:
         # stages run inside one graph replay, so it fires only while the
         # graph is built)
         self.stage_hook: Callable[[str], None] | None = None
+        # the last run's stage stamps: the CPU's host stamps, or the last
+        # graph replay's host stamp and stage events
+        self._stage_stamps: list[tuple[str, float, float]] = []
+        self._last_replay: tuple | None = None
         self._programs: dict[int, Any] = {}  # entry bucket -> eager DAG
         self._walks: dict[int, dict] = {}  # entry bucket -> its walk
         self._validate_structure()
@@ -757,18 +777,43 @@ class Pipeline:
         tensors; the result is every declared output, folded to the entry
         batch (fan-out rows ``(B*F, ...)`` -> ``(B, F, ...)``) and
         flattened to one level (``node``, ``node/key``, ``node__mask``)
-        for ``models._pack``."""
+        for ``models._pack``. Under a CUDA graph's capture each stage is
+        bracketed by a pair of timing events, which the graph replays; on
+        the CPU each stage's host stamps are kept for
+        :meth:`take_stage_stamps`. The forward's ``after_replay(t)`` (a
+        ``CudaGraphRunner`` calls it after each replay, with the host
+        stamp taken just before it) keeps the stamp and the captured
+        events, which nothing reads until a span wants them."""
         spec = self.spec
         factors = self._factors
         select = self._select_value
+        captured: list[tuple[str, Any, Any]] = []
 
         def run_pipeline(x: torch.Tensor) -> dict[str, torch.Tensor]:
+            capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+            stamps: list[tuple[str, float, float]] = []
+            if capturing:
+                captured.clear()
             env = {_INPUT: x}
             for node, execute in executors:
                 ins = [select(env, ref) for ref in node.inputs]
+                if capturing:
+                    start = torch.cuda.Event(enable_timing=True,
+                                             external=True)
+                    start.record()
+                t0 = time.perf_counter()
                 env[node.name] = execute(*ins)
+                if capturing:
+                    end = torch.cuda.Event(enable_timing=True,
+                                           external=True)
+                    end.record()
+                    captured.append((node.name, start, end))
+                elif not x.is_cuda:
+                    stamps.append((node.name, t0, time.perf_counter()))
                 if self.stage_hook is not None:
                     self.stage_hook(node.name)
+            if not x.is_cuda:
+                self._stage_stamps = stamps
             flat: dict[str, torch.Tensor] = {}
             for o in spec.outputs:
                 val = self._fold_fanout(env[o.node], factors[o.node])
@@ -783,6 +828,10 @@ class Pipeline:
                         factors[o.mask.split(".", 1)[0]])
             return flat
 
+        def after_replay(t_replay: float) -> None:
+            self._last_replay = (t_replay, captured)
+
+        run_pipeline.after_replay = after_replay
         return run_pipeline
 
     @staticmethod
@@ -798,6 +847,29 @@ class Pipeline:
             return val
         return _tree_map(lambda a: a.reshape(a.shape[0] // factor, factor,
                                              *a.shape[1:]), val)
+
+    def take_stage_stamps(self) -> list[tuple[str, float, float]]:
+        """The stages of the last run as ``(node, t0, t1)`` in
+        ``perf_counter`` time, in DAG order; consumed (and cleared) by the
+        engine, which records them as ``stage:<node>`` spans. After a
+        graph replay each stage is placed from the host stamp taken just
+        before the replay, by its events' ``elapsed_time`` from the first
+        stage's start: the events have completed once the runner fetched
+        the outputs, so the read waits for nothing. The card cannot start
+        a graph before its launch, so the placed stages lie inside the
+        batch's ``device`` span, at most the graph's launch latency early.
+        On the CPU they are the eager stages' host stamps."""
+        last, self._last_replay = self._last_replay, None
+        if last is not None:
+            t_replay, events = last
+            if not events:
+                return []
+            first = events[0][1]
+            return [(name, t_replay + first.elapsed_time(s) / 1e3,
+                     t_replay + first.elapsed_time(e) / 1e3)
+                    for name, s, e in events]
+        stamps, self._stage_stamps = self._stage_stamps, []
+        return stamps
 
     def record_served(self, rows: int) -> None:
         self.requests_served += rows

@@ -32,7 +32,11 @@ The contract every backend keeps:
   a stop flushes it.
 
 A stream frame carries ``session`` and ``seq`` to ``request()``; the
-replica's session store threads the stream's state by them.
+replica's session store threads the stream's state by them. ``trace``,
+the request's distributed trace id, reaches the replica's engine, whose
+``replica_queue``, ``device`` and ``postprocess`` spans carry it: in
+process as ``submit(trace=)``, to a child as the ``X-DVTPU-Trace``
+header.
 """
 
 from __future__ import annotations
@@ -116,11 +120,10 @@ class EngineReplica:
                 trace: str | None = None,
                 session: str | None = None,
                 seq: int | None = None) -> dict:
-        # ``trace``: the port's engine has no spans to stamp yet
         engine = self._live_engine()
         try:
             fut = engine.submit(x, model=model, timeout_s=timeout_s,
-                                session=session, seq=seq)
+                                trace=trace, session=session, seq=seq)
             return fut.result(
                 timeout=timeout_s + 1.0 if timeout_s is not None else None)
         except (ShedError, TimeoutError, ValueError):

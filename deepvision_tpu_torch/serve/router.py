@@ -52,8 +52,12 @@ replays exactly.
 (``admission.AdmissionController``), so that a noisy tenant sheds at the
 fleet's front door before it crowds any replica's queue.
 
-Left for a later tier: the flight recorder's probe notes (with the
-port's distributed observability).
+Observability: each attempt is a ``router_attempt`` span under the
+request's trace id (minted here unless the caller passed one), which
+the replica receives in ``X-DVTPU-Trace``; every 2 s the probe tick
+appends a ``probe`` note (its counter deltas and ``replicas_ready``) to
+the process's flight recorder, when one is installed. The recorder
+reads the router's registry as it stands and never the card.
 """
 
 from __future__ import annotations
@@ -73,7 +77,11 @@ from concurrent.futures import (
 from dataclasses import dataclass
 from typing import Callable
 
-from deepvision_tpu_torch.obs.distributed import new_trace_id, render_federated
+from deepvision_tpu_torch.obs.distributed import (
+    get_flight_recorder,
+    new_trace_id,
+    render_federated,
+)
 from deepvision_tpu_torch.obs.trace import span
 from deepvision_tpu_torch.serve.admission import AdmissionController, ShedError
 from deepvision_tpu_torch.serve.replica import ReplicaDeadError
@@ -405,6 +413,7 @@ class FleetRouter:
         self._last_shed_totals = 0.0
         self._last_signal_t = time.monotonic()
         self._autoscale_due = time.monotonic()
+        self._flight_note_due = time.monotonic()
         self._respawn_not_before = 0.0
         # TWO pools: coordinators (one a request in flight) and replica
         # attempts (at most 2 a running coordinator, so 2x workers never
@@ -1031,8 +1040,14 @@ class FleetRouter:
         tel.queue_wait_p95_ms.set(queue_p95)
         tel.shed_rate_per_s.set(shed_rate)
         tel.dispatcher_crashes.set(crashes)
-        # the twin's flight-recorder probe note goes here, with the
-        # port's distributed observability
+        if now >= self._flight_note_due:
+            # the flight recorder's cadence: a note of counter deltas
+            # every 2 s makes a crash dump tell what the router did, tick
+            # by tick, up to its end
+            self._flight_note_due = now + 2.0
+            rec = get_flight_recorder()
+            if rec is not None:
+                rec.note("probe", replicas_ready=ready_n)
         if self._autoscaler is None or now < self._autoscale_due:
             return
         self._autoscale_due = now + self._autoscale_cfg.interval_s

@@ -700,10 +700,11 @@ def test_cli_fleet_fails_over_a_killed_replica(tmp_path, monkeypatch):
             yield json.dumps({"id": i, "input": x.tolist()}) + "\n"
 
     out, err = io.StringIO(), io.StringIO()
+    obs = tmp_path / "obs"
     with contextlib.redirect_stderr(err):
         rc = main(["--fleet", "2", "-m", MODEL, "--device", "cpu",
                    "--seed", "0", "--buckets", "1,4",
-                   "--faults", "replica_kill@5"],
+                   "--faults", "replica_kill@5", "--trace-spool", str(obs)],
                   stdin=paced(), stdout=out)
     assert rc == 0
     assert not torch.cuda.is_initialized()  # the router touched no device
@@ -724,3 +725,15 @@ def test_cli_fleet_fails_over_a_killed_replica(tmp_path, monkeypatch):
     logs = [p.read_text() for p in tmp_path.glob("dvt-replica-*/replica.log")]
     assert len(logs) >= 2
     assert sum("[serve] completed=" in text for text in logs) == len(stopped)
+    # the spools of the router (in this process) and of every replica
+    # merge into one trace whose flows cross from the router's row into
+    # the replicas'; each replica stopped by SIGTERM left its dump
+    from deepvision_tpu_torch.obs.distributed import get_flight_recorder
+    from deepvision_tpu_torch.obs.trace import get_tracer
+    from deepvision_tpu_torch.obs.trace_merge import main as merge_main
+
+    assert get_flight_recorder() is None and not get_tracer().active
+    assert merge_main([str(obs), "--assert-flow", "--assert-spans",
+                       "router_attempt,replica_queue,device,postprocess"]) == 0
+    dumps = {p.name.split("-")[1] for p in obs.glob("flightrec-*.json")}
+    assert dumps == {s.split()[2] for s in stopped}, (dumps, stopped)

@@ -297,9 +297,9 @@ def test_no_quiet_cpu_run_without_a_card(monkeypatch):
     assert port_device.resolve_device("cpu") == torch.device("cpu")
 
 
-# serve.py's flags that the port's serving CLI does not have yet (serving
-# observability on one host, ROADMAP A4), and the port's own flags
-SERVE_FLAGS_TO_PORT = {"--profile-dir", "--trace-spool", "--obs-role"}
+# serve.py's flags that the port's serving CLI does not have yet (none
+# since serving observability was ported), and the port's own flags
+SERVE_FLAGS_TO_PORT: set[str] = set()
 PORT_ONLY_SERVE_FLAGS = {"--device", "--seed", "--input-size", "--iou",
                          "--restart-backoff-s"}
 

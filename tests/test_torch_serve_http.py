@@ -61,6 +61,7 @@ from deepvision_tpu.resilience import FaultInjector as JaxFaultInjector  # noqa:
 from deepvision_tpu.serve import CompileCache as JaxCompileCache  # noqa: E402
 from deepvision_tpu.serve import InferenceEngine as JaxEngine  # noqa: E402
 from deepvision_tpu.serve.models import load_served as jax_load_served  # noqa: E402
+from deepvision_tpu_torch.obs.distributed import read_spool  # noqa: E402
 from deepvision_tpu_torch.resilience.faults import FaultInjector  # noqa: E402
 from deepvision_tpu_torch.serve import (  # noqa: E402
     CompileCache,
@@ -569,14 +570,18 @@ def test_cli_http_process_survives_a_crash(tmp_path):
 
 
 def test_cli_http_process_exits_143_on_sigterm_with_its_last_line(tmp_path):
-    """SIGTERM (what a fleet router sends a replica it stops) closes the
-    engine and prints the ``[serve]`` line before the process exits with
-    143, as ``serve.py`` turns it into ``SystemExit(143)``."""
+    """SIGTERM (what a fleet router sends a replica it stops) dumps the
+    flight recorder, closes the engine and prints the ``[serve]`` line
+    before the process exits with 143, as ``serve.py`` turns it into
+    ``SystemExit(143)``; with ``--trace-spool`` the request's spans are in
+    the spool and the dump (``flightrec-replica-signal-15-*.json``) lies
+    beside it."""
     port_file = tmp_path / "port"
     log = tmp_path / "serve.log"
+    obs = tmp_path / "obs"
     cmd = [sys.executable, "-m", "deepvision_tpu_torch.serve", "-m", MODEL,
            "--device", "cpu", "--seed", "0", "--buckets", "1", "--http",
-           "0", "--port-file", str(port_file)]
+           "0", "--port-file", str(port_file), "--trace-spool", str(obs)]
     with open(log, "w") as err:
         proc = subprocess.Popen(cmd, cwd=REPO, stderr=err,
                                 stdout=subprocess.DEVNULL,
@@ -598,3 +603,10 @@ def test_cli_http_process_exits_143_on_sigterm_with_its_last_line(tmp_path):
     last = text.strip().splitlines()[-1]
     assert last.startswith("[serve] completed=1 batches=1 failed=0"), last
     assert "kernel launches {" in last, last
+    (dump,) = obs.glob("flightrec-replica-signal-15-*.json")
+    body = json.loads(dump.read_text())
+    assert body["labels"] == {"role": "replica"}
+    assert "device" in {e.get("name") for e in body["events"]}
+    assert body["snapshot"]["serve_completed"] == 1
+    (spool,) = obs.glob("trace-spool-replica-*.jsonl")
+    assert "device" in {e["name"] for e in read_spool(spool)["events"]}
